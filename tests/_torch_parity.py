@@ -1,0 +1,168 @@
+"""Shared case construction for the torch-port parity tests (not collected).
+
+Inputs are made with numpy from a seed and handed to both packages: the JAX
+package builds its problem, and the port receives the same arrays through
+``thermalporous_torch.interop``.
+"""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import thermalporous_torch.core as tc
+import thermalporous_torch.models as tm
+import thermalporous_torch.physics as tp
+from thermalporous_torch.interop import problem_data_from_numpy, state_from_numpy
+from thermalporous_tpu.core import BlockStencil as JBlockStencil
+from thermalporous_tpu.core import Grid as JGrid
+from thermalporous_tpu.core import ScalarStencil as JScalarStencil
+from thermalporous_tpu.kernels.stencil_pallas import pack_block_stencil, pack_stencil
+from thermalporous_tpu.models import TwoPhaseModel as JTwoPhaseModel
+from thermalporous_tpu.models import make_problem_data as j_make_problem_data
+from thermalporous_tpu.physics import Heater as JHeater
+from thermalporous_tpu.physics import PhysicalParams as JPhysicalParams
+from thermalporous_tpu.physics import Well as JWell
+
+F64 = torch.float64
+PORT_DIR = pathlib.Path(__file__).resolve().parent.parent / "thermalporous_torch"
+
+
+def t(a, dtype=F64) -> torch.Tensor:
+    """numpy / jax array -> contiguous CPU tensor."""
+    return torch.as_tensor(np.array(a), dtype=dtype).contiguous()
+
+
+def n(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_close(got, ref, rtol: float, atol_scale: float = 0.0) -> None:
+    """|got − ref| ≤ rtol·|ref| + atol_scale·max|ref| elementwise."""
+    got, ref = n(got), n(ref)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=atol_scale * float(np.abs(ref).max()))
+
+
+# ------------------------------------------------------------- stencils
+
+def random_block_parts(rng, shape, nc):
+    """diag/upper/lower numpy arrays of a diagonally dominant block stencil
+    (boundary couplings zero, as an assembled stencil has them)."""
+    dim = len(shape)
+    blk = lambda: rng.standard_normal((nc, nc) + shape)
+    diag = blk() + 4.0 * np.eye(nc).reshape((nc, nc) + (1,) * dim)
+    ups, los = [], []
+    for a in range(dim):
+        up, lo = blk(), blk()
+        idx = np.arange(shape[a]).reshape([-1 if i == a else 1 for i in range(dim)])
+        up = up * (idx < shape[a] - 1)
+        lo = lo * (idx > 0)
+        ups.append(up)
+        los.append(lo)
+    return diag, ups, los
+
+
+def block_pair(rng, shape, nc):
+    """(JAX BlockStencil, torch BlockStencil) with identical coefficients."""
+    d, ups, los = random_block_parts(rng, shape, nc)
+    js = JBlockStencil(diag=jnp.asarray(d), upper=tuple(map(jnp.asarray, ups)),
+                       lower=tuple(map(jnp.asarray, los)))
+    return js, torch_block(js)
+
+
+def torch_block(js: JBlockStencil) -> tc.BlockStencil:
+    nc = js.nc
+    shape = tuple(js.grid_shape)
+    coef = np.asarray(pack_block_stencil(js)).reshape((-1, nc, nc) + shape)
+    return tc.BlockStencil(t(coef))
+
+
+def torch_scalar(js: JScalarStencil) -> tc.ScalarStencil:
+    return tc.ScalarStencil(t(pack_stencil(js)))
+
+
+def poisson_pair(rng, shape, shift=0.5):
+    """(JAX, torch) TPFA diffusion stencils with a lognormal coefficient."""
+    from tests.test_gmg import poisson_stencil
+
+    k = jnp.asarray(np.exp(rng.standard_normal(shape)))
+    js = poisson_stencil(shape, k=k, shift=shift)
+    return js, torch_scalar(js)
+
+
+# --------------------------------------------------------------- models
+
+def model_case(shape, seed=0, dt=1200.0, rate_well=True, heater=True):
+    """The two-phase test problem in both packages.
+
+    2D grids are horizontal; 3D grids carry gravity.  Wells: a BHP injector
+    with T_inj at the origin, a BHP producer at the far corner, optionally a
+    producing rate well and a heater.  Returns a dict with ``jm, jd, ju0,
+    ju`` (JAX) and ``tm, td, tu0, tu`` (torch, data carried through
+    ``interop``), and ``dt``.
+    """
+    dim = len(shape)
+    grav = 9.81 if dim == 3 else 0.0
+    rng = np.random.default_rng(seed)
+    k = 2e-13 * np.exp(0.5 * rng.standard_normal(shape))
+    corner = tuple(m - 1 for m in shape)
+    mid = tuple(min(2, m - 1) for m in shape)
+    jwells = [JWell(cells=((0,) * dim,), control="bhp", p_bh=4.0e7, T_inj=420.0),
+              JWell(cells=(corner,), control="bhp", p_bh=1.0e7)]
+    if rate_well:
+        jwells.append(JWell(cells=(mid,), control="rate", rate=-0.5))
+    jheaters = [JHeater(cells=(tuple(min(1, m - 1) for m in shape),), power=2e4)] \
+        if heater else []
+    jg = JGrid(shape=shape, spacing=(5.0,) * dim, thickness=10.0, gravity=grav)
+    jpp = JPhysicalParams()
+    jd = j_make_problem_data(jg, jpp, kx=k, phi=0.2, wells=jwells, heaters=jheaters)
+    jm = JTwoPhaseModel(jg, jpp)
+    ju0 = jm.initial_state(jd)
+    amp = np.array([1e5, 5.0, 0.1]).reshape((3,) + (1,) * dim)
+    ju = ju0 + jnp.asarray(amp * rng.standard_normal(ju0.shape))
+
+    tg = tc.Grid(shape=shape, spacing=(5.0,) * dim, thickness=10.0, gravity=grav)
+    tmod = tm.TwoPhaseModel(tg, tp.PhysicalParams())
+    w = jd.wells
+    td = problem_data_from_numpy(
+        [np.asarray(a) for a in jd.tgeo], [np.asarray(a) for a in jd.tcond],
+        np.asarray(jd.phi), np.asarray(w.wi), np.asarray(w.pbh),
+        np.asarray(w.tinj), np.asarray(w.has_tinj), np.asarray(w.qrate),
+        np.asarray(w.qheat), dtype=F64, device="cpu")
+    torch_wells = [tp.Well(cells=x.cells, control=x.control, p_bh=x.p_bh,
+                           rate=x.rate, T_inj=x.T_inj, radius=x.radius)
+                   for x in jwells]
+    torch_heaters = [tp.Heater(cells=h.cells, power=h.power) for h in jheaters]
+    return dict(
+        jm=jm, jd=jd, ju0=ju0, ju=ju, tm=tmod, td=td, dt=dt, k=k,
+        tu0=state_from_numpy(np.asarray(ju0), dtype=F64, device="cpu"),
+        tu=state_from_numpy(np.asarray(ju), dtype=F64, device="cpu"),
+        tgrid=tg, twells=torch_wells, theaters=torch_heaters,
+        jwells=jwells, jheaters=jheaters,
+    )
+
+
+# ---------------------------------------------------------------- hygiene
+
+def forbidden_imports(root: pathlib.Path = PORT_DIR) -> list[str]:
+    """Every import of jax / thermalporous_tpu under the port package."""
+    bad = []
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "thermalporous_tpu"):
+                    bad.append(f"{path.relative_to(root.parent)}:{node.lineno} {name}")
+    return bad
