@@ -29,7 +29,7 @@ def make_step_fn(
     precond: str = "cptr",
     newton_cfg: NewtonConfig = NewtonConfig(),
     pc_cfg: CPRConfig | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """Build ``advance(u_old, dt, data, u_guess=None) -> (u, NewtonStats)``
     for tensors on ``device`` (``dt`` a Python float in seconds)."""
