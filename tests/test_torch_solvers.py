@@ -111,7 +111,7 @@ def test_trivial_preconditioners(system):
 
 
 def test_cpr_unported_options_raise():
-    for kw in (dict(stage2="rbgs"), dict(stage2="none"), dict(decoupling="abf")):
+    for kw in (dict(stage2="zebra"), dict(stage2="none"), dict(decoupling="abf")):
         with pytest.raises(NotImplementedError):
             tcpr.CPRConfig(**kw)
     for name in ("cpr", "rbgs", "lu"):
@@ -120,6 +120,9 @@ def test_cpr_unported_options_raise():
     # options without a port have no field at all
     for cls, kw in ((tcpr.CPRConfig, dict(inner_iters=2)),
                     (tcpr.CPRConfig, dict(triangular=False)),
+                    (tcpr.CPRConfig, dict(stage2="rbgs", stage2_fused=True)),
+                    (tcpr.CPRConfig, dict(stage2_axes=(2,))),
+                    (tcpr.CPRConfig, dict(stage2_pallas=True)),
                     (tgmg.GMGConfig, dict(smoother="rbgs")),
                     (tgmg.GMGConfig, dict(cycles=2))):
         with pytest.raises(TypeError):

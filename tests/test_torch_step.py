@@ -165,9 +165,8 @@ def test_predictor_guess_anchors_on_the_step_start():
 
 
 def test_unported_newton_options_raise():
-    for kw in (dict(ksp_orth="cgs1"), dict(krylov_op="jvp"), dict(ksp_ew=True),
-               dict(ksp_restart=8), dict(ksp_recycle=2), dict(ls_mode="nonmonotone"),
-               dict(pc_lag="step"), dict(ds_max=0.2)):
+    for kw in (dict(ksp_orth="cgs1"), dict(krylov_op="jvp"), dict(ksp_restart=8),
+               dict(ksp_recycle=2), dict(pc_lag="step")):
         model, data, step = _torch_step("same", **kw)
         with pytest.raises(NotImplementedError):
             step(model.initial_state(data), DT0, data)

@@ -9,8 +9,9 @@ device pointers plus PyTorch's current stream and returns the
 
 ``--fmad=false`` keeps the compiler from contracting a·b + c into one
 rounding: the kernels then round like the plain PyTorch versions op by op,
-which is what lets the card hold them to ulp-level tolerances.  All four
-kernels are bandwidth-bound, so the lost FMAs cost nothing measurable.
+which is what lets the card hold them to ulp-level tolerances.  The stencil
+kernels are bandwidth-bound and the deep-cycle kernel latency-bound, so the
+lost FMAs cost nothing measurable.
 """
 
 from __future__ import annotations
@@ -30,11 +31,11 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("common.cuh", "stencil.cu", "residual.cu")
+SOURCES = ("common.cuh", "stencil.cu", "residual.cu", "rbgs.cu", "deep_cycle.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libthermalporous_kernels.so"
 
@@ -55,7 +56,17 @@ _SIGNATURES = {
                             _I, _D, _D, _I, _I, _I, _I, _P),
     # u, u_old, fields, out, dt, params (host double*), dim, n0, n1, n2, stream
     "tp_twophase_residual": (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P),
+    # coef, dinv, b, out, nc, dim, n0, n1, n2, stream
+    "tp_block_rbgs_zero": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # desc (host int64*, DEEP_DESC_PER_LEVEL per level), n_levels, inv,
+    # degree, lam_min_frac, safety, stream
+    "tp_deep_correction": (_I, _P, _I, _P, _I, _D, _D, _P),
 }
+
+#: int64 entries per level of tp_deep_correction's descriptor
+#: (csrc/deep_cycle.cu: kDescPerLevel) and its level limit (kMaxLevels)
+DEEP_DESC_PER_LEVEL = 20
+DEEP_MAX_LEVELS = 16
 
 #: length of the params array of tp_twophase_residual (csrc/residual.cu)
 TWOPHASE_NUM_PARAMS = 28
@@ -83,7 +94,8 @@ def _source_hash() -> str:
 
 @functools.cache
 def build() -> tuple[pathlib.Path, float, str]:
-    """Compile the library if this source hash has not been built yet.
+    """Compile the library if this source hash has not been built yet: one
+    ``nvcc -c`` per source, all started together, then one link.
 
     Returns (library path, build seconds — 0.0 when already built, the
     compiler's output)."""
@@ -94,15 +106,30 @@ def build() -> tuple[pathlib.Path, float, str]:
         return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
+    units = [n for n in SOURCES if n.endswith(".cu")]
+    objs = [out_dir / (n[:-3] + ".o") for n in units]
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / n)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True), n)
+             for n, o in zip(units, objs)]
+    log, failed = "", []
+    for proc, name in procs:
+        out = proc.communicate()[0]
+        log += f"== {name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           str(CSRC / "stencil.cu"), str(CSRC / "residual.cu")]
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
+           *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, time.perf_counter() - t0, log

@@ -1,8 +1,9 @@
-"""Stencil kernels: block matvec, scalar matvec and the whole Chebyshev smooth.
+"""Stencil kernels: block matvec, scalar matvec, the whole Chebyshev smooth
+and the zero-start red-black block Gauss–Seidel sweep.
 
 Each public function is a wrapper around one CUDA kernel of
-``csrc/stencil.cu`` and has its plain PyTorch version beside it
-(``*_plain``).  A wrapper checks its arguments, then:
+``csrc/stencil.cu`` (the sweep: ``csrc/rbgs.cu``) and has its plain PyTorch
+version beside it (``*_plain``).  A wrapper checks its arguments, then:
 
 - for tensors on the CPU, returns the plain version;
 - for CUDA tensors, launches the kernel (or raises), and adds one to its
@@ -212,3 +213,57 @@ def chebyshev_smooth(
 
 
 chebyshev_smooth.launches = 0
+
+
+# ----------------------------------------- red-black block Gauss–Seidel
+
+def checkerboard(shape: tuple[int, ...], dtype: torch.dtype,
+                 device: torch.device | str) -> torch.Tensor:
+    """Parity mask: 1.0 on 'red' cells (even index sum), 0.0 on black."""
+    parity = torch.zeros((), dtype=torch.int64, device=device)
+    for a, m in enumerate(shape):
+        view = [1] * len(shape)
+        view[a] = m
+        parity = parity + torch.arange(m, device=device).reshape(view)
+    return (parity % 2 == 0).to(dtype)
+
+
+def fused_block_rbgs_plain(coef: torch.Tensor, dinv: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """One red-black block Gauss–Seidel sweep from x = 0:
+    x_r = red⊙D⁻¹b, out = x_r + black⊙D⁻¹(b − A·x_r) (the looped form's
+    first half-sweep, b − A·0 = b exactly)."""
+    red = checkerboard(tuple(b.shape[1:]), b.dtype, b.device)
+    black = 1.0 - red
+    xr = red * apply_block_cols(dinv, b)
+    return xr + black * apply_block_cols(dinv, b - block_matvec_plain(coef, xr))
+
+
+def fused_block_rbgs(coef: torch.Tensor, dinv: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """One zero-start red-black block Gauss–Seidel sweep (see the plain
+    version) for a block stencil ``coef`` (2·dim+1, nc, nc, *grid), the
+    per-cell inverse diagonal blocks ``dinv`` (nc, nc, *grid) and ``b``
+    (nc, *grid): the CPTR stage 2 of the flagship, in one launch."""
+    dev = _check("fused_block_rbgs", coef, dinv, b)
+    nco, nc = coef.shape[0], coef.shape[1]
+    grid = tuple(coef.shape[3:])
+    dim = len(grid)
+    if (dim not in (2, 3) or nco != 2 * dim + 1 or coef.shape[2] != nc
+            or tuple(dinv.shape) != (nc, nc) + grid
+            or tuple(b.shape) != (nc,) + grid):
+        raise ValueError(f"fused_block_rbgs: coef {tuple(coef.shape)}, dinv "
+                         f"{tuple(dinv.shape)}, b {tuple(b.shape)}")
+    if dev.type == "cpu":
+        return fused_block_rbgs_plain(coef, dinv, b)
+    if nc > 3:
+        raise NotImplementedError("fused_block_rbgs kernel: nc <= 3")
+    out = torch.empty_like(b)
+    _lib.launch("tp_block_rbgs_zero", _lib.dtype_code(b), coef.data_ptr(),
+                dinv.data_ptr(), b.data_ptr(), out.data_ptr(), nc, dim,
+                *_lib.dims3(grid), _lib.stream_of(b))
+    fused_block_rbgs.launches += 1
+    return out
+
+
+fused_block_rbgs.launches = 0

@@ -6,6 +6,7 @@ from thermalporous_torch.physics.wells import (
     WellFields,
     build_well_fields,
     peaceman_well_index,
+    per_well_masks,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "WellFields",
     "build_well_fields",
     "peaceman_well_index",
+    "per_well_masks",
 ]

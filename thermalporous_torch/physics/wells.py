@@ -124,6 +124,17 @@ def well_fields_numpy(
                 qheat=qheat)
 
 
+def per_well_masks(grid: Grid, wells: Sequence[Well] = (),
+                   heaters: Sequence[Heater] = ()) -> dict[str, np.ndarray]:
+    """Boolean cell masks per named well/heater (diagnostics only)."""
+    masks: dict[str, np.ndarray] = {}
+    for w in list(wells) + list(heaters):
+        m = masks.setdefault(w.name, np.zeros(grid.shape, dtype=bool))
+        for cell in w.cells:
+            m[tuple(int(i) for i in cell)] = True
+    return masks
+
+
 def build_well_fields(
     grid: Grid,
     wells: Sequence[Well] = (),

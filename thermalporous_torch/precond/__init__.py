@@ -1,10 +1,15 @@
-from thermalporous_torch.precond.chebyshev import chebyshev, gershgorin_lambda_max
+from thermalporous_torch.precond.chebyshev import (
+    block_red_black_gauss_seidel,
+    chebyshev,
+    gershgorin_lambda_max,
+)
 from thermalporous_torch.precond.cpr import (
     CPRConfig,
     CPRState,
     cpr_apply,
     cpr_setup,
     make_preconditioner,
+    resolve_adaptive_coarsening,
 )
 from thermalporous_torch.precond.gmg import (
     GMGConfig,
@@ -16,6 +21,7 @@ from thermalporous_torch.precond.gmg import (
 )
 
 __all__ = [
+    "block_red_black_gauss_seidel",
     "chebyshev",
     "gershgorin_lambda_max",
     "CPRConfig",
@@ -23,6 +29,7 @@ __all__ = [
     "cpr_apply",
     "cpr_setup",
     "make_preconditioner",
+    "resolve_adaptive_coarsening",
     "GMGConfig",
     "GMGState",
     "galerkin_coarsen",

@@ -8,13 +8,19 @@
 - stage 1: the block-triangular (p, T) solve — multigrid on the decoupled
   pressure block, the T residual corrected through the T←p coupling,
   multigrid on the decoupled temperature block;
-- stage 2: block Jacobi with the exact per-cell inverses; its residual
-  r − A·x₁ reads only the block columns x₁ lives on (``stage2_cols``).
+- stage 2: block Jacobi with the exact per-cell inverses, or ``sweeps``
+  red-black block Gauss–Seidel sweeps (the flagship: one, which is the
+  ``fused_block_rbgs`` kernel); its residual r − A·x₁ reads only the block
+  columns x₁ lives on (``stage2_cols``).
 
-Ported: the options of the benchmark step.  The CPR variant, other stage-2
-smoothers and decouplings raise ``NotImplementedError``; the block-diagonal
-stage 1, inner iterations, the saturation stage, bf16 storage and the
-batched p/T traversal are not ported and have no field.
+Ported: the options of the benchmark step and of the flagship preset,
+including the adaptive coarsening schedule (:func:`resolve_adaptive_coarsening`).
+The CPR variant and the other stage-2 smoothers and decouplings raise
+``NotImplementedError``; the reference's stage-2 variants ``stage2_fused``,
+``stage2_axes`` and ``stage2_pallas`` (the CUDA sweep already is the fused
+form), the block-diagonal stage 1, inner iterations, the saturation stage,
+bf16 storage and the batched p/T traversal are not ported and have no
+field.
 """
 
 from __future__ import annotations
@@ -24,7 +30,14 @@ import dataclasses
 import torch
 
 from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil, apply_blocks
-from thermalporous_torch.precond.gmg import GMGConfig, GMGState, gmg_apply, gmg_setup
+from thermalporous_torch.precond.chebyshev import block_red_black_gauss_seidel
+from thermalporous_torch.precond.gmg import (
+    GMGConfig,
+    GMGState,
+    gmg_apply,
+    gmg_setup,
+    plan_coarsening,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,15 +46,18 @@ class CPRConfig:
     that the port implements (see
     ``thermalporous_tpu/precond/cpr.py:CPRConfig``)."""
 
-    stage2: str = "block_jacobi"     # ported: "block_jacobi"
+    stage2: str = "block_jacobi"     # ported: "block_jacobi", "rbgs"
+    stage2_sweeps: int = 1           # rbgs sweeps
     stage2_cols: bool = True         # stage-2 residual over x₁'s columns only
     decoupling: str = "qimpes"       # ported: "qimpes"
     gmg: GMGConfig = GMGConfig()
     gmg_t: GMGConfig | None = None   # T hierarchy (None = ``gmg``)
 
     def __post_init__(self):
-        if self.stage2 != "block_jacobi":
+        if self.stage2 not in ("block_jacobi", "rbgs"):
             raise NotImplementedError(f"stage2 {self.stage2!r} is not ported")
+        if self.stage2_sweeps < 1:
+            raise ValueError(f"stage2_sweeps {self.stage2_sweeps} < 1")
         if self.decoupling != "qimpes":
             raise NotImplementedError(f"decoupling {self.decoupling!r} is not ported")
 
@@ -73,6 +89,30 @@ def _impes_weights(d: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
+                                theta: float = 0.25) -> CPRConfig:
+    """Bake the matrix-dependent coarsening schedules into ``cfg`` (once,
+    before the first step): for each hierarchy with ``coarsen="adaptive"``
+    and no ``level_factors`` yet, :func:`plan_coarsening` of its decoupled
+    block of ``stencil`` (pressure for ``gmg``, temperature for ``gmg_t``).
+    Returns ``cfg`` unchanged otherwise."""
+    gmg_todo = cfg.gmg.coarsen == "adaptive" and cfg.gmg.level_factors is None
+    gmg_t_todo = (cfg.gmg_t is not None and cfg.gmg_t.coarsen == "adaptive"
+                  and cfg.gmg_t.level_factors is None)
+    if not (gmg_todo or gmg_t_todo):
+        return cfg
+    dec = stencil.scale_rows(_impes_weights(stencil.diag))
+    if gmg_todo:
+        schedule = plan_coarsening(dec.scalar(0, 0), cfg.gmg, theta=theta)
+        cfg = dataclasses.replace(
+            cfg, gmg=dataclasses.replace(cfg.gmg, level_factors=schedule))
+    if gmg_t_todo:
+        schedule_t = plan_coarsening(dec.scalar(1, 1), cfg.gmg_t, theta=theta)
+        cfg = dataclasses.replace(
+            cfg, gmg_t=dataclasses.replace(cfg.gmg_t, level_factors=schedule_t))
+    return cfg
+
+
 def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
     w = _impes_weights(stencil.diag)                # Quasi-IMPES
     dec = stencil.scale_rows(w)                     # W·A
@@ -102,7 +142,11 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
         x1 = torch.zeros_like(r)
         x1[0:2] = e_pt
         r2 = r - state.stencil.matvec(x1)
-    x2 = apply_blocks(state.dinv, r2)
+    if cfg.stage2 == "rbgs":
+        x2 = block_red_black_gauss_seidel(state.stencil, state.dinv, r2,
+                                          sweeps=cfg.stage2_sweeps)
+    else:
+        x2 = apply_blocks(state.dinv, r2)
     x2[0:2] += e_pt
     return x2
 

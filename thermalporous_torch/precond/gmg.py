@@ -8,10 +8,12 @@ and a dense inverse on the coarsest level.  Cycles: V and the K-cycle (two
 recursive cycles combined by a flexible-CG(2) update; its dot products stay
 on the device).
 
-Ported: geometric full coarsening (and a baked ``level_factors`` schedule
-from :func:`plan_coarsening`), constant transfer, Chebyshev smoothing, one
-cycle per apply.  The W-cycle, the other smoothers, semicoarsening,
-weighted/variational transfers, repeated cycles, the fused deep-cycle kernel
+Ported: geometric full coarsening and the adaptive schedule (a baked
+``level_factors`` from :func:`plan_coarsening`), constant transfer,
+Chebyshev smoothing, one cycle per apply, and the fused coarse subtree
+(``fuse_below``: the whole correction below a small enough level in one
+launch of the ``deep_correction`` kernel).  The W-cycle, the other
+smoothers, semicoarsening, weighted/variational transfers, repeated cycles
 and the multi-device options are not ported.
 """
 
@@ -23,7 +25,14 @@ import math
 import torch
 
 from thermalporous_torch.core.stencil import ScalarStencil
+from thermalporous_torch.kernels import deep_cycle as kdeep
 from thermalporous_torch.precond.chebyshev import chebyshev, gershgorin_lambda_max
+
+#: Hopper eligibility of the fused coarse subtree: the bytes it touches
+#: (:func:`kernels.deep_cycle.subtree_bytes`, at the apply dtype) must fit
+#: in this share of the H100's 50 MB L2, so that its single thread block
+#: walks the recursion from L2 instead of HBM.
+FUSE_L2_BUDGET_BYTES = 32 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,14 +48,24 @@ class GMGConfig:
     max_levels: int = 16
     cycle_type: str = "k"             # "v" | "k"
     kcycle_min_cells: int = 256       # smaller levels take a single cycle
+    # fused coarse subtree: from a level with at most this many cells whose
+    # subtree fits FUSE_L2_BUDGET_BYTES, the whole correction below is one
+    # deep_correction launch (0 = off)
+    fuse_below: int = 0
     # per-level coarsening factors from plan_coarsening (None = geometric)
     level_factors: tuple[tuple[int, ...], ...] | None = None
+    # "geometric" = full coarsening; "adaptive" asks the caller (Simulator /
+    # cpr.resolve_adaptive_coarsening) to bake ``level_factors`` from the
+    # operator before the first step
+    coarsen: str = "geometric"
 
     def __post_init__(self):
         if self.cycle_type == "w":
             raise NotImplementedError("the W-cycle is not ported")
         if self.cycle_type not in ("v", "k"):
             raise ValueError(f"unknown cycle_type {self.cycle_type!r}")
+        if self.coarsen not in ("geometric", "adaptive"):
+            raise ValueError(f"unknown coarsen {self.coarsen!r}")
 
 
 @dataclasses.dataclass
@@ -160,10 +179,10 @@ def plan_coarsening(st: ScalarStencil, cfg: GMGConfig = GMGConfig(),
 
 
 def dense_inv(a: torch.Tensor) -> torch.Tensor:
-    """Dense inverse computed in f64 and stored in ``a``'s dtype.
+    """Dense inverse computed in f64 and stored in ``a``'s dtype, row-major.
     ``inv_ex`` skips the error check, which would wait on the device; a
     singular operator gives non-finite entries, as the reference's does."""
-    return torch.linalg.inv_ex(a.to(torch.float64))[0].to(a.dtype)
+    return torch.linalg.inv_ex(a.to(torch.float64))[0].to(a.dtype).contiguous()
 
 
 def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig()) -> GMGState:
@@ -189,9 +208,35 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def _fusable(state: GMGState, level: int, cfg: GMGConfig,
+             dtype: torch.dtype) -> bool:
+    """Whether the correction at ``level`` runs as one fused subtree: the
+    level has at most ``fuse_below`` cells and the subtree, sized at the
+    apply dtype ``dtype``, fits FUSE_L2_BUDGET_BYTES."""
+    if cfg.fuse_below <= 0:
+        return False
+    if math.prod(state.stencils[level].grid_shape) > cfg.fuse_below:
+        return False
+    shapes = [s.grid_shape for s in state.stencils[level:]]
+    return (kdeep.subtree_bytes(shapes, state.coarse_inv.numel(), dtype)
+            <= FUSE_L2_BUDGET_BYTES)
+
+
+def _fused_correction(state: GMGState, level: int, rc: torch.Tensor,
+                      cfg: GMGConfig) -> torch.Tensor:
+    """The correction at ``level`` as one ``deep_correction`` launch."""
+    return kdeep.deep_correction(
+        [s.packed for s in state.stencils[level:]], state.lam_max[level:],
+        state.coarse_inv, rc, degree=cfg.degree, lam_min_frac=cfg.lam_min_frac,
+        cycle_type=cfg.cycle_type, kcycle_min_cells=cfg.kcycle_min_cells)
+
+
 def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
                        cfg: GMGConfig) -> torch.Tensor:
-    """Approximate A_level⁻¹ rc: one cycle ("v") or the K-cycle ("k")."""
+    """Approximate A_level⁻¹ rc: one cycle ("v") or the K-cycle ("k"), or
+    the same math as one fused launch when the subtree is fusable."""
+    if _fusable(state, level, cfg, rc.dtype):
+        return _fused_correction(state, level, rc, cfg)
     e1 = _v_cycle(state, level, rc, cfg)
     if (cfg.cycle_type == "v" or level == len(state.stencils) - 1
             or math.prod(state.stencils[level].grid_shape) < cfg.kcycle_min_cells):

@@ -3,15 +3,20 @@
 
 Each iteration assembles the block stencil (the exact Jacobian), builds the
 preconditioner, solves J·dx = −F with FGMRES using the stencil as the
-Krylov operator, and backtracks α ∈ {1, ½, ¼, …} until the (optionally
-material-balance-scaled) residual norm decreases enough.  The loop runs on
-the host; each residual norm is fetched once to decide.
+Krylov operator, optionally limits dx (the ``chop`` hook: the Appleyard
+saturation chop), and backtracks α ∈ {1, ½, ¼, …} until the (optionally
+material-balance-scaled) residual norm is acceptable.  The loop runs on
+the host; each residual norm is fetched once to decide, and the
+Eisenstat–Walker forcing term is computed on the host from those norms, in
+the compute dtype, as the reference computes it on the device.
 
-Ported: the Armijo line search, scaled norms with the dtype-aware floor,
-``norm_from``, ``pc_lag="every"`` and ``krylov_op="stencil"``.  The
-nonmonotone line search, the saturation chop (``ds_max``), the frozen
-preconditioner (``pc_lag="step"``), Eisenstat–Walker forcing, restarts,
-recycling and the JVP Krylov operator raise ``NotImplementedError``.
+Ported: the Armijo and nonmonotone line searches (``ls_growth``,
+``ls_div_ratio``), Eisenstat–Walker forcing (with the left-scaling of the
+linear system by the material-balance scales), scaled norms with the
+dtype-aware floor, ``norm_from``, the ``chop`` hook, ``pc_lag="every"`` and
+``krylov_op="stencil"``.  The frozen preconditioner (``pc_lag="step"``),
+restarts, recycling and the JVP Krylov operator raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ class NewtonConfig:
     ksp_recycle: int = 0
     max_backtracks: int = 6
     ls_decrease: float = 1e-4
-    ls_mode: str = "armijo"       # ported: "armijo"
+    ls_mode: str = "armijo"       # "armijo" | "nonmonotone"
     ls_growth: float = 0.25
     ls_div_ratio: float = 4.0
     ds_max: float | None = None
@@ -75,18 +80,12 @@ def _check_ported(cfg: NewtonConfig) -> None:
         raise NotImplementedError(f"ksp_orth {cfg.ksp_orth!r} is not ported")
     if cfg.krylov_op != "stencil":
         raise NotImplementedError(f"krylov_op {cfg.krylov_op!r} is not ported")
-    if cfg.ksp_ew:
-        raise NotImplementedError("Eisenstat-Walker forcing is not ported")
     if cfg.ksp_restart is not None and cfg.ksp_restart < cfg.ksp_maxiter:
         raise NotImplementedError("FGMRES restarts are not ported")
     if cfg.ksp_recycle:
         raise NotImplementedError("Krylov recycling is not ported")
-    if cfg.ls_mode != "armijo":
-        raise NotImplementedError(f"ls_mode {cfg.ls_mode!r} is not ported")
     if cfg.pc_lag != "every":
         raise NotImplementedError(f"pc_lag {cfg.pc_lag!r} is not ported")
-    if cfg.ds_max is not None:
-        raise NotImplementedError("the saturation chop (ds_max) is not ported")
 
 
 @dataclasses.dataclass
@@ -108,6 +107,7 @@ def newton_solve(
     cfg: NewtonConfig = NewtonConfig(),
     scale: torch.Tensor | None = None,
     norm_from: torch.Tensor | None = None,
+    chop: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, NewtonStats]:
     """Solve residual(u) = 0 from ``u0``.
 
@@ -115,7 +115,8 @@ def newton_solve(
     the preconditioner's input), ``scale`` the per-cell material-balance
     scales of the convergence norm, ``norm_from`` the physical step start
     when ``u0`` is a predicted guess (the tolerance anchors there, and a
-    guess worse than it is discarded)."""
+    guess worse than it is discarded), ``chop(u, dx) -> dx`` a limiter of
+    the Newton direction applied before the line search."""
     _check_ported(cfg)
     dtype = u0.dtype
     npt = _NP[dtype]
@@ -144,30 +145,57 @@ def newton_solve(
         nrm0 = nrm_start
     tol = np.maximum(npt(cfg.rtol) * nrm0, npt(atol))
     basis = torch.bfloat16 if cfg.ksp_basis == "bf16" else None
+    nonmonotone = cfg.ls_mode == "nonmonotone"
+    # Eisenstat–Walker forcing term, a compute-dtype scalar on the host
+    eta = npt(min(max(cfg.ew_rtol0, cfg.ksp_rtol), cfg.ew_rtolmax)) if cfg.ksp_ew else None
+    tiny = npt(torch.finfo(dtype).tiny)
 
     u, f, nrm, k, ksp, failed = u0, f0, nrm_start, 0, 0, False
     while nrm > tol and k < cfg.max_iters and not failed:
         st = assemble(u)                 # exact J; one assembly serves both
         pcs = pc_setup(st)
+        if cfg.ksp_ew and scale is not None:
+            # left-scale the system by the material-balance scales, so that
+            # FGMRES enforces η in the norm Newton gates on
+            matvec = lambda v: st.matvec(v) / scale
+            rhs = -(f / scale)
+            krylov_pc = lambda r: pc_apply(pcs, r * scale)
+        else:
+            matvec, rhs = st.matvec, -f
+            krylov_pc = lambda r: pc_apply(pcs, r)
         result = fgmres(
-            st.matvec, -f, precond=lambda r: pc_apply(pcs, r),
-            rtol=cfg.ksp_rtol, atol=cfg.ksp_atol, maxiter=cfg.ksp_maxiter,
-            basis_dtype=basis,
+            matvec, rhs, precond=krylov_pc,
+            rtol=eta if cfg.ksp_ew else cfg.ksp_rtol, atol=cfg.ksp_atol,
+            maxiter=cfg.ksp_maxiter, basis_dtype=basis,
             orth_gram=3 if cfg.ksp_orth == "cgs2g" else 0,
         )
         dx = result.x
+        if chop is not None:
+            dx = chop(u, dx)
 
+        cap = npt(1.0 + cfg.ls_growth) * nrm if nonmonotone else None
         alpha, tries, accepted = npt(1.0), 0, False
         while not accepted and tries < cfg.max_backtracks:
             u_t = u + float(alpha) * dx
             f_t = residual(u_t)
             n_t = norm(f_t)
-            bound = (npt(1.0) - npt(cfg.ls_decrease) * alpha) * nrm
+            bound = cap if nonmonotone else (npt(1.0) - npt(cfg.ls_decrease) * alpha) * nrm
             accepted = bool(np.isfinite(n_t) and n_t <= bound)
             alpha, tries = alpha * npt(0.5), tries + 1
-        if accepted:          # on failure keep the old iterate; the caller cuts Δt
+        failed_now = not accepted
+        if nonmonotone and not failed_now:
+            # the divergence guard: blow-up past the step start's residual
+            failed_now = bool(n_t > npt(cfg.ls_div_ratio) * nrm0)
+        if cfg.ksp_ew and not failed_now:
+            # version-2 update from the contraction of the scaled norm
+            ratio = n_t / max(nrm, tiny)
+            eta_a = npt(cfg.ew_gamma) * ratio ** npt(cfg.ew_alpha)
+            eta_safe = npt(cfg.ew_gamma) * eta ** npt(cfg.ew_alpha)
+            eta_next = max(eta_a, eta_safe) if eta_safe > npt(cfg.ew_threshold) else eta_a
+            eta = npt(min(max(eta_next, npt(cfg.ksp_rtol)), npt(cfg.ew_rtolmax)))
+        if not failed_now:     # on failure keep the old iterate; the caller cuts Δt
             u, f, nrm = u_t, f_t, n_t
-        k, ksp, failed = k + 1, ksp + result.iters, not accepted
+        k, ksp, failed = k + 1, ksp + result.iters, failed_now
 
     converged = bool(nrm <= tol)
     return u, NewtonStats(iters=k, ksp_iters=ksp, norm0=float(nrm0),
