@@ -13,8 +13,12 @@ Phases (each prints one line with its wall time):
      also the red-black Gauss-Seidel stage 2 on the flagship Jacobian, the
      fused coarse subtree at the entry levels of the pressure and
      temperature hierarchies, each kernel's bound, a torch.sparse.mm
-     yardstick for the two matvecs, and the CPTR apply with the subtree
-     fused from the ~36k-cell level, from the ~5k-cell level and unfused;
+     yardstick for the two matvecs and for J(u)v, and the CPTR apply with
+     the subtree fused from the ~36k-cell level, from the ~5k-cell level
+     and unfused; then the single-phase residual and J(u)v on the
+     benchmark's 1024x1024 grid with the single-phase model and on
+     sp_geothermal_3d (64x64x32), and the block matvec with two unknowns
+     at 1024x1024;
   3  slice parity: the benchmark configuration at 32x32, f64, 3 steps, on the
      GPU and on the CPU: Newton and FGMRES counts per step must agree;
   4  main path: the benchmark workload (two-phase CPTR step, 1024x1024, f32):
@@ -30,11 +34,24 @@ Phases (each prints one line with its wall time):
      every kernel in that run (each must be > 0);
   7  flagship layers: the phase-6 run again with synchronized timers
      around each layer (assembly, CPTR setup, FGMRES, CPTR apply, residual),
-     and the device's busy share over one more step from the profiler.
+     and the device's busy share over one more step from the profiler;
+  8  single-phase family: sp_hot_injection_2d (40x40, f64) through the
+     Simulator on the GPU and on the CPU for 3 controller steps (accepted
+     dt, Newton and FGMRES counts must agree), then sp_geothermal_3d at
+     64x64x32, f32, for its first 6 controller steps: per-step counts and
+     walls, cell-updates/s, T and p bounds, per-well rates, and the launch
+     count of each kernel of that path (each must be > 0);
+  9  matrix-free Krylov operator (krylov_op="jvp"): the flagship
+     configuration at 12x22x9, f64, on the GPU and on the CPU (counts must
+     agree); tp_spe10_full at 60x220x85, f32, for its first 2 controller
+     steps, beside phase 6's counts; sp_geothermal_3d for 2 steps; the J(u)v
+     kernel of each model must launch.
 
 Then the card's name and power limit, a JSON line with one record per
-kernel (its flagship f32 case and its launches in phase 6), and as the
-last line {"ok": true, "device": {...}}.  Any failure exits nonzero without
+kernel (its f32 case on its path's shapes, and its launches in its path's
+run: phase 6 for the flagship's kernels, phase 8 for the single-phase
+residual, phase 9 for the J(u)v kernels), and as the last line
+{"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.
 """
 
@@ -61,6 +78,12 @@ TOL_F32_STENCIL = 1e-5
 # plain version differ by up to 2 ulp (~2.4e-7 relative in mu_w, mu_o), and
 # the residual sums accumulation and flux terms much larger than itself.
 TOL_F32_RESIDUAL = 1e-4
+# f32 J(u)v: the kernel forms the tangents of mu_w and mu_o from the primal
+# values, so the same 1-2 ulp of exp10f/expf carry into J(u)v, and J(u)v sums
+# tangents of accumulation, well and flux terms much larger than itself, as
+# the residual does; its other operations round as torch's forward-mode
+# formulas do.  So it is held to the residual's bound.
+TOL_F32_JVP = TOL_F32_RESIDUAL
 # coarse subtree: the K-cycle's dot products (block reductions against
 # torch.dot) and the dense coarsest solve (one warp per row against torch.mv)
 # sum in another order; every other pass rounds as the plain version does.
@@ -84,6 +107,8 @@ FUSE_CANDIDATES = (40_000, 6_000)
 # apply was fastest with the subtree fused from the ~36k-cell level
 # (phase 2's apply times; PERF.md has the numbers)
 FLAGSHIP_FUSE_BELOW = 40_000
+SP_GEO_STEPS = 6       # phase-8 controller steps of sp_geothermal_3d
+JVP_STEPS = 2          # phase-9 controller steps of the full-size jvp runs
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and FP32 outside the
 # tensor cores; the bound of a call is the larger of bytes/peak and ops/peak
@@ -98,11 +123,23 @@ KERNEL_SOURCES = {
                          "thermalporous_tpu/kernels/stencil_pallas.py:317"),
     "fused_residual": ("thermalporous_torch/csrc/residual.cu",
                        "thermalporous_tpu/kernels/residual_pallas.py:185"),
+    "fused_residual_sp": ("thermalporous_torch/csrc/residual.cu",
+                          "thermalporous_tpu/kernels/residual_pallas.py:185"),
     "fused_block_rbgs": ("thermalporous_torch/csrc/rbgs.cu",
                          "thermalporous_tpu/kernels/stencil_pallas.py:408"),
     "deep_correction": ("thermalporous_torch/csrc/deep_cycle.cu",
                         "thermalporous_tpu/kernels/deep_cycle.py:289"),
+    "fused_jvp": ("thermalporous_torch/csrc/residual.cu",
+                  "thermalporous_tpu/kernels/residual_pallas.py:196"),
+    "fused_jvp_sp": ("thermalporous_torch/csrc/residual.cu",
+                     "thermalporous_tpu/kernels/residual_pallas.py:196"),
 }
+# the kernels each driven path must launch: the flagship with the stencil
+# operator (phase 6), sp_geothermal_3d (phase 8; block-Jacobi stage 2, no
+# fused subtree)
+FLAGSHIP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual",
+                    "fused_block_rbgs", "deep_correction")
+SP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual_sp")
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -183,12 +220,27 @@ def cost_chebyshev(n, dim, degree, from_x0, item):
     return (2 * dim + 3 + int(from_x0)) * n * item, ops
 
 
-def cost_residual(n, dim, item):
-    # operations per cell counted from the plain version: ~200 cell-term and
-    # ~100 per-face arithmetic operations, 5 + 8·dim transcendentals (pow,
-    # exp), each counted as 16 (the SM's FP32 : special-function rate)
-    ops = (200 + 100 * dim + 16 * (5 + 8 * dim)) * n
-    return (3 + 3 + (2 * dim + 7) + 3) * n * item, ops
+def model_ops(nc, dim):
+    """(arithmetic, transcendental) operations per cell of the residual,
+    counted from the plain versions: two-phase ~200 cell-term and ~100
+    per-axis arithmetic operations with 5 + 8·dim pow/exp; single-phase ~60
+    and ~60 with 1 + 2·dim."""
+    return (200 + 100 * dim, 5 + 8 * dim) if nc == 3 else (60 + 60 * dim, 1 + 2 * dim)
+
+
+def cost_residual(n, dim, nc, item):
+    # u, u_old and the fields in, R out; each transcendental counted as 16
+    # operations (the SM's FP32 : special-function rate)
+    arith, trans = model_ops(nc, dim)
+    return (3 * nc + 2 * dim + 7) * n * item, (arith + 16 * trans) * n
+
+
+def cost_jvp(n, dim, nc, item):
+    # u, v and the fields in, J(u)v out (no u_old); a dual-number operation
+    # is about three of its primal's, a transcendental one evaluation and
+    # two products
+    arith, trans = model_ops(nc, dim)
+    return (3 * nc + 2 * dim + 7) * n * item, (3 * arith + 18 * trans) * n
 
 
 def cost_rbgs(n, dim, nc, item):
@@ -264,10 +316,13 @@ def spmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ cases
 
-def bench_case(n: int, dtype, device):
-    """The bench.py workload: grid, data, model, solver configuration."""
+def bench_case(n: int, dtype, device, single_phase: bool = False):
+    """The bench.py workload: grid, data and model (with ``single_phase``
+    the single-phase model on the same grid and wells: the
+    sp_hot_injection_2d preset's 400 m square at 1024x1024 has 0.39 m
+    cells, below its wells' Peaceman radius, and is refused)."""
     from thermalporous_torch.core import Grid
-    from thermalporous_torch.models import TwoPhaseModel, make_problem_data
+    from thermalporous_torch.models import SinglePhaseModel, TwoPhaseModel, make_problem_data
     from thermalporous_torch.physics import PhysicalParams, Well
 
     pp = PhysicalParams()
@@ -278,7 +333,8 @@ def bench_case(n: int, dtype, device):
              Well(cells=((n - 1, n - 1),), control="bhp", p_bh=1.0e7)]
     data = make_problem_data(grid, pp, kx=kx, phi=0.2, wells=wells,
                              dtype=dtype, device=device)
-    return TwoPhaseModel(grid, pp, s_init=0.2), data
+    model = SinglePhaseModel(grid, pp) if single_phase else TwoPhaseModel(grid, pp, s_init=0.2)
+    return model, data
 
 
 def bench_configs(max_coarse_cells: int = 1024):
@@ -305,16 +361,40 @@ def with_fuse(pc, fuse_below: int, **gmg_overrides):
                                      if k != "kcycle_min_cells"}))
 
 
+def state_amp(u0: torch.Tensor) -> torch.Tensor:
+    """Per-component scales of a perturbation or a direction: 1e5 Pa, 5 K,
+    0.1 saturation."""
+    nc = u0.shape[0]
+    return torch.tensor([1e5, 5.0, 0.1][:nc], dtype=u0.dtype,
+                        device=u0.device).reshape((nc,) + (1,) * (u0.dim() - 1))
+
+
 def perturbed_state(model, data, seed: int = 5):
     u0 = model.initial_state(data)
     rng = np.random.default_rng(seed)
-    amp = np.array([1e5, 5.0, 0.1]).reshape((3,) + (1,) * (u0.dim() - 1))
+    amp = state_amp(u0).cpu().numpy()
     du = torch.as_tensor(amp * rng.standard_normal(tuple(u0.shape)),
                          dtype=u0.dtype, device=u0.device)
     return u0, (u0 + du).contiguous()
 
 
-def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, dev):
+def jvp_case(model, data, st, u0, u, tol, g):
+    """J(u)v of ``model`` against its plain version on a direction with the
+    state's scales, with torch.sparse.mm on the CSR of the Jacobian ``st``
+    at the same state as its library yardstick."""
+    from thermalporous_torch.kernels import residual as kres
+
+    grid, dim = st.grid_shape, st.dim
+    vj = (state_amp(u) * torch.randn(tuple(u.shape), generator=g, dtype=u.dtype,
+                                     device=u.device)).contiguous()
+    kname = "fused_jvp" if model.nc == 3 else "fused_jvp_sp"
+    return (f"{kname} {'x'.join(map(str, grid))}", kname,
+            lambda: kres.fused_jvp(model, u, vj, u0, 600.0, data),
+            lambda: model.jvp(u, u0, 600.0, data)(vj), tol,
+            cost_jvp(math.prod(grid), dim, model.nc, st.coef.element_size()), ("block", vj))
+
+
+def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev):
     """(label, kernel name, kernel call, plain call, tolerance, (bytes, ops),
     library call or None) of the four step kernels at the shapes the step
     gives each of them on this problem."""
@@ -354,7 +434,31 @@ def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, dev):
     cases.append((f"fused_residual {gs}", "fused_residual",
                   lambda: kres.fused_residual(model, u, u0, 600.0, data),
                   lambda: model.residual(u, u0, 600.0, data), tol_res,
-                  cost_residual(n, dim, item), None))
+                  cost_residual(n, dim, model.nc, item), None))
+    cases.append(jvp_case(model, data, st, u0, u, tol_jvp, g))
+    return cases
+
+
+def sp_cases(model, data, st, u0, u, tol_st, tol_res, tol_jvp, dev, with_b1: bool):
+    """The single-phase residual and J(u)v, and (``with_b1``) the block
+    matvec with two unknowns, at this problem's shapes."""
+    from thermalporous_torch.kernels import residual as kres
+    from thermalporous_torch.kernels import stencil as kst
+
+    grid, dim = st.grid_shape, st.dim
+    n, item, gs = math.prod(grid), st.coef.element_size(), "x".join(map(str, grid))
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [(f"fused_residual_sp {gs}", "fused_residual_sp",
+              lambda: kres.fused_residual(model, u, u0, 600.0, data),
+              lambda: model.residual(u, u0, 600.0, data), tol_res,
+              cost_residual(n, dim, 2, item), None),
+             jvp_case(model, data, st, u0, u, tol_jvp, g)]
+    if with_b1:
+        v2 = torch.randn((2,) + grid, generator=g, dtype=u.dtype, device=dev)
+        cases.append((f"block_matvec nc=2 k=2 {gs}", "block_matvec",
+                      lambda: kst.block_matvec(st.coef, v2, 2),
+                      lambda: kst.block_matvec_plain(st.coef, v2), tol_st,
+                      cost_block_matvec(n, dim, 2, 2, item), ("block", v2)))
     return cases
 
 
@@ -407,44 +511,65 @@ def deep_case(hname, hier, entry, cfg, item, g):
             cost_deep(shapes, cfg.degree, cfg.cycle_type, cfg.kcycle_min_cells, item), None)
 
 
-def library_call(lib, st):
+def library_call(lib, st, csr: dict):
     """One PyTorch call computing the same function (torch.sparse.mm on a
-    CSR of the operator), or None."""
+    CSR of the operator, built once per operator into ``csr``), or None."""
     if lib is None:
         return None
     if lib[0] == "block":
-        a, v = block_csr(st.coef), lib[1]
+        key, v = "block", lib[1]
+        if key not in csr:
+            csr[key] = block_csr(st.coef)
+        a = csr[key]
         return lambda: spmv(a, v)
     s, vv = lib[1], lib[2]
     a = block_csr(s.packed.reshape((s.packed.shape[0], 1, 1) + s.grid_shape))
     return lambda: spmv(a, vv)
 
 
+#: every row phase 2 prints, for the --json record
+ROWS: list = []
+
+
 def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
+    """Each case against its plain version, timed; the library yardstick of
+    every f32 case that has one, and for J(u)v also the block matvec on the
+    same Jacobian.  With ``record``, the first case of each kernel makes its
+    record in ``rec``."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    csr: dict = {}
     for label, kname, kern, plain, tol, cost, lib in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        rel, abs_ = rel_err(got, ref, kname in ("block_matvec", "fused_residual",
-                                                "fused_block_rbgs"))
+        rel, abs_ = rel_err(got, ref, got.dim() > st.dim)
         ok = math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
         ms, plain_ms = time_ms(kern), time_ms(plain)
         # the coarse subtree is latency-bound: also time it on a cold L2
         cold_ms = time_cold_ms(kern) if kname == "deep_correction" else None
         bnd, by = bound_ms(*cost)
-        lib_fn = library_call(lib, st) if record and kname not in rec else None
+        lib_fn = library_call(lib, st, csr) if dtype == torch.float32 else None
         lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+        b1_ms = None
+        if kname.startswith("fused_jvp"):
+            vj = lib[1]
+            b1_ms = time_ms(lambda: kst.block_matvec(st.coef, vj, st.nc))
         print(f"  {tname} {label}: max_rel_err {rel:.3e} (tol {tol:.0e}) "
               f"max_abs_err {abs_:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"bound {bnd:.4f} ms ({by})"
               + (f"  cold L2 {cold_ms:.4f} ms" if cold_ms is not None else "")
               + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + (f"  block_matvec on the same Jacobian {b1_ms:.4f} ms"
+                 if b1_ms is not None else "")
               + f"  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"parity breach: {tname} {label}")
+        row = {"max_abs_err": abs_, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms, "cold_ms": cold_ms,
+               "block_matvec_same_jacobian_ms": b1_ms, "case": label}
+        ROWS.append(dict(row, dtype=tname, kernel=kname))
         if record and kname not in rec:
-            rec[kname] = {"max_abs_err": abs_, "max_rel_err": rel, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                          "library_ms": lib_ms, "cold_ms": cold_ms, "case": label}
+            rec[kname] = row
         del got, ref
 
 
@@ -483,12 +608,14 @@ def kernel_parity(dev) -> dict:
         tname = "f64" if dtype == torch.float64 else "f32"
         tol_st = TOL_F64 if dtype == torch.float64 else TOL_F32_STENCIL
         tol_res = TOL_F64 if dtype == torch.float64 else TOL_F32_RESIDUAL
+        tol_jvp = TOL_F64 if dtype == torch.float64 else TOL_F32_JVP
         # the benchmark's 2D case
         model, data = bench_case(N_MAIN, dtype, dev)
         u0, u = perturbed_state(model, data)
         st = model.assemble_stencil(u, u0, 600.0, data)
         state = cpr_setup(st, bench_pc)
-        run_cases(tname, kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, dev),
+        run_cases(tname, kernel_cases(model, data, st, state, u0, u, tol_st, tol_res,
+                                      tol_jvp, dev),
                   st, rec, dtype, record=False)
         del model, data, st, state, u0, u
         torch.cuda.empty_cache()
@@ -506,13 +633,28 @@ def kernel_parity(dev) -> dict:
             print(f"  {tname} flagship {hname} hierarchy: "
                   + " -> ".join(str(math.prod(s.grid_shape)) for s in hier.stencils)
                   + " cells", flush=True)
-        cases = (kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, dev)
+        cases = (kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev)
                  + flagship_cases(st, state, pc, dtype, dev))
         run_cases(tname, cases, st, rec, dtype, record=dtype == torch.float32)
         if dtype == torch.float32:
             fuse_times = fuse_apply_times(st, state, pc, dev)
         del case, model, data, st, state, u0, u
         torch.cuda.empty_cache()
+        # the single-phase model: the benchmark's grid, then sp_geothermal_3d
+        # at its preset size (its f32 cases make the single-phase records)
+        for geo in (False, True):
+            if geo:
+                case = get_case("sp_geothermal_3d", device=dev, dtype=dtype)
+                model, data = case.model, case.data
+            else:
+                model, data = bench_case(N_MAIN, dtype, dev, single_phase=True)
+            u0, u = perturbed_state(model, data)
+            st = model.assemble_stencil(u, u0, 600.0, data)
+            run_cases(tname, sp_cases(model, data, st, u0, u, tol_st, tol_res, tol_jvp, dev,
+                                      with_b1=not geo),
+                      st, rec, dtype, record=geo and dtype == torch.float32)
+            del model, data, st, u0, u
+            torch.cuda.empty_cache()
     return rec, fuse_times
 
 
@@ -556,37 +698,56 @@ def check_physical(u, shape, label: str) -> None:
         raise SystemExit(f"{label}: state out of physical bounds or not finite")
 
 
-def flagship_parity() -> dict:
-    """Phase 5: the flagship configuration at FLAGSHIP_SMALL, f64, through
-    the Simulator on each device; the (dt, Newton, FGMRES, retries) records."""
+def with_krylov_op(case, krylov_op: str):
+    return dataclasses.replace(case.newton_cfg, krylov_op=krylov_op)
+
+
+def gpu_cpu_counts(name: str, kernels: tuple, steps: int = 3, krylov_op: str = "stencil",
+                   pc_overrides: dict | None = None, **case_kw) -> dict:
+    """Preset ``name`` (keywords ``case_kw``) in f64 through the Simulator on
+    each device for ``steps`` controller steps; the (dt, Newton, FGMRES,
+    retries) records per device.  On the card each of ``kernels`` must
+    launch."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
 
     out = {}
     for d in ("cpu", "cuda"):
-        case = get_case("tp_spe10_full", device=d, dtype=torch.float64,
-                        shape=FLAGSHIP_SMALL)
-        sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, **SMALL_GMG))
+        case = get_case(name, device=d, dtype=torch.float64, **case_kw)
+        kw = {} if pc_overrides is None else dict(pc_cfg=with_fuse(case.pc_cfg, **pc_overrides))
+        sim = case.simulator(newton_cfg=with_krylov_op(case, krylov_op), **kw)
         reset_launch_counts()
-        res = sim.run(case.t_end, max_steps=3)
+        res = sim.run(case.t_end, max_steps=steps)
         out[d] = [(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records]
         if d == "cuda":
             launches = launch_counts()
             print(f"  cuda launches {launches}")
-            if launches["deep_correction"] <= 0:
-                raise SystemExit("flagship parity: the fused subtree never ran")
+            missing = [k for k in kernels if launches[k] <= 0]
+            if missing:
+                raise SystemExit(f"{name} {krylov_op}: launched no {missing}")
+    if out["cpu"] != out["cuda"]:
+        raise SystemExit(f"{name} {krylov_op}: cpu {out['cpu']} != cuda {out['cuda']}")
     return out
 
 
-def flagship_run(dev):
-    """Phase 6: tp_spe10_full at full size, f32, the first FLAGSHIP_STEPS
+def flagship_parity(krylov_op: str = "stencil") -> dict:
+    """Phase 5 (and 9): the flagship configuration at FLAGSHIP_SMALL, f64,
+    through the Simulator on each device."""
+    kernels = ("deep_correction",) + (("fused_jvp",) if krylov_op == "jvp" else ())
+    return gpu_cpu_counts("tp_spe10_full", kernels, krylov_op=krylov_op,
+                          pc_overrides=SMALL_GMG, shape=FLAGSHIP_SMALL)
+
+
+def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil"):
+    """Phase 6 (and 9): tp_spe10_full at full size, f32, the first ``steps``
     controller steps; returns (records, launches, Newton over all attempts,
     cell-updates/s, peak GiB)."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
 
     case = get_case("tp_spe10_full", device=dev)
-    sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
+    sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW),
+                         newton_cfg=with_krylov_op(case, krylov_op))
     for hname, g in (("p", sim.pc_cfg.gmg), ("T", sim.pc_cfg.gmg_t)):
         print(f"  schedule {hname}: {g.level_factors}")
     attempts = {"newton": 0, "attempts": 0}
@@ -602,24 +763,25 @@ def flagship_run(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    res = sim.run(case.t_end, max_steps=FLAGSHIP_STEPS)
+    res = sim.run(case.t_end, max_steps=steps)
     torch.cuda.synchronize()
     launches = launch_counts()
     for r in res.records:
         print(f"  step {r.step} dt {r.dt:.1f} s: newton {r.newton_iters} "
               f"fgmres {r.ksp_iters} retries {r.retries} wall {r.wall_s:.3f} s "
               f"next dt {r.next_dt:.1f} s cap {r.dt_cap}")
-    if res.steps < FLAGSHIP_STEPS:
-        raise SystemExit(f"flagship: {res.steps} steps < {FLAGSHIP_STEPS}")
+    if res.steps < steps:
+        raise SystemExit(f"flagship: {res.steps} steps < {steps}")
     later = res.records[1:]
     cu_s = (math.prod(case.model.grid.shape) * sum(r.newton_iters for r in later)
             / sum(r.wall_s for r in later))
     print(f"  launches {launches}; Newton iterations over all attempts "
           f"{attempts['newton']} in {attempts['attempts']} solves")
     check_physical(res.u, case.model.grid.shape, "flagship")
-    missing = [k for k, n in launches.items() if n <= 0]
+    kernels = FLAGSHIP_KERNELS + (("fused_jvp",) if krylov_op == "jvp" else ())
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"flagship launched no {missing}")
+        raise SystemExit(f"flagship ({krylov_op}) launched no {missing}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     return res.records, launches, attempts, cu_s, peak
 
@@ -690,6 +852,48 @@ def flagship_layers(dev) -> dict:
     return {"total_s": total, "newton": newton, "layer_s": wall, "layer_calls": calls,
             "step_s": step_s, "step_newton": st.iters, "step_fgmres": st.ksp_iters,
             "device_busy_s": busy_us / 1e6}
+
+
+def sp_geothermal_run(dev, steps: int, krylov_op: str = "stencil"):
+    """Phase 8 (and 9): sp_geothermal_3d at its preset size, f32, the first
+    ``steps`` controller steps; checks the state (finite, no undershoot below
+    T_init - 1 K) and that each kernel of the path launched; returns
+    (records, launches, cell-updates/s, well rates)."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.physics import well_rates
+    from thermalporous_torch.presets import get_case
+
+    case = get_case("sp_geothermal_3d", device=dev)
+    sim = case.simulator(newton_cfg=with_krylov_op(case, krylov_op))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = sim.run(case.t_end, max_steps=steps)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for r in res.records:
+        print(f"  step {r.step} dt {r.dt:.1f} s: newton {r.newton_iters} "
+              f"fgmres {r.ksp_iters} retries {r.retries} wall {r.wall_s:.3f} s")
+    if res.steps < steps:
+        raise SystemExit(f"sp_geothermal_3d: {res.steps} steps < {steps}")
+    later = res.records[1:]
+    cu_s = (math.prod(case.model.grid.shape) * sum(r.newton_iters for r in later)
+            / sum(r.wall_s for r in later))
+    u, t_init = res.u, case.model.pp.T_init
+    p, t = u[0], u[1]
+    print(f"  T in [{float(t.min()):.3f}, {float(t.max()):.3f}] K (T_init {t_init}), "
+          f"p in [{float(p.min()):.6e}, {float(p.max()):.6e}] Pa")
+    rates = well_rates(case.model, u, case.data, case.well_masks)
+    for name, rec in rates.items():
+        print(f"  well {name}: " + ", ".join(f"{k} {v:.6e}" for k, v in rec.items()))
+    print(f"  launches {launches}")
+    if (tuple(u.shape) != (2,) + case.model.grid.shape or not bool(torch.isfinite(u).all())
+            or float(t.min()) < t_init - 1.0):
+        raise SystemExit("sp_geothermal_3d: state not finite or T below T_init - 1 K")
+    kernels = ("fused_jvp_sp",) if krylov_op == "jvp" else SP_KERNELS
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"sp_geothermal_3d ({krylov_op}) launched no {missing}")
+    return res.records, launches, cu_s, rates
 
 
 def main() -> int:
@@ -779,8 +983,6 @@ def main() -> int:
     # (5) flagship parity, GPU against CPU
     t0 = time.perf_counter()
     small = flagship_parity()
-    if small["cpu"] != small["cuda"]:
-        raise SystemExit(f"flagship parity: cpu {small['cpu']} != cuda {small['cuda']}")
     phase("5 flagship parity", t0, f"{'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
           f"(dt, newton, fgmres, retries) per step: cpu {small['cpu']} == cuda "
           f"{small['cuda']}")
@@ -796,8 +998,39 @@ def main() -> int:
     layers = flagship_layers(dev)
     phase("7 flagship layers", t0, "60x220x85 f32, synchronized layer timers")
 
+    # (8) the single-phase family
+    t0 = time.perf_counter()
+    sp_small = gpu_cpu_counts("sp_hot_injection_2d", SP_KERNELS)
+    print(f"  sp_hot_injection_2d 40x40 f64 (dt, newton, fgmres, retries) per step: "
+          f"cpu {sp_small['cpu']} == cuda {sp_small['cuda']}")
+    sp_recs, sp_launches, sp_cu_s, sp_rates = sp_geothermal_run(dev, SP_GEO_STEPS)
+    phase("8 single-phase", t0, f"sp_geothermal_3d 64x64x32 f32: {sp_cu_s:.1f} "
+          f"cell-updates/s over steps 2-{len(sp_recs)}")
+
+    # (9) the matrix-free Krylov operator
+    t0 = time.perf_counter()
+    small_jvp = flagship_parity("jvp")
+    print(f"  flagship {'x'.join(map(str, FLAGSHIP_SMALL))} f64 jvp (dt, newton, fgmres, "
+          f"retries) per step: cpu {small_jvp['cpu']} == cuda {small_jvp['cuda']}")
+    jrecs, jlaunches, _, jcu_s, _ = flagship_run(dev, JVP_STEPS, "jvp")
+    for rj, rs in zip(jrecs, frecs):
+        print(f"  flagship step {rj.step}: jvp (dt {rj.dt:.1f}, newton {rj.newton_iters}, "
+              f"fgmres {rj.ksp_iters}) | stencil (dt {rs.dt:.1f}, newton {rs.newton_iters}, "
+              f"fgmres {rs.ksp_iters})"
+              + ("" if (rj.dt, rj.newton_iters, rj.ksp_iters)
+                 == (rs.dt, rs.newton_iters, rs.ksp_iters) else "  differ"))
+    sj_recs, sj_launches, _, _ = sp_geothermal_run(dev, JVP_STEPS, "jvp")
+    phase("9 jvp operator", t0, f"flagship jvp {jcu_s:.1f} cell-updates/s over steps "
+          f"2-{len(jrecs)}; fused_jvp {jlaunches['fused_jvp']} and fused_jvp_sp "
+          f"{sj_launches['fused_jvp_sp']} launches")
+
+    # each kernel's launches in its path's run
+    path_launches = {k: launches[k] for k in FLAGSHIP_KERNELS}
+    path_launches.update(fused_residual_sp=sp_launches["fused_residual_sp"],
+                         fused_jvp=jlaunches["fused_jvp"],
+                         fused_jvp_sp=sj_launches["fused_jvp_sp"])
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCES[k][0],
-                "replaces": KERNEL_SOURCES[k][1], "launches": launches[k],
+                "replaces": KERNEL_SOURCES[k][1], "launches": path_launches[k],
                 "max_abs_err": krec[k]["max_abs_err"], "ms": krec[k]["ms"],
                 "plain_ms": krec[k]["plain_ms"], "bound_ms": krec[k]["bound_ms"],
                 "bound_by": krec[k]["bound_by"], "library_ms": krec[k]["library_ms"]}
@@ -811,7 +1044,15 @@ def main() -> int:
                        "flagship_steps": [r.as_dict() for r in frecs],
                        "flagship_newton_all_attempts": attempts,
                        "flagship_cell_updates_per_s": fcu_s, "flagship_peak_gib": peak,
-                       "flagship_layers": layers,
+                       "flagship_layers": layers, "kernel_rows": ROWS,
+                       "sp_small": sp_small, "sp_geothermal_steps": [r.as_dict() for r in sp_recs],
+                       "sp_geothermal_launches": sp_launches,
+                       "sp_geothermal_cell_updates_per_s": sp_cu_s, "sp_geothermal_rates": sp_rates,
+                       "flagship_small_jvp": small_jvp,
+                       "flagship_jvp_steps": [r.as_dict() for r in jrecs],
+                       "flagship_jvp_launches": jlaunches, "flagship_jvp_cell_updates_per_s": jcu_s,
+                       "sp_geothermal_jvp_steps": [r.as_dict() for r in sj_recs],
+                       "sp_geothermal_jvp_launches": sj_launches,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,6 +22,7 @@ from thermalporous_tpu.core import BlockStencil as JBlockStencil
 from thermalporous_tpu.core import Grid as JGrid
 from thermalporous_tpu.core import ScalarStencil as JScalarStencil
 from thermalporous_tpu.kernels.stencil_pallas import pack_block_stencil, pack_stencil
+from thermalporous_tpu.models import SinglePhaseModel as JSinglePhaseModel
 from thermalporous_tpu.models import TwoPhaseModel as JTwoPhaseModel
 from thermalporous_tpu.models import make_problem_data as j_make_problem_data
 from thermalporous_tpu.physics import Heater as JHeater
@@ -98,14 +99,17 @@ def poisson_pair(rng, shape, shift=0.5):
 
 # --------------------------------------------------------------- models
 
-def model_case(shape, seed=0, dt=1200.0, rate_well=True, heater=True):
-    """The two-phase test problem in both packages.
+def model_case(shape, seed=0, dt=1200.0, rate_well=True, heater=True,
+               single_phase=False):
+    """The two-phase (or, with ``single_phase``, the single-phase) test
+    problem in both packages.
 
     2D grids are horizontal; 3D grids carry gravity.  Wells: a BHP injector
     with T_inj at the origin, a BHP producer at the far corner, optionally a
     producing rate well and a heater.  Returns a dict with ``jm, jd, ju0,
     ju`` (JAX) and ``tm, td, tu0, tu`` (torch, data carried through
-    ``interop``), and ``dt``.
+    ``interop``), ``v`` (a direction with the state's scales, numpy) and
+    ``dt``.
     """
     dim = len(shape)
     grav = 9.81 if dim == 3 else 0.0
@@ -122,13 +126,15 @@ def model_case(shape, seed=0, dt=1200.0, rate_well=True, heater=True):
     jg = JGrid(shape=shape, spacing=(5.0,) * dim, thickness=10.0, gravity=grav)
     jpp = JPhysicalParams()
     jd = j_make_problem_data(jg, jpp, kx=k, phi=0.2, wells=jwells, heaters=jheaters)
-    jm = JTwoPhaseModel(jg, jpp)
+    jm = (JSinglePhaseModel if single_phase else JTwoPhaseModel)(jg, jpp)
     ju0 = jm.initial_state(jd)
-    amp = np.array([1e5, 5.0, 0.1]).reshape((3,) + (1,) * dim)
+    amp = np.array([1e5, 5.0, 0.1][:jm.nc]).reshape((jm.nc,) + (1,) * dim)
     ju = ju0 + jnp.asarray(amp * rng.standard_normal(ju0.shape))
+    v = amp * rng.standard_normal(ju0.shape)
 
     tg = tc.Grid(shape=shape, spacing=(5.0,) * dim, thickness=10.0, gravity=grav)
-    tmod = tm.TwoPhaseModel(tg, tp.PhysicalParams())
+    tmod = (tm.SinglePhaseModel if single_phase else tm.TwoPhaseModel)(
+        tg, tp.PhysicalParams())
     w = jd.wells
     td = problem_data_from_numpy(
         [np.asarray(a) for a in jd.tgeo], [np.asarray(a) for a in jd.tcond],
@@ -140,7 +146,7 @@ def model_case(shape, seed=0, dt=1200.0, rate_well=True, heater=True):
                    for x in jwells]
     torch_heaters = [tp.Heater(cells=h.cells, power=h.power) for h in jheaters]
     return dict(
-        jm=jm, jd=jd, ju0=ju0, ju=ju, tm=tmod, td=td, dt=dt, k=k,
+        jm=jm, jd=jd, ju0=ju0, ju=ju, tm=tmod, td=td, dt=dt, k=k, v=v,
         tu0=state_from_numpy(np.asarray(ju0), dtype=F64, device="cpu"),
         tu=state_from_numpy(np.asarray(ju), dtype=F64, device="cpu"),
         tgrid=tg, twells=torch_wells, theaters=torch_heaters,
@@ -151,9 +157,10 @@ def model_case(shape, seed=0, dt=1200.0, rate_well=True, heater=True):
 # ---------------------------------------------------------------- hygiene
 
 def forbidden_imports(root: pathlib.Path = PORT_DIR) -> list[str]:
-    """Every import of jax / thermalporous_tpu under the port package."""
+    """Every import of jax / thermalporous_tpu under the port package (or in
+    one file)."""
     bad = []
-    for path in sorted(root.rglob("*.py")):
+    for path in [root] if root.is_file() else sorted(root.rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             names = []

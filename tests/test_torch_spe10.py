@@ -107,10 +107,12 @@ def _compare_case(got, ref):
     assert got.name == ref.name and got.description == ref.description
     assert got.precond == ref.precond and got.t_end == ref.t_end
     assert type(got.model).__name__ == type(ref.model).__name__
-    assert got.model.s_init == ref.model.s_init
+    assert got.model.nc == ref.model.nc
     assert dataclasses.asdict(got.model.grid) == dataclasses.asdict(ref.model.grid)
     assert dataclasses.asdict(got.model.pp) == dataclasses.asdict(ref.model.pp)
-    assert dataclasses.asdict(got.model.relperm) == dataclasses.asdict(ref.model.relperm)
+    if ref.model.nc == 3:
+        assert got.model.s_init == ref.model.s_init
+        assert dataclasses.asdict(got.model.relperm) == dataclasses.asdict(ref.model.relperm)
     assert dataclasses.asdict(got.time_cfg) == dataclasses.asdict(ref.time_cfg)
     assert dataclasses.asdict(got.newton_cfg) == dataclasses.asdict(ref.newton_cfg)
     ref_pc = None if ref.pc_cfg is None else config_from_dict(
@@ -123,6 +125,9 @@ def _compare_case(got, ref):
 
 
 @pytest.mark.parametrize("name,kw", [
+    ("sp_hot_injection_2d", dict(n=8)),
+    ("sp_spe10_layer_2d", dict(layer=3)),
+    ("sp_geothermal_3d", dict(nx=8, ny=10, nz=6)),
     ("tp_thermal_2d", dict(n=12)),
     ("tp_spe10_3d", dict(nx=10, ny=14, nz=6)),
     ("tp_spe10_full", {}),
@@ -155,6 +160,15 @@ def test_small_flagship_is_the_flagship_configuration():
     jd = j_make_problem_data(jg, JPhysicalParams(), kx=fields.kx, ky=fields.ky,
                              kz=fields.kz, phi=fields.phi, wells=jwells)
     assert_close(got.data.fields, _jax_fields(jd), 1e-13)
+    # the single-phase presets build (at their preset sizes) and name their
+    # reference's descriptions; an unknown name is refused
+    for name in ("sp_hot_injection_2d", "sp_spe10_layer_2d", "sp_geothermal_3d"):
+        case = tpre.get_case(name, device="cpu")
+        assert type(case.model).__name__ == "SinglePhaseModel"
+        assert case.description == jpre.CASE_DESCRIPTIONS[name]
+    assert {k: jpre.CASE_DESCRIPTIONS[k] for k in tpre.CASE_DESCRIPTIONS} \
+        == tpre.CASE_DESCRIPTIONS
+    assert set(tpre.CASE_DESCRIPTIONS) == set(tpre.PRESETS)
     with pytest.raises(KeyError):
-        tpre.get_case("sp_hot_injection_2d", device="cpu")
+        tpre.get_case("tp_spe10_inner", device="cpu")
     assert isinstance(got.time_cfg, TimeConfig)

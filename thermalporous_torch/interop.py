@@ -19,6 +19,7 @@ import torch
 
 from thermalporous_torch.core.grid import Grid
 from thermalporous_torch.models.base import ProblemData
+from thermalporous_torch.models.singlephase import SinglePhaseModel
 from thermalporous_torch.models.twophase import TwoPhaseModel
 from thermalporous_torch.physics.props import PhysicalParams
 from thermalporous_torch.physics.relperm import CoreyRelPerm
@@ -75,10 +76,11 @@ def config_from_dict(cls, d: dict | None):
 
 def case_from_numpy(
     *,
+    model: str = "TwoPhaseModel",
     grid: dict,
     params: dict,
-    relperm: dict,
-    s_init: float,
+    relperm: dict | None = None,
+    s_init: float | None = None,
     data: dict,
     newton: dict,
     pc: dict | None,
@@ -89,23 +91,30 @@ def case_from_numpy(
     name: str = "case",
     precond: str = "cptr",
 ):
-    """A port :class:`~thermalporous_torch.presets.Case` of a two-phase case
-    given as plain inputs: ``dataclasses.asdict`` of the reference's
-    ``Grid``, ``PhysicalParams``, ``CoreyRelPerm``, ``NewtonConfig``,
-    ``CPRConfig`` and ``TimeConfig``, and ``data`` with the reference's
+    """A port :class:`~thermalporous_torch.presets.Case` of a case given as
+    plain inputs: ``model``, the class name of the reference's model
+    (``"TwoPhaseModel"`` or ``"SinglePhaseModel"``); ``dataclasses.asdict``
+    of the reference's ``Grid``, ``PhysicalParams``, ``CoreyRelPerm`` (two
+    phases only), ``NewtonConfig``, ``CPRConfig`` and ``TimeConfig``;
+    ``s_init`` (two phases only); and ``data`` with the reference's
     ``ProblemData`` fields as numpy arrays (keys ``tgeo``, ``tcond``
     (sequences), ``phi``, ``wi``, ``pbh``, ``tinj``, ``has_tinj``,
     ``qrate``, ``qheat``)."""
     from thermalporous_torch.presets import Case
 
     g = Grid(**grid)
-    model = TwoPhaseModel(g, PhysicalParams(**params), CoreyRelPerm(**relperm),
-                          s_init=s_init)
+    pp = PhysicalParams(**params)
+    if model == "TwoPhaseModel":
+        tmodel = TwoPhaseModel(g, pp, CoreyRelPerm(**relperm), s_init=s_init)
+    elif model == "SinglePhaseModel":
+        tmodel = SinglePhaseModel(g, pp)
+    else:
+        raise ValueError(f"unknown model {model!r}")
     pdata = problem_data_from_numpy(
         data["tgeo"], data["tcond"], data["phi"], data["wi"], data["pbh"],
         data["tinj"], data["has_tinj"], data["qrate"], data["qheat"],
         dtype=dtype, device=device)
-    return Case(name=name, description=f"{name} (carried across)", model=model,
+    return Case(name=name, description=f"{name} (carried across)", model=tmodel,
                 data=pdata, time_cfg=config_from_dict(TimeConfig, time),
                 newton_cfg=config_from_dict(NewtonConfig, newton), t_end=float(t_end),
                 precond=precond, pc_cfg=config_from_dict(CPRConfig, pc))

@@ -2,7 +2,7 @@
 
 The wrappers live in ``kernels/stencil.py`` (block matvec, scalar matvec,
 Chebyshev smooth, red-black block Gauss–Seidel sweep),
-``kernels/residual.py`` (fused two-phase residual) and
+``kernels/residual.py`` (fused residual and J·v of each model) and
 ``kernels/deep_cycle.py`` (fused multigrid coarse subtree).
 Importing builds nothing: the CUDA library is compiled and loaded at the
 first launch on a CUDA tensor (``kernels/_lib.py``).  This package module
@@ -14,7 +14,12 @@ imports ``kernels/stencil.py`` while the models import ``core``.
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
     from thermalporous_torch.kernels.deep_cycle import deep_correction
-    from thermalporous_torch.kernels.residual import fused_residual
+    from thermalporous_torch.kernels.residual import (
+        fused_jvp,
+        fused_jvp_sp,
+        fused_residual,
+        fused_residual_sp,
+    )
     from thermalporous_torch.kernels.stencil import (
         block_matvec,
         chebyshev_smooth,
@@ -27,8 +32,11 @@ def wrappers() -> dict:
         "matvec": matvec,
         "chebyshev_smooth": chebyshev_smooth,
         "fused_residual": fused_residual,
+        "fused_residual_sp": fused_residual_sp,
         "fused_block_rbgs": fused_block_rbgs,
         "deep_correction": deep_correction,
+        "fused_jvp": fused_jvp,
+        "fused_jvp_sp": fused_jvp_sp,
     }
 
 

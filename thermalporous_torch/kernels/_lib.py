@@ -31,7 +31,8 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("common.cuh", "stencil.cu", "residual.cu", "rbgs.cu", "deep_cycle.cu")
+SOURCES = ("common.cuh", "dual.cuh", "stencil.cu", "residual.cu", "rbgs.cu",
+           "deep_cycle.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -42,6 +43,8 @@ LIB_NAME = "libthermalporous_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+
+_MODEL_ARGS = (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P)
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int;
 # the first argument is the dtype code, 0 = float32, 1 = float64)
@@ -54,8 +57,12 @@ _SIGNATURES = {
     # degree, lam_min_frac, safety, dim, n0, n1, n2, stream
     "tp_chebyshev_smooth": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _D, _D, _I, _I, _I, _I, _P),
-    # u, u_old, fields, out, dt, params (host double*), dim, n0, n1, n2, stream
-    "tp_twophase_residual": (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P),
+    # u, u_old (residual) or v (jvp), fields, out, dt, params (host double*),
+    # dim, n0, n1, n2, stream
+    "tp_twophase_residual": _MODEL_ARGS,
+    "tp_singlephase_residual": _MODEL_ARGS,
+    "tp_twophase_jvp": _MODEL_ARGS,
+    "tp_singlephase_jvp": _MODEL_ARGS,
     # coef, dinv, b, out, nc, dim, n0, n1, n2, stream
     "tp_block_rbgs_zero": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # desc (host int64*, DEEP_DESC_PER_LEVEL per level), n_levels, inv,
@@ -68,8 +75,9 @@ _SIGNATURES = {
 DEEP_DESC_PER_LEVEL = 20
 DEEP_MAX_LEVELS = 16
 
-#: length of the params array of tp_twophase_residual (csrc/residual.cu)
-TWOPHASE_NUM_PARAMS = 28
+#: length of the params array of the residual and JVP entries
+#: (csrc/residual.cu: kNumParams)
+MODEL_NUM_PARAMS = 28
 
 
 def _nvcc() -> str:

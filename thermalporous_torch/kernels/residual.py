@@ -1,9 +1,21 @@
-"""Fused residual kernel of the two-phase model (``csrc/residual.cu``).
+"""Fused residual and JVP kernels of both models (``csrc/residual.cu``).
 
-The wrapper's plain version is the model's own
-:meth:`~thermalporous_torch.models.base.ThermalModelBase.residual`: for
-tensors on the CPU it returns that; for CUDA tensors it launches the kernel
-(two-phase model only) or raises, and adds one to ``fused_residual.launches``.
+Each wrapper's plain version is the model's own method —
+:meth:`~thermalporous_torch.models.base.ThermalModelBase.residual` for the
+residual, :meth:`~thermalporous_torch.models.base.ThermalModelBase.jvp` for
+J(u)·v: for tensors on the CPU a wrapper returns that; for CUDA tensors it
+launches its kernel (or raises) and adds one to its ``launches``.
+
+One wrapper, and one counter, per C entry point:
+
+- ``fused_residual``: two-phase residual (``tp_twophase_residual``);
+- ``fused_residual_sp``: single-phase residual (``tp_singlephase_residual``);
+- ``fused_jvp``: two-phase J(u)·v (``tp_twophase_jvp``);
+- ``fused_jvp_sp``: single-phase J(u)·v (``tp_singlephase_jvp``).
+
+``fused_residual`` and ``fused_jvp`` accept either model and hand a
+:class:`SinglePhaseModel` to their ``_sp`` counterparts, so the step calls
+one name for both.
 """
 
 from __future__ import annotations
@@ -15,14 +27,16 @@ import torch
 from thermalporous_torch.kernels import _lib
 from thermalporous_torch.kernels.stencil import _check
 from thermalporous_torch.models.base import ProblemData, n_fields
+from thermalporous_torch.models.singlephase import SinglePhaseModel
 from thermalporous_torch.models.twophase import TwoPhaseModel
+from thermalporous_torch.physics.relperm import CoreyRelPerm
 
 
-def twophase_params(model: TwoPhaseModel) -> list[float]:
-    """The constants of ``TwoPhaseParams`` (csrc/residual.cu), in its field
+def _params(model, rp: CoreyRelPerm) -> list[float]:
+    """The constants of ``ModelParams`` (csrc/residual.cu), in its field
     order, as host doubles.  Compound constants are formed in double here
     exactly where the plain version forms them in Python floats."""
-    pp, rp, grid = model.pp, model.relperm, model.grid
+    pp, grid = model.pp, model.grid
     dd = list(model._ddepth) + [0.0] * (3 - len(model._ddepth))
     vals = [
         pp.p_ref, pp.T_ref, pp.rho_w_ref, pp.c_w, pp.beta_w, pp.cp_w,
@@ -34,33 +48,92 @@ def twophase_params(model: TwoPhaseModel) -> list[float]:
         rp.k_ro_end,
         pp.MU_W_COEF, pp.MU_W_NUM, pp.MU_W_SHIFT,
     ]
-    assert len(vals) == _lib.TWOPHASE_NUM_PARAMS
+    assert len(vals) == _lib.MODEL_NUM_PARAMS
     return [float(v) for v in vals]
+
+
+def twophase_params(model: TwoPhaseModel) -> list[float]:
+    return _params(model, model.relperm)
+
+
+def singlephase_params(model: SinglePhaseModel) -> list[float]:
+    """As :func:`twophase_params`; the relative-permeability slots hold the
+    defaults, which the single-phase kernels do not read."""
+    return _params(model, CoreyRelPerm())
+
+
+_FORMS = {
+    "tp_twophase_residual": (TwoPhaseModel, twophase_params),
+    "tp_singlephase_residual": (SinglePhaseModel, singlephase_params),
+    "tp_twophase_jvp": (TwoPhaseModel, twophase_params),
+    "tp_singlephase_jvp": (SinglePhaseModel, singlephase_params),
+}
+
+
+def _run(wrapper, entry: str, model, u: torch.Tensor, second: torch.Tensor,
+         u_old: torch.Tensor, dt: float, data: ProblemData, plain) -> torch.Tensor:
+    """Check the arguments, then ``plain()`` on the CPU or C entry ``entry``
+    on (u, second) on the card.  ``second`` is u_old for a residual and v
+    for a JVP."""
+    name = wrapper.__name__
+    dev = _check(name, u, second, u_old, data.fields)
+    grid = model.grid.shape
+    dim = len(grid)
+    if (tuple(u.shape) != (model.nc,) + grid or second.shape != u.shape
+            or u_old.shape != u.shape
+            or tuple(data.fields.shape) != (n_fields(dim),) + grid):
+        raise ValueError(f"{name}: u {tuple(u.shape)}, fields "
+                         f"{tuple(data.fields.shape)}, grid {grid}")
+    if dev.type == "cpu":
+        return plain()
+    form, params_of = _FORMS[entry]
+    if type(model) is not form:
+        raise NotImplementedError(f"{name} kernel: {type(model).__name__} has no CUDA kernel")
+    out = torch.empty_like(u)
+    params = (ctypes.c_double * _lib.MODEL_NUM_PARAMS)(*params_of(model))
+    _lib.launch(entry, _lib.dtype_code(u), u.data_ptr(), second.data_ptr(),
+                data.fields.data_ptr(), out.data_ptr(), float(dt),
+                ctypes.cast(params, ctypes.c_void_p), dim, *_lib.dims3(grid),
+                _lib.stream_of(u))
+    wrapper.launches += 1
+    return out
 
 
 def fused_residual(model, u: torch.Tensor, u_old: torch.Tensor, dt: float,
                    data: ProblemData) -> torch.Tensor:
     """The whole backward-Euler residual (nc, *grid) in one pass per cell."""
-    dev = _check("fused_residual", u, u_old, data.fields)
-    grid = model.grid.shape
-    dim = len(grid)
-    if (tuple(u.shape) != (model.nc,) + grid or u_old.shape != u.shape
-            or tuple(data.fields.shape) != (n_fields(dim),) + grid):
-        raise ValueError(f"fused_residual: u {tuple(u.shape)}, fields "
-                         f"{tuple(data.fields.shape)}, grid {grid}")
-    if dev.type == "cpu":
-        return model.residual(u, u_old, dt, data)
-    if type(model) is not TwoPhaseModel:
-        raise NotImplementedError(
-            f"fused_residual kernel: {type(model).__name__} has no CUDA kernel")
-    out = torch.empty_like(u)
-    params = (ctypes.c_double * _lib.TWOPHASE_NUM_PARAMS)(*twophase_params(model))
-    _lib.launch("tp_twophase_residual", _lib.dtype_code(u), u.data_ptr(),
-                u_old.data_ptr(), data.fields.data_ptr(), out.data_ptr(),
-                float(dt), ctypes.cast(params, ctypes.c_void_p), dim,
-                *_lib.dims3(grid), _lib.stream_of(u))
-    fused_residual.launches += 1
-    return out
+    if type(model) is SinglePhaseModel:
+        return fused_residual_sp(model, u, u_old, dt, data)
+    return _run(fused_residual, "tp_twophase_residual", model, u, u_old, u_old, dt, data,
+                lambda: model.residual(u, u_old, dt, data))
+
+
+def fused_residual_sp(model: SinglePhaseModel, u: torch.Tensor, u_old: torch.Tensor,
+                      dt: float, data: ProblemData) -> torch.Tensor:
+    """:func:`fused_residual` of the single-phase model."""
+    return _run(fused_residual_sp, "tp_singlephase_residual", model, u, u_old, u_old,
+                dt, data, lambda: model.residual(u, u_old, dt, data))
+
+
+def fused_jvp(model, u: torch.Tensor, v: torch.Tensor, u_old: torch.Tensor, dt: float,
+              data: ProblemData) -> torch.Tensor:
+    """J(u)·v, the exact directional derivative of the residual at ``u``, in
+    one pass per cell (the kernel reads u, v and the fields: the old
+    accumulation is a constant, whose tangent is zero)."""
+    if type(model) is SinglePhaseModel:
+        return fused_jvp_sp(model, u, v, u_old, dt, data)
+    return _run(fused_jvp, "tp_twophase_jvp", model, u, v, u_old, dt, data,
+                lambda: model.jvp(u, u_old, dt, data)(v))
+
+
+def fused_jvp_sp(model: SinglePhaseModel, u: torch.Tensor, v: torch.Tensor,
+                 u_old: torch.Tensor, dt: float, data: ProblemData) -> torch.Tensor:
+    """:func:`fused_jvp` of the single-phase model."""
+    return _run(fused_jvp_sp, "tp_singlephase_jvp", model, u, v, u_old, dt, data,
+                lambda: model.jvp(u, u_old, dt, data)(v))
 
 
 fused_residual.launches = 0
+fused_residual_sp.launches = 0
+fused_jvp.launches = 0
+fused_jvp_sp.launches = 0

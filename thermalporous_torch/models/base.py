@@ -9,8 +9,10 @@ A model is defined by two local functions:
   through the face L → R.
 
 Broadcast over full tensors they give the residual; under ``torch.func.jvp``
-with broadcast unit tangents they give the exact per-cell blocks of the
-Jacobian (:meth:`ThermalModelBase.assemble_stencil`).
+the residual gives the exact matrix-free product J·v
+(:meth:`ThermalModelBase.jvp`), and with broadcast unit tangents the local
+functions give the exact per-cell blocks of the Jacobian
+(:meth:`ThermalModelBase.assemble_stencil`).
 """
 
 from __future__ import annotations
@@ -144,6 +146,16 @@ class ThermalModelBase:
         (k = 0) cells count, as in the reference."""
         raise NotImplementedError
 
+    def in_place_totals(self, u, data: ProblemData) -> torch.Tensor:
+        """Total conserved content per equation row, (nc,): the integrals of
+        the accumulation densities of :meth:`cell_terms`."""
+        raise NotImplementedError
+
+    def source_totals(self, u, data: ProblemData) -> torch.Tensor:
+        """Net well/heater source per equation row at state ``u``, (nc,)."""
+        q = self.well_sources(u, data.wells)
+        return q.reshape(self.nc, -1).sum(dim=1)
+
     # -- residual -----------------------------------------------------------
     def residual(self, u: torch.Tensor, u_old: torch.Tensor, dt,
                  data: ProblemData) -> torch.Tensor:
@@ -155,6 +167,16 @@ class ThermalModelBase:
                                 data.tgeo[axis], data.tcond[axis])
             res = divergence_add(res, f, axis, lead=1)
         return res
+
+    # -- Krylov operator ----------------------------------------------------
+    def jvp(self, u, u_old, dt, data: ProblemData):
+        """``v ↦ J(u)·v``, the exact matrix-free Jacobian product (the plain
+        version of the ``fused_jvp`` kernel)."""
+
+        def op(v):
+            return jvp(lambda x: self.residual(x, u_old, dt, data), (u,), (v,))[1]
+
+        return op
 
     # -- stencil assembly ---------------------------------------------------
     def assemble_stencil(self, u, u_old, dt, data: ProblemData) -> BlockStencil:

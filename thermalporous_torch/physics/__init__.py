@@ -5,8 +5,10 @@ from thermalporous_torch.physics.wells import (
     Well,
     WellFields,
     build_well_fields,
+    empty_well_fields,
     peaceman_well_index,
     per_well_masks,
+    well_rates,
 )
 
 __all__ = [
@@ -16,6 +18,8 @@ __all__ = [
     "Well",
     "WellFields",
     "build_well_fields",
+    "empty_well_fields",
     "peaceman_well_index",
     "per_well_masks",
+    "well_rates",
 ]

@@ -3,8 +3,9 @@
 
 The coefficients are the reference package's placeholders, copied exactly:
 parity is with that package.  The same correlations are inlined in the
-residual kernel (``csrc/residual.cu``), which receives these fields through
-:func:`thermalporous_torch.kernels.residual.twophase_params`.
+residual and JVP kernels (``csrc/residual.cu``), which receive these fields
+through :func:`thermalporous_torch.kernels.residual.twophase_params` and
+``singlephase_params``.
 
 Units: SI throughout (Pa, K, kg, m, s, W).
 """
@@ -76,6 +77,10 @@ class PhysicalParams:
     def rho_c_rock(self) -> float:
         """Volumetric rock heat capacity ρ_r·c_r [J/m³/K]."""
         return self.rho_r * self.c_r
+
+    def energy_density_sp(self, p, T, phi):
+        """Single-phase volumetric internal energy (1−φ)ρ_r c_r T + φ ρ c_v T."""
+        return (1.0 - phi) * self.rho_c_rock * T + phi * self.rho_w(p, T) * self.cp_w * T
 
     def energy_density_tp(self, p, T, S, phi):
         """Two-phase volumetric internal energy, water saturation S."""

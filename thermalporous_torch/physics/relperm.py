@@ -21,8 +21,13 @@ class CoreyRelPerm:
     k_ro_end: float = 1.0
 
     def effective_saturation(self, s):
+        """Se in [0, 1].  Written as maximum-then-minimum (the reference's
+        ``jnp.clip``) rather than ``torch.clamp``: the values are the same,
+        but at exactly Se = 0 or 1 the tie rule of ``maximum``/``minimum``
+        passes half the tangent, as JAX's does, where ``clamp`` passes all
+        of it — the two would give different Jacobians there."""
         se = (s - self.s_wr) / (1.0 - self.s_wr - self.s_or)
-        return torch.clamp(se, 0.0, 1.0)
+        return torch.minimum(torch.maximum(se, se.new_zeros(())), se.new_ones(()))
 
     def krw(self, s):
         return self.k_rw_end * self.effective_saturation(s) ** self.n_w

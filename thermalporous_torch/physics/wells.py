@@ -135,6 +135,31 @@ def per_well_masks(grid: Grid, wells: Sequence[Well] = (),
     return masks
 
 
+def well_rates(model, u: torch.Tensor, data, masks: dict[str, np.ndarray]) -> dict[str, dict]:
+    """Per-well report: mass [kg/s] and energy [W] rates at state ``u``,
+    positive into the reservoir (injectors +, producers −), summed over each
+    well's cells from the model's source fields."""
+    q = model.well_sources(u, data.wells).detach().cpu().numpy()
+    out: dict[str, dict] = {}
+    for name, mask in masks.items():
+        if model.nc == 2:
+            rec = {"mass_kg_s": float(q[0][mask].sum()),
+                   "energy_W": float(q[1][mask].sum())}
+        else:
+            rec = {"water_kg_s": float(q[0][mask].sum()),
+                   "oil_kg_s": float(q[2][mask].sum()),
+                   "energy_W": float(q[1][mask].sum())}
+        out[name] = rec
+    return out
+
+
+def empty_well_fields(grid: Grid, *, dtype: torch.dtype,
+                      device: torch.device | str) -> WellFields:
+    """Six zero source fields: a problem with no wells or heaters."""
+    z = torch.zeros(grid.shape, dtype=dtype, device=device)
+    return WellFields(wi=z, pbh=z, tinj=z, has_tinj=z, qrate=z, qheat=z)
+
+
 def build_well_fields(
     grid: Grid,
     wells: Sequence[Well] = (),

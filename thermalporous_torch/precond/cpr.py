@@ -136,7 +136,9 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
     """Apply M⁻¹ to a state-shaped residual r (nc, *grid)."""
     w = apply_blocks(state.w, r)                    # decoupled residual W·r
     e_pt = _stage1_pt(state, w[0:2], cfg)           # x₁ = [e_p, e_T, 0]
-    if cfg.stage2_cols:
+    if cfg.stage2_cols and 2 < state.stencil.nc:
+        # only x₁'s block columns; with two unknowns x₁ has full support
+        # and the full matvec runs, as in the reference
         r2 = r - state.stencil.matvec_cols(e_pt, 2)
     else:
         x1 = torch.zeros_like(r)

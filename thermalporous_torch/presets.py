@@ -2,10 +2,11 @@
 
 Each preset returns a :class:`Case`: the model, its problem data on
 ``device`` in ``dtype``, and the solver and controller configurations the
-reference's preset of the same name sets.  Ported: the two-phase presets
-``tp_thermal_2d``, ``tp_spe10_3d``, the flagship ``tp_spe10_full`` and
-``tp_spe10_padded``.  The single-phase presets wait for the single-phase
-model, ``tp_spe10_inner`` for CPTR inner iterations.
+reference's preset of the same name sets.  Ported: the single-phase
+presets ``sp_hot_injection_2d``, ``sp_spe10_layer_2d`` and
+``sp_geothermal_3d``, the two-phase presets ``tp_thermal_2d``,
+``tp_spe10_3d``, the flagship ``tp_spe10_full`` and ``tp_spe10_padded``.
+``tp_spe10_inner`` waits for CPTR inner iterations.
 
 Every preset builds on the card unless the caller passes ``device="cpu"``.
 """
@@ -21,9 +22,10 @@ from thermalporous_torch._device import require_cuda
 from thermalporous_torch.core.grid import Grid
 from thermalporous_torch.data.spe10 import SPE10_SHAPE, SPE10_SPACING_M, synthetic_spe10
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase, make_problem_data
+from thermalporous_torch.models.singlephase import SinglePhaseModel
 from thermalporous_torch.models.twophase import TwoPhaseModel
 from thermalporous_torch.physics.props import PhysicalParams
-from thermalporous_torch.physics.wells import Well, per_well_masks
+from thermalporous_torch.physics.wells import Heater, Well, per_well_masks
 from thermalporous_torch.precond.cpr import CPRConfig
 from thermalporous_torch.precond.gmg import GMGConfig
 from thermalporous_torch.solve.newton import NewtonConfig
@@ -51,6 +53,98 @@ class Case:
                   time_cfg=self.time_cfg, device=self.data.fields.device)
         kw.update(overrides)
         return Simulator(self.model, self.data, **kw)
+
+
+def sp_hot_injection_2d(n: int = 40, *, device: torch.device | str = "cuda",
+                        dtype: torch.dtype = torch.float32) -> Case:
+    """2D homogeneous single-phase hot-water injection (40×40): a hot BHP
+    injector and a BHP producer at opposite corners of a 400 m square."""
+    device = require_cuda(device)
+    pp = PhysicalParams()
+    g = Grid(shape=(n, n), spacing=(400.0 / n, 400.0 / n), thickness=10.0)
+    wells = [
+        Well(cells=((0, 0),), control="bhp", p_bh=3.0e7, T_inj=420.0, name="INJ"),
+        Well(cells=((n - 1, n - 1),), control="bhp", p_bh=1.0e7, name="PROD"),
+    ]
+    return Case(
+        name="sp_hot_injection_2d",
+        description="2D homogeneous single-phase hot-water injection (40x40)",
+        model=SinglePhaseModel(g, pp),
+        data=make_problem_data(g, pp, kx=1e-13, phi=0.2, wells=wells, dtype=dtype,
+                               device=device),
+        time_cfg=TimeConfig(dt_init=3600.0, dt_max=30 * 86400.0),
+        newton_cfg=NewtonConfig(ksp_ew=True),
+        pc_cfg=CPRConfig(gmg_t=GMGConfig(cycle_type="v")),
+        t_end=180 * 86400.0,
+        well_masks=per_well_masks(g, wells),
+    )
+
+
+def sp_spe10_layer_2d(layer: int = 0, seed: int = 2020, *,
+                      device: torch.device | str = "cuda",
+                      dtype: torch.dtype = torch.float32) -> Case:
+    """2D single-phase on one layer of the synthetic SPE10 permeability
+    (60×220), a hot BHP injector at the centre and a BHP producer near a
+    corner."""
+    device = require_cuda(device)
+    pp = PhysicalParams()
+    fields = synthetic_spe10(seed=seed).layer(layer)
+    nx, ny = fields.kx.shape
+    dx, dy, dz = SPE10_SPACING_M
+    g = Grid(shape=(nx, ny), spacing=(dx, dy), thickness=dz)
+    wells = [
+        Well(cells=((nx // 2, ny // 2),), control="bhp", p_bh=3.5e7, T_inj=420.0,
+             name="INJ"),
+        Well(cells=((2, 2),), control="bhp", p_bh=1.0e7, name="PROD"),
+    ]
+    return Case(
+        name="sp_spe10_layer_2d",
+        description="2D single-phase, SPE10-style heterogeneous layer (60x220)",
+        model=SinglePhaseModel(g, pp),
+        data=make_problem_data(g, pp, kx=fields.kx, ky=fields.ky, phi=fields.phi,
+                               wells=wells, dtype=dtype, device=device),
+        time_cfg=TimeConfig(dt_init=600.0, dt_max=10 * 86400.0),
+        newton_cfg=NewtonConfig(ksp_maxiter=32, ksp_ew=True),
+        t_end=60 * 86400.0,
+        well_masks=per_well_masks(g, wells),
+    )
+
+
+def sp_geothermal_3d(nx: int = 64, ny: int = 64, nz: int = 32, *,
+                     device: torch.device | str = "cuda",
+                     dtype: torch.dtype = torch.float32) -> Case:
+    """3D single-phase geothermal box (64×64×32, 640×640×160 m) with
+    gravity, lognormal permeability (seed 7, kz = 0.3·k), a 5-cell heater,
+    and a hot injector (lower half) and a producer (upper half), both BHP."""
+    device = require_cuda(device)
+    pp = dataclasses.replace(PhysicalParams(), T_init=350.0, p_init=3.0e7)
+    g = Grid(shape=(nx, ny, nz), spacing=(640.0 / nx, 640.0 / ny, 160.0 / nz),
+             gravity=9.81, depth_top=1500.0)
+    rng = np.random.default_rng(7)
+    k = 5e-14 * np.exp(0.7 * rng.standard_normal(g.shape))
+    heaters = [
+        Heater(cells=tuple((nx // 2 + i, ny // 2, nz - 2) for i in range(-2, 3)),
+               power=5.0e5, name="HEAT"),
+    ]
+    wells = [
+        Well(cells=tuple((nx // 4, ny // 4, iz) for iz in range(nz // 2, nz)),
+             control="bhp", p_bh=4.0e7, T_inj=430.0, name="INJ"),
+        Well(cells=tuple((3 * nx // 4, 3 * ny // 4, iz) for iz in range(0, nz // 2)),
+             control="bhp", p_bh=2.0e7, name="PROD"),
+    ]
+    return Case(
+        name="sp_geothermal_3d",
+        description="3D single-phase geothermal box (64x64x32), gravity + heaters",
+        model=SinglePhaseModel(g, pp),
+        data=make_problem_data(g, pp, kx=k, kz=0.3 * k, phi=0.15, wells=wells,
+                               heaters=heaters, dtype=dtype, device=device),
+        time_cfg=TimeConfig(dt_init=3600.0, dt_max=30 * 86400.0),
+        newton_cfg=NewtonConfig(ksp_maxiter=32, ksp_ew=True),
+        pc_cfg=CPRConfig(gmg=GMGConfig(kcycle_min_cells=4096),
+                         gmg_t=GMGConfig(cycle_type="v")),
+        t_end=365 * 86400.0,
+        well_masks=per_well_masks(g, wells, heaters),
+    )
 
 
 def tp_thermal_2d(n: int = 60, *, device: torch.device | str = "cuda",
@@ -213,10 +307,25 @@ def tp_spe10_padded(nz_pad: int = 128, seed: int = 2020, *,
 
 
 PRESETS = {
+    "sp_hot_injection_2d": sp_hot_injection_2d,
+    "sp_spe10_layer_2d": sp_spe10_layer_2d,
+    "sp_geothermal_3d": sp_geothermal_3d,
     "tp_thermal_2d": tp_thermal_2d,
     "tp_spe10_3d": tp_spe10_3d,
     "tp_spe10_full": tp_spe10_full,
     "tp_spe10_padded": tp_spe10_padded,
+}
+
+# static descriptions (listing cases must not construct their fields)
+CASE_DESCRIPTIONS = {
+    "sp_hot_injection_2d": "2D homogeneous single-phase hot-water injection (40x40)",
+    "sp_spe10_layer_2d": "2D single-phase, SPE10-style heterogeneous layer (60x220)",
+    "sp_geothermal_3d": "3D single-phase geothermal box (64x64x32), gravity + heaters",
+    "tp_thermal_2d": "2D two-phase dead-oil thermal displacement (60x60)",
+    "tp_spe10_3d": "3D two-phase SPE10-subset thermal flood (60x110x16)",
+    "tp_spe10_full": "FULL SPE10-size two-phase thermal (60x220x85, 3.37M dof)",
+    "tp_spe10_padded": "flagship z-padded with inert layers (diagnostic; "
+                       "qualify_shape probe)",
 }
 
 

@@ -2,20 +2,23 @@
 ``thermalporous_tpu/solve/newton.py``).
 
 Each iteration assembles the block stencil (the exact Jacobian), builds the
-preconditioner, solves J·dx = −F with FGMRES using the stencil as the
-Krylov operator, optionally limits dx (the ``chop`` hook: the Appleyard
-saturation chop), and backtracks α ∈ {1, ½, ¼, …} until the (optionally
-material-balance-scaled) residual norm is acceptable.  The loop runs on
-the host; each residual norm is fetched once to decide, and the
-Eisenstat–Walker forcing term is computed on the host from those norms, in
-the compute dtype, as the reference computes it on the device.
+preconditioner from it, solves J·dx = −F with FGMRES using as the Krylov
+operator either the stencil (``krylov_op="stencil"``) or the matrix-free
+product ``jvp_at(u)`` (``krylov_op="jvp"``), optionally limits dx (the
+``chop`` hook: the Appleyard saturation chop), and backtracks
+α ∈ {1, ½, ¼, …} until the (optionally material-balance-scaled) residual
+norm is acceptable.  The loop runs on the host; each residual norm is
+fetched once to decide, and the Eisenstat–Walker forcing term is computed
+on the host from those norms, in the compute dtype, as the reference
+computes it on the device.
 
 Ported: the Armijo and nonmonotone line searches (``ls_growth``,
 ``ls_div_ratio``), Eisenstat–Walker forcing (with the left-scaling of the
 linear system by the material-balance scales), scaled norms with the
 dtype-aware floor, ``norm_from``, the ``chop`` hook, ``pc_lag="every"`` and
-``krylov_op="stencil"``.  The frozen preconditioner (``pc_lag="step"``),
-restarts, recycling and the JVP Krylov operator raise
+every ``krylov_op``: ``"stencil_pallas"`` is ``"stencil"`` here, whose
+matvec already is the hand-written block-matvec kernel.  The frozen
+preconditioner (``pc_lag="step"``), restarts and recycling raise
 ``NotImplementedError``.
 """
 
@@ -59,7 +62,7 @@ class NewtonConfig:
     ls_div_ratio: float = 4.0
     ds_max: float | None = None
     pc_lag: str = "every"         # ported: "every"
-    krylov_op: str = "stencil"    # ported: "stencil"
+    krylov_op: str = "stencil"    # "stencil" | "jvp" | "stencil_pallas"
 
     def __post_init__(self):
         _check = {
@@ -78,8 +81,6 @@ class NewtonConfig:
 def _check_ported(cfg: NewtonConfig) -> None:
     if cfg.ksp_orth not in ("cgs2", "cgs2g"):
         raise NotImplementedError(f"ksp_orth {cfg.ksp_orth!r} is not ported")
-    if cfg.krylov_op != "stencil":
-        raise NotImplementedError(f"krylov_op {cfg.krylov_op!r} is not ported")
     if cfg.ksp_restart is not None and cfg.ksp_restart < cfg.ksp_maxiter:
         raise NotImplementedError("FGMRES restarts are not ported")
     if cfg.ksp_recycle:
@@ -108,16 +109,20 @@ def newton_solve(
     scale: torch.Tensor | None = None,
     norm_from: torch.Tensor | None = None,
     chop: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+    jvp_at: Callable[[torch.Tensor], Callable[[torch.Tensor], torch.Tensor]] | None = None,
 ) -> tuple[torch.Tensor, NewtonStats]:
     """Solve residual(u) = 0 from ``u0``.
 
-    ``assemble`` gives the Jacobian's BlockStencil (the Krylov operator and
-    the preconditioner's input), ``scale`` the per-cell material-balance
+    ``assemble`` gives the Jacobian's BlockStencil (the preconditioner's
+    input, and the Krylov operator unless ``cfg.krylov_op == "jvp"``, where
+    it is ``jvp_at(u)``: v ↦ J(u)·v), ``scale`` the per-cell material-balance
     scales of the convergence norm, ``norm_from`` the physical step start
     when ``u0`` is a predicted guess (the tolerance anchors there, and a
     guess worse than it is discarded), ``chop(u, dx) -> dx`` a limiter of
     the Newton direction applied before the line search."""
     _check_ported(cfg)
+    if cfg.krylov_op == "jvp" and jvp_at is None:
+        raise ValueError('krylov_op="jvp" needs jvp_at')
     dtype = u0.dtype
     npt = _NP[dtype]
     rd = reduce_dtype(dtype)
@@ -152,16 +157,17 @@ def newton_solve(
 
     u, f, nrm, k, ksp, failed = u0, f0, nrm_start, 0, 0, False
     while nrm > tol and k < cfg.max_iters and not failed:
-        st = assemble(u)                 # exact J; one assembly serves both
+        st = assemble(u)                 # exact J: the preconditioner's input
         pcs = pc_setup(st)
+        op = jvp_at(u) if cfg.krylov_op == "jvp" else st.matvec
         if cfg.ksp_ew and scale is not None:
             # left-scale the system by the material-balance scales, so that
             # FGMRES enforces η in the norm Newton gates on
-            matvec = lambda v: st.matvec(v) / scale
+            matvec = lambda v: op(v) / scale
             rhs = -(f / scale)
             krylov_pc = lambda r: pc_apply(pcs, r * scale)
         else:
-            matvec, rhs = st.matvec, -f
+            matvec, rhs = op, -f
             krylov_pc = lambda r: pc_apply(pcs, r)
         result = fgmres(
             matvec, rhs, precond=krylov_pc,

@@ -3,18 +3,19 @@
 
 ``make_step_fn`` builds ``advance(u_old, dt, data, u_guess=None)``: one
 backward-Euler step as a Newton solve — stencil assembly, CPTR setup,
-FGMRES with the stencil as the Krylov operator, the Appleyard saturation
-chop when ``NewtonConfig.ds_max`` is set, line search — with
+FGMRES with the stencil or (``NewtonConfig.krylov_op="jvp"``) the
+matrix-free J·v as the Krylov operator, the Appleyard saturation chop when
+``NewtonConfig.ds_max`` is set (models with a saturation), line search — with
 material-balance-scaled convergence norms.  :class:`Simulator` drives it
 with the adaptive Δt controller: grow after an easy step, shrink after a
 hard one, cut back and retry on failure, and (``TimeConfig.fail_frac``)
 remember failed Δt as a regrowth cap.
 
 The residual goes through the ``fused_residual`` kernel wrapper, the Krylov
-operator through ``block_matvec``, the preconditioner through the scalar
-matvec, Chebyshev, red-black Gauss–Seidel and coarse-subtree wrappers: on a
-CUDA device they launch the hand-written kernels, on the CPU they run their
-plain PyTorch versions.  Every entry point runs on the card unless the
+operator through ``block_matvec`` or ``fused_jvp``, the preconditioner
+through the scalar matvec, Chebyshev, red-black Gauss–Seidel and
+coarse-subtree wrappers: on a CUDA device they launch the hand-written
+kernels, on the CPU they run their plain PyTorch versions.  Every entry point runs on the card unless the
 caller passes ``device="cpu"``.
 
 Not ported: blocked stepping (``TimeConfig.block_steps > 1``,
@@ -30,7 +31,7 @@ from typing import Callable
 import torch
 
 from thermalporous_torch._device import require_cuda
-from thermalporous_torch.kernels.residual import fused_residual
+from thermalporous_torch.kernels.residual import fused_jvp, fused_residual
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.precond.cpr import (
     CPRConfig,
@@ -71,6 +72,7 @@ def make_step_fn(
         dt = float(dt)
         return newton_solve(
             residual=lambda u: fused_residual(model, u, u_old, dt, data),
+            jvp_at=lambda u: (lambda v: fused_jvp(model, u, v, u_old, dt, data)),
             assemble=lambda u: model.assemble_stencil(u, u_old, dt, data),
             pc_setup=pc_setup,
             pc_apply=pc_apply,
