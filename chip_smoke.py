@@ -13,7 +13,9 @@ Phases (each prints one line with its wall time):
      also the red-black Gauss-Seidel stage 2 on the flagship Jacobian, the
      fused coarse subtree at the entry levels of the pressure and
      temperature hierarchies, each kernel's bound, a torch.sparse.mm
-     yardstick for the two matvecs and for J(u)v, and the CPTR apply with
+     yardstick for the two matvecs and for J(u)v, J(u)v also at a state
+     with saturations exactly 0 and 1 (where the clip of Se passes half
+     the tangent; on the 1024x1024 case too), and the CPTR apply with
      the subtree fused from the ~36k-cell level, from the ~5k-cell level
      and unfused; then the single-phase residual and J(u)v on the
      benchmark's 1024x1024 grid with the single-phase model and on
@@ -220,27 +222,62 @@ def cost_chebyshev(n, dim, degree, from_x0, item):
     return (2 * dim + 3 + int(from_x0)) * n * item, ops
 
 
-def model_ops(nc, dim):
-    """(arithmetic, transcendental) operations per cell of the residual,
-    counted from the plain versions: two-phase ~200 cell-term and ~100
-    per-axis arithmetic operations with 5 + 8·dim pow/exp; single-phase ~60
-    and ~60 with 1 + 2·dim."""
-    return (200 + 100 * dim, 5 + 8 * dim) if nc == 3 else (60 + 60 * dim, 1 + 2 * dim)
+# Operations of one residual evaluation, counted from csrc/residual.cu's
+# device physics as the function needs them: each interior face once, each
+# upwinded mobility on its upwind side only, the well terms only in cells
+# with a well.  Two-phase, per cell: 43 for the densities, the accumulation
+# and R = acc - q, 29 for the old accumulation; per well cell 46 more for
+# the Peaceman and rate terms; per face 81 (4 densities 28, 2 potentials
+# 11, 2 upwind mobilities 24, fluxes 12, added to both cells 6).
+# Single-phase: 23, 14 old, 21 per well cell, 35 per face.
+OPS_TP = dict(cell=43, old=29, well=46, face=81)
+OPS_SP = dict(cell=23, old=14, well=21, face=35)
 
 
-def cost_residual(n, dim, nc, item):
-    # u, u_old and the fields in, R out; each transcendental counted as 16
-    # operations (the SM's FP32 : special-function rate)
-    arith, trans = model_ops(nc, dim)
-    return (3 * nc + 2 * dim + 7) * n * item, (arith + 16 * trans) * n
+def model_ops(model, u, data):
+    """(arithmetic operations without the old accumulation, those of the
+    old accumulation, transcendentals) of one residual evaluation of
+    ``model`` at state ``u``.  Transcendentals: two-phase mu_w and mu_o per
+    well cell and per face, mu_w(T_inj) more at an injecting BHP well's
+    cell, and a pow for k_rw (k_ro) per well cell and per face only where
+    its exponent is not 2 (the kernel squares x*x otherwise); single-phase
+    mu_w per well cell and per face."""
+    grid = model.grid.shape
+    dim, n = len(grid), math.prod(grid)
+    faces = sum(n - n // e for e in grid)
+    wi, pbh, _, has_tinj, qrate = data.fields[2 * dim + 1:2 * dim + 6]
+    n_well = int(((wi != 0) | (qrate != 0)).sum())
+    if model.nc == 2:
+        ops, mus, extra = OPS_SP, 1, 0
+    else:
+        ops, mus = OPS_TP, 2
+        rp = model.relperm
+        pows = int(rp.n_w != 2) + int(rp.n_o != 2)
+        inflow = int(((wi != 0) & (pbh - u[0] >= 0) & (has_tinj > 0.5)).sum())
+        extra = inflow + pows * (n_well + faces)
+    arith = ops["cell"] * n + ops["well"] * n_well + ops["face"] * faces
+    return arith, ops["old"] * n, mus * (n_well + faces) + extra
 
 
-def cost_jvp(n, dim, nc, item):
-    # u, v and the fields in, J(u)v out (no u_old); a dual-number operation
-    # is about three of its primal's, a transcendental one evaluation and
-    # two products
-    arith, trans = model_ops(nc, dim)
-    return (3 * nc + 2 * dim + 7) * n * item, (3 * arith + 18 * trans) * n
+def model_bytes(model, item):
+    # the state (u and u_old, or u and v) and the fields in, the result out
+    dim = len(model.grid.shape)
+    return (3 * model.nc + 2 * dim + 7) * math.prod(model.grid.shape) * item
+
+
+def cost_residual(model, u, data):
+    # each transcendental counted as 16 operations (the SM's FP32 :
+    # special-function rate)
+    arith, old, trans = model_ops(model, u, data)
+    return model_bytes(model, u.element_size()), arith + old + 16 * trans
+
+
+def cost_jvp(model, u, data):
+    # u, v and the fields in, J(u)v out: no u_old and none of its
+    # operations; a dual-number operation is about three of its primal's, a
+    # transcendental one evaluation and two products
+    arith, _, trans = model_ops(model, u, data)
+    return model_bytes(model, u.element_size()), 3 * arith + 18 * trans
 
 
 def cost_rbgs(n, dim, nc, item):
@@ -378,20 +415,40 @@ def perturbed_state(model, data, seed: int = 5):
     return u0, (u0 + du).contiguous()
 
 
-def jvp_case(model, data, st, u0, u, tol, g):
+def tie_state(u, data):
+    """``u`` with the saturation exactly 0 in every 7th cell, exactly 1 in
+    every 11th, and 0 and 1 in turn in the wells' cells: with the models'
+    s_wr = s_or = 0 there Se lies on a bound of its clip, where the tangent
+    is half."""
+    dim = u.dim() - 1
+    s = u[2].flatten().clone()
+    idx = torch.arange(s.numel(), device=u.device)
+    well = data.fields[2 * dim + 1].flatten() != 0
+    s[idx % 7 == 0] = 0.0
+    s[idx % 11 == 0] = 1.0
+    s[well] = (idx[well] % 2).to(s.dtype)
+    ut = u.clone()
+    ut[2] = s.reshape(u.shape[1:])
+    return ut
+
+
+def jvp_case(model, data, st, u0, u, tol, g, tie: bool = False):
     """J(u)v of ``model`` against its plain version on a direction with the
     state's scales, with torch.sparse.mm on the CSR of the Jacobian ``st``
-    at the same state as its library yardstick."""
+    at the same state as its library yardstick (with ``tie``, at
+    :func:`tie_state` of ``u`` and with no yardstick)."""
     from thermalporous_torch.kernels import residual as kres
 
-    grid, dim = st.grid_shape, st.dim
+    if tie:
+        u = tie_state(u, data)
     vj = (state_amp(u) * torch.randn(tuple(u.shape), generator=g, dtype=u.dtype,
                                      device=u.device)).contiguous()
     kname = "fused_jvp" if model.nc == 3 else "fused_jvp_sp"
-    return (f"{kname} {'x'.join(map(str, grid))}", kname,
+    label = f"{kname} {'x'.join(map(str, st.grid_shape))}" + (" S at 0 and 1" if tie else "")
+    return (label, kname,
             lambda: kres.fused_jvp(model, u, vj, u0, 600.0, data),
             lambda: model.jvp(u, u0, 600.0, data)(vj), tol,
-            cost_jvp(math.prod(grid), dim, model.nc, st.coef.element_size()), ("block", vj))
+            cost_jvp(model, u, data), None if tie else ("block", vj))
 
 
 def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev):
@@ -434,8 +491,9 @@ def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev):
     cases.append((f"fused_residual {gs}", "fused_residual",
                   lambda: kres.fused_residual(model, u, u0, 600.0, data),
                   lambda: model.residual(u, u0, 600.0, data), tol_res,
-                  cost_residual(n, dim, model.nc, item), None))
+                  cost_residual(model, u, data), None))
     cases.append(jvp_case(model, data, st, u0, u, tol_jvp, g))
+    cases.append(jvp_case(model, data, st, u0, u, tol_jvp, g, tie=True))
     return cases
 
 
@@ -451,7 +509,7 @@ def sp_cases(model, data, st, u0, u, tol_st, tol_res, tol_jvp, dev, with_b1: boo
     cases = [(f"fused_residual_sp {gs}", "fused_residual_sp",
               lambda: kres.fused_residual(model, u, u0, 600.0, data),
               lambda: model.residual(u, u0, 600.0, data), tol_res,
-              cost_residual(n, dim, 2, item), None),
+              cost_residual(model, u, data), None),
              jvp_case(model, data, st, u0, u, tol_jvp, g)]
     if with_b1:
         v2 = torch.randn((2,) + grid, generator=g, dtype=u.dtype, device=dev)
@@ -551,7 +609,7 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
         lib_fn = library_call(lib, st, csr) if dtype == torch.float32 else None
         lib_ms = time_ms(lib_fn) if lib_fn is not None else None
         b1_ms = None
-        if kname.startswith("fused_jvp"):
+        if kname.startswith("fused_jvp") and lib is not None:
             vj = lib[1]
             b1_ms = time_ms(lambda: kst.block_matvec(st.coef, vj, st.nc))
         print(f"  {tname} {label}: max_rel_err {rel:.3e} (tol {tol:.0e}) "

@@ -32,7 +32,7 @@ from tests._torch_parity import (
     torch_block,
 )
 from thermalporous_torch.kernels import launch_counts
-from thermalporous_torch.kernels.residual import fused_jvp, fused_jvp_sp
+from thermalporous_torch.kernels.residual import fused_jvp
 from thermalporous_torch.models import ProblemData
 from thermalporous_torch.physics import CoreyRelPerm
 from thermalporous_torch.solve import NewtonConfig, make_step_fn, newton_solve
@@ -75,8 +75,7 @@ def test_jvp_matches_the_reference(case):
     tv = t(v)
     got = c["tm"].jvp(c["tu"], c["tu0"], dt, c["td"])(tv)
     assert_close(got, ref, RTOL, 1e-12)
-    for fn in (fused_jvp, fused_jvp_sp) if c["tm"].nc == 2 else (fused_jvp,):
-        assert_close(fn(c["tm"], c["tu"], tv, c["tu0"], dt, c["td"]), pallas, RTOL, 1e-12)
+    assert_close(fused_jvp(c["tm"], c["tu"], tv, c["tu0"], dt, c["td"]), pallas, RTOL, 1e-12)
     # J·v is the stencil's product: one Jacobian, two operators
     st = c["tm"].assemble_stencil(c["tu"], c["tu0"], dt, c["td"])
     assert_close(st.matvec(tv), got, 1e-10, 1e-12)
@@ -237,10 +236,9 @@ def test_fused_jvp_off_the_cpu():
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         make_step_fn(c["tm"], newton_cfg=NewtonConfig(krylov_op="jvp"))
     meta = lambda x: torch.empty_like(x, device="meta")
-    for fn in (fused_jvp, fused_jvp_sp):
-        with pytest.raises(ValueError):
-            fn(c["tm"], meta(c["tu"]), meta(c["tu"]), meta(c["tu0"]), 1.0,
-               ProblemData(meta(c["td"].fields)))
+    with pytest.raises(ValueError):
+        fused_jvp(c["tm"], meta(c["tu"]), meta(c["tu"]), meta(c["tu0"]), 1.0,
+                  ProblemData(meta(c["td"].fields)))
     with pytest.raises(ValueError):       # a direction of the wrong shape
         fused_jvp(c["tm"], c["tu"], c["tu"][:1].contiguous(), c["tu0"], 1.0, c["td"])
     assert launch_counts()["fused_jvp"] == launch_counts()["fused_jvp_sp"] == 0

@@ -22,7 +22,8 @@ from tests._torch_parity import F64, assert_close, block_pair, model_case, n, t,
 from tests.test_kernels import _fused_case
 from thermalporous_torch.core import Grid
 from thermalporous_torch.interop import case_from_numpy, problem_data_from_numpy
-from thermalporous_torch.kernels.residual import fused_residual, fused_residual_sp
+from thermalporous_torch.kernels import launch_counts
+from thermalporous_torch.kernels.residual import fused_residual
 from thermalporous_torch.models import SinglePhaseModel
 from thermalporous_torch.physics import PhysicalParams, empty_well_fields, well_rates
 from thermalporous_torch.precond import CPRConfig, GMGConfig, cpr_apply, cpr_setup
@@ -100,10 +101,9 @@ def test_fused_residual_plain_path(shape):
                               ("wi", "pbh", "tinj", "has_tinj", "qrate", "qheat")),
         dtype=F64, device="cpu")
     tm = SinglePhaseModel(Grid(**dataclasses.asdict(jm.grid)), PhysicalParams())
-    for fn in (fused_residual, fused_residual_sp):
-        got = fn(tm, t(ju), t(ju0), 1200.0, td)
-        assert_close(got, ref, RTOL, 1e-12)
-    assert fused_residual_sp.launches == 0
+    got = fused_residual(tm, t(ju), t(ju0), 1200.0, td)
+    assert_close(got, ref, RTOL, 1e-12)
+    assert launch_counts()["fused_residual_sp"] == 0
 
 
 # ------------------------------------------------------------ CPTR at nc = 2

@@ -12,14 +12,11 @@ imports ``kernels/stencil.py`` while the models import ``core``.
 
 
 def wrappers() -> dict:
-    """Every kernel wrapper of the port, by name."""
+    """Every kernel wrapper of the port, by the name of its launch counter
+    (the residual and J·v wrappers keep one counter per model form, in
+    ``kernels/residual.py``'s ``launches``)."""
     from thermalporous_torch.kernels.deep_cycle import deep_correction
-    from thermalporous_torch.kernels.residual import (
-        fused_jvp,
-        fused_jvp_sp,
-        fused_residual,
-        fused_residual_sp,
-    )
+    from thermalporous_torch.kernels.residual import fused_jvp, fused_residual
     from thermalporous_torch.kernels.stencil import (
         block_matvec,
         chebyshev_smooth,
@@ -32,18 +29,26 @@ def wrappers() -> dict:
         "matvec": matvec,
         "chebyshev_smooth": chebyshev_smooth,
         "fused_residual": fused_residual,
-        "fused_residual_sp": fused_residual_sp,
+        "fused_residual_sp": fused_residual,
         "fused_block_rbgs": fused_block_rbgs,
         "deep_correction": deep_correction,
         "fused_jvp": fused_jvp,
-        "fused_jvp_sp": fused_jvp_sp,
+        "fused_jvp_sp": fused_jvp,
     }
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    from thermalporous_torch.kernels.residual import launches
+
+    return {name: launches[name] if name in launches else fn.launches
+            for name, fn in wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
+    from thermalporous_torch.kernels.residual import launches
+
+    for name, fn in wrappers().items():
+        if name in launches:
+            launches[name] = 0
+        else:
+            fn.launches = 0

@@ -4,18 +4,13 @@ Each wrapper's plain version is the model's own method —
 :meth:`~thermalporous_torch.models.base.ThermalModelBase.residual` for the
 residual, :meth:`~thermalporous_torch.models.base.ThermalModelBase.jvp` for
 J(u)·v: for tensors on the CPU a wrapper returns that; for CUDA tensors it
-launches its kernel (or raises) and adds one to its ``launches``.
+launches its model form's kernel (or raises) and adds one to that entry
+point's counter in ``launches``.
 
-One wrapper, and one counter, per C entry point:
-
-- ``fused_residual``: two-phase residual (``tp_twophase_residual``);
-- ``fused_residual_sp``: single-phase residual (``tp_singlephase_residual``);
-- ``fused_jvp``: two-phase J(u)·v (``tp_twophase_jvp``);
-- ``fused_jvp_sp``: single-phase J(u)·v (``tp_singlephase_jvp``).
-
-``fused_residual`` and ``fused_jvp`` accept either model and hand a
-:class:`SinglePhaseModel` to their ``_sp`` counterparts, so the step calls
-one name for both.
+Both wrappers take either model; ``_FORMS`` maps each model type to its C
+entry points (``tp_twophase_*``, ``tp_singlephase_*``), its constants and
+its counters (``fused_residual``/``fused_jvp`` for the two-phase kernels,
+``fused_residual_sp``/``fused_jvp_sp`` for the single-phase ones).
 """
 
 from __future__ import annotations
@@ -62,20 +57,27 @@ def singlephase_params(model: SinglePhaseModel) -> list[float]:
     return _params(model, CoreyRelPerm())
 
 
+#: Each model form with a kernel, by model type: the prefix of its C entry
+#: points (``<prefix>_residual``, ``<prefix>_jvp``), its ``ModelParams``
+#: constants, and the suffix of its launch counters.
 _FORMS = {
-    "tp_twophase_residual": (TwoPhaseModel, twophase_params),
-    "tp_singlephase_residual": (SinglePhaseModel, singlephase_params),
-    "tp_twophase_jvp": (TwoPhaseModel, twophase_params),
-    "tp_singlephase_jvp": (SinglePhaseModel, singlephase_params),
+    TwoPhaseModel: ("tp_twophase", twophase_params, ""),
+    SinglePhaseModel: ("tp_singlephase", singlephase_params, "_sp"),
 }
 
+#: Launches per C entry point: ``fused_residual`` and ``fused_jvp`` count
+#: the two-phase kernels, ``fused_residual_sp`` and ``fused_jvp_sp`` the
+#: single-phase ones.
+launches = dict.fromkeys(
+    ("fused_residual", "fused_residual_sp", "fused_jvp", "fused_jvp_sp"), 0)
 
-def _run(wrapper, entry: str, model, u: torch.Tensor, second: torch.Tensor,
-         u_old: torch.Tensor, dt: float, data: ProblemData, plain) -> torch.Tensor:
-    """Check the arguments, then ``plain()`` on the CPU or C entry ``entry``
-    on (u, second) on the card.  ``second`` is u_old for a residual and v
-    for a JVP."""
-    name = wrapper.__name__
+
+def _run(kind: str, model, u: torch.Tensor, second: torch.Tensor, u_old: torch.Tensor,
+         dt: float, data: ProblemData, plain) -> torch.Tensor:
+    """Check the arguments, then ``plain()`` on the CPU or the ``kind``
+    ("residual" or "jvp") entry of ``model``'s form on (u, second) on the
+    card.  ``second`` is u_old for a residual and v for a JVP."""
+    name = f"fused_{kind}"
     dev = _check(name, u, second, u_old, data.fields)
     grid = model.grid.shape
     dim = len(grid)
@@ -86,33 +88,25 @@ def _run(wrapper, entry: str, model, u: torch.Tensor, second: torch.Tensor,
                          f"{tuple(data.fields.shape)}, grid {grid}")
     if dev.type == "cpu":
         return plain()
-    form, params_of = _FORMS[entry]
-    if type(model) is not form:
+    form = _FORMS.get(type(model))
+    if form is None:
         raise NotImplementedError(f"{name} kernel: {type(model).__name__} has no CUDA kernel")
+    prefix, params_of, suffix = form
     out = torch.empty_like(u)
     params = (ctypes.c_double * _lib.MODEL_NUM_PARAMS)(*params_of(model))
-    _lib.launch(entry, _lib.dtype_code(u), u.data_ptr(), second.data_ptr(),
+    _lib.launch(f"{prefix}_{kind}", _lib.dtype_code(u), u.data_ptr(), second.data_ptr(),
                 data.fields.data_ptr(), out.data_ptr(), float(dt),
                 ctypes.cast(params, ctypes.c_void_p), dim, *_lib.dims3(grid),
                 _lib.stream_of(u))
-    wrapper.launches += 1
+    launches[name + suffix] += 1
     return out
 
 
 def fused_residual(model, u: torch.Tensor, u_old: torch.Tensor, dt: float,
                    data: ProblemData) -> torch.Tensor:
     """The whole backward-Euler residual (nc, *grid) in one pass per cell."""
-    if type(model) is SinglePhaseModel:
-        return fused_residual_sp(model, u, u_old, dt, data)
-    return _run(fused_residual, "tp_twophase_residual", model, u, u_old, u_old, dt, data,
+    return _run("residual", model, u, u_old, u_old, dt, data,
                 lambda: model.residual(u, u_old, dt, data))
-
-
-def fused_residual_sp(model: SinglePhaseModel, u: torch.Tensor, u_old: torch.Tensor,
-                      dt: float, data: ProblemData) -> torch.Tensor:
-    """:func:`fused_residual` of the single-phase model."""
-    return _run(fused_residual_sp, "tp_singlephase_residual", model, u, u_old, u_old,
-                dt, data, lambda: model.residual(u, u_old, dt, data))
 
 
 def fused_jvp(model, u: torch.Tensor, v: torch.Tensor, u_old: torch.Tensor, dt: float,
@@ -120,20 +114,5 @@ def fused_jvp(model, u: torch.Tensor, v: torch.Tensor, u_old: torch.Tensor, dt: 
     """J(u)·v, the exact directional derivative of the residual at ``u``, in
     one pass per cell (the kernel reads u, v and the fields: the old
     accumulation is a constant, whose tangent is zero)."""
-    if type(model) is SinglePhaseModel:
-        return fused_jvp_sp(model, u, v, u_old, dt, data)
-    return _run(fused_jvp, "tp_twophase_jvp", model, u, v, u_old, dt, data,
+    return _run("jvp", model, u, v, u_old, dt, data,
                 lambda: model.jvp(u, u_old, dt, data)(v))
-
-
-def fused_jvp_sp(model: SinglePhaseModel, u: torch.Tensor, v: torch.Tensor,
-                 u_old: torch.Tensor, dt: float, data: ProblemData) -> torch.Tensor:
-    """:func:`fused_jvp` of the single-phase model."""
-    return _run(fused_jvp_sp, "tp_singlephase_jvp", model, u, v, u_old, dt, data,
-                lambda: model.jvp(u, u_old, dt, data)(v))
-
-
-fused_residual.launches = 0
-fused_residual_sp.launches = 0
-fused_jvp.launches = 0
-fused_jvp_sp.launches = 0
