@@ -1,6 +1,6 @@
 """Drive thermalporous_torch on one NVIDIA GPU, phase by phase.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--phases 2,5]
 
 Phases (each prints one line with its wall time):
   0  device: CUDA device name, and name/power limit from nvidia-smi;
@@ -16,8 +16,15 @@ Phases (each prints one line with its wall time):
      yardstick for the two matvecs and for J(u)v, J(u)v also at a state
      with saturations exactly 0 and 1 (where the clip of Se passes half
      the tangent; on the 1024x1024 case too), and the CPTR apply with
-     the subtree fused from the ~36k-cell level, from the ~5k-cell level
-     and unfused; then the single-phase residual and J(u)v on the
+     the subtree fused from the ~145k-cell, the ~36k-cell and the ~5k-cell
+     level and unfused; the latency of the card's grid-wide and cluster
+     barriers; the Chebyshev smooth and the scalar matvec at every level
+     of both flagship hierarchies above the smallest fused entry, and the
+     smooth on two awkward shapes (61x219x83, 1023x1021) at degrees 1, 2
+     and 4, bitwise against its plain version; the fused subtree of the
+     phase-5 hierarchy (smaller than one block); the smooth and the subtree
+     run twice on one input (bitwise equal), and the barriers of one subtree
+     visit, counted by the kernel; then the single-phase residual and J(u)v on the
      benchmark's 1024x1024 grid with the single-phase model and on
      sp_geothermal_3d (64x64x32), and the block matvec with two unknowns
      at 1024x1024;
@@ -54,7 +61,9 @@ kernel (its f32 case on its path's shapes, and its launches in its path's
 run: phase 6 for the flagship's kernels, phase 8 for the single-phase
 residual, phase 9 for the J(u)v kernels), and as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
-the ok line; without CUDA the script exits nonzero at once.
+the ok line; without CUDA the script exits nonzero at once.  With
+--phases only the named phases run (after 0 and 1), and neither the
+kernels' line nor the ok line is printed.
 """
 
 from __future__ import annotations
@@ -102,13 +111,26 @@ FLAGSHIP_SMALL = (12, 22, 9)   # phase-5 grid
 # below 300 cells is fused
 SMALL_GMG = dict(max_coarse_cells=16, kcycle_min_cells=256, fuse_below=300)
 FLAGSHIP_STEPS = 4
-# fuse_below candidates on the flagship hierarchies: the ~36k-cell and the
-# ~5k-cell levels of the adaptive pressure hierarchy are the entries
-FUSE_CANDIDATES = (40_000, 6_000)
-# fuse_below of the phase-6 flagship run, on both hierarchies: the CPTR
-# apply was fastest with the subtree fused from the ~36k-cell level
-# (phase 2's apply times; PERF.md has the numbers)
-FLAGSHIP_FUSE_BELOW = 40_000
+# fuse_below candidates on the flagship hierarchies: the ~145k-cell, the
+# ~36k-cell and the ~5k-cell levels of the adaptive pressure hierarchy are
+# the entries
+FUSE_CANDIDATES = (150_000, 40_000, 6_000)
+# fuse_below of the phase-6 flagship run, on both hierarchies: the value
+# whose CPTR apply was fastest in phase 2's comparison (PERF.md has the
+# numbers)
+FLAGSHIP_FUSE_BELOW = 150_000
+# the one-block subtree kernel this one replaced, on the same card model at
+# the same power limit in an earlier run (ms, f32): printed beside
+DEEP_MS_ONE_BLOCK = {("p", 36_300): 1.4854, ("T", 39_600): 0.5655}
+# awkward shapes for the smooth: odd extents, cell counts that are no
+# multiple of 4, so quads straddle rows and the channels are not 16-byte
+# aligned
+AWKWARD_SHAPES = ((61, 219, 83), (1023, 1021))
+# (kind, blocks, threads) of the barrier probe: grid barriers, then
+# cluster barriers (a cluster of 16 is the non-portable size)
+BARRIER_PROBES = ((0, 8, 256), (0, 36, 1024), (0, 132, 256), (0, 132, 512),
+                  (0, 264, 256), (1, 8, 256), (1, 16, 256), (1, 8, 1024),
+                  (1, 16, 1024))
 SP_GEO_STEPS = 6       # phase-8 controller steps of sp_geothermal_3d
 JVP_STEPS = 2          # phase-9 controller steps of the full-size jvp runs
 
@@ -185,6 +207,25 @@ def time_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def time_device_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds the card spends on ``fn()``: a kernel that only
+    spins keeps the card busy while the host enqueues the events and
+    ``fn``'s launches, so the host's share of the call drops out."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(3_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -550,23 +591,167 @@ def flagship_cases(st, state, pc, dtype, dev):
 
 def deep_case(hname, hier, entry, cfg, item, g):
     """The fused coarse subtree of ``hier`` from level ``entry`` on a random
-    right-hand side, as a case of :func:`run_cases`."""
+    right-hand side, as a case of :func:`run_cases`; its check holds the
+    barriers the kernel counted against ``barrier_count``."""
     from thermalporous_torch.kernels import deep_cycle as kdeep
     from thermalporous_torch.precond.gmg import _fused_correction
 
     shapes = [s.grid_shape for s in hier.stencils[entry:]]
+    sizes = [math.prod(s) for s in shapes]
     packed = [s.packed for s in hier.stencils[entry:]]
     rc = torch.randn(shapes[0], generator=g, dtype=packed[0].dtype, device=packed[0].device)
     kw = dict(degree=cfg.degree, lam_min_frac=cfg.lam_min_frac,
               cycle_type=cfg.cycle_type, kcycle_min_cells=cfg.kcycle_min_cells)
-    cycle = cfg.cycle_type if math.prod(shapes[0]) >= cfg.kcycle_min_cells else "v"
-    label = " -> ".join(str(math.prod(s)) for s in shapes)
+    cycle = cfg.cycle_type if sizes[0] >= cfg.kcycle_min_cells else "v"
+    label = " -> ".join(map(str, sizes))
+
+    def check() -> str:
+        counted = torch.zeros((), dtype=torch.int32, device=rc.device)
+        kdeep.deep_correction(packed, hier.lam_max[entry:], hier.coarse_inv, rc,
+                              barriers=counted, **kw)
+        kflags = kdeep.kcycle_levels(sizes, cfg.cycle_type, cfg.kcycle_min_cells)
+        new, old = (kdeep.barrier_count(kflags, cfg.degree, single_block=sb)
+                    for sb in (False, True))
+        if int(counted) != new:
+            raise SystemExit(f"deep_correction {label}: {int(counted)} barriers, "
+                             f"expected {new}")
+        blocks, threads = kdeep.launch_shape(sizes[0], torch.cuda.get_device_properties(
+            rc.device).multi_processor_count)
+        earlier = DEEP_MS_ONE_BLOCK.get((hname, round(sizes[0], -2)))
+        return (f"  {blocks} blocks x {threads} threads, {new} grid barriers a visit "
+                f"(one-block kernel: {old} block barriers"
+                + (f", {earlier:.4f} ms in an earlier run" if earlier and item == 4 else "")
+                + ")")
+
     return (f"deep_correction {hname} {cycle}-cycle {label} cells", "deep_correction",
             lambda: _fused_correction(hier, entry, rc, cfg),
             lambda: kdeep.deep_correction_plain(packed, hier.lam_max[entry:],
                                                 hier.coarse_inv, rc, **kw),
             TOL_F64_DEEP if item == 8 else TOL_F32_DEEP,
-            cost_deep(shapes, cfg.degree, cfg.cycle_type, cfg.kcycle_min_cells, item), None)
+            cost_deep(shapes, cfg.degree, cfg.cycle_type, cfg.kcycle_min_cells, item), None,
+            check)
+
+
+def spd_stencil(shape, dtype, dev, seed: int) -> torch.Tensor:
+    """A random symmetric positive definite scalar stencil, packed
+    (2*dim+1, *grid): lognormal face couplings, zero beyond the boundary,
+    the diagonal their sum plus 0.3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dim = len(shape)
+    packed = torch.zeros((2 * dim + 1,) + shape, dtype=dtype, device=dev)
+    total = torch.zeros(shape, dtype=dtype, device=dev)
+    for a in range(dim):
+        w = torch.exp(torch.randn(shape, generator=g, dtype=dtype, device=dev))
+        idx = torch.arange(shape[a], device=dev).reshape(
+            [-1 if i == a else 1 for i in range(dim)])
+        packed[1 + 2 * a] = -w * (idx < shape[a] - 1)
+        packed[2 + 2 * a] = -torch.roll(w, 1, a) * (idx > 0)
+        total += packed[1 + 2 * a].abs() + packed[2 + 2 * a].abs()
+    packed[0] = total + 0.3
+    return packed
+
+
+def smooth_case(label, packed, lam, b, x, deg, tol, item):
+    from thermalporous_torch.kernels import stencil as kst
+
+    args = (packed, b, x, lam, deg, 0.3)
+    grid = tuple(b.shape)
+    return (f"chebyshev {label} deg={deg} {'zero' if x is None else 'x0'} "
+            f"{'x'.join(map(str, grid))}", "chebyshev_smooth",
+            lambda: kst.chebyshev_smooth(*args),
+            lambda: kst.chebyshev_smooth_plain(*args), tol,
+            cost_chebyshev(math.prod(grid), len(grid), deg, x is not None, item), None)
+
+
+def level_cases(state, pc, tol, dev):
+    """The smooth (the hierarchy's degree, from x0 and from zero) and the
+    scalar matvec at every level with more cells than the smallest
+    FUSE_CANDIDATES entry: the levels some candidate leaves unfused.  The
+    pressure hierarchy's finest level is among :func:`kernel_cases`."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    cases = []
+    for hname, hier, cfg, first in (("p", state.gmg_p, pc.gmg, 1), ("T", state.gmg_t, pc.gmg_t, 0)):
+        for lev in range(first, len(hier.stencils) - 1):
+            s = hier.stencils[lev]
+            if math.prod(s.grid_shape) <= min(FUSE_CANDIDATES):
+                break
+            item = s.packed.element_size()
+            b, x0 = (torch.randn(s.grid_shape, generator=g, dtype=s.packed.dtype, device=dev)
+                     for _ in range(2))
+            for xx in (x0, None):
+                cases.append(smooth_case(f"{hname} level {lev}", s.packed, hier.lam_max[lev],
+                                         b, xx, cfg.degree, tol, item))
+            cases.append((f"matvec {hname} level {lev} {'x'.join(map(str, s.grid_shape))}",
+                          "matvec", lambda s=s, b=b: kst.matvec(s.packed, b),
+                          lambda s=s, b=b: kst.matvec_plain(s.packed, b), tol,
+                          cost_matvec(math.prod(s.grid_shape), len(s.grid_shape), item), None))
+    return cases
+
+
+def awkward_cases(dtype, tol, dev):
+    """The smooth on AWKWARD_SHAPES with a random SPD stencil, degrees 1, 2
+    and 4, from x0 and from zero."""
+    from thermalporous_torch.core.stencil import ScalarStencil
+    from thermalporous_torch.precond.chebyshev import gershgorin_lambda_max
+
+    cases = []
+    for k, shape in enumerate(AWKWARD_SHAPES):
+        packed = spd_stencil(shape, dtype, dev, seed=20 + k)
+        lam = gershgorin_lambda_max(ScalarStencil(packed))
+        g = torch.Generator(device=dev).manual_seed(30 + k)
+        b, x0 = (torch.randn(shape, generator=g, dtype=dtype, device=dev) for _ in range(2))
+        for deg in (1, 2, 4):
+            for xx in (x0, None):
+                cases.append(smooth_case("random SPD", packed, lam, b, xx, deg, tol,
+                                         packed.element_size()))
+    return cases
+
+
+def small_deep_cases(dtype, dev):
+    """The fused subtrees of phase 5's hierarchies (FLAGSHIP_SMALL with
+    SMALL_GMG): entry levels smaller than one block."""
+    from thermalporous_torch.precond.cpr import cpr_setup, resolve_adaptive_coarsening
+    from thermalporous_torch.precond.gmg import _fusable
+    from thermalporous_torch.presets import get_case
+
+    case = get_case("tp_spe10_full", device=dev, dtype=dtype, shape=FLAGSHIP_SMALL)
+    model, data = case.model, case.data
+    u0, u = perturbed_state(model, data)
+    pc = resolve_adaptive_coarsening(
+        model.assemble_stencil(u0, u0, case.time_cfg.dt_init, data),
+        with_fuse(case.pc_cfg, **SMALL_GMG))
+    st = model.assemble_stencil(u, u0, 600.0, data)
+    state = cpr_setup(st, pc)
+    g = torch.Generator(device=dev).manual_seed(9)
+    cases = []
+    for hname, hier, hcfg in (("p", state.gmg_p, pc.gmg), ("T", state.gmg_t, pc.gmg_t)):
+        entry = next(l for l in range(1, len(hier.stencils)) if _fusable(hier, l, hcfg, dtype))
+        cases.append(deep_case(f"{'x'.join(map(str, FLAGSHIP_SMALL))} {hname}", hier, entry,
+                               hcfg, st.coef.element_size(), g))
+    return st, cases
+
+
+def barrier_latencies() -> list:
+    """Microseconds of one grid-wide barrier (cooperative launch,
+    grid.sync()) and of one cluster barrier (cluster.sync()) per
+    BARRIER_PROBES entry: a kernel of 2000 barriers against one of none."""
+    from thermalporous_torch.kernels import _lib
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for kind, blocks, threads in BARRIER_PROBES:
+        probe = lambda iters: _lib.launch("tp_barrier_probe", kind, blocks, threads, iters,
+                                          stream)
+        empty_ms = time_device_ms(lambda: probe(0))
+        us = (time_device_ms(lambda: probe(2000)) - empty_ms) / 2000 * 1e3
+        name = "grid.sync()" if kind == 0 else "cluster.sync()"
+        print(f"  barrier {name} {blocks} blocks x {threads} threads: {us:.4f} us "
+              f"(a launch of no barriers: {empty_ms * 1e3:.2f} us on the card)", flush=True)
+        rows.append({"kind": name, "blocks": blocks, "threads": threads, "us": us,
+                     "empty_launch_us": empty_ms * 1e3})
+    return rows
 
 
 def library_call(lib, st, csr: dict):
@@ -597,12 +782,20 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
     from thermalporous_torch.kernels import stencil as kst
 
     csr: dict = {}
-    for label, kname, kern, plain, tol, cost, lib in cases:
+    for label, kname, kern, plain, tol, cost, lib, *more in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         rel, abs_ = rel_err(got, ref, got.dim() > st.dim)
         ok = math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
-        ms, plain_ms = time_ms(kern), time_ms(plain)
+        note = ""
+        if kname in ("chebyshev_smooth", "deep_correction"):
+            # deterministic: a second run on the same input gives the same bits
+            ok = ok and torch.equal(got, kern())
+            note = "  rerun bitwise"
+        if kname == "chebyshev_smooth":
+            ok = ok and torch.equal(got, ref)
+            note += ", bitwise equal to plain"
+        ms, plain_ms, device_ms = time_ms(kern), time_ms(plain), time_device_ms(kern)
         # the coarse subtree is latency-bound: also time it on a cold L2
         cold_ms = time_cold_ms(kern) if kname == "deep_correction" else None
         bnd, by = bound_ms(*cost)
@@ -613,18 +806,20 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
             vj = lib[1]
             b1_ms = time_ms(lambda: kst.block_matvec(st.coef, vj, st.nc))
         print(f"  {tname} {label}: max_rel_err {rel:.3e} (tol {tol:.0e}) "
-              f"max_abs_err {abs_:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"bound {bnd:.4f} ms ({by})"
+              f"max_abs_err {abs_:.3e}  kernel {ms:.4f} ms ({device_ms:.4f} on the card)  "
+              f"plain {plain_ms:.4f} ms  bound {bnd:.4f} ms ({by})"
               + (f"  cold L2 {cold_ms:.4f} ms" if cold_ms is not None else "")
               + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + (f"  block_matvec on the same Jacobian {b1_ms:.4f} ms"
                  if b1_ms is not None else "")
-              + f"  {'ok' if ok else 'FAIL'}", flush=True)
+              + note + f"  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"parity breach: {tname} {label}")
+        if more:
+            print("  " + more[0](), flush=True)
         row = {"max_abs_err": abs_, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms, "cold_ms": cold_ms,
-               "block_matvec_same_jacobian_ms": b1_ms, "case": label}
+               "device_ms": device_ms, "block_matvec_same_jacobian_ms": b1_ms, "case": label}
         ROWS.append(dict(row, dtype=tname, kernel=kname))
         if record and kname not in rec:
             rec[kname] = row
@@ -633,7 +828,7 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
 
 def fuse_apply_times(st, state, pc, dev) -> dict:
     """The CPTR apply on the flagship, unfused and with the subtree fused
-    from each FUSE_CANDIDATES entry, in turns (0, a, b, b, a, 0)."""
+    from each FUSE_CANDIDATES entry, in turns (0, a, b, c, c, b, a, 0)."""
     from thermalporous_torch.kernels import deep_cycle as kdeep
     from thermalporous_torch.precond.cpr import cpr_apply
 
@@ -649,19 +844,24 @@ def fuse_apply_times(st, state, pc, dev) -> dict:
         times.setdefault(fb, []).append(time_ms(lambda c=cfg: cpr_apply(state, r, c), reps=10))
         print(f"  CPTR apply fuse_below={fb}: {times[fb][-1]:.3f} ms "
               f"({per_apply} deep_correction launches per apply)", flush=True)
+    best = min(times, key=lambda fb: statistics.mean(times[fb]))
+    print(f"  fastest CPTR apply: fuse_below={best} (the flagship runs use "
+          f"{FLAGSHIP_FUSE_BELOW})", flush=True)
     return times
 
 
-def kernel_parity(dev) -> dict:
-    """Phase 2: each kernel against its plain version, at the benchmark's
-    2D shapes and on the flagship; returns the flagship f32 record per
-    kernel."""
+def kernel_parity(dev) -> tuple:
+    """Phase 2: the barrier latencies, then each kernel against its plain
+    version, at the benchmark's 2D shapes and on the flagship; returns the
+    flagship f32 record per kernel, the CPTR apply times per fuse_below and
+    the barrier latencies."""
     from thermalporous_torch.precond.cpr import cpr_setup, resolve_adaptive_coarsening
     from thermalporous_torch.presets import get_case
 
     _, bench_pc = bench_configs()
     rec: dict = {}
     fuse_times = None
+    barriers = barrier_latencies()
     for dtype in (torch.float64, torch.float32):
         tname = "f64" if dtype == torch.float64 else "f32"
         tol_st = TOL_F64 if dtype == torch.float64 else TOL_F32_STENCIL
@@ -692,12 +892,16 @@ def kernel_parity(dev) -> dict:
                   + " -> ".join(str(math.prod(s.grid_shape)) for s in hier.stencils)
                   + " cells", flush=True)
         cases = (kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev)
-                 + flagship_cases(st, state, pc, dtype, dev))
+                 + flagship_cases(st, state, pc, dtype, dev)
+                 + level_cases(state, pc, tol_st, dev) + awkward_cases(dtype, tol_st, dev))
         run_cases(tname, cases, st, rec, dtype, record=dtype == torch.float32)
         if dtype == torch.float32:
             fuse_times = fuse_apply_times(st, state, pc, dev)
-        del case, model, data, st, state, u0, u
+        del case, model, data, st, state, u0, u, cases
         torch.cuda.empty_cache()
+        st, cases = small_deep_cases(dtype, dev)
+        run_cases(tname, cases, st, rec, dtype, record=False)
+        del st, cases
         # the single-phase model: the benchmark's grid, then sp_geothermal_3d
         # at its preset size (its f32 cases make the single-phase records)
         for geo in (False, True):
@@ -713,7 +917,7 @@ def kernel_parity(dev) -> dict:
                       st, rec, dtype, record=geo and dtype == torch.float32)
             del model, data, st, u0, u
             torch.cuda.empty_cache()
-    return rec, fuse_times
+    return rec, fuse_times, barriers
 
 
 # -------------------------------------------------------------- main paths
@@ -852,6 +1056,9 @@ def flagship_layers(dev) -> dict:
     kernel events give the device's busy time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from thermalporous_torch.kernels import deep_cycle as kdeep
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.kernels import stencil as kst
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import newton as tnewton
     from thermalporous_torch.solve import timeloop as ttimeloop
@@ -878,9 +1085,25 @@ def flagship_layers(dev) -> dict:
                           pc_setup=timed("CPTR setup", pc_setup),
                           pc_apply=timed("CPTR apply", pc_apply), **kw)
 
+    # launches by level: each wrapper called through a forwarder that counts
+    # by the grid shape of its vector argument
+    by_level: dict[tuple, int] = {}
+
+    def by_shape(name, fn, arg):
+        def call(*args, **kw):
+            key = (name, tuple(args[arg].shape))
+            by_level[key] = by_level.get(key, 0) + 1
+            return fn(*args, **kw)
+        call.launches = 0      # the wrapper counts on the name it is called by
+        return call
+
+    real_kernels = kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction
     case = get_case("tp_spe10_full", device=dev)
     sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
     ttimeloop.newton_solve, tnewton.fgmres = solve, timed("FGMRES", real_fgmres)
+    kst.chebyshev_smooth = by_shape("chebyshev_smooth", real_kernels[0], 1)
+    kst.matvec = by_shape("matvec", real_kernels[1], 1)
+    kdeep.deep_correction = by_shape("deep_correction", real_kernels[2], 3)
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -888,7 +1111,11 @@ def flagship_layers(dev) -> dict:
         total = time.perf_counter() - t
     finally:
         ttimeloop.newton_solve, tnewton.fgmres = real_solve, real_fgmres
+        kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction = real_kernels
     newton = sum(r.newton_iters for r in res.records)
+    for (name, shape), count in sorted(by_level.items(), key=lambda kv: (kv[0][0], -math.prod(kv[0][1]))):
+        print(f"  {name} {'x'.join(map(str, shape))} ({math.prod(shape)} cells): {count} "
+              f"launches, {count / newton:.1f} per Newton")
     for name in ("assembly", "CPTR setup", "FGMRES", "CPTR apply", "residual"):
         print(f"  {name}: {wall.get(name, 0.0):.3f} s of {total:.3f} s "
               f"({100 * wall.get(name, 0.0) / total:.1f}%) in {calls.get(name, 0)} calls")
@@ -899,15 +1126,31 @@ def flagship_layers(dev) -> dict:
     _, st = sim.step(res.u, dt)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sim.step(res.u, dt)
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    # one device kernel per smooth and per subtree visit: the profiler's
+    # kernel events against the wrappers' counters over the same step
+    counted = launch_counts()
+    for wrapper, kernel in (("chebyshev_smooth", "cheb_smooth_kernel"),
+                            ("deep_correction", "deep_kernel")):
+        seen = [e for e in events if kernel in e.key]
+        on_card = sum(e.count for e in seen)
+        print(f"  {wrapper}: {counted[wrapper]} wrapper launches, {on_card} {kernel} "
+              f"events on the card, {sum(e.self_device_time_total for e in seen) / 1e3:.3f} ms"
+              + ("" if seen else " (the profiler named no such kernel)"))
+        if seen and on_card != counted[wrapper]:
+            raise SystemExit(f"{wrapper}: {counted[wrapper]} launches but {on_card} kernels")
     print(f"  one more step at dt {dt:.1f} s: newton {st.iters} fgmres {st.ksp_iters} "
           f"wall {step_s:.3f} s; CUDA kernel time under the profiler "
           f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / step_s:.1f}% of that wall")
     return {"total_s": total, "newton": newton, "layer_s": wall, "layer_calls": calls,
+            "launches_by_level": {f"{k} {'x'.join(map(str, sh))}": c
+                                  for (k, sh), c in by_level.items()},
             "step_s": step_s, "step_newton": st.iters, "step_fgmres": st.ksp_iters,
             "device_busy_s": busy_us / 1e6}
 
@@ -957,7 +1200,11 @@ def sp_geothermal_run(dev, steps: int, krylov_op: str = "stencil"):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the full record to this path")
+    ap.add_argument("--phases", help="comma-separated phases to run after 0 and 1 "
+                    "(default: all; a partial run prints no ok line)")
     args = ap.parse_args()
+    phases = None if args.phases is None else {int(k) for k in args.phases.split(",")}
+    want = lambda k: phases is None or k in phases
 
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -991,96 +1238,112 @@ def main() -> int:
     phase("1 build", t0, f"nvcc {secs:.1f} s -> {path}")
 
     # (2) kernel parity at the main paths' shapes
-    t0 = time.perf_counter()
-    krec, fuse_times = kernel_parity(dev)
-    phase("2 kernel parity", t0, "all kernels within tolerance")
+    if want(2):
+        t0 = time.perf_counter()
+        krec, fuse_times, barriers = kernel_parity(dev)
+        phase("2 kernel parity", t0, "all kernels within tolerance")
 
     # (3) slice parity, GPU against CPU
-    t0 = time.perf_counter()
-    cfg, pc = bench_configs(max_coarse_cells=SLICE_COARSE)
-    counts = {}
-    for d in ("cpu", "cuda"):
-        model, data = bench_case(N_SLICE, torch.float64, d)
-        step = make_step_fn(model, "cptr", cfg, pc, device=d)
-        sync = torch.cuda.synchronize if d == "cuda" else (lambda: None)
-        recs, _ = run_steps(step, model, data, 600.0, 2, sync)
-        counts[d] = [(r["newton"], r["fgmres"]) for r in recs]
-    if counts["cpu"] != counts["cuda"]:
-        raise SystemExit(f"slice parity: cpu {counts['cpu']} != cuda {counts['cuda']}")
-    phase("3 slice parity", t0, f"{N_SLICE}^2 f64 (newton, fgmres) per step: "
-          f"cpu {counts['cpu']} == cuda {counts['cuda']}")
+    if want(3):
+        t0 = time.perf_counter()
+        cfg, pc = bench_configs(max_coarse_cells=SLICE_COARSE)
+        counts = {}
+        for d in ("cpu", "cuda"):
+            model, data = bench_case(N_SLICE, torch.float64, d)
+            step = make_step_fn(model, "cptr", cfg, pc, device=d)
+            sync = torch.cuda.synchronize if d == "cuda" else (lambda: None)
+            recs, _ = run_steps(step, model, data, 600.0, 2, sync)
+            counts[d] = [(r["newton"], r["fgmres"]) for r in recs]
+        if counts["cpu"] != counts["cuda"]:
+            raise SystemExit(f"slice parity: cpu {counts['cpu']} != cuda {counts['cuda']}")
+        phase("3 slice parity", t0, f"{N_SLICE}^2 f64 (newton, fgmres) per step: "
+              f"cpu {counts['cpu']} == cuda {counts['cuda']}")
 
     # (4) main path: the benchmark step
-    t0 = time.perf_counter()
-    cfg, pc = bench_configs()
-    model, data = bench_case(N_MAIN, torch.float32, dev)
-    step = make_step_fn(model, "cptr", cfg, pc, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    recs, u = run_steps(step, model, data, 600.0, 3, torch.cuda.synchronize)
-    bench_launches = launch_counts()
-    for r in recs:
-        print(f"  step {r['step']} dt {r['dt']:.0f} s: newton {r['newton']} "
-              f"fgmres {r['fgmres']} retries {r['retries']} wall {r['wall_s']:.3f} s")
-    ncells = N_MAIN * N_MAIN
-    doubling = recs[1:]
-    cu_s = ncells * sum(r["newton"] for r in doubling) / sum(r["wall_s"] for r in doubling)
-    print(f"  launches {bench_launches}")
-    check_physical(u, (N_MAIN, N_MAIN), "main path")
-    step_kernels = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual")
-    missing = [k for k in step_kernels if bench_launches[k] <= 0]
-    if missing:
-        raise SystemExit(f"main path launched no {missing}")
-    phase("4 main path", t0, f"{N_MAIN}^2 f32: {cu_s:.1f} cell-updates/s over the "
-          f"{len(doubling)} doubling steps; peak mem "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del model, data, u, step
-    torch.cuda.empty_cache()
+    if want(4):
+        t0 = time.perf_counter()
+        cfg, pc = bench_configs()
+        model, data = bench_case(N_MAIN, torch.float32, dev)
+        step = make_step_fn(model, "cptr", cfg, pc, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        recs, u = run_steps(step, model, data, 600.0, 3, torch.cuda.synchronize)
+        bench_launches = launch_counts()
+        for r in recs:
+            print(f"  step {r['step']} dt {r['dt']:.0f} s: newton {r['newton']} "
+                  f"fgmres {r['fgmres']} retries {r['retries']} wall {r['wall_s']:.3f} s")
+        ncells = N_MAIN * N_MAIN
+        doubling = recs[1:]
+        cu_s = ncells * sum(r["newton"] for r in doubling) / sum(r["wall_s"] for r in doubling)
+        print(f"  launches {bench_launches}")
+        check_physical(u, (N_MAIN, N_MAIN), "main path")
+        step_kernels = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual")
+        missing = [k for k in step_kernels if bench_launches[k] <= 0]
+        if missing:
+            raise SystemExit(f"main path launched no {missing}")
+        phase("4 main path", t0, f"{N_MAIN}^2 f32: {cu_s:.1f} cell-updates/s over the "
+              f"{len(doubling)} doubling steps; peak mem "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, data, u, step
+        torch.cuda.empty_cache()
 
     # (5) flagship parity, GPU against CPU
-    t0 = time.perf_counter()
-    small = flagship_parity()
-    phase("5 flagship parity", t0, f"{'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
-          f"(dt, newton, fgmres, retries) per step: cpu {small['cpu']} == cuda "
-          f"{small['cuda']}")
+    if want(5):
+        t0 = time.perf_counter()
+        small = flagship_parity()
+        phase("5 flagship parity", t0, f"{'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
+              f"(dt, newton, fgmres, retries) per step: cpu {small['cpu']} == cuda "
+              f"{small['cuda']}")
 
     # (6) the flagship
-    t0 = time.perf_counter()
-    frecs, launches, attempts, fcu_s, peak = flagship_run(dev)
-    phase("6 flagship", t0, f"60x220x85 f32: {fcu_s:.1f} cell-updates/s over steps "
-          f"2-{len(frecs)}; peak mem {peak:.2f} GiB")
+    if want(6):
+        t0 = time.perf_counter()
+        frecs, launches, attempts, fcu_s, peak = flagship_run(dev)
+        phase("6 flagship", t0, f"60x220x85 f32: {fcu_s:.1f} cell-updates/s over steps "
+              f"2-{len(frecs)}; peak mem {peak:.2f} GiB")
 
     # (7) where the flagship's time goes
-    t0 = time.perf_counter()
-    layers = flagship_layers(dev)
-    phase("7 flagship layers", t0, "60x220x85 f32, synchronized layer timers")
+    if want(7):
+        t0 = time.perf_counter()
+        layers = flagship_layers(dev)
+        phase("7 flagship layers", t0, "60x220x85 f32, synchronized layer timers")
 
     # (8) the single-phase family
-    t0 = time.perf_counter()
-    sp_small = gpu_cpu_counts("sp_hot_injection_2d", SP_KERNELS)
-    print(f"  sp_hot_injection_2d 40x40 f64 (dt, newton, fgmres, retries) per step: "
-          f"cpu {sp_small['cpu']} == cuda {sp_small['cuda']}")
-    sp_recs, sp_launches, sp_cu_s, sp_rates = sp_geothermal_run(dev, SP_GEO_STEPS)
-    phase("8 single-phase", t0, f"sp_geothermal_3d 64x64x32 f32: {sp_cu_s:.1f} "
-          f"cell-updates/s over steps 2-{len(sp_recs)}")
+    if want(8):
+        t0 = time.perf_counter()
+        sp_small = gpu_cpu_counts("sp_hot_injection_2d", SP_KERNELS)
+        print(f"  sp_hot_injection_2d 40x40 f64 (dt, newton, fgmres, retries) per step: "
+              f"cpu {sp_small['cpu']} == cuda {sp_small['cuda']}")
+        sp_recs, sp_launches, sp_cu_s, sp_rates = sp_geothermal_run(dev, SP_GEO_STEPS)
+        phase("8 single-phase", t0, f"sp_geothermal_3d 64x64x32 f32: {sp_cu_s:.1f} "
+              f"cell-updates/s over steps 2-{len(sp_recs)}")
 
     # (9) the matrix-free Krylov operator
-    t0 = time.perf_counter()
-    small_jvp = flagship_parity("jvp")
-    print(f"  flagship {'x'.join(map(str, FLAGSHIP_SMALL))} f64 jvp (dt, newton, fgmres, "
-          f"retries) per step: cpu {small_jvp['cpu']} == cuda {small_jvp['cuda']}")
-    jrecs, jlaunches, _, jcu_s, _ = flagship_run(dev, JVP_STEPS, "jvp")
-    for rj, rs in zip(jrecs, frecs):
-        print(f"  flagship step {rj.step}: jvp (dt {rj.dt:.1f}, newton {rj.newton_iters}, "
-              f"fgmres {rj.ksp_iters}) | stencil (dt {rs.dt:.1f}, newton {rs.newton_iters}, "
-              f"fgmres {rs.ksp_iters})"
-              + ("" if (rj.dt, rj.newton_iters, rj.ksp_iters)
-                 == (rs.dt, rs.newton_iters, rs.ksp_iters) else "  differ"))
-    sj_recs, sj_launches, _, _ = sp_geothermal_run(dev, JVP_STEPS, "jvp")
-    phase("9 jvp operator", t0, f"flagship jvp {jcu_s:.1f} cell-updates/s over steps "
-          f"2-{len(jrecs)}; fused_jvp {jlaunches['fused_jvp']} and fused_jvp_sp "
-          f"{sj_launches['fused_jvp_sp']} launches")
+    if want(9):
+        t0 = time.perf_counter()
+        small_jvp = flagship_parity("jvp")
+        print(f"  flagship {'x'.join(map(str, FLAGSHIP_SMALL))} f64 jvp (dt, newton, fgmres, "
+              f"retries) per step: cpu {small_jvp['cpu']} == cuda {small_jvp['cuda']}")
+        jrecs, jlaunches, _, jcu_s, _ = flagship_run(dev, JVP_STEPS, "jvp")
+        for rj, rs in zip(jrecs, frecs):
+            print(f"  flagship step {rj.step}: jvp (dt {rj.dt:.1f}, newton {rj.newton_iters}, "
+                  f"fgmres {rj.ksp_iters}) | stencil (dt {rs.dt:.1f}, newton {rs.newton_iters}, "
+                  f"fgmres {rs.ksp_iters})"
+                  + ("" if (rj.dt, rj.newton_iters, rj.ksp_iters)
+                     == (rs.dt, rs.newton_iters, rs.ksp_iters) else "  differ"))
+        sj_recs, sj_launches, _, _ = sp_geothermal_run(dev, JVP_STEPS, "jvp")
+        phase("9 jvp operator", t0, f"flagship jvp {jcu_s:.1f} cell-updates/s over steps "
+              f"2-{len(jrecs)}; fused_jvp {jlaunches['fused_jvp']} and fused_jvp_sp "
+              f"{sj_launches['fused_jvp_sp']} launches")
+
+    if phases is not None:
+        if args.json and want(2):
+            with open(args.json, "w") as fh:
+                json.dump({"device": smi, "kernel_rows": ROWS, "fuse_apply_ms": fuse_times,
+                           "barrier_latencies": barriers}, fh, indent=1)
+        print(f"partial run (phases {sorted(phases)}): no kernels line, no ok line")
+        return 0
 
     # each kernel's launches in its path's run
     path_launches = {k: launches[k] for k in FLAGSHIP_KERNELS}
@@ -1096,7 +1359,8 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as fh:
             json.dump({"device": smi, "kernels": kernels, "kernel_cases": krec,
-                       "fuse_apply_ms": fuse_times, "slice_counts": counts,
+                       "fuse_apply_ms": fuse_times, "barrier_latencies": barriers,
+                       "slice_counts": counts,
                        "main_steps": recs, "main_launches": bench_launches,
                        "cell_updates_per_s": cu_s, "flagship_small": small,
                        "flagship_steps": [r.as_dict() for r in frecs],

@@ -90,13 +90,14 @@ def test_block_rbgs_has_no_fallback_off_the_cpu():
 
 # ----------------------------------------------------- fused coarse subtree
 
-def _hierarchies(shape, cycle_type, rng):
+def _hierarchies(shape, cycle_type, rng, **overrides):
     """The JAX and port hierarchies of one heterogeneous SPD stencil (the
     configuration of tests/test_kernels.py's deep-cycle test) and a
     right-hand side on level 1."""
     k = jnp.asarray(np.exp(rng.standard_normal(shape)))
     js = poisson_stencil(shape, k=k, shift=0.3)
     kw = dict(cycle_type=cycle_type, degree=3, max_coarse_cells=64, kcycle_min_cells=128)
+    kw.update(overrides)
     jcfg, tcfg = jgmg.GMGConfig(**kw), tgmg.GMGConfig(**kw)
     jst = jgmg.gmg_setup(js, jcfg)
     tst = tgmg.gmg_setup(torch_scalar(js), tcfg)
@@ -131,6 +132,83 @@ def test_coarse_correction_fused_and_unfused(shape, cycle_type, rng):
         assert_close(got, pal, RTOL, 1e-13)
     # the unfused recursion and the plain subtree are the same arithmetic
     assert torch.equal(fused, unfused)
+
+
+def _check_subtree(jst, tst, jcfg, tcfg, b):
+    """The port's correction at level 1, unfused and fused, against the JAX
+    recursion and the Pallas deep-cycle kernel in interpret mode; returns
+    the sizes of the subtree's levels."""
+    ref = jgmg._coarse_correction(jst, 1, jnp.asarray(b), jcfg)
+    subtree = jst.stencils[1:]
+    factors = tuple(
+        tuple(2 if c < f else 1 for f, c in zip(a.grid_shape, bb.grid_shape))
+        for a, bb in zip(subtree[:-1], subtree[1:]))
+    pal = j_deep_correction(subtree, jst.lam_max[1:], jst.coarse_inv, jnp.asarray(b),
+                            factors, degree=jcfg.degree, lam_min_frac=jcfg.lam_min_frac,
+                            cycle_type=jcfg.cycle_type,
+                            kcycle_min_cells=jcfg.kcycle_min_cells, interpret=True)
+    unfused = tgmg._coarse_correction(tst, 1, t(b), tcfg)
+    fcfg = dataclasses.replace(tcfg, fuse_below=10**9)
+    assert tgmg._fusable(tst, 1, fcfg, torch.float64)
+    fused = tgmg._coarse_correction(tst, 1, t(b), fcfg)
+    for got in (unfused, fused):
+        assert_close(got, ref, RTOL, 1e-13)
+        assert_close(got, pal, RTOL, 1e-13)
+    assert torch.equal(fused, unfused)
+    return [int(np.prod(s.grid_shape)) for s in tst.stencils[1:]], factors
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+def test_coarse_correction_k_level_over_single_cycle_over_dense(degree, rng):
+    """The flagship's pattern: kcycle_min_cells lies between two level sizes,
+    so the entry level runs the K-cycle, the level below it a single cycle,
+    and the coarsest is solved densely."""
+    jst, tst, jcfg, tcfg, b = _hierarchies((24, 44, 10), "k", rng, degree=degree,
+                                           kcycle_min_cells=500)
+    sizes, _ = _check_subtree(jst, tst, jcfg, tcfg, b)
+    assert sizes == [1320, 198, 36]
+    assert kdeep.kcycle_levels(sizes, "k", 500) == [True, False, False]
+
+
+@pytest.mark.parametrize("schedule", [
+    ((2, 2, 2), (1, 2, 2), (2, 2, 2)),
+    ((1, 2, 2), (1, 2, 2), (2, 1, 2), (2, 2, 1)),
+])
+def test_coarse_correction_semicoarsened_levels(schedule, rng):
+    """A baked level_factors schedule with axes left uncoarsened inside the
+    fused subtree (the adaptive flagship hierarchies have such levels)."""
+    jst, tst, jcfg, tcfg, b = _hierarchies((12, 20, 18), "k", rng, degree=2,
+                                           level_factors=schedule)
+    _, factors = _check_subtree(jst, tst, jcfg, tcfg, b)
+    assert list(factors[:len(schedule) - 1]) == list(schedule[1:])
+
+
+@pytest.mark.parametrize("n_entry", [36_300, 145_200, 39_600, 5_040, 216, 1])
+def test_deep_launch_shape(n_entry):
+    blocks, threads = kdeep.launch_shape(n_entry, 132)
+    assert 1 <= blocks <= 132 and threads % 32 == 0 and 32 <= threads <= kdeep.MAX_THREADS
+    # about one cell a thread on the entry level, unless the card is full
+    if blocks * threads < n_entry:
+        assert (blocks, threads) == (132, kdeep.MAX_THREADS)
+    else:
+        assert blocks * (threads - 32) < n_entry or threads == 32
+    assert blocks == 1 or (blocks - 1) * kdeep.MIN_CELLS_PER_BLOCK < n_entry
+
+
+def test_deep_barrier_count():
+    """Barriers of one subtree visit: the cooperative kernel's grid barriers
+    and the earlier one-block kernel's block barriers."""
+    # the flagship's pressure subtree from 36.3k cells: K over V over dense
+    assert kdeep.barrier_count([True, False, False], 4) == 49
+    assert kdeep.barrier_count([True, False, False], 4, single_block=True) == 88
+    # from the 145k-cell level: K over K over V over dense
+    assert kdeep.barrier_count([True, True, False, False], 4) == 2 * (11 + 49) + 3
+    # a V-cycle of degree 2 over three smoothed levels
+    assert kdeep.barrier_count([False] * 4, 2) == 3 * 7 + 1
+    assert kdeep.barrier_count([False], 4) == 1              # the dense solve alone
+    assert kdeep.kcycle_levels([9000, 5000, 600], "k", 8192) == [True, False, False]
+    assert kdeep.kcycle_levels([9000, 5000, 600], "v", 8192) == [False] * 3
+    assert kdeep.kcycle_levels([9000, 9000], "k", 8192) == [True, False]
 
 
 def test_gmg_apply_fuse_below_matches_the_reference(rng):

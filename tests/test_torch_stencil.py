@@ -125,6 +125,88 @@ def test_chebyshev_smooth(shape, degree, start, rng):
         assert_close(got, pal, RTOL, 1e-14)
 
 
+# shapes whose last extent and whose cell count are no multiples of 4: the
+# smooth kernel's threads take 4 consecutive cells, which straddle rows here
+RAGGED_SHAPES = [(7, 5, 3), (9, 13), (6, 10, 85)]
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("degree", [1, 2, 4])
+@pytest.mark.parametrize("start", ["x0", "zero"])
+def test_chebyshev_smooth_ragged_shapes(shape, degree, start, rng):
+    js, ts = poisson_pair(rng, shape, shift=0.1)
+    b = rng.standard_normal(shape)
+    x0 = rng.standard_normal(shape) if start == "x0" else None
+    lam_j, lam_t = j_gershgorin(js), t_gershgorin(ts)
+    jx = None if x0 is None else jnp.asarray(x0)
+    tx = None if x0 is None else t(x0)
+    ref = j_chebyshev(js, jnp.asarray(b), jx, degree=degree, lam_max=lam_j,
+                      lam_min_frac=0.3)
+    got = kst.chebyshev_smooth(ts.packed, t(b), tx, lam_t, degree, 0.3)
+    assert_close(got, ref, RTOL, 1e-14)
+    assert torch.equal(got, kst.chebyshev_smooth_plain(ts.packed, t(b), tx, lam_t,
+                                                       degree, 0.3))
+    pal = pallas.chebyshev_smooth(js, jnp.asarray(b), jx, lam_j, degree=degree,
+                                  lam_min_frac=0.3, interpret=True)
+    assert_close(got, pal, RTOL, ZERO_START_ATOL if x0 is None else 1e-14)
+
+
+H100 = (132, 232448)     # SMs, bytes of shared memory a block may opt in to
+
+
+@pytest.mark.parametrize("n,dim,item", [
+    (60 * 220 * 85, 3, 4), (60 * 220 * 85, 3, 8), (60 * 220 * 43, 3, 4),
+    (60 * 110 * 22, 3, 4), (1024 * 1024, 2, 4), (1023 * 1021, 2, 8),
+    (61 * 219 * 83, 3, 4), (64 * 64 * 32, 3, 4), (105, 3, 8), (117, 2, 8), (5, 2, 4),
+])
+def test_smooth_plan_covers_the_grid_and_fits_the_card(n, dim, item):
+    sms, smem = H100
+    plan = kst.smooth_plan(n, dim, item, sms, smem)
+    quads = -(-n // kst.SMOOTH_QUAD)
+    assert 1 <= plan.blocks <= sms                       # co-resident: one block per SM
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= kst.SMOOTH_MAX_THREADS
+    assert plan.blocks * plan.per_block >= quads         # every quad has an owner
+    assert (plan.blocks - 1) * plan.per_block < quads    # and no block is idle
+    assert plan.iters * plan.threads >= plan.per_block
+    assert (plan.iters - 1) * plan.threads < plan.per_block
+    # equally filled iterations: shrinking the block by a warp would not do
+    assert plan.iters * (plan.threads - 32) < plan.per_block
+    per_quad = (2 * dim + 3) * kst.SMOOTH_QUAD * item
+    assert 0 <= plan.cached_quads <= plan.per_block
+    assert plan.smem == plan.cached_quads * per_quad <= smem - 1024
+    # a partly cached block caches whole warps, and not one warp more would fit
+    if plan.cached_quads < plan.per_block:
+        assert plan.cached_quads % 32 == 0
+        assert plan.smem + 32 * per_quad > smem - 1024
+
+
+def test_smooth_plan_on_the_flagship_levels():
+    """The finest flagship level keeps 74% of its quads on chip in f32 and
+    37% in f64; every coarser level keeps everything."""
+    fine32 = kst.smooth_plan(60 * 220 * 85, 3, 4, *H100)
+    assert (fine32.blocks, fine32.threads, fine32.per_block, fine32.iters,
+            fine32.cached_quads) == (132, 448, 2125, 5, 1600)
+    assert kst.smooth_plan(60 * 220 * 85, 3, 8, *H100).cached_quads == 800
+    for n in (60 * 220 * 43, 60 * 110 * 22, 60 * 55 * 11):
+        plan = kst.smooth_plan(n, 3, 4, *H100)
+        assert plan.cached_quads == plan.per_block
+    small = kst.smooth_plan(16 * 16, 2, 8, *H100)
+    assert (small.blocks, small.threads, small.iters) == (1, 64, 1)
+    with pytest.raises(ValueError):
+        kst.smooth_plan(2**31, 3, 4, *H100)
+    with pytest.raises(ValueError):
+        kst.smooth_plan(0, 3, 4, *H100)
+
+
+def test_vector_access_needs_whole_quads_and_aligned_tensors():
+    a = torch.zeros(64, dtype=torch.float32)
+    assert kst.vector_access(64, a, a[4:], a[8:])
+    assert not kst.vector_access(63, a)              # a short last quad
+    assert not kst.vector_access(64, a, a[1:])       # 4 bytes off a 16-byte boundary
+    d = torch.zeros(64, dtype=torch.float64)
+    assert kst.vector_access(64, d, d[2:]) and not kst.vector_access(64, d[1:])
+
+
 @pytest.mark.parametrize("nc", [1, 2, 3, 4])
 def test_block_algebra(nc, rng):
     shape = (4, 5)

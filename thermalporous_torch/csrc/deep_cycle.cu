@@ -6,43 +6,63 @@
 // math in _correction_math 209-268).  The W-cycle is not ported.
 //
 // What bounds it on the H100: latency, not bytes.  The subtree it walks is
-// small (the flagship's pressure hierarchy below 36.3k cells is under 3 MB
-// of coefficients and vectors in f32, L2-resident), but the recursion is a
-// chain of several hundred dependent passes over small grids.  Run as
-// separate kernels, each pass pays a launch (~5-10 us from the eager host
-// loop) for a few microseconds of work.  The design:
-//   - ONE thread block of 1024 threads walks the whole recursion; each pass
-//     is a block-stride loop over the level's cells followed by
-//     __syncthreads(), so nothing goes back to the host and nothing is
-//     launched per pass;
-//   - the recursion is an explicit loop over a per-level stage counter
-//     (enter, after the first cycle, after the second K-cycle cycle), so
-//     there is no device-side call stack;
-//   - per-level vectors (b, out, e1, v1, r1, e2, v2, x, d, r) live in one
-//     device scratch buffer that the wrapper allocates; a level's frame is
-//     only ever active once at a time, so one set per level suffices;
-//   - the K-cycle dot products are block reductions (warp shuffles, then
-//     one warp over the per-warp sums), in the working dtype, as the plain
-//     version's torch.dot;
-//   - the dense coarsest solve is one warp per row of the inverse.
-// A single SM does all the work, so on the larger entry levels the kernel
-// is slower than the device could be; a cooperative or cluster form is
-// later work.
+// small (the flagship's pressure hierarchy below 145k cells is ~10 MB of
+// coefficients and vectors in f32, L2-resident), but the recursion is a
+// chain of dependent passes over small grids: its least time is the number
+// of passes times what one pass and the barrier after it cost, whatever
+// the bytes.  So the design shortens the chain and widens each link:
+//   - ONE cooperative launch of up to one block per SM; a pass is a
+//     grid-stride loop (about one cell a thread on the entry level, the
+//     first few blocks only on the coarser ones) followed by a grid-wide
+//     barrier (cooperative_groups' grid.sync()), so nothing goes back to the
+//     host and every pass has the whole card;
+//   - a cell belongs to the same thread in every pass over its level, so a
+//     pass that reads only the cell's own values needs no barrier before it
+//     and is run together with its neighbour in the chain (the K-cycle's
+//     vector updates with the first smoothing step after them);
+//   - a Chebyshev step writes y = x + d, which is the next step's x, so each
+//     step is one pass with one barrier and reads one vector at the
+//     neighbours; y alternates between two buffers, d is read and written
+//     by its owner only;
+//   - the K-cycle's matvec and its dot products are one pass: every block
+//     leaves its partial sums in scratch and, after the barrier, every block
+//     adds all blocks' partials in the same fixed order, so all blocks get
+//     the same bits, take the same branches, and two runs agree bitwise (no
+//     floating-point atomics anywhere);
+//   - a pass starts all loads of a cell before it sums (the neighbours from
+//     clamped addresses, used or not), so it costs one round trip to the L2
+//     and not one per neighbour;
+//   - the dense coarsest solve is one warp per row of the inverse over all
+//     blocks' warps;
+//   - the recursion is an explicit loop over a per-level stage counter, and
+//     the Chebyshev scalars of every level and step are computed once per
+//     block into shared memory.
+// What remains is the chain itself: the barriers of one visit (counted by
+// the kernel on request) times a barrier's latency (~1.1 us) plus one
+// round trip to the L2 a pass.
 //
 // Every pass follows the plain version's order of operations
 // (thermalporous_torch/kernels/deep_cycle.py:deep_correction_plain), so
 // with --fmad=false only the dot products and the dense solve (summation
 // order) round differently.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace tp {
 
-constexpr int kDeepThreads = 1024;
+constexpr int kDeepMaxThreads = 1024;
 constexpr int kMaxLevels = 16;
+constexpr int kMaxDegree = 16;
 constexpr int kDescPerLevel = 20;
+constexpr int kMaxDots = 3;
 
-enum Vec { kB, kOut, kE1, kV1, kR1, kE2, kV2, kX, kD, kR, kNumVec };
+// kYa/kYb: the two buffers a smooth alternates between; the one that does
+// not hold the pre-smoothed x also takes the residual.
+enum Vec { kB, kOut, kE1, kV1, kR1, kE2, kV2, kYa, kYb, kD, kNumVec };
 
 struct DeepLevel {
   const void* packed;  // (2*dim+1, n) scalar stencil
@@ -55,6 +75,8 @@ struct DeepLevel {
 
 struct DeepParams {
   const void* inv;     // dense inverse of the coarsest operator
+  void* partials;      // kMaxDots * gridDim.x partial dot products
+  int* barriers;       // nullable: receives the number of grid barriers
   double frac;
   double safety;
   int degree;
@@ -62,67 +84,182 @@ struct DeepParams {
   DeepLevel lev[kMaxLevels];
 };
 
-#define TP_FOR_CELLS(n) for (long c = threadIdx.x; c < (n); c += blockDim.x)
+template <typename T>
+struct ChebCoef {
+  T theta, c1, c2;
+};
+
+// What a thread needs in every pass: the grid, its place in it, the
+// barrier count, and the block's tables in shared memory.
+template <typename T>
+struct Ctx {
+  cg::grid_group grid;
+  unsigned gtid, gsize;
+  int nbar;
+  const ChebCoef<T>* coef;   // [level * degree + step]
+  T* red;                    // kMaxDots * 32 values for block reductions
+
+  __device__ __forceinline__ void sync() {
+    grid.sync();
+    ++nbar;
+  }
+};
+
+#define TP_FOR_CELLS(n) \
+  for (unsigned c = cx.gtid; c < (unsigned)(n); c += cx.gsize)
 
 template <typename T>
 __device__ __forceinline__ T* vp(const DeepLevel& L, int k) {
   return static_cast<T*>(L.vec[k]);
 }
 
-// x <- smooth(b, x) with `degree` Chebyshev steps (x zero: zero start);
-// the result goes to `out`, which may be the level's x buffer itself.
+__device__ __forceinline__ void coords32(const Dims& d, unsigned c, int idx[3]) {
+  const unsigned e2 = d.ext[2], e1 = d.ext[1];
+  const unsigned r = c / e2;
+  idx[2] = (int)(c - r * e2);
+  const unsigned q = r / e1;
+  idx[1] = (int)(r - q * e1);
+  idx[0] = (int)q;
+}
+
+// The scalar stencil at cell c applied to v, with every load started before
+// the sum: a neighbour is read from a clamped address (the cell's own where
+// there is none; the value is then not used), so no load waits on a branch
+// and a pass costs one round trip to the L2 instead of one per neighbour.
+// The sum is in apply_scalar's order.
 template <typename T>
-__device__ void dk_cheb(const DeepLevel& L, const T* b, bool zero_start,
-                        T* out, T frac, T safety, int degree) {
+__device__ __forceinline__ T apply_batched(const T* __restrict__ p, unsigned c,
+                                           const int idx[3], const Dims& d,
+                                           const T* v) {
+  const size_t n = (size_t)d.n;
+  bool up[3], lo[3];
+  T wu[3], wl[3], vu[3], vl[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const unsigned s = (unsigned)d.stride[a];
+    const bool on = a < d.dim;
+    up[a] = on && idx[a] + 1 < d.ext[a];
+    lo[a] = on && idx[a] > 0;
+    wu[a] = p[(on ? 1 + 2 * a : 0) * n + c];
+    wl[a] = p[(on ? 2 + 2 * a : 0) * n + c];
+    vu[a] = v[up[a] ? c + s : c];
+    vl[a] = v[lo[a] ? c - s : c];
+  }
+  T acc = p[c] * v[c];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (up[a]) acc = acc + wu[a] * vu[a];
+    if (lo[a]) acc = acc + wl[a] * vl[a];
+  }
+  return acc;
+}
+
+// One Chebyshev step on the thread's cells of level L (no barrier).
+// Step 0: z = D^-1 (b - A x), x = src (nullptr: zero, and no matvec);
+// d = z / theta.  Step s >= 1: x = src = the last step's y;
+// d = c1 * d + c2 * z.  Both write d and y = x + d to dst.
+template <typename T>
+__device__ void dk_cheb_step(Ctx<T>& cx, const DeepLevel& L, const ChebCoef<T>& k,
+                             int s, const T* b, const T* src, T* dst) {
   const T* p = static_cast<const T*>(L.packed);
   const Dims& d = L.d;
-  T* x = vp<T>(L, kX);
   T* dd = vp<T>(L, kD);
-  const T lam = *static_cast<const T*>(L.lam);
-  auto xv = [=](long i) { return x[i]; };
-  T theta, c1, c2;
-  cheb_scalars(lam, frac, safety, 0, &theta, &c1, &c2);
   TP_FOR_CELLS(d.n) {
     const T inv_diag = T(1) / p[c];
-    T z;
-    if (zero_start) {
+    T xc = T(0), z;
+    if (src == nullptr) {
       z = inv_diag * b[c];
     } else {
       int idx[3];
-      d.coords(c, idx);
-      z = inv_diag * (b[c] - apply_scalar(p, c, idx, d, xv));
+      coords32(d, c, idx);
+      xc = src[c];
+      z = inv_diag * (b[c] - apply_batched(p, c, idx, d, src));
     }
-    dd[c] = z / theta;
+    const T dn = s == 0 ? z / k.theta : k.c1 * dd[c] + k.c2 * z;
+    dd[c] = dn;
+    dst[c] = xc + dn;
   }
-  __syncthreads();
-  for (int s = 1; s < degree; ++s) {
-    cheb_scalars(lam, frac, safety, s, &theta, &c1, &c2);
-    TP_FOR_CELLS(d.n) x[c] = (zero_start && s == 1 ? T(0) : x[c]) + dd[c];
-    __syncthreads();
-    TP_FOR_CELLS(d.n) {
-      int idx[3];
-      d.coords(c, idx);
-      const T inv_diag = T(1) / p[c];
-      const T z = inv_diag * (b[c] - apply_scalar(p, c, idx, d, xv));
-      dd[c] = c1 * dd[c] + c2 * z;
-    }
-    __syncthreads();
-  }
-  TP_FOR_CELLS(d.n) out[c] = (zero_start && degree == 1 ? T(0) : x[c]) + dd[c];
-  __syncthreads();
 }
 
-// y = A v on level L
+// The smooth of b from x = ybuf[cur] (zero start: cur < 0) on level L;
+// steps first..degree-1 (the caller may have run step 0 itself), a barrier
+// after each.  The last step writes `out` when it is given.  Returns the
+// index of the buffer that holds the result (unchanged when `out` took it).
 template <typename T>
-__device__ void dk_matvec(const DeepLevel& L, const T* v, T* y) {
+__device__ int dk_smooth(Ctx<T>& cx, const DeepParams& P, int ell, const T* b,
+                         int cur, int first, T* out) {
+  const DeepLevel& L = P.lev[ell];
+  T* y[2] = {vp<T>(L, kYa), vp<T>(L, kYb)};
+  for (int s = first; s < P.degree; ++s) {
+    const T* src = cur < 0 ? nullptr : y[cur];
+    const int nxt = cur < 0 ? 0 : 1 - cur;
+    const bool last = s == P.degree - 1 && out != nullptr;
+    dk_cheb_step<T>(cx, L, cx.coef[ell * P.degree + s], s, b, src, last ? out : y[nxt]);
+    if (!last) cur = nxt;
+    cx.sync();
+  }
+  return cur;
+}
+
+// y = A v on the thread's cells, and the thread's share of K dot products
+// <a_k, e_k> (a_k == nullptr: the fresh y) into acc
+template <typename T, int K>
+__device__ void dk_matvec_dots(Ctx<T>& cx, const DeepLevel& L, const T* v, T* y,
+                               const T* const (&a)[K], const T* const (&e)[K],
+                               T (&acc)[K]) {
   const T* p = static_cast<const T*>(L.packed);
   const Dims& d = L.d;
-  auto vv = [=](long i) { return v[i]; };
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = T(0);
   TP_FOR_CELLS(d.n) {
     int idx[3];
-    d.coords(c, idx);
-    y[c] = apply_scalar(p, c, idx, d, vv);
+    coords32(d, c, idx);
+    const T yc = apply_batched(p, c, idx, d, v);
+    y[c] = yc;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      acc[k] = acc[k] + (a[k] == nullptr ? yc : a[k][c]) * e[k][c];
   }
+}
+
+// The K sums over all threads of the grid, the same bits in every thread:
+// warp shuffles, the block's warps in order, the block's partial to
+// scratch, a grid barrier, then every block adds all partials in one order.
+template <typename T, int K>
+__device__ void dk_reduce(Ctx<T>& cx, const DeepParams& P, T (&acc)[K]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const unsigned nb = gridDim.x;
+  T* part = static_cast<T*>(P.partials);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    for (int off = 16; off > 0; off >>= 1)
+      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
+    if (lane == 0) cx.red[k * 32 + warp] = acc[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T v = lane < nw ? cx.red[k * 32 + lane] : T(0);
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) part[k * nb + blockIdx.x] = v;
+    }
+  }
+  cx.sync();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T v = T(0);
+      for (unsigned j = lane; j < nb; j += 32) v = v + part[k * nb + j];
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) cx.red[k * 32] = v;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = cx.red[k * 32];
   __syncthreads();
 }
 
@@ -130,13 +267,13 @@ __device__ void dk_matvec(const DeepLevel& L, const T* v, T* y) {
 // pair sums of axis 0 first, then axis 1, then axis 2, out-of-range cells
 // zero (the plain version's padded block sums, in its order).
 template <typename T>
-__device__ void dk_restrict(const DeepLevel& F, const DeepLevel& C, const T* r,
-                            T* rc) {
+__device__ void dk_restrict(Ctx<T>& cx, const DeepLevel& F, const DeepLevel& C,
+                            const T* r, T* rc) {
   const Dims& f = F.d;
   const int* fac = F.fac;
   TP_FOR_CELLS(C.d.n) {
     int I[3];
-    C.d.coords(c, I);
+    coords32(C.d, c, I);
     T s2[2] = {T(0), T(0)};
     for (int k2 = 0; k2 < fac[2]; ++k2) {
       const int i2 = fac[2] == 2 ? 2 * I[2] + k2 : I[2];
@@ -155,109 +292,94 @@ __device__ void dk_restrict(const DeepLevel& F, const DeepLevel& C, const T* r,
     }
     rc[c] = fac[2] == 2 ? s2[0] + s2[1] : s2[0];
   }
-  __syncthreads();
 }
 
 // x += P ec: piecewise-constant prolongation from C back to F
 template <typename T>
-__device__ void dk_prolong_add(const DeepLevel& F, const DeepLevel& C,
+__device__ void dk_prolong_add(Ctx<T>& cx, const DeepLevel& F, const DeepLevel& C,
                                const T* ec, T* x) {
   const Dims& f = F.d;
   const int* fac = F.fac;
   TP_FOR_CELLS(f.n) {
     int i[3];
-    f.coords(c, i);
+    coords32(f, c, i);
     long cc = 0;
     for (int a = 0; a < 3; ++a) cc += (long)(fac[a] == 2 ? i[a] / 2 : i[a]) * C.d.stride[a];
     x[c] = x[c] + ec[cc];
   }
-  __syncthreads();
 }
 
-// out = inv b on the coarsest level: one warp per row
+// out = inv b on the coarsest level: one warp per row, all blocks' warps
 template <typename T>
-__device__ void dk_dense(const T* inv, const T* b, T* out, long n) {
+__device__ void dk_dense(Ctx<T>& cx, const T* inv, const T* b, T* out, unsigned n) {
   const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  for (long i = threadIdx.x >> 5; i < n; i += nw) {
+  const unsigned nw = cx.gsize >> 5;
+  for (unsigned i = cx.gtid >> 5; i < n; i += nw) {
     T acc = T(0);
-    for (long j = lane; j < n; j += 32) acc = acc + inv[i * n + j] * b[j];
+    for (unsigned j = lane; j < n; j += 32) acc = acc + inv[(size_t)i * n + j] * b[j];
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
     if (lane == 0) out[i] = acc;
   }
-  __syncthreads();
 }
 
-// K dot products <a_k, b_k> over n cells, every thread gets the sums
-template <typename T, int K>
-__device__ void dk_dots(const T* const (&a)[K], const T* const (&b)[K], long n,
-                        T (&out)[K]) {
-  __shared__ double red_store[3 * 32];
-  T* red = reinterpret_cast<T*>(red_store);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  T acc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = T(0);
-  TP_FOR_CELLS(n) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] = acc[k] + a[k][c] * b[k][c];
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    for (int off = 16; off > 0; off >>= 1)
-      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
-    if (lane == 0) red[k * 32 + warp] = acc[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      T v = lane < nw ? red[k * 32 + lane] : T(0);
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) red[k * 32] = v;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) out[k] = red[k * 32];
-  __syncthreads();
-}
-
-// First half of a cycle on level ell: pre-smooth from zero into x, the
-// residual, and its restriction into the next level's b.
+// First half of a cycle on level ell, after step 0 of the pre-smooth (zero
+// start) has been run on b: the other steps, the residual, and its
+// restriction into the next level's b.  Returns the buffer that holds x.
 template <typename T>
-__device__ void dk_pre(const DeepParams& P, int ell, const T* b) {
+__device__ int dk_pre(Ctx<T>& cx, const DeepParams& P, int ell, const T* b) {
   const DeepLevel& L = P.lev[ell];
   const DeepLevel& N = P.lev[ell + 1];
-  T* x = vp<T>(L, kX);
-  T* r = vp<T>(L, kR);
-  dk_cheb<T>(L, b, true, x, T(P.frac), T(P.safety), P.degree);
+  cx.sync();                                   // step 0's y, for the neighbours
+  const int cur = dk_smooth<T>(cx, P, ell, b, 0, 1, nullptr);
+  const T* x = vp<T>(L, kYa + cur);
+  T* r = vp<T>(L, kYa + 1 - cur);
   const T* p = static_cast<const T*>(L.packed);
-  auto xv = [=](long i) { return x[i]; };
   TP_FOR_CELLS(L.d.n) {
     int idx[3];
-    L.d.coords(c, idx);
-    r[c] = b[c] - apply_scalar(p, c, idx, L.d, xv);
+    coords32(L.d, c, idx);
+    r[c] = b[c] - apply_batched(p, c, idx, L.d, x);
   }
-  __syncthreads();
-  dk_restrict<T>(L, N, r, vp<T>(N, kB));
+  cx.sync();
+  dk_restrict<T>(cx, L, N, r, vp<T>(N, kB));
+  cx.sync();
+  return cur;
+}
+
+// Step 0 of the zero-start pre-smooth of b on level ell (cells' own values
+// only: the caller needs no barrier before it)
+template <typename T>
+__device__ void dk_pre_step0(Ctx<T>& cx, const DeepParams& P, int ell, const T* b) {
+  const DeepLevel& L = P.lev[ell];
+  dk_cheb_step<T>(cx, L, cx.coef[ell * P.degree], 0, b, nullptr, vp<T>(L, kYa));
 }
 
 // Second half: prolong the next level's correction, post-smooth into out.
 template <typename T>
-__device__ void dk_post(const DeepParams& P, int ell, const T* b, T* out) {
+__device__ void dk_post(Ctx<T>& cx, const DeepParams& P, int ell, const T* b,
+                        int cur, T* out) {
   const DeepLevel& L = P.lev[ell];
   const DeepLevel& N = P.lev[ell + 1];
-  dk_prolong_add<T>(L, N, vp<T>(N, kOut), vp<T>(L, kX));
-  dk_cheb<T>(L, b, false, out, T(P.frac), T(P.safety), P.degree);
+  dk_prolong_add<T>(cx, L, N, vp<T>(N, kOut), vp<T>(L, kYa + cur));
+  cx.sync();
+  dk_smooth<T>(cx, P, ell, b, cur, 0, out);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kDeepThreads)
+__global__ void __launch_bounds__(kDeepMaxThreads, 1)
     deep_kernel(const __grid_constant__ DeepParams P) {
+  __shared__ ChebCoef<T> coef[(kMaxLevels - 1) * kMaxDegree];
+  __shared__ T red[kMaxDots * 32];
+  Ctx<T> cx{cg::this_grid(), blockIdx.x * blockDim.x + threadIdx.x,
+            gridDim.x * blockDim.x, 0, coef, red};
+  for (int i = threadIdx.x; i < (P.n_levels - 1) * P.degree; i += blockDim.x) {
+    const T lam = *static_cast<const T*>(P.lev[i / P.degree].lam);
+    cheb_scalars(lam, T(P.frac), T(P.safety), i % P.degree, &coef[i].theta,
+                 &coef[i].c1, &coef[i].c2);
+  }
+  __syncthreads();
+
   int stage[kMaxLevels];
+  int xbuf[kMaxLevels];     // the buffer that holds the pre-smoothed x
   T ksafe[kMaxLevels];
   int ell = 0;
   stage[0] = 0;
@@ -267,26 +389,28 @@ __global__ void __launch_bounds__(kDeepThreads)
     T* OUT = vp<T>(L, kOut);
     bool done = false;
     if (ell == P.n_levels - 1) {
-      dk_dense<T>(static_cast<const T*>(P.inv), B, OUT, L.d.n);
+      dk_dense<T>(cx, static_cast<const T*>(P.inv), B, OUT, (unsigned)L.d.n);
+      cx.sync();
       done = true;
     } else if (stage[ell] == 0) {
-      dk_pre<T>(P, ell, B);
+      dk_pre_step0<T>(cx, P, ell, B);
+      xbuf[ell] = dk_pre<T>(cx, P, ell, B);
       stage[ell] = 1;
     } else if (stage[ell] == 1) {
       if (!L.kcycle) {
-        dk_post<T>(P, ell, B, OUT);
+        dk_post<T>(cx, P, ell, B, xbuf[ell], OUT);
         done = true;
       } else {
         // K-cycle, first half: e1 = cycle(b); flexible-CG step on it
         T* E1 = vp<T>(L, kE1);
         T* V1 = vp<T>(L, kV1);
         T* R1 = vp<T>(L, kR1);
-        dk_post<T>(P, ell, B, E1);
-        dk_matvec<T>(L, E1, V1);
-        const T* da[2] = {V1, B};
-        const T* db[2] = {E1, E1};
+        dk_post<T>(cx, P, ell, B, xbuf[ell], E1);
+        const T* da[2] = {nullptr, B};
+        const T* de[2] = {E1, E1};
         T s[2];
-        dk_dots<T, 2>(da, db, L.d.n, s);   // rho1, alpha1
+        dk_matvec_dots<T, 2>(cx, L, E1, V1, da, de, s);   // rho1, alpha1
+        dk_reduce<T, 2>(cx, P, s);
         const T safe = fabs(s[0]) > T(0) ? s[0] : T(1);
         ksafe[ell] = safe;
         const T a1 = s[1] / safe;
@@ -294,8 +418,8 @@ __global__ void __launch_bounds__(kDeepThreads)
           OUT[c] = a1 * E1[c];
           R1[c] = B[c] - a1 * V1[c];
         }
-        __syncthreads();
-        dk_pre<T>(P, ell, R1);
+        dk_pre_step0<T>(cx, P, ell, R1);     // the same thread's cells
+        xbuf[ell] = dk_pre<T>(cx, P, ell, R1);
         stage[ell] = 2;
       }
     } else {
@@ -305,19 +429,19 @@ __global__ void __launch_bounds__(kDeepThreads)
       T* R1 = vp<T>(L, kR1);
       T* E2 = vp<T>(L, kE2);
       T* V2 = vp<T>(L, kV2);
-      dk_post<T>(P, ell, R1, E2);
-      dk_matvec<T>(L, E2, V2);
-      const T* da[3] = {V1, V2, R1};
-      const T* db[3] = {E2, E2, E2};
+      dk_post<T>(cx, P, ell, R1, xbuf[ell], E2);
+      const T* da[3] = {V1, nullptr, R1};
+      const T* de[3] = {E2, E2, E2};
       T s[3];
-      dk_dots<T, 3>(da, db, L.d.n, s);     // gamma, beta, alpha2
+      dk_matvec_dots<T, 3>(cx, L, E2, V2, da, de, s);     // gamma, beta, alpha2
+      dk_reduce<T, 3>(cx, P, s);
       const T safe = ksafe[ell];
       const T rho2 = s[1] - s[0] * s[0] / safe;
       const T safe2 = fabs(rho2) > T(0) ? rho2 : T(1);
       const T a2 = s[2] / safe2;
       const T g = s[0] / safe;
       TP_FOR_CELLS(L.d.n) OUT[c] = OUT[c] + a2 * (E2[c] - g * E1[c]);
-      __syncthreads();
+      cx.sync();
       done = true;
     }
     if (!done) {       // descend into the next level's correction
@@ -329,6 +453,15 @@ __global__ void __launch_bounds__(kDeepThreads)
       --ell;           // the parent resumes at its recorded stage
     }
   }
+  if (P.barriers != nullptr && cx.gtid == 0) *P.barriers = cx.nbar;
+}
+
+template <typename T>
+int launch_deep(DeepParams& P, int blocks, int threads, cudaStream_t st) {
+  void* args[] = {&P};
+  return (int)cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&deep_kernel<T>), dim3(blocks), dim3(threads),
+      args, 0, st);
 }
 
 }  // namespace tp
@@ -336,14 +469,22 @@ __global__ void __launch_bounds__(kDeepThreads)
 extern "C" {
 
 // desc: kDescPerLevel int64 per level, host memory: packed, lam, the
-// kNumVec vector pointers (b, out, e1, v1, r1, e2, v2, x, d, r), dim, n0,
-// n1, n2, three coarsening factors, kcycle.  dtype: 0 = float32, 1 = float64.
+// kNumVec vector pointers (b, out, e1, v1, r1, e2, v2, ya, yb, d), dim, n0,
+// n1, n2, three coarsening factors, kcycle.  partials: 3 * blocks values of
+// the working dtype.  barriers: nullable device int.  dtype: 0 = float32,
+// 1 = float64.  A grid that cannot be co-resident is refused with an error.
 int tp_deep_correction(int dtype, const long long* desc, int n_levels,
-                       const void* inv, int degree, double frac, double safety,
-                       void* stream) {
-  if (n_levels < 1 || n_levels > tp::kMaxLevels) return (int)cudaErrorInvalidValue;
+                       const void* inv, void* partials, int* barriers,
+                       int degree, double frac, double safety, int blocks,
+                       int threads, void* stream) {
+  if (n_levels < 1 || n_levels > tp::kMaxLevels || degree < 1 ||
+      degree > tp::kMaxDegree || blocks < 1 || threads < 32 ||
+      threads > tp::kDeepMaxThreads || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   tp::DeepParams P;
   P.inv = inv;
+  P.partials = partials;
+  P.barriers = barriers;
   P.frac = frac;
   P.safety = safety;
   P.degree = degree;
@@ -359,11 +500,8 @@ int tp_deep_correction(int dtype, const long long* desc, int n_levels,
     L.kcycle = (int)q[19];
   }
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    tp::deep_kernel<float><<<1, tp::kDeepThreads, 0, st>>>(P);
-  else
-    tp::deep_kernel<double><<<1, tp::kDeepThreads, 0, st>>>(P);
-  return (int)cudaGetLastError();
+  return dtype == 0 ? tp::launch_deep<float>(P, blocks, threads, st)
+                    : tp::launch_deep<double>(P, blocks, threads, st);
 }
 
 }  // extern "C"

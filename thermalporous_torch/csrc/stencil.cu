@@ -23,18 +23,38 @@
 //     2*dim+1 threads that are close in time), so v costs about one pass;
 //   - the column count k of the block matvec skips the (nc-k)/nc of the
 //     coefficients that would multiply zeros (the CPTR stage-2 residual);
-//   - the Chebyshev smooth is `degree` launches, each one pass over the
-//     stencil that does the matvec, the D^-1 scaling and the three-term
-//     recurrence update together (the x + d update is recomputed at the
-//     neighbours instead of being written and read back).  The recurrence
-//     scalars depend on lambda_max, which stays on the device: every thread
-//     derives them from the device scalar, so there is no host sync.
+//   - the Chebyshev smooth is ONE cooperative launch of at most one block
+//     per SM.  As `degree` passes over the stencil it would move 12 values a
+//     cell a step (48 at degree 4) where the function needs 10 in all, and
+//     on the coarse levels each pass is launch-sized.  So a block owns a
+//     contiguous range of cells for the whole smooth, a thread 4 consecutive
+//     cells of it at a time (16-byte accesses where the channels are
+//     aligned), and the block keeps the stencil channels, b and d of as many
+//     of its cells as fit in its shared memory (all of them on every
+//     flagship level but the finest, where three quarters fit in f32):
+//     those come from device memory once per smooth.  A step writes
+//     y = x + d, the next step's x, so only y crosses blocks, one vector
+//     read at the neighbours, and cooperative_groups' grid.sync() separates
+//     the steps (degree - 1 barriers of ~1.1 us).  A thread starts all loads
+//     of its cells before it sums (neighbours from clamped addresses), so a
+//     step costs one round trip to memory, not one per neighbour; that takes
+//     ~128 registers, hence blocks of at most 512 threads.  The recurrence
+//     scalars depend on lambda_max, which stays on the device: each block
+//     tabulates them once from the device scalar, so there is no host sync.
+//     What bounds it now: on the finest level the quarter of the cells whose
+//     channels are re-read each step and the bytes that one block of
+//     <= 512 threads per SM keeps in flight; on the coarse levels the launch
+//     (~5 us) and the barriers.
 //
 // Each kernel reproduces the plain PyTorch version's order of operations
 // (thermalporous_torch/kernels/stencil.py); compiled with --fmad=false it
 // rounds the same way.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace tp {
 
@@ -102,60 +122,247 @@ __global__ void scalar_matvec_kernel(const T* __restrict__ p,
   y[c] = apply_scalar(p, c, idx, d, [=](long i) { return v[i]; });
 }
 
-// First step: d0 = D^-1 (b - A x0) / theta (x0 == nullptr: d0 = D^-1 b /
-// theta, no matvec).  With degree 1 it writes the result x0 + d0 instead.
+// Four consecutive cells of a channel: one 16-byte load in f32, two in f64.
+// `vec` says that the channel's base and every quad offset are 16-byte
+// aligned and every quad is whole (n % 4 == 0); otherwise the cells are
+// loaded one by one and those at or beyond n read as zero.
 template <typename T>
-__global__ void cheb_first_kernel(const T* __restrict__ p, const T* __restrict__ b,
-                                  const T* __restrict__ x, const T* __restrict__ lam,
-                                  T frac, T safety, T* __restrict__ d_out,
-                                  T* __restrict__ out, Dims d) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d.n) return;
-  T theta, c1, c2;
-  cheb_scalars(*lam, frac, safety, 0, &theta, &c1, &c2);
-  const T inv_diag = T(1) / p[c];
-  T z;
-  if (x == nullptr) {
-    z = inv_diag * b[c];
+struct alignas(16) Pack16 {
+  T v[16 / sizeof(T)];
+};
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, bool vec, unsigned c0, unsigned n,
+                                      T (&v)[4]) {
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+    for (int h = 0; h < 4 / kPer; ++h) {
+      const Pack16<T> t = *reinterpret_cast<const Pack16<T>*>(p + c0 + h * kPer);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) v[h * kPer + j] = t.v[j];
+    }
   } else {
-    int idx[3];
-    d.coords(c, idx);
-    z = inv_diag * (b[c] - apply_scalar(p, c, idx, d, [=](long i) { return x[i]; }));
-  }
-  const T d0 = z / theta;
-  if (out != nullptr) {
-    out[c] = (x == nullptr ? T(0) : x[c]) + d0;
-  } else {
-    d_out[c] = d0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = c0 + q < n ? p[c0 + q] : T(0);
   }
 }
 
-// Step s >= 1: x_s = x_{s-1} + d_{s-1} (recomputed at the neighbours),
-// z = D^-1 (b - A x_s), d_s = c1*d_{s-1} + c2*z.  The last step writes
-// x_s + d_s to `out`; the others write x_s and d_s.
 template <typename T>
-__global__ void cheb_step_kernel(const T* __restrict__ p, const T* __restrict__ b,
-                                 const T* __restrict__ x, const T* __restrict__ dd,
-                                 const T* __restrict__ lam, T frac, T safety,
-                                 int step, T* __restrict__ x_out,
-                                 T* __restrict__ d_out, T* __restrict__ out,
-                                 Dims d) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d.n) return;
-  T theta, c1, c2;
-  cheb_scalars(*lam, frac, safety, step, &theta, &c1, &c2);
-  int idx[3];
-  d.coords(c, idx);
-  auto xs = [=](long i) { return (x == nullptr ? T(0) : x[i]) + dd[i]; };
-  const T inv_diag = T(1) / p[c];
-  const T xc = xs(c);
-  const T z = inv_diag * (b[c] - apply_scalar(p, c, idx, d, xs));
-  const T dn = c1 * dd[c] + c2 * z;
-  if (out != nullptr) {
-    out[c] = xc + dn;
+__device__ __forceinline__ void store4(T* p, bool vec, unsigned c0, unsigned n,
+                                       const T (&v)[4]) {
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+    for (int h = 0; h < 4 / kPer; ++h) {
+      Pack16<T> t;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) t.v[j] = v[h * kPer + j];
+      *reinterpret_cast<Pack16<T>*>(p + c0 + h * kPer) = t;
+    }
   } else {
-    x_out[c] = xc;
-    d_out[c] = dn;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c0 + q < n) p[c0 + q] = v[q];
+  }
+}
+
+// A thread's four cells in the block's shared-memory cache: slot `s` of
+// iteration `it`, laid out so that a warp's accesses are contiguous.
+template <typename T>
+struct alignas(16) Quad {
+  T v[4];
+};
+
+template <typename T>
+__device__ __forceinline__ void get4(const Quad<T>& q, T (&w)[4]) {
+  const Quad<T> t = q;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = t.v[j];
+}
+
+template <typename T>
+__device__ __forceinline__ void put4(Quad<T>& q, const T (&w)[4]) {
+  Quad<T> t;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t.v[j] = w[j];
+  q = t;
+}
+
+constexpr int kSmoothMaxThreads = 512;
+constexpr int kSmoothTableSteps = 16;   // steps whose scalars are tabulated
+
+struct SmoothPlan {
+  unsigned n;            // cells
+  unsigned quads;        // groups of 4 consecutive cells, the last may be short
+  unsigned per_block;    // quads a block owns (a contiguous range)
+  unsigned cached_quads; // of which the first keep their channels in shared memory
+  int iters;             // block-stride iterations over the block's range
+  int vec;               // 1: 16-byte loads and stores
+  int ext[3];            // extents, slowest axis first (DIM of them)
+  unsigned stride[3];
+};
+
+// The whole Chebyshev smooth in one cooperative launch.  Step 0:
+// z = D^-1 (b - A x0) (x0 == nullptr: D^-1 b, no matvec), d = z / theta;
+// step s >= 1: z = D^-1 (b - A y), d = c1*d + c2*z, with y the last step's
+// x + d.  Every step writes y = x + d (the last one to `out`), so a step
+// reads ONE vector at the neighbours, and only y crosses blocks: a grid
+// barrier between steps.  d and, for the quads that fit, the stencil
+// channels and b stay in the block's shared memory from step 0 on.
+// A thread first starts every load of its quad (channels, then the
+// neighbours from clamped addresses, whether the cell has them or not) and
+// only then sums in the plain version's order, so the loads are in flight
+// together instead of one round trip after another.
+template <typename T, int DIM>
+__global__ void __launch_bounds__(kSmoothMaxThreads, 1)
+    cheb_smooth_kernel(const T* __restrict__ p, const T* __restrict__ b,
+                       const T* __restrict__ x0, const T* __restrict__ lam, T frac,
+                       T safety, int degree, T* ya, T* yb, T* dbuf, T* out,
+                       const __grid_constant__ SmoothPlan pl) {
+  constexpr int NCH = 2 * DIM + 1;      // stencil channels
+  // the cache: [slot][cached quad], slots 0..NCH-1 the channels, NCH b, NCH+1 d
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Quad<T>* cache = reinterpret_cast<Quad<T>*>(smem_raw);
+  __shared__ T coef_s[kSmoothTableSteps][3];
+  cg::grid_group grid = cg::this_grid();
+  const unsigned n = pl.n;
+  const unsigned ncq = pl.cached_quads;
+  const bool vec = pl.vec != 0;
+  T* ybuf[2] = {ya, yb};
+
+  // the recurrence scalars of every step, once per block (thread s: step s)
+  if (threadIdx.x < kSmoothTableSteps && (int)threadIdx.x < degree)
+    cheb_scalars(*lam, frac, safety, (int)threadIdx.x, &coef_s[threadIdx.x][0],
+                 &coef_s[threadIdx.x][1], &coef_s[threadIdx.x][2]);
+  __syncthreads();
+
+  // the first step that reads the off-diagonal channels
+  const int first_off = x0 == nullptr ? 1 : 0;
+
+  for (int s = 0; s < degree; ++s) {
+    T theta, c1, c2;
+    if (s < kSmoothTableSteps) {
+      theta = coef_s[s][0], c1 = coef_s[s][1], c2 = coef_s[s][2];
+    } else {
+      cheb_scalars(*lam, frac, safety, s, &theta, &c1, &c2);
+    }
+    const T* src = s == 0 ? x0 : ybuf[(s - 1) & 1];
+    T* dst = s == degree - 1 ? out : ybuf[s & 1];
+    for (int it = 0; it < pl.iters; ++it) {
+      const unsigned lq = it * blockDim.x + threadIdx.x;
+      const unsigned q = blockIdx.x * pl.per_block + lq;
+      if (lq >= pl.per_block || q >= pl.quads) continue;
+      const unsigned c0 = 4 * q;
+      const bool cached = lq < ncq;
+      Quad<T>* slot = cache + lq;          // slot k of this quad: slot[k * ncq]
+
+      // channels: diagonal and b from step 0 on, the off-diagonals from the
+      // first step with a matvec; from device memory the first time (and
+      // every time for quads beyond the cache), from the cache afterwards
+      T w[NCH][4], bb[4], dd[4];
+      if (cached && s > 0) {
+        get4(slot[0], w[0]);
+        get4(slot[NCH * ncq], bb);
+        get4(slot[(NCH + 1) * ncq], dd);
+      } else {
+        load4(p, vec, c0, n, w[0]);
+        load4(b, vec, c0, n, bb);
+        if (s > 0) load4(dbuf, vec, c0, n, dd);
+        if (cached) {
+          put4(slot[0], w[0]);
+          put4(slot[NCH * ncq], bb);
+        }
+      }
+      T xc[4], acc[4];
+      if (src == nullptr) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xc[j] = T(0);
+      } else {
+        if (cached && s > first_off) {
+#pragma unroll
+          for (int ch = 1; ch < NCH; ++ch) get4(slot[ch * ncq], w[ch]);
+        } else {
+#pragma unroll
+          for (int ch = 1; ch < NCH; ++ch) load4(p + (size_t)ch * n, vec, c0, n, w[ch]);
+          if (cached) {
+#pragma unroll
+            for (int ch = 1; ch < NCH; ++ch) put4(slot[ch * ncq], w[ch]);
+          }
+        }
+        // which neighbours each of the four cells has
+        int i[DIM];
+        {
+          unsigned r = c0;
+#pragma unroll
+          for (int a = DIM - 1; a > 0; --a) {
+            const unsigned t = r / (unsigned)pl.ext[a];
+            i[a] = (int)(r - t * (unsigned)pl.ext[a]);
+            r = t;
+          }
+          i[0] = (int)r;
+        }
+        unsigned has = 0;   // bit 2*DIM*j + 2a: cell j has an upper neighbour on a; +1: lower
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c0 + j < n) {
+#pragma unroll
+            for (int a = 0; a < DIM; ++a) {
+              if (i[a] + 1 < pl.ext[a]) has |= 1u << (2 * DIM * j + 2 * a);
+              if (i[a] > 0) has |= 1u << (2 * DIM * j + 2 * a + 1);
+            }
+          }
+#pragma unroll
+          for (int a = DIM - 1; a >= 0; --a) {     // advance to the next cell
+            if (++i[a] < pl.ext[a] || a == 0) break;
+            i[a] = 0;
+          }
+        }
+        // every neighbour value, from the cell's own address where there is
+        // no neighbour (never used then): no load waits on a branch
+        load4(src, vec, c0, n, xc);
+        T nb[2 * DIM][4];
+#pragma unroll
+        for (int a = 0; a < DIM; ++a) {
+          const unsigned st = pl.stride[a];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const unsigned c = c0 + j < n ? c0 + j : c0;
+            const unsigned bits = has >> (2 * DIM * j + 2 * a);
+            nb[2 * a][j] = src[(bits & 1u) ? c + st : c];
+            nb[2 * a + 1][j] = src[(bits & 2u) ? c - st : c];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j] = w[0][j] * xc[j];
+#pragma unroll
+        for (int a = 0; a < DIM; ++a) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const unsigned bits = has >> (2 * DIM * j + 2 * a);
+            if (bits & 1u) acc[j] = acc[j] + w[1 + 2 * a][j] * nb[2 * a][j];
+            if (bits & 2u) acc[j] = acc[j] + w[2 + 2 * a][j] * nb[2 * a + 1][j];
+          }
+        }
+      }
+      T y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const T inv_diag = T(1) / w[0][j];
+        const T z = src == nullptr ? inv_diag * bb[j] : inv_diag * (bb[j] - acc[j]);
+        dd[j] = s == 0 ? z / theta : c1 * dd[j] + c2 * z;
+        y[j] = xc[j] + dd[j];
+      }
+      if (s < degree - 1) {
+        if (cached) {
+          put4(slot[(NCH + 1) * ncq], dd);
+        } else {
+          store4(dbuf, vec, c0, n, dd);
+        }
+      }
+      store4(dst, vec, c0, n, y);
+    }
+    if (s < degree - 1) grid.sync();
   }
 }
 
@@ -175,33 +382,41 @@ int block_matvec(const void* coef, const void* v, void* y, int nc, int k,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DIM>
+int launch_smooth(const T* p, const T* b, const T* x, const T* lam, T frac, T safety,
+                  int degree, T* ya, T* yb, T* dbuf, T* out, SmoothPlan pl,
+                  int blocks, int threads, size_t smem, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(&cheb_smooth_kernel<T, DIM>);
+  // more than 48 KB of dynamic shared memory must be opted in to, per
+  // function and device: remember what was granted
+  constexpr int kMaxDevices = 64;
+  static size_t allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed[dev] = smem;
+  }
+  void* args[] = {&p, &b, &x, &lam, &frac, &safety, &degree, &ya, &yb, &dbuf, &out, &pl};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem, st);
+}
+
 template <typename T>
 int chebyshev_smooth(const void* packed, const void* b, const void* x,
-                     const void* lam, void* out, void* d_a, void* d_b,
-                     void* x_a, void* x_b, int degree, double frac,
-                     double safety, Dims d, cudaStream_t st) {
-  const T* p = static_cast<const T*>(packed);
-  const T* b_ = static_cast<const T*>(b);
-  const T* l = static_cast<const T*>(lam);
-  T* o = static_cast<T*>(out);
-  T* dbuf[2] = {static_cast<T*>(d_a), static_cast<T*>(d_b)};
-  T* xbuf[2] = {static_cast<T*>(x_a), static_cast<T*>(x_b)};
-  const unsigned g = blocks_for(d.n);
-  cheb_first_kernel<T><<<g, kThreads, 0, st>>>(
-      p, b_, static_cast<const T*>(x), l, T(frac), T(safety), dbuf[0],
-      degree == 1 ? o : nullptr, d);
-  int err = (int)cudaGetLastError();
-  const T* x_prev = static_cast<const T*>(x);
-  for (int s = 1; s < degree && err == 0; ++s) {
-    const bool last = s == degree - 1;
-    T* x_next = last ? nullptr : xbuf[(s - 1) % 2];
-    cheb_step_kernel<T><<<g, kThreads, 0, st>>>(
-        p, b_, x_prev, dbuf[(s - 1) % 2], l, T(frac), T(safety), s, x_next,
-        last ? nullptr : dbuf[s % 2], last ? o : nullptr, d);
-    err = (int)cudaGetLastError();
-    x_prev = x_next;
-  }
-  return err;
+                     const void* lam, void* out, void* y_a, void* y_b, void* d_buf,
+                     int degree, double frac, double safety, const SmoothPlan& pl,
+                     int dim, int blocks, int threads, size_t smem, cudaStream_t st) {
+  auto c = [](const void* q) { return static_cast<const T*>(q); };
+  auto m = [](void* q) { return static_cast<T*>(q); };
+  return dim == 2
+             ? launch_smooth<T, 2>(c(packed), c(b), c(x), c(lam), T(frac), T(safety),
+                                   degree, m(y_a), m(y_b), m(d_buf), m(out), pl,
+                                   blocks, threads, smem, st)
+             : launch_smooth<T, 3>(c(packed), c(b), c(x), c(lam), T(frac), T(safety),
+                                   degree, m(y_a), m(y_b), m(d_buf), m(out), pl,
+                                   blocks, threads, smem, st);
 }
 
 }  // namespace tp
@@ -234,18 +449,51 @@ int tp_scalar_matvec(int dtype, const void* packed, const void* v, void* y,
   return (int)cudaGetLastError();
 }
 
+// One cooperative launch of `blocks` x `threads`; a block owns `per_block`
+// quads (4 consecutive cells) and walks them in `iters` block-stride
+// iterations; its first `cached_quads` quads keep their channels in `smem`
+// bytes of dynamic shared memory.  y_a, y_b, d_buf: n values each
+// (y_b and d_buf are untouched at degree <= 2 and 1).  vec: 16-byte
+// accesses (every pointer 16-byte aligned and n % 4 == 0).  A grid that
+// cannot be co-resident is refused with an error.
 int tp_chebyshev_smooth(int dtype, const void* packed, const void* b,
-                        const void* x, const void* lam, void* out, void* d_a,
-                        void* d_b, void* x_a, void* x_b, int degree,
+                        const void* x, const void* lam, void* out, void* y_a,
+                        void* y_b, void* d_buf, int degree,
                         double lam_min_frac, double safety, int dim, int n0,
-                        int n1, int n2, void* stream) {
+                        int n1, int n2, int blocks, int threads, int per_block,
+                        int iters, int cached_quads, int smem, int vec,
+                        void* stream) {
   const tp::Dims d = tp::make_dims(dim, n0, n1, n2);
+  if ((dim != 2 && dim != 3) || d.n >= (1L << 31) || degree < 1 || blocks < 1 ||
+      threads < 32 || threads > tp::kSmoothMaxThreads || threads % 32 != 0 ||
+      per_block < 1 ||
+      iters < 1 || cached_quads < 0 || cached_quads > per_block || smem < 0 ||
+      (long)iters * threads < per_block)
+    return (int)cudaErrorInvalidValue;
+  tp::SmoothPlan pl;
+  pl.n = (unsigned)d.n;
+  pl.quads = (unsigned)((d.n + 3) / 4);
+  pl.per_block = (unsigned)per_block;
+  pl.iters = iters;
+  pl.cached_quads = (unsigned)cached_quads;
+  pl.vec = vec;
+  for (int a = 0; a < 3; ++a) {
+    pl.ext[a] = a < dim ? d.ext[a] : 1;
+    pl.stride[a] = a < dim ? (unsigned)d.stride[a] : 0u;
+  }
+  const long quad_bytes = 4L * (dtype == 0 ? 4 : 8);
+  if ((long)blocks * per_block < pl.quads ||
+      (long)cached_quads * (2 * dim + 3) * quad_bytes > smem ||
+      (cached_quads < per_block && cached_quads % 32 != 0))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? tp::chebyshev_smooth<float>(packed, b, x, lam, out, d_a, d_b, x_a,
-                                           x_b, degree, lam_min_frac, safety, d, st)
-             : tp::chebyshev_smooth<double>(packed, b, x, lam, out, d_a, d_b, x_a,
-                                            x_b, degree, lam_min_frac, safety, d, st);
+             ? tp::chebyshev_smooth<float>(packed, b, x, lam, out, y_a, y_b, d_buf,
+                                           degree, lam_min_frac, safety, pl, dim,
+                                           blocks, threads, (size_t)smem, st)
+             : tp::chebyshev_smooth<double>(packed, b, x, lam, out, y_a, y_b, d_buf,
+                                            degree, lam_min_frac, safety, pl, dim,
+                                            blocks, threads, (size_t)smem, st);
 }
 
 }  // extern "C"

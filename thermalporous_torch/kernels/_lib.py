@@ -10,8 +10,14 @@ device pointers plus PyTorch's current stream and returns the
 ``--fmad=false`` keeps the compiler from contracting a·b + c into one
 rounding: the kernels then round like the plain PyTorch versions op by op,
 which is what lets the card hold them to ulp-level tolerances.  The stencil
-kernels are bandwidth-bound and the deep-cycle kernel latency-bound, so the
-lost FMAs cost nothing measurable.
+kernels are bandwidth-bound and the deep-cycle kernel is bound by its chain
+of grid-wide barriers, so the lost FMAs cost nothing measurable.
+
+The Chebyshev smooth and the fused coarse subtree are cooperative launches
+(``cudaLaunchCooperativeKernel``, ``cooperative_groups``' ``grid.sync()``):
+their grids must be co-resident, so the wrappers size them from
+:func:`device_limits` (at most one block per SM), and a grid the card
+refuses comes back as a nonzero error, which :func:`launch` raises.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 SOURCES = ("common.cuh", "dual.cuh", "stencil.cu", "residual.cu", "rbgs.cu",
-           "deep_cycle.cu")
+           "deep_cycle.cu", "device.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -47,16 +53,18 @@ _D = ctypes.c_double
 _MODEL_ARGS = (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P)
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int;
-# the first argument is the dtype code, 0 = float32, 1 = float64)
+# the first argument is the dtype code, 0 = float32, 1 = float64, unless noted)
 _SIGNATURES = {
     # coef, v, y, nc, k, dim, n0, n1, n2, stream
     "tp_block_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # packed, v, y, dim, n0, n1, n2, stream
     "tp_scalar_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
-    # packed, b, x (nullable), lam, out, d_a, d_b, x_a, x_b,
-    # degree, lam_min_frac, safety, dim, n0, n1, n2, stream
-    "tp_chebyshev_smooth": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _D, _D, _I, _I, _I, _I, _P),
+    # packed, b, x (nullable), lam, out, y_a, y_b, d_buf, degree,
+    # lam_min_frac, safety, dim, n0, n1, n2, blocks, threads, per_block,
+    # iters, cached_quads, smem, vec, stream
+    "tp_chebyshev_smooth": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _D, _D, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _P),
     # u, u_old (residual) or v (jvp), fields, out, dt, params (host double*),
     # dim, n0, n1, n2, stream
     "tp_twophase_residual": _MODEL_ARGS,
@@ -66,14 +74,21 @@ _SIGNATURES = {
     # coef, dinv, b, out, nc, dim, n0, n1, n2, stream
     "tp_block_rbgs_zero": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # desc (host int64*, DEEP_DESC_PER_LEVEL per level), n_levels, inv,
-    # degree, lam_min_frac, safety, stream
-    "tp_deep_correction": (_I, _P, _I, _P, _I, _D, _D, _P),
+    # partials, barriers (nullable), degree, lam_min_frac, safety, blocks,
+    # threads, stream
+    "tp_deep_correction": (_I, _P, _I, _P, _P, _P, _I, _D, _D, _I, _I, _P),
+    # device, sms (host int*), smem_optin (host int*)      [no dtype code]
+    "tp_device_limits": (_I, _P, _P),
+    # kind (0 grid, 1 cluster), blocks, threads, iters, stream  [no dtype code]
+    "tp_barrier_probe": (_I, _I, _I, _I, _P),
 }
 
 #: int64 entries per level of tp_deep_correction's descriptor
 #: (csrc/deep_cycle.cu: kDescPerLevel) and its level limit (kMaxLevels)
 DEEP_DESC_PER_LEVEL = 20
 DEEP_MAX_LEVELS = 16
+#: largest Chebyshev degree of tp_deep_correction (kMaxDegree)
+DEEP_MAX_DEGREE = 16
 
 #: length of the params array of the residual and JVP entries
 #: (csrc/residual.cu: kNumParams)
@@ -163,6 +178,21 @@ def launch(name: str, *args) -> None:
     err = getattr(load(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+@functools.cache
+def device_limits(index: int) -> tuple[int, int]:
+    """(number of SMs, largest dynamic shared memory in bytes a block may
+    opt in to) of CUDA device ``index``."""
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    launch("tp_device_limits", index, ctypes.byref(sms), ctypes.byref(smem))
+    return sms.value, smem.value
+
+
+def limits_of(t: torch.Tensor) -> tuple[int, int]:
+    """:func:`device_limits` of the CUDA device that holds ``t``."""
+    index = t.device.index
+    return device_limits(torch.cuda.current_device() if index is None else index)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -3,8 +3,9 @@
 Counterpart of ``thermalporous_tpu/kernels/deep_cycle.py``: the whole
 coarse-grid correction below a level — the V- or K-cycle recursion,
 Chebyshev smoothing, constant-transfer restriction and prolongation and the
-dense coarsest-level solve — in one launch, instead of a few hundred small
-launches per visit of the subtree.
+dense coarsest-level solve — in one cooperative launch over up to one block
+per SM, with a grid-wide barrier between dependent passes, instead of a few
+hundred small launches per visit of the subtree.
 
 ``deep_correction`` is the wrapper: on CPU tensors it returns its plain
 version, ``deep_correction_plain`` (the counterpart of the reference's
@@ -29,8 +30,57 @@ from thermalporous_torch.kernels import _lib
 from thermalporous_torch.kernels import stencil as kst
 
 #: vectors per level the kernel keeps in its scratch buffer (csrc/deep_cycle.cu:
-#: b, out, e1, v1, r1, e2, v2, x, d, r)
+#: b, out, e1, v1, r1, e2, v2, ya, yb, d)
 VECS_PER_LEVEL = 10
+#: partial dot products a block leaves in scratch (csrc/deep_cycle.cu: kMaxDots)
+MAX_DOTS = 3
+#: cells of the entry level per block before another block is used
+MIN_CELLS_PER_BLOCK = 256
+MAX_THREADS = 1024
+
+
+def launch_shape(n_entry: int, sms: int) -> tuple[int, int]:
+    """(blocks, threads per block) of the subtree kernel for an entry level
+    of ``n_entry`` cells on a card with ``sms`` SMs: about one cell a thread
+    on the entry level, at most one block per SM (the grid must be
+    co-resident for its barriers), threads a multiple of 32."""
+    blocks = max(1, min(sms, -(-n_entry // MIN_CELLS_PER_BLOCK)))
+    threads = 32 * -(-(-(-n_entry // blocks)) // 32)
+    return blocks, max(32, min(MAX_THREADS, threads))
+
+
+def kcycle_levels(sizes: Sequence[int], cycle_type: str,
+                  kcycle_min_cells: int) -> list[bool]:
+    """Per level of a subtree with ``sizes`` cells, whether it runs the
+    K-cycle (never the coarsest, which is solved directly)."""
+    last = len(sizes) - 1
+    return [cycle_type == "k" and ell < last and m >= kcycle_min_cells
+            for ell, m in enumerate(sizes)]
+
+
+def barrier_count(kcycle: Sequence[bool], degree: int, single_block: bool = False) -> int:
+    """Barriers on the critical path of one visit of a subtree whose levels
+    run the K-cycle where ``kcycle`` says (the last level is the dense
+    solve).  The cooperative kernel's grid barriers: per cycle of a level
+    2·degree + 3 (one per Chebyshev step, after the residual, the
+    restriction and the prolongation), per K-cycle level 3 more (two
+    reductions, the combination), 1 for the dense solve.  With
+    ``single_block``, the block barriers of the earlier one-block kernel,
+    which spent two on each Chebyshev step after the first and kept the
+    K-cycle's matvec, dots and update as separate passes."""
+    last = len(kcycle) - 1
+    if single_block:
+        cycle, extra = 2 * (2 * degree) + 3, 10
+    else:
+        cycle, extra = 2 * degree + 3, 3
+
+    def visit(ell: int) -> int:
+        if ell == last:
+            return 1
+        one = cycle + visit(ell + 1)
+        return 2 * one + extra if kcycle[ell] else one
+
+    return visit(0)
 
 
 def subtree_bytes(shapes: Sequence[tuple[int, ...]], inv_numel: int,
@@ -119,9 +169,12 @@ def deep_correction(
     cycle_type: str,
     kcycle_min_cells: int,
     safety: float = 1.05,
+    barriers: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The whole coarse correction below the entry level ``packed[0]`` (see
-    the plain version) in one launch of one 1024-thread block."""
+    the plain version) in one cooperative launch (:func:`launch_shape`).
+    ``barriers``, a 0-dim int32 tensor on the card, receives the number of
+    grid barriers the kernel went through."""
     n_lev = len(packed)
     if cycle_type not in ("v", "k"):
         raise NotImplementedError(f"deep_correction: cycle_type {cycle_type!r}")
@@ -142,11 +195,22 @@ def deep_correction(
         return deep_correction_plain(packed, lams, coarse_inv, rc, degree=degree,
                                      lam_min_frac=lam_min_frac, cycle_type=cycle_type,
                                      kcycle_min_cells=kcycle_min_cells, safety=safety)
-    if n_lev > _lib.DEEP_MAX_LEVELS:
+    if n_lev > _lib.DEEP_MAX_LEVELS or degree > _lib.DEEP_MAX_DEGREE:
         raise NotImplementedError(f"deep_correction kernel: {n_lev} levels > "
-                                  f"{_lib.DEEP_MAX_LEVELS}")
+                                  f"{_lib.DEEP_MAX_LEVELS} or degree {degree} > "
+                                  f"{_lib.DEEP_MAX_DEGREE}")
     sizes = [math.prod(s) for s in shapes]
-    scratch = torch.empty(VECS_PER_LEVEL * sum(sizes), dtype=rc.dtype, device=dev)
+    if sizes[0] >= 2**31:
+        raise NotImplementedError(f"deep_correction kernel: {sizes[0]} cells >= 2**31")
+    if barriers is not None and (barriers.dtype != torch.int32 or barriers.dim() != 0
+                                 or barriers.device != dev):
+        raise ValueError("deep_correction: barriers must be a 0-dim int32 tensor on "
+                         f"{dev}")
+    blocks, threads = launch_shape(sizes[0], _lib.limits_of(rc)[0])
+    kflags = kcycle_levels(sizes, cycle_type, kcycle_min_cells)
+    # the levels' vectors, then the blocks' partial dot products
+    n_vecs = VECS_PER_LEVEL * sum(sizes)
+    scratch = torch.empty(n_vecs + MAX_DOTS * blocks, dtype=rc.dtype, device=dev)
     out = torch.empty_like(rc)
     factors = _factors(shapes) + [(1, 1, 1)]
     per = _lib.DEEP_DESC_PER_LEVEL
@@ -159,16 +223,16 @@ def deep_correction(
         off += VECS_PER_LEVEL * sizes[ell]
         if ell == 0:
             vecs[0], vecs[1] = rc.data_ptr(), out.data_ptr()   # b in, out
-        kcycle = (cycle_type == "k" and ell < n_lev - 1
-                  and sizes[ell] >= kcycle_min_cells)
         fac = tuple(factors[ell]) + (1,) * (3 - len(factors[ell]))
         row = [p.data_ptr(), lams[ell].data_ptr() if ell < n_lev - 1 else 0,
-               *vecs, len(shape), *_lib.dims3(shape), *fac, int(kcycle)]
+               *vecs, len(shape), *_lib.dims3(shape), *fac, int(kflags[ell])]
         assert len(row) == per
         desc[ell * per:(ell + 1) * per] = row
     _lib.launch("tp_deep_correction", _lib.dtype_code(rc),
                 ctypes.cast(desc, ctypes.c_void_p), n_lev, coarse_inv.data_ptr(),
-                int(degree), float(lam_min_frac), float(safety), _lib.stream_of(rc))
+                base + n_vecs * item, None if barriers is None else barriers.data_ptr(),
+                int(degree), float(lam_min_frac), float(safety), blocks, threads,
+                _lib.stream_of(rc))
     deep_correction.launches += 1
     return out
 

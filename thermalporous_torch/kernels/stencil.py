@@ -21,6 +21,9 @@ Values beyond the boundary are zero.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from thermalporous_torch.core.grid import shift_minus, shift_plus
@@ -176,6 +179,61 @@ def chebyshev_smooth_plain(
     return x + d
 
 
+#: cells a thread of the smooth kernel takes at a time (csrc/stencil.cu: a quad)
+SMOOTH_QUAD = 4
+#: least quads a block of the smooth kernel is given before another block is used
+SMOOTH_MIN_QUADS_PER_BLOCK = 128
+#: csrc/stencil.cu: kSmoothMaxThreads (512 threads leave each 128 registers,
+#: enough to have all of a quad's loads in flight at once)
+SMOOTH_MAX_THREADS = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class SmoothPlan:
+    """Launch shape of the one-launch Chebyshev smooth (csrc/stencil.cu)."""
+
+    blocks: int          # co-resident blocks, at most one per SM
+    threads: int         # per block, a multiple of 32
+    per_block: int       # quads (4 consecutive cells) a block owns, contiguous
+    iters: int           # block-stride iterations over the block's quads
+    cached_quads: int    # the block's first quads keep stencil, b and d in shared memory
+    smem: int            # bytes of dynamic shared memory per block
+
+
+@functools.cache
+def smooth_plan(n: int, dim: int, item: int, sms: int, smem_max: int) -> SmoothPlan:
+    """The launch shape for ``n`` cells of a ``dim``-axis grid at ``item``
+    bytes a value on a card with ``sms`` SMs and ``smem_max`` bytes of
+    shared memory a block.
+
+    The grid must be co-resident (the steps are separated by grid-wide
+    barriers), so there is at most one block per SM; small levels use fewer
+    blocks.  Each block owns a contiguous range of quads and walks it in
+    ``iters`` equally filled block-stride iterations.  As many of its quads
+    as fit (whole warps of them) keep their 2·dim+1 stencil channels, b and
+    d in shared memory, so they come from device memory once per smooth."""
+    if n < 1 or n >= 2**31:
+        raise ValueError(f"chebyshev_smooth kernel: {n} cells (needs 1 <= n < 2**31)")
+    quads = -(-n // SMOOTH_QUAD)
+    blocks = max(1, min(sms, -(-quads // SMOOTH_MIN_QUADS_PER_BLOCK)))
+    per_block = -(-quads // blocks)
+    iters = -(-per_block // SMOOTH_MAX_THREADS)
+    threads = 32 * -(-(-(-per_block // iters)) // 32)
+    per_quad = (2 * dim + 3) * SMOOTH_QUAD * item
+    # the kernel's static shared memory (a few scalars) counts against the
+    # same limit: leave it 1 KiB
+    fit = max(0, smem_max - 1024) // per_quad
+    cached = per_block if fit >= per_block else fit // 32 * 32
+    return SmoothPlan(blocks, threads, per_block, iters, cached, cached * per_quad)
+
+
+def vector_access(n: int, *tensors: torch.Tensor) -> bool:
+    """Whether the smooth kernel may use 16-byte loads and stores: every
+    tensor starts on a 16-byte boundary and every quad is whole, so that
+    each channel of the packed stencil is aligned too."""
+    return n % SMOOTH_QUAD == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def chebyshev_smooth(
     packed: torch.Tensor,
     b: torch.Tensor,
@@ -188,7 +246,8 @@ def chebyshev_smooth(
     """A whole degree-``degree`` Chebyshev smooth of D⁻¹A (see the plain
     version).  ``lam_max`` is a 0-dim tensor on the device of ``b``; the
     kernel reads it there, so the call never waits on the host.  On the
-    card it is ``degree`` launches, counted as one smooth."""
+    card it is one cooperative launch (:func:`smooth_plan`), counted as one
+    smooth."""
     if lam_max.dim() != 0:
         raise ValueError("chebyshev_smooth: lam_max must be a 0-dim tensor")
     if degree < 1:
@@ -200,14 +259,19 @@ def chebyshev_smooth(
     if dev.type == "cpu":
         return chebyshev_smooth_plain(packed, b, x, lam_max, degree,
                                       lam_min_frac, safety)
+    n = b.numel()
+    plan = smooth_plan(n, len(grid), b.element_size(), *_lib.limits_of(b))
     out = torch.empty_like(b)
-    scratch = torch.empty((4,) + grid, dtype=b.dtype, device=dev)
+    scratch = torch.empty((3,) + grid, dtype=b.dtype, device=dev)
+    vec = vector_access(n, packed, b, out, scratch, *(() if x is None else (x,)))
     _lib.launch("tp_chebyshev_smooth", _lib.dtype_code(b), packed.data_ptr(),
                 b.data_ptr(), None if x is None else x.data_ptr(),
                 lam_max.data_ptr(), out.data_ptr(),
-                *(scratch[i].data_ptr() for i in range(4)),
+                *(scratch[i].data_ptr() for i in range(3)),
                 int(degree), float(lam_min_frac), float(safety), len(grid),
-                *_lib.dims3(grid), _lib.stream_of(b))
+                *_lib.dims3(grid), plan.blocks, plan.threads, plan.per_block,
+                plan.iters, plan.cached_quads, plan.smem, int(vec),
+                _lib.stream_of(b))
     chebyshev_smooth.launches += 1
     return out
 

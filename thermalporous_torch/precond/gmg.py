@@ -30,8 +30,9 @@ from thermalporous_torch.precond.chebyshev import chebyshev, gershgorin_lambda_m
 
 #: Hopper eligibility of the fused coarse subtree: the bytes it touches
 #: (:func:`kernels.deep_cycle.subtree_bytes`, at the apply dtype) must fit
-#: in this share of the H100's 50 MB L2, so that its single thread block
-#: walks the recursion from L2 instead of HBM.
+#: in this share of the H100's 50 MB L2, so that the passes of its
+#: cooperative launch, a grid-wide barrier apart, read each other's vectors
+#: from L2 instead of HBM.
 FUSE_L2_BUDGET_BYTES = 32 * 2**20
 
 
@@ -210,9 +211,10 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _fusable(state: GMGState, level: int, cfg: GMGConfig,
              dtype: torch.dtype) -> bool:
-    """Whether the correction at ``level`` runs as one fused subtree: the
-    level has at most ``fuse_below`` cells and the subtree, sized at the
-    apply dtype ``dtype``, fits FUSE_L2_BUDGET_BYTES."""
+    """Whether the correction at ``level`` runs as one fused subtree (one
+    cooperative launch over up to one block per SM): the level has at most
+    ``fuse_below`` cells and the subtree, sized at the apply dtype
+    ``dtype``, fits FUSE_L2_BUDGET_BYTES."""
     if cfg.fuse_below <= 0:
         return False
     if math.prod(state.stencils[level].grid_shape) > cfg.fuse_below:
