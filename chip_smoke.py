@@ -5,7 +5,8 @@
 Phases (each prints one line with its wall time):
   0  device: CUDA device name, and name/power limit from nvidia-smi;
   1  build: compile csrc/*.cu with nvcc (one process per source, all
-     started together) into thermalporous_torch/_build/;
+     started together) into thermalporous_torch/_build/; prints ptxas's
+     registers and spills per kernel;
   2  kernel parity at the main paths' shapes: each hand-written kernel
      against its plain PyTorch version on the card, f32 and f64, with the
      max relative error and the median time of each, on the benchmark's
@@ -27,7 +28,15 @@ Phases (each prints one line with its wall time):
      visit, counted by the kernel; then the single-phase residual and J(u)v on the
      benchmark's 1024x1024 grid with the single-phase model and on
      sp_geothermal_3d (64x64x32), and the block matvec with two unknowns
-     at 1024x1024;
+     at 1024x1024; the smooth's second output (the residual b - A y after
+     a pre-smooth, the product A y after a post-smooth) at every flagship
+     level that uses it, on 1024x1024 and on the awkward shapes, bitwise
+     against the smooth followed by the plain matvec, with the smooth alone
+     and the standalone matvec it replaces timed beside it; the standalone
+     matvec on the awkward shapes; the residual and J(u)v of both models on
+     grids that are no multiple of their kernel's tile (61x219x83,
+     1023x1021, 37x5x19, 9x21), two-phase also at saturations 0 and 1;
+     every kernel run twice on one input (bitwise equal);
   3  slice parity: the benchmark configuration at 32x32, f64, 3 steps, on the
      GPU and on the CPU: Newton and FGMRES counts per step must agree;
   4  main path: the benchmark workload (two-phase CPTR step, 1024x1024, f32):
@@ -43,7 +52,9 @@ Phases (each prints one line with its wall time):
      every kernel in that run (each must be > 0);
   7  flagship layers: the phase-6 run again with synchronized timers
      around each layer (assembly, CPTR setup, FGMRES, CPTR apply, residual),
-     and the device's busy share over one more step from the profiler;
+     the smooths, second outputs, scalar matvecs and subtree visits by
+     level, and the device's busy share over one more step from the
+     profiler, whose kernel events are held against the wrappers' counters;
   8  single-phase family: sp_hot_injection_2d (40x40, f64) through the
      Simulator on the GPU and on the CPU for 3 controller steps (accepted
      dt, Newton and FGMRES counts must agree), then sp_geothermal_3d at
@@ -53,8 +64,9 @@ Phases (each prints one line with its wall time):
   9  matrix-free Krylov operator (krylov_op="jvp"): the flagship
      configuration at 12x22x9, f64, on the GPU and on the CPU (counts must
      agree); tp_spe10_full at 60x220x85, f32, for its first 2 controller
-     steps, beside phase 6's counts; sp_geothermal_3d for 2 steps; the J(u)v
-     kernel of each model must launch.
+     steps with the stencil operator and with the J(u)v operator in turns
+     (stencil, jvp, jvp, stencil), beside phase 6's counts; sp_geothermal_3d
+     for 2 steps; the J(u)v kernel of each model must launch.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -72,6 +84,8 @@ import argparse
 import dataclasses
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,6 +140,11 @@ DEEP_MS_ONE_BLOCK = {("p", 36_300): 1.4854, ("T", 39_600): 0.5655}
 # multiple of 4, so quads straddle rows and the channels are not 16-byte
 # aligned
 AWKWARD_SHAPES = ((61, 219, 83), (1023, 1021))
+# grids for the residual and J(u)v kernels that are no multiple of their
+# tile in any axis; the last two have extents smaller than a tile
+MODEL_SHAPES = ((61, 219, 83), (1023, 1021), (37, 5, 19), (9, 21))
+# phase 9: the Krylov operators of the full-size flagship runs, in turns
+OPERATOR_TURNS = ("stencil", "jvp", "jvp", "stencil")
 # (kind, blocks, threads) of the barrier probe: grid barriers, then
 # cluster barriers (a cluster of 16 is the non-portable size)
 BARRIER_PROBES = ((0, 8, 256), (0, 36, 1024), (0, 132, 256), (0, 132, 512),
@@ -164,6 +183,34 @@ KERNEL_SOURCES = {
 FLAGSHIP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual",
                     "fused_block_rbgs", "deep_correction")
 SP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual_sp")
+
+
+def ptxas_summary(log: str) -> list:
+    """(kernel, registers, spill stores, spill loads) per entry function of
+    the build log (``nvcc -Xptxas -v``), names demangled where the toolkit
+    has a demangler."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), *spills])
+            name = None
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt, *(r[0] for r in rows)], capture_output=True, text=True)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, nm in zip(rows, names):
+                # drop the parameter list: it follows the template arguments
+                cut = nm.rfind(">(") + 1 if ">(" in nm else nm.find("(")
+                r[0] = (nm[:cut] if cut > 0 else nm).replace("void ", "").replace("tp::", "")
+    return [tuple(r) for r in rows]
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -261,6 +308,13 @@ def cost_chebyshev(n, dim, degree, from_x0, item):
     mv = 2 * (2 * dim + 1) * n
     ops = (mv if from_x0 else 0) + 3 * n + (degree - 1) * (mv + 7 * n) + n
     return (2 * dim + 3 + int(from_x0)) * n * item, ops
+
+
+def cost_chebyshev_second(n, dim, degree, from_x0, kind, item):
+    """The smooth with its second output: one more vector out, one more
+    product (and a subtraction for the residual)."""
+    nbytes, ops = cost_chebyshev(n, dim, degree, from_x0, item)
+    return nbytes + n * item, ops + 2 * (2 * dim + 1) * n + (n if kind == "residual" else 0)
 
 
 # Operations of one residual evaluation, counted from csrc/residual.cu's
@@ -529,6 +583,8 @@ def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev):
                           lambda a=args: kst.chebyshev_smooth(*a),
                           lambda a=args: kst.chebyshev_smooth_plain(*a), tol_st,
                           cost_chebyshev(n, dim, deg, xx is not None, item), None))
+    for deg, kind, xx in ((4, "residual", None), (4, "product", x0), (2, "residual", None)):
+        cases.append(second_case("fine", fine.packed, lam, b, xx, deg, kind, tol_st, item))
     cases.append((f"fused_residual {gs}", "fused_residual",
                   lambda: kres.fused_residual(model, u, u0, 600.0, data),
                   lambda: model.residual(u, u0, 600.0, data), tol_res,
@@ -663,11 +719,43 @@ def smooth_case(label, packed, lam, b, x, deg, tol, item):
             cost_chebyshev(math.prod(grid), len(grid), deg, x is not None, item), None)
 
 
+def second_case(label, packed, lam, b, x, deg, kind, tol, item):
+    """The smooth with its second output (``kind``: "residual" b - A y or
+    "product" A y) against the plain smooth followed by the plain matvec;
+    its check times the smooth alone and the standalone matvec that the
+    second output replaces."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    args = (packed, b, x, lam, deg, 0.3)
+    grid = tuple(b.shape)
+
+    def beside():
+        y = kst.chebyshev_smooth(*args)
+        alone = lambda: kst.chebyshev_smooth(*args)
+        mv = lambda: kst.matvec(packed, y)
+        t = {"smooth_alone_ms": time_ms(alone, reps=10),
+             "smooth_alone_device_ms": time_device_ms(alone, reps=10),
+             "matvec_ms": time_ms(mv, reps=10),
+             "matvec_device_ms": time_device_ms(mv, reps=10)}
+        return (f"  the smooth alone {t['smooth_alone_ms']:.4f} ms "
+                f"({t['smooth_alone_device_ms']:.4f} on the card); the standalone matvec "
+                f"it replaces {t['matvec_ms']:.4f} ms ({t['matvec_device_ms']:.4f} on the "
+                f"card)", t)
+
+    return (f"chebyshev+{kind} {label} deg={deg} {'zero' if x is None else 'x0'} "
+            f"{'x'.join(map(str, grid))}", "chebyshev_smooth",
+            lambda: kst.chebyshev_smooth(*args, second=kind),
+            lambda: kst.chebyshev_smooth_plain(*args, second=kind), tol,
+            cost_chebyshev_second(math.prod(grid), len(grid), deg, x is not None, kind, item),
+            None, beside)
+
+
 def level_cases(state, pc, tol, dev):
     """The smooth (the hierarchy's degree, from x0 and from zero) and the
     scalar matvec at every level with more cells than the smallest
     FUSE_CANDIDATES entry: the levels some candidate leaves unfused.  The
-    pressure hierarchy's finest level is among :func:`kernel_cases`."""
+    pressure hierarchy's finest level is among :func:`kernel_cases`.  With
+    them the smooth's second output as the cycle asks for it on that level."""
     from thermalporous_torch.kernels import stencil as kst
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -683,6 +771,15 @@ def level_cases(state, pc, tol, dev):
             for xx in (x0, None):
                 cases.append(smooth_case(f"{hname} level {lev}", s.packed, hier.lam_max[lev],
                                          b, xx, cfg.degree, tol, item))
+            # the pre-smooth's residual at every level, the post-smooth's
+            # product where a K-cycle runs on the level
+            kinds = [("residual", None)]
+            if (cfg.cycle_type == "k" and lev > 0
+                    and math.prod(s.grid_shape) >= cfg.kcycle_min_cells):
+                kinds.append(("product", x0))
+            for kind, xx in kinds:
+                cases.append(second_case(f"{hname} level {lev}", s.packed, hier.lam_max[lev],
+                                         b, xx, cfg.degree, kind, tol, item))
             cases.append((f"matvec {hname} level {lev} {'x'.join(map(str, s.grid_shape))}",
                           "matvec", lambda s=s, b=b: kst.matvec(s.packed, b),
                           lambda s=s, b=b: kst.matvec_plain(s.packed, b), tol,
@@ -692,8 +789,10 @@ def level_cases(state, pc, tol, dev):
 
 def awkward_cases(dtype, tol, dev):
     """The smooth on AWKWARD_SHAPES with a random SPD stencil, degrees 1, 2
-    and 4, from x0 and from zero."""
+    and 4, from x0 and from zero, alone and with each second output; the
+    standalone scalar matvec there."""
     from thermalporous_torch.core.stencil import ScalarStencil
+    from thermalporous_torch.kernels import stencil as kst
     from thermalporous_torch.precond.chebyshev import gershgorin_lambda_max
 
     cases = []
@@ -706,6 +805,13 @@ def awkward_cases(dtype, tol, dev):
             for xx in (x0, None):
                 cases.append(smooth_case("random SPD", packed, lam, b, xx, deg, tol,
                                          packed.element_size()))
+                for kind in ("residual", "product"):
+                    cases.append(second_case("random SPD", packed, lam, b, xx, deg, kind,
+                                             tol, packed.element_size()))
+        cases.append((f"matvec random SPD {'x'.join(map(str, shape))}", "matvec",
+                      lambda packed=packed, b=b: kst.matvec(packed, b),
+                      lambda packed=packed, b=b: kst.matvec_plain(packed, b), tol,
+                      cost_matvec(math.prod(shape), len(shape), packed.element_size()), None))
     return cases
 
 
@@ -782,18 +888,20 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
     from thermalporous_torch.kernels import stencil as kst
 
     csr: dict = {}
+    parts = lambda r: r if isinstance(r, tuple) else (r,)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(parts(a), parts(b)))
     for label, kname, kern, plain, tol, cost, lib, *more in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        rel, abs_ = rel_err(got, ref, got.dim() > st.dim)
-        ok = math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
-        note = ""
-        if kname in ("chebyshev_smooth", "deep_correction"):
-            # deterministic: a second run on the same input gives the same bits
-            ok = ok and torch.equal(got, kern())
-            note = "  rerun bitwise"
-        if kname == "chebyshev_smooth":
-            ok = ok and torch.equal(got, ref)
+        errs = [rel_err(g, r, g.dim() > st.dim) for g, r in zip(parts(got), parts(ref))]
+        rel, abs_ = max(e[0] for e in errs), max(e[1] for e in errs)
+        ok = (math.isfinite(rel) and rel <= tol and len(parts(got)) == len(parts(ref))
+              and all(bool(torch.isfinite(g).all()) for g in parts(got)))
+        # deterministic: a second run on the same input gives the same bits
+        ok = ok and same(got, kern())
+        note = "  rerun bitwise"
+        if kname in ("chebyshev_smooth", "matvec"):
+            ok = ok and same(got, ref)
             note += ", bitwise equal to plain"
         ms, plain_ms, device_ms = time_ms(kern), time_ms(plain), time_device_ms(kern)
         # the coarse subtree is latency-bound: also time it on a cold L2
@@ -815,15 +923,96 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
               + note + f"  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"parity breach: {tname} {label}")
+        extra = {}
         if more:
-            print("  " + more[0](), flush=True)
+            text = more[0]()
+            if isinstance(text, tuple):
+                text, extra = text
+            print("  " + text, flush=True)
         row = {"max_abs_err": abs_, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms, "cold_ms": cold_ms,
-               "device_ms": device_ms, "block_matvec_same_jacobian_ms": b1_ms, "case": label}
+               "device_ms": device_ms, "block_matvec_same_jacobian_ms": b1_ms, "case": label,
+               **extra}
         ROWS.append(dict(row, dtype=tname, kernel=kname))
         if record and kname not in rec:
             rec[kname] = row
         del got, ref
+
+
+def shape_problem(shape, dtype, dev, single_phase: bool, seed: int):
+    """A model and its data on a grid of ``shape``: lognormal permeability,
+    random porosity, gravity in 3D, a hot BHP injector, a BHP producer, a
+    producing rate well and a heater."""
+    from thermalporous_torch.core import Grid
+    from thermalporous_torch.models import SinglePhaseModel, TwoPhaseModel, make_problem_data
+    from thermalporous_torch.physics import Heater, PhysicalParams, Well
+
+    dim = len(shape)
+    pp = PhysicalParams()
+    grid = Grid(shape=shape, spacing=(5.0, 5.0) + ((2.0,) if dim == 3 else ()),
+                thickness=10.0, gravity=9.81 if dim == 3 else 0.0)
+    rng = np.random.default_rng(seed)
+    kx = 2e-13 * np.exp(0.5 * rng.standard_normal(shape))
+    phi = 0.1 + 0.2 * rng.random(shape)
+    first, last = (0,) * dim, tuple(m - 1 for m in shape)
+    mid = tuple(m // 2 for m in shape)
+    wells = [Well(cells=(first,), control="bhp", p_bh=4.0e7, T_inj=420.0, name="inj"),
+             Well(cells=(last,), control="bhp", p_bh=1.0e7, name="prod"),
+             Well(cells=(mid,), control="rate", rate=-0.5, name="rate")]
+    heaters = [Heater(cells=(first[:-1] + (shape[-1] - 1,),), power=1.0e5)]
+    data = make_problem_data(grid, pp, kx=kx, phi=phi, wells=wells, heaters=heaters,
+                             dtype=dtype, device=dev)
+    model = SinglePhaseModel(grid, pp) if single_phase else TwoPhaseModel(grid, pp, s_init=0.2)
+    return model, data
+
+
+def model_shape_checks(dtype, tname, dev) -> None:
+    """The residual and J(u)v kernels of both models on MODEL_SHAPES
+    against their plain versions (the two-phase model also at saturations
+    exactly 0 and 1), each run twice on one input."""
+    from thermalporous_torch.kernels import _lib
+    from thermalporous_torch.kernels import residual as kres
+
+    f64 = dtype == torch.float64
+    tol_res, tol_jvp = (TOL_F64, TOL_F64) if f64 else (TOL_F32_RESIDUAL, TOL_F32_JVP)
+    sms = _lib.device_limits(torch.cuda.current_device())[0]
+    for k, shape in enumerate(MODEL_SHAPES):
+        plan, dual = kres.model_plan(shape, sms), kres.model_plan(shape, sms, jvp=True)
+        print(f"  {tname} {'x'.join(map(str, shape))}: tile {plan.ty} x {plan.tz}, "
+              f"{plan.threads} threads a block, {plan.lx} planes a block in {plan.blocks} "
+              f"blocks (J(u)v: {dual.lx} in {dual.blocks})", flush=True)
+        for single_phase in (False, True):
+            model, data = shape_problem(shape, dtype, dev, single_phase, seed=40 + k)
+            u0, u = perturbed_state(model, data, seed=50 + k)
+            states = [("", u)] + ([] if single_phase else [(" S at 0 and 1", tie_state(u, data))])
+            g = torch.Generator(device=dev).manual_seed(60 + k)
+            for note, uu in states:
+                v = (state_amp(uu) * torch.randn(tuple(uu.shape), generator=g, dtype=dtype,
+                                                 device=dev)).contiguous()
+                for kname, kern, plain, tol in (
+                        ("fused_residual", lambda: kres.fused_residual(model, uu, u0, 600.0, data),
+                         lambda: model.residual(uu, u0, 600.0, data), tol_res),
+                        ("fused_jvp", lambda: kres.fused_jvp(model, uu, v, u0, 600.0, data),
+                         lambda: model.jvp(uu, u0, 600.0, data)(v), tol_jvp)):
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    rel, abs_ = rel_err(got, ref, True)
+                    ok = (math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
+                          and torch.equal(got, kern()))
+                    device_ms = time_device_ms(kern, reps=10)
+                    label = (f"{kname}{'_sp' if single_phase else ''} "
+                             f"{'x'.join(map(str, shape))}{note}")
+                    print(f"  {tname} {label}: max_rel_err {rel:.3e} (tol {tol:.0e}) "
+                          f"max_abs_err {abs_:.3e}  {device_ms:.4f} ms on the card  rerun bitwise"
+                          f"  {'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise SystemExit(f"parity breach: {tname} {label}")
+                    ROWS.append({"dtype": tname, "kernel": kname + ("_sp" if single_phase else ""),
+                                 "case": label, "max_rel_err": rel, "max_abs_err": abs_,
+                                 "device_ms": device_ms})
+                    del got, ref
+            del model, data, u0, u, states
+            torch.cuda.empty_cache()
 
 
 def fuse_apply_times(st, state, pc, dev) -> dict:
@@ -917,6 +1106,7 @@ def kernel_parity(dev) -> tuple:
                       st, rec, dtype, record=geo and dtype == torch.float32)
             del model, data, st, u0, u
             torch.cuda.empty_cache()
+        model_shape_checks(dtype, tname, dev)
     return rec, fuse_times, barriers
 
 
@@ -1057,7 +1247,11 @@ def flagship_layers(dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from thermalporous_torch.kernels import deep_cycle as kdeep
-    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        second_output_counts,
+    )
     from thermalporous_torch.kernels import stencil as kst
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import newton as tnewton
@@ -1091,6 +1285,9 @@ def flagship_layers(dev) -> dict:
 
     def by_shape(name, fn, arg):
         def call(*args, **kw):
+            if kw.get("second"):
+                extra = (f"{name}+{kw['second']}", tuple(args[arg].shape))
+                by_level[extra] = by_level.get(extra, 0) + 1
             key = (name, tuple(args[arg].shape))
             by_level[key] = by_level.get(key, 0) + 1
             return fn(*args, **kw)
@@ -1116,9 +1313,16 @@ def flagship_layers(dev) -> dict:
     for (name, shape), count in sorted(by_level.items(), key=lambda kv: (kv[0][0], -math.prod(kv[0][1]))):
         print(f"  {name} {'x'.join(map(str, shape))} ({math.prod(shape)} cells): {count} "
               f"launches, {count / newton:.1f} per Newton")
+    per_newton = {k: sum(c for (nm, _), c in by_level.items() if nm == k) / newton
+                  for k in ("chebyshev_smooth", "chebyshev_smooth+residual",
+                            "chebyshev_smooth+product", "matvec", "deep_correction")}
+    print("  per Newton: " + ", ".join(f"{k} {v:.1f}" for k, v in per_newton.items()))
     for name in ("assembly", "CPTR setup", "FGMRES", "CPTR apply", "residual"):
         print(f"  {name}: {wall.get(name, 0.0):.3f} s of {total:.3f} s "
               f"({100 * wall.get(name, 0.0) / total:.1f}%) in {calls.get(name, 0)} calls")
+    apply_ms = 1e3 * wall.get("CPTR apply", 0.0) / max(calls.get("CPTR apply", 0), 1)
+    print(f"  CPTR apply: {apply_ms:.3f} ms an apply, {calls.get('CPTR apply', 0) / newton:.2f} "
+          f"applies per Newton")
 
     dt = res.records[-1].dt
     torch.cuda.synchronize()
@@ -1133,10 +1337,12 @@ def flagship_layers(dev) -> dict:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
-    # one device kernel per smooth and per subtree visit: the profiler's
-    # kernel events against the wrappers' counters over the same step
+    # one device kernel per smooth, per standalone scalar matvec and per
+    # subtree visit: the profiler's kernel events against the wrappers'
+    # counters over the same step
     counted = launch_counts()
     for wrapper, kernel in (("chebyshev_smooth", "cheb_smooth_kernel"),
+                            ("matvec", "scalar_matvec_kernel"),
                             ("deep_correction", "deep_kernel")):
         seen = [e for e in events if kernel in e.key]
         on_card = sum(e.count for e in seen)
@@ -1145,12 +1351,17 @@ def flagship_layers(dev) -> dict:
               + ("" if seen else " (the profiler named no such kernel)"))
         if seen and on_card != counted[wrapper]:
             raise SystemExit(f"{wrapper}: {counted[wrapper]} launches but {on_card} kernels")
+    seconds = second_output_counts()
+    print(f"  second outputs of the smooth in that step: {seconds} (each a scalar matvec "
+          f"that did not launch)")
     print(f"  one more step at dt {dt:.1f} s: newton {st.iters} fgmres {st.ksp_iters} "
           f"wall {step_s:.3f} s; CUDA kernel time under the profiler "
           f"{busy_us / 1e6:.3f} s = {100 * busy_us / 1e6 / step_s:.1f}% of that wall")
     return {"total_s": total, "newton": newton, "layer_s": wall, "layer_calls": calls,
             "launches_by_level": {f"{k} {'x'.join(map(str, sh))}": c
                                   for (k, sh), c in by_level.items()},
+            "launches_per_newton": per_newton, "cptr_apply_ms": apply_ms,
+            "step_second_outputs": seconds,
             "step_s": step_s, "step_newton": st.iters, "step_fgmres": st.ksp_iters,
             "device_busy_s": busy_us / 1e6}
 
@@ -1233,8 +1444,12 @@ def main() -> int:
     path, secs, log = _lib.build()
     _lib.load()
     for line in log.splitlines():
-        if line.startswith("==") or "Used" in line or "error" in line.lower():
+        if line.startswith("==") or "error" in line.lower():
             print("  " + line.strip())
+    ptxas = ptxas_summary(log)
+    for kernel, regs, st_bytes, ld_bytes in ptxas:
+        print(f"  ptxas {kernel}: {regs} registers, spills {st_bytes} B stored "
+              f"{ld_bytes} B loaded")
     phase("1 build", t0, f"nvcc {secs:.1f} s -> {path}")
 
     # (2) kernel parity at the main paths' shapes
@@ -1325,8 +1540,21 @@ def main() -> int:
         small_jvp = flagship_parity("jvp")
         print(f"  flagship {'x'.join(map(str, FLAGSHIP_SMALL))} f64 jvp (dt, newton, fgmres, "
               f"retries) per step: cpu {small_jvp['cpu']} == cuda {small_jvp['cuda']}")
-        jrecs, jlaunches, _, jcu_s, _ = flagship_run(dev, JVP_STEPS, "jvp")
-        for rj, rs in zip(jrecs, frecs):
+        # both operators' flagship steps in turns, within this one process
+        turns, first = [], {}
+        for op in OPERATOR_TURNS:
+            print(f"  flagship, krylov_op={op!r}:")
+            recs_op, launches_op, _, cu_op, _ = flagship_run(dev, JVP_STEPS, op)
+            turns.append({"krylov_op": op, "wall_s": [r.wall_s for r in recs_op],
+                          "counts": [(r.dt, r.newton_iters, r.ksp_iters) for r in recs_op],
+                          "cell_updates_per_s": cu_op})
+            first.setdefault(op, (recs_op, launches_op, cu_op))
+        for t in turns:
+            print(f"  turn {t['krylov_op']}: step walls "
+                  + ", ".join(f"{w:.3f}" for w in t["wall_s"])
+                  + f" s; {t['cell_updates_per_s']:.1f} cell-updates/s over step 2")
+        jrecs, jlaunches, jcu_s = first["jvp"]
+        for rj, rs in zip(jrecs, first["stencil"][0]):
             print(f"  flagship step {rj.step}: jvp (dt {rj.dt:.1f}, newton {rj.newton_iters}, "
                   f"fgmres {rj.ksp_iters}) | stencil (dt {rs.dt:.1f}, newton {rs.newton_iters}, "
                   f"fgmres {rs.ksp_iters})"
@@ -1341,7 +1569,7 @@ def main() -> int:
         if args.json and want(2):
             with open(args.json, "w") as fh:
                 json.dump({"device": smi, "kernel_rows": ROWS, "fuse_apply_ms": fuse_times,
-                           "barrier_latencies": barriers}, fh, indent=1)
+                           "barrier_latencies": barriers, "ptxas": ptxas}, fh, indent=1)
         print(f"partial run (phases {sorted(phases)}): no kernels line, no ok line")
         return 0
 
@@ -1373,6 +1601,7 @@ def main() -> int:
                        "flagship_small_jvp": small_jvp,
                        "flagship_jvp_steps": [r.as_dict() for r in jrecs],
                        "flagship_jvp_launches": jlaunches, "flagship_jvp_cell_updates_per_s": jcu_s,
+                       "flagship_operator_turns": turns, "ptxas": ptxas,
                        "sp_geothermal_jvp_steps": [r.as_dict() for r in sj_recs],
                        "sp_geothermal_jvp_launches": sj_launches,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)

@@ -162,7 +162,7 @@ H100 = (132, 232448)     # SMs, bytes of shared memory a block may opt in to
 def test_smooth_plan_covers_the_grid_and_fits_the_card(n, dim, item):
     sms, smem = H100
     plan = kst.smooth_plan(n, dim, item, sms, smem)
-    quads = -(-n // kst.SMOOTH_QUAD)
+    quads = -(-n // kst.QUAD)
     assert 1 <= plan.blocks <= sms                       # co-resident: one block per SM
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= kst.SMOOTH_MAX_THREADS
     assert plan.blocks * plan.per_block >= quads         # every quad has an owner
@@ -171,7 +171,7 @@ def test_smooth_plan_covers_the_grid_and_fits_the_card(n, dim, item):
     assert (plan.iters - 1) * plan.threads < plan.per_block
     # equally filled iterations: shrinking the block by a warp would not do
     assert plan.iters * (plan.threads - 32) < plan.per_block
-    per_quad = (2 * dim + 3) * kst.SMOOTH_QUAD * item
+    per_quad = (2 * dim + 3) * kst.QUAD * item
     assert 0 <= plan.cached_quads <= plan.per_block
     assert plan.smem == plan.cached_quads * per_quad <= smem - 1024
     # a partly cached block caches whole warps, and not one warp more would fit

@@ -16,11 +16,23 @@ struct Dims {
   int ext[3];
   long stride[3];
 
+  // Grid coordinates of cell c.  Below 2^31 cells (a uniform test) the two
+  // divisions are 32-bit, with each remainder taken from its quotient; a
+  // 64-bit division costs the SM several times as many instructions.
   __device__ __forceinline__ void coords(long c, int idx[3]) const {
-    idx[2] = (int)(c % ext[2]);
-    long r = c / ext[2];
-    idx[1] = (int)(r % ext[1]);
-    idx[0] = (int)(r / ext[1]);
+    if (n < (1L << 31)) {
+      const unsigned cu = (unsigned)c, e2 = (unsigned)ext[2], e1 = (unsigned)ext[1];
+      const unsigned r = cu / e2;
+      idx[2] = (int)(cu - r * e2);
+      const unsigned q = r / e1;
+      idx[1] = (int)(r - q * e1);
+      idx[0] = (int)q;
+    } else {
+      idx[2] = (int)(c % ext[2]);
+      const long r = c / ext[2];
+      idx[1] = (int)(r % ext[1]);
+      idx[0] = (int)(r / ext[1]);
+    }
   }
 };
 
@@ -39,22 +51,6 @@ inline Dims make_dims(int dim, int n0, int n1, int n2) {
 
 inline unsigned blocks_for(long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
-// Scalar stencil applied at cell c to the field given by `val(index)`.
-// packed: (2*dim+1, n) = [diag, up_0, lo_0, ...].
-template <typename T, typename Val>
-__device__ __forceinline__ T apply_scalar(const T* __restrict__ p, long c,
-                                          const int idx[3], const Dims& d,
-                                          Val val) {
-  const long n = d.n;
-  T acc = p[c] * val(c);
-  for (int a = 0; a < d.dim; ++a) {
-    const long s = d.stride[a];
-    if (idx[a] + 1 < d.ext[a]) acc = acc + p[(1 + 2 * a) * n + c] * val(c + s);
-    if (idx[a] > 0) acc = acc + p[(2 + 2 * a) * n + c] * val(c - s);
-  }
-  return acc;
 }
 
 // Chebyshev scalars of step `step` (1-based; 0 gives only theta): the

@@ -13,9 +13,9 @@
 // per byte in f32), a scalar matvec 5 for 1, against a machine balance near
 // 20 flop/byte at 3.35 TB/s.  So the design moves every coefficient once and
 // nothing else:
-//   - one thread per cell, consecutive threads on consecutive cells of the
-//     last (contiguous) grid axis, so each coefficient channel streams fully
-//     coalesced;
+//   - the block matvec takes one thread per cell, consecutive threads on
+//     consecutive cells of the last (contiguous) grid axis, so each
+//     coefficient channel streams fully coalesced;
 //   - the coefficients are read in the packed layout the assembly writes
 //     ([diag, up_0, lo_0, up_1, lo_1, ...] x row-major nc x nc blocks), with
 //     no repacking copy;
@@ -23,6 +23,15 @@
 //     2*dim+1 threads that are close in time), so v costs about one pass;
 //   - the column count k of the block matvec skips the (nc-k)/nc of the
 //     coefficients that would multiply zeros (the CPTR stage-2 residual);
+//   - the scalar matvec takes a quad of 4 consecutive cells per thread:
+//     16-byte loads and stores where the channels are aligned, 32-bit index
+//     arithmetic (one division chain per quad, not per cell), every load
+//     started before the first sum, and no barrier, so many blocks per SM
+//     keep their loads in flight.  Most of its callers need not launch it
+//     at all: the multigrid residual b - A x after a pre-smooth and the
+//     K-cycle's product A e of a post-smooth's result are a second output
+//     of the smooth's own launch (below), which has the stencil in shared
+//     memory already;
 //   - the Chebyshev smooth is ONE cooperative launch of at most one block
 //     per SM.  As `degree` passes over the stencil it would move 12 values a
 //     cell a step (48 at degree 4) where the function needs 10 in all, and
@@ -111,17 +120,6 @@ __global__ void block_matvec_kernel(const T* __restrict__ coef,
   for (int i = 0; i < NC; ++i) y[(long)i * n + c] = out[i];
 }
 
-template <typename T>
-__global__ void scalar_matvec_kernel(const T* __restrict__ p,
-                                     const T* __restrict__ v,
-                                     T* __restrict__ y, Dims d) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d.n) return;
-  int idx[3];
-  d.coords(c, idx);
-  y[c] = apply_scalar(p, c, idx, d, [=](long i) { return v[i]; });
-}
-
 // Four consecutive cells of a channel: one 16-byte load in f32, two in f64.
 // `vec` says that the channel's base and every quad offset are 16-byte
 // aligned and every quad is whole (n % 4 == 0); otherwise the cells are
@@ -189,18 +187,145 @@ __device__ __forceinline__ void put4(Quad<T>& q, const T (&w)[4]) {
   q = t;
 }
 
+// The cell grid as the quad kernels see it: 32-bit throughout (n < 2^31).
+struct QuadGrid {
+  unsigned n;            // cells
+  unsigned quads;        // groups of 4 consecutive cells, the last may be short
+  int vec;               // 1: 16-byte loads and stores
+  int ext[3];            // extents, slowest axis first (DIM of them)
+  unsigned stride[3];
+};
+
+inline QuadGrid make_quad_grid(const Dims& d, int vec) {
+  QuadGrid g;
+  g.n = (unsigned)d.n;
+  g.quads = (unsigned)((d.n + 3) / 4);
+  g.vec = vec;
+  for (int a = 0; a < 3; ++a) {
+    g.ext[a] = a < d.dim ? d.ext[a] : 1;
+    g.stride[a] = a < d.dim ? (unsigned)d.stride[a] : 0u;
+  }
+  return g;
+}
+
+// A v at the four cells c0..c0+3 of a scalar stencil whose channels `w` the
+// caller has loaded: xc receives v at the cells, acc the products, summed in
+// the plain version's order (diagonal, then per axis the upper and the lower
+// neighbour; a neighbour beyond the boundary adds nothing).  Every load of v
+// is started before the first sum: the neighbours come from clamped
+// addresses (the cell's own where it has no neighbour, never used then), so
+// no load waits on a branch.  With kFromQuad the neighbours along the last
+// axis are taken from the quad's own values and only c0 - 1 and c0 + 4 are
+// loaded: 6 loads fewer, which the standalone matvec gains from (0.0098
+// against 0.0122 ms at 1024^2, 0.0165 against 0.0186 at 60x220x85, f32, H100)
+// and the smooth does not (0.0474 against 0.0413 ms at 1024^2 and degree 4,
+// equal in 3D), so the smooth loads them all.  `v` may have been written
+// earlier in this launch by other blocks (behind a grid barrier), so it is
+// read with plain loads.
+template <typename T, int DIM, bool kFromQuad>
+__device__ __forceinline__ void quad_matvec(T (&w)[2 * DIM + 1][4], const T* v,
+                                            unsigned c0, const QuadGrid& g,
+                                            T (&xc)[4], T (&acc)[4]) {
+  const unsigned n = g.n;
+  const bool vec = g.vec != 0;
+  // which neighbours each of the four cells has
+  int i[DIM];
+  {
+    unsigned r = c0;
+#pragma unroll
+    for (int a = DIM - 1; a > 0; --a) {
+      const unsigned t = r / (unsigned)g.ext[a];
+      i[a] = (int)(r - t * (unsigned)g.ext[a]);
+      r = t;
+    }
+    i[0] = (int)r;
+  }
+  unsigned has = 0;   // bit 2*DIM*j + 2a: cell j has an upper neighbour on a; +1: lower
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (c0 + j < n) {
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) {
+        if (i[a] + 1 < g.ext[a]) has |= 1u << (2 * DIM * j + 2 * a);
+        if (i[a] > 0) has |= 1u << (2 * DIM * j + 2 * a + 1);
+      }
+    }
+#pragma unroll
+    for (int a = DIM - 1; a >= 0; --a) {     // advance to the next cell
+      if (++i[a] < g.ext[a] || a == 0) break;
+      i[a] = 0;
+    }
+  }
+  load4(v, vec, c0, n, xc);
+  T nb[2 * DIM][4];
+#pragma unroll
+  for (int a = 0; a < (kFromQuad ? DIM - 1 : DIM); ++a) {
+    const unsigned st = g.stride[a];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned c = c0 + j < n ? c0 + j : c0;
+      const unsigned bits = has >> (2 * DIM * j + 2 * a);
+      nb[2 * a][j] = v[(bits & 1u) ? c + st : c];
+      nb[2 * a + 1][j] = v[(bits & 2u) ? c - st : c];
+    }
+  }
+  if constexpr (kFromQuad) {
+    // the last axis (stride 1): inside the quad the neighbours are xc itself
+    constexpr int a = DIM - 1;
+    const unsigned up3 = (has >> (2 * DIM * 3 + 2 * a)) & 1u;
+    const unsigned lo0 = (has >> (2 * a)) & 2u;
+    const T above = v[up3 ? c0 + 4 : c0];
+    const T below = v[lo0 ? c0 - 1 : c0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      nb[2 * a][j] = j < 3 ? xc[j < 3 ? j + 1 : 3] : above;
+      nb[2 * a + 1][j] = j > 0 ? xc[j > 0 ? j - 1 : 0] : below;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = w[0][j] * xc[j];
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned bits = has >> (2 * DIM * j + 2 * a);
+      if (bits & 1u) acc[j] = acc[j] + w[1 + 2 * a][j] * nb[2 * a][j];
+      if (bits & 2u) acc[j] = acc[j] + w[2 + 2 * a][j] * nb[2 * a + 1][j];
+    }
+  }
+}
+
+// y = A v for a scalar stencil: a thread takes a quad (4 consecutive cells):
+// 2*DIM+1 channel loads and one of v at 16 bytes each where `g.vec` allows
+// (scalar loads otherwise), the 2*(DIM-1)*4 + 2 neighbour values of v from
+// L1/L2 (along the last axis the quad's own values serve), one 16-byte store.  No barrier and no shared memory, so as many
+// blocks are resident as the registers allow, and every SM has many loads in
+// flight.
+template <typename T, int DIM>
+__global__ void __launch_bounds__(kThreads)
+    scalar_matvec_kernel(const T* __restrict__ p, const T* __restrict__ v,
+                         T* __restrict__ y, const __grid_constant__ QuadGrid g) {
+  constexpr int NCH = 2 * DIM + 1;
+  const unsigned q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= g.quads) return;
+  const unsigned c0 = 4 * q;
+  T w[NCH][4];
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) load4(p + (size_t)ch * g.n, g.vec != 0, c0, g.n, w[ch]);
+  T xc[4], acc[4];
+  quad_matvec<T, DIM, true>(w, v, c0, g, xc, acc);
+  store4(y, g.vec != 0, c0, g.n, acc);
+}
+
 constexpr int kSmoothMaxThreads = 512;
 constexpr int kSmoothTableSteps = 16;   // steps whose scalars are tabulated
 
 struct SmoothPlan {
-  unsigned n;            // cells
-  unsigned quads;        // groups of 4 consecutive cells, the last may be short
+  QuadGrid g;
   unsigned per_block;    // quads a block owns (a contiguous range)
   unsigned cached_quads; // of which the first keep their channels in shared memory
   int iters;             // block-stride iterations over the block's range
-  int vec;               // 1: 16-byte loads and stores
-  int ext[3];            // extents, slowest axis first (DIM of them)
-  unsigned stride[3];
+  int second;            // 0: none; 1: also b - A y; 2: also A y (y the result)
 };
 
 // The whole Chebyshev smooth in one cooperative launch.  Step 0:
@@ -210,15 +335,19 @@ struct SmoothPlan {
 // reads ONE vector at the neighbours, and only y crosses blocks: a grid
 // barrier between steps.  d and, for the quads that fit, the stencil
 // channels and b stay in the block's shared memory from step 0 on.
-// A thread first starts every load of its quad (channels, then the
-// neighbours from clamped addresses, whether the cell has them or not) and
-// only then sums in the plain version's order, so the loads are in flight
-// together instead of one round trip after another.
+// A thread first starts every load of its quad (quad_matvec) and only then
+// sums in the plain version's order, so the loads are in flight together
+// instead of one round trip after another.
+// With pl.second, one more pass behind one more barrier writes b - A y
+// (1: the residual the V-cycle restricts) or A y (2: the K-cycle's product)
+// of the final iterate to `out2`, with the channels and b of the cached
+// quads still in shared memory: the scalar matvec that would follow the
+// smooth, without its launch and without reading the stencil again.
 template <typename T, int DIM>
 __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
     cheb_smooth_kernel(const T* __restrict__ p, const T* __restrict__ b,
                        const T* __restrict__ x0, const T* __restrict__ lam, T frac,
-                       T safety, int degree, T* ya, T* yb, T* dbuf, T* out,
+                       T safety, int degree, T* ya, T* yb, T* dbuf, T* out, T* out2,
                        const __grid_constant__ SmoothPlan pl) {
   constexpr int NCH = 2 * DIM + 1;      // stencil channels
   // the cache: [slot][cached quad], slots 0..NCH-1 the channels, NCH b, NCH+1 d
@@ -226,9 +355,9 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
   Quad<T>* cache = reinterpret_cast<Quad<T>*>(smem_raw);
   __shared__ T coef_s[kSmoothTableSteps][3];
   cg::grid_group grid = cg::this_grid();
-  const unsigned n = pl.n;
+  const unsigned n = pl.g.n;
   const unsigned ncq = pl.cached_quads;
-  const bool vec = pl.vec != 0;
+  const bool vec = pl.g.vec != 0;
   T* ybuf[2] = {ya, yb};
 
   // the recurrence scalars of every step, once per block (thread s: step s)
@@ -252,7 +381,7 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
     for (int it = 0; it < pl.iters; ++it) {
       const unsigned lq = it * blockDim.x + threadIdx.x;
       const unsigned q = blockIdx.x * pl.per_block + lq;
-      if (lq >= pl.per_block || q >= pl.quads) continue;
+      if (lq >= pl.per_block || q >= pl.g.quads) continue;
       const unsigned c0 = 4 * q;
       const bool cached = lq < ncq;
       Quad<T>* slot = cache + lq;          // slot k of this quad: slot[k * ncq]
@@ -290,60 +419,7 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
             for (int ch = 1; ch < NCH; ++ch) put4(slot[ch * ncq], w[ch]);
           }
         }
-        // which neighbours each of the four cells has
-        int i[DIM];
-        {
-          unsigned r = c0;
-#pragma unroll
-          for (int a = DIM - 1; a > 0; --a) {
-            const unsigned t = r / (unsigned)pl.ext[a];
-            i[a] = (int)(r - t * (unsigned)pl.ext[a]);
-            r = t;
-          }
-          i[0] = (int)r;
-        }
-        unsigned has = 0;   // bit 2*DIM*j + 2a: cell j has an upper neighbour on a; +1: lower
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (c0 + j < n) {
-#pragma unroll
-            for (int a = 0; a < DIM; ++a) {
-              if (i[a] + 1 < pl.ext[a]) has |= 1u << (2 * DIM * j + 2 * a);
-              if (i[a] > 0) has |= 1u << (2 * DIM * j + 2 * a + 1);
-            }
-          }
-#pragma unroll
-          for (int a = DIM - 1; a >= 0; --a) {     // advance to the next cell
-            if (++i[a] < pl.ext[a] || a == 0) break;
-            i[a] = 0;
-          }
-        }
-        // every neighbour value, from the cell's own address where there is
-        // no neighbour (never used then): no load waits on a branch
-        load4(src, vec, c0, n, xc);
-        T nb[2 * DIM][4];
-#pragma unroll
-        for (int a = 0; a < DIM; ++a) {
-          const unsigned st = pl.stride[a];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const unsigned c = c0 + j < n ? c0 + j : c0;
-            const unsigned bits = has >> (2 * DIM * j + 2 * a);
-            nb[2 * a][j] = src[(bits & 1u) ? c + st : c];
-            nb[2 * a + 1][j] = src[(bits & 2u) ? c - st : c];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = w[0][j] * xc[j];
-#pragma unroll
-        for (int a = 0; a < DIM; ++a) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const unsigned bits = has >> (2 * DIM * j + 2 * a);
-            if (bits & 1u) acc[j] = acc[j] + w[1 + 2 * a][j] * nb[2 * a][j];
-            if (bits & 2u) acc[j] = acc[j] + w[2 + 2 * a][j] * nb[2 * a + 1][j];
-          }
-        }
+        quad_matvec<T, DIM, false>(w, src, c0, pl.g, xc, acc);
       }
       T y[4];
 #pragma unroll
@@ -363,6 +439,41 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
       store4(dst, vec, c0, n, y);
     }
     if (s < degree - 1) grid.sync();
+  }
+
+  if (pl.second == 0) return;
+  // the second output, from the final iterate in `out`: its neighbours were
+  // written by other blocks, hence the barrier
+  grid.sync();
+  // a smooth with no matvec (one step from zero) has cached no off-diagonal
+  const bool off_cached = degree > first_off;
+  for (int it = 0; it < pl.iters; ++it) {
+    const unsigned lq = it * blockDim.x + threadIdx.x;
+    const unsigned q = blockIdx.x * pl.per_block + lq;
+    if (lq >= pl.per_block || q >= pl.g.quads) continue;
+    const unsigned c0 = 4 * q;
+    const bool cached = lq < ncq;
+    Quad<T>* slot = cache + lq;
+    T w[NCH][4], bb[4];
+    if (cached) {
+      get4(slot[0], w[0]);
+      get4(slot[NCH * ncq], bb);
+    } else {
+      load4(p, vec, c0, n, w[0]);
+      load4(b, vec, c0, n, bb);
+    }
+    if (cached && off_cached) {
+#pragma unroll
+      for (int ch = 1; ch < NCH; ++ch) get4(slot[ch * ncq], w[ch]);
+    } else {
+#pragma unroll
+      for (int ch = 1; ch < NCH; ++ch) load4(p + (size_t)ch * n, vec, c0, n, w[ch]);
+    }
+    T yc[4], acc[4], r[4];
+    quad_matvec<T, DIM, false>(w, out, c0, pl.g, yc, acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[j] = pl.second == 1 ? bb[j] - acc[j] : acc[j];
+    store4(out2, vec, c0, n, r);
   }
 }
 
@@ -384,7 +495,7 @@ int block_matvec(const void* coef, const void* v, void* y, int nc, int k,
 
 template <typename T, int DIM>
 int launch_smooth(const T* p, const T* b, const T* x, const T* lam, T frac, T safety,
-                  int degree, T* ya, T* yb, T* dbuf, T* out, SmoothPlan pl,
+                  int degree, T* ya, T* yb, T* dbuf, T* out, T* out2, SmoothPlan pl,
                   int blocks, int threads, size_t smem, cudaStream_t st) {
   const void* fn = reinterpret_cast<const void*>(&cheb_smooth_kernel<T, DIM>);
   // more than 48 KB of dynamic shared memory must be opted in to, per
@@ -399,24 +510,39 @@ int launch_smooth(const T* p, const T* b, const T* x, const T* lam, T frac, T sa
     if (e != cudaSuccess) return (int)e;
     allowed[dev] = smem;
   }
-  void* args[] = {&p, &b, &x, &lam, &frac, &safety, &degree, &ya, &yb, &dbuf, &out, &pl};
+  void* args[] = {&p, &b, &x, &lam, &frac, &safety, &degree, &ya, &yb, &dbuf, &out, &out2,
+                  &pl};
   return (int)cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem, st);
 }
 
 template <typename T>
 int chebyshev_smooth(const void* packed, const void* b, const void* x,
-                     const void* lam, void* out, void* y_a, void* y_b, void* d_buf,
-                     int degree, double frac, double safety, const SmoothPlan& pl,
-                     int dim, int blocks, int threads, size_t smem, cudaStream_t st) {
+                     const void* lam, void* out, void* out2, void* y_a, void* y_b,
+                     void* d_buf, int degree, double frac, double safety,
+                     const SmoothPlan& pl, int dim, int blocks, int threads, size_t smem,
+                     cudaStream_t st) {
   auto c = [](const void* q) { return static_cast<const T*>(q); };
   auto m = [](void* q) { return static_cast<T*>(q); };
   return dim == 2
              ? launch_smooth<T, 2>(c(packed), c(b), c(x), c(lam), T(frac), T(safety),
-                                   degree, m(y_a), m(y_b), m(d_buf), m(out), pl,
+                                   degree, m(y_a), m(y_b), m(d_buf), m(out), m(out2), pl,
                                    blocks, threads, smem, st)
              : launch_smooth<T, 3>(c(packed), c(b), c(x), c(lam), T(frac), T(safety),
-                                   degree, m(y_a), m(y_b), m(d_buf), m(out), pl,
+                                   degree, m(y_a), m(y_b), m(d_buf), m(out), m(out2), pl,
                                    blocks, threads, smem, st);
+}
+
+template <typename T>
+int scalar_matvec(const void* packed, const void* v, void* y, int dim, const QuadGrid& g,
+                  int blocks, int threads, cudaStream_t st) {
+  const T* p_ = static_cast<const T*>(packed);
+  const T* v_ = static_cast<const T*>(v);
+  T* y_ = static_cast<T*>(y);
+  if (dim == 2)
+    scalar_matvec_kernel<T, 2><<<blocks, threads, 0, st>>>(p_, v_, y_, g);
+  else
+    scalar_matvec_kernel<T, 3><<<blocks, threads, 0, st>>>(p_, v_, y_, g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tp
@@ -433,65 +559,62 @@ int tp_block_matvec(int dtype, const void* coef, const void* v, void* y,
                     : tp::block_matvec<double>(coef, v, y, nc, k, d, st);
 }
 
+// `blocks` x `threads` threads, one quad (4 consecutive cells) each.  vec:
+// 16-byte accesses (every pointer 16-byte aligned and n % 4 == 0).
 int tp_scalar_matvec(int dtype, const void* packed, const void* v, void* y,
-                     int dim, int n0, int n1, int n2, void* stream) {
+                     int dim, int n0, int n1, int n2, int blocks, int threads,
+                     int vec, void* stream) {
   const tp::Dims d = tp::make_dims(dim, n0, n1, n2);
+  if ((dim != 2 && dim != 3) || d.n < 1 || d.n >= (1L << 31) || blocks < 1 ||
+      threads < 32 || threads > tp::kThreads || threads % 32 != 0 ||
+      (long)blocks * threads < (d.n + 3) / 4)
+    return (int)cudaErrorInvalidValue;
+  const tp::QuadGrid g = tp::make_quad_grid(d, vec);
   auto st = static_cast<cudaStream_t>(stream);
-  const unsigned g = tp::blocks_for(d.n);
-  if (dtype == 0)
-    tp::scalar_matvec_kernel<float><<<g, tp::kThreads, 0, st>>>(
-        static_cast<const float*>(packed), static_cast<const float*>(v),
-        static_cast<float*>(y), d);
-  else
-    tp::scalar_matvec_kernel<double><<<g, tp::kThreads, 0, st>>>(
-        static_cast<const double*>(packed), static_cast<const double*>(v),
-        static_cast<double*>(y), d);
-  return (int)cudaGetLastError();
+  return dtype == 0 ? tp::scalar_matvec<float>(packed, v, y, dim, g, blocks, threads, st)
+                    : tp::scalar_matvec<double>(packed, v, y, dim, g, blocks, threads, st);
 }
 
 // One cooperative launch of `blocks` x `threads`; a block owns `per_block`
 // quads (4 consecutive cells) and walks them in `iters` block-stride
 // iterations; its first `cached_quads` quads keep their channels in `smem`
 // bytes of dynamic shared memory.  y_a, y_b, d_buf: n values each
-// (y_b and d_buf are untouched at degree <= 2 and 1).  vec: 16-byte
-// accesses (every pointer 16-byte aligned and n % 4 == 0).  A grid that
-// cannot be co-resident is refused with an error.
+// (y_b and d_buf are untouched at degree <= 2 and 1).  second: 0, or 1 to
+// write b - A out, or 2 to write A out, to out2 (n values; else unused).
+// vec: 16-byte accesses (every pointer 16-byte aligned and n % 4 == 0).
+// A grid that cannot be co-resident is refused with an error.
 int tp_chebyshev_smooth(int dtype, const void* packed, const void* b,
-                        const void* x, const void* lam, void* out, void* y_a,
-                        void* y_b, void* d_buf, int degree,
+                        const void* x, const void* lam, void* out, void* out2,
+                        void* y_a, void* y_b, void* d_buf, int degree,
                         double lam_min_frac, double safety, int dim, int n0,
                         int n1, int n2, int blocks, int threads, int per_block,
-                        int iters, int cached_quads, int smem, int vec,
+                        int iters, int cached_quads, int smem, int vec, int second,
                         void* stream) {
   const tp::Dims d = tp::make_dims(dim, n0, n1, n2);
-  if ((dim != 2 && dim != 3) || d.n >= (1L << 31) || degree < 1 || blocks < 1 ||
+  if ((dim != 2 && dim != 3) || d.n < 1 || d.n >= (1L << 31) || degree < 1 || blocks < 1 ||
       threads < 32 || threads > tp::kSmoothMaxThreads || threads % 32 != 0 ||
       per_block < 1 ||
       iters < 1 || cached_quads < 0 || cached_quads > per_block || smem < 0 ||
-      (long)iters * threads < per_block)
+      (long)iters * threads < per_block || second < 0 || second > 2 ||
+      (second != 0 && out2 == nullptr))
     return (int)cudaErrorInvalidValue;
   tp::SmoothPlan pl;
-  pl.n = (unsigned)d.n;
-  pl.quads = (unsigned)((d.n + 3) / 4);
+  pl.g = tp::make_quad_grid(d, vec);
   pl.per_block = (unsigned)per_block;
   pl.iters = iters;
   pl.cached_quads = (unsigned)cached_quads;
-  pl.vec = vec;
-  for (int a = 0; a < 3; ++a) {
-    pl.ext[a] = a < dim ? d.ext[a] : 1;
-    pl.stride[a] = a < dim ? (unsigned)d.stride[a] : 0u;
-  }
+  pl.second = second;
   const long quad_bytes = 4L * (dtype == 0 ? 4 : 8);
-  if ((long)blocks * per_block < pl.quads ||
+  if ((long)blocks * per_block < pl.g.quads ||
       (long)cached_quads * (2 * dim + 3) * quad_bytes > smem ||
       (cached_quads < per_block && cached_quads % 32 != 0))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? tp::chebyshev_smooth<float>(packed, b, x, lam, out, y_a, y_b, d_buf,
+             ? tp::chebyshev_smooth<float>(packed, b, x, lam, out, out2, y_a, y_b, d_buf,
                                            degree, lam_min_frac, safety, pl, dim,
                                            blocks, threads, (size_t)smem, st)
-             : tp::chebyshev_smooth<double>(packed, b, x, lam, out, y_a, y_b, d_buf,
+             : tp::chebyshev_smooth<double>(packed, b, x, lam, out, out2, y_a, y_b, d_buf,
                                             degree, lam_min_frac, safety, pl, dim,
                                             blocks, threads, (size_t)smem, st);
 }

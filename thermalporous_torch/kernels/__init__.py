@@ -44,11 +44,22 @@ def launch_counts() -> dict[str, int]:
             for name, fn in wrappers().items()}
 
 
+def second_output_counts() -> dict[str, int]:
+    """Second outputs of the smooth kernel by kind ("residual", "product"):
+    scalar matvecs that ran inside a smooth's launch, not as ``matvec``."""
+    from thermalporous_torch.kernels.stencil import second_outputs
+
+    return dict(second_outputs)
+
+
 def reset_launch_counts() -> None:
     from thermalporous_torch.kernels.residual import launches
+    from thermalporous_torch.kernels.stencil import second_outputs
 
     for name, fn in wrappers().items():
         if name in launches:
             launches[name] = 0
         else:
             fn.launches = 0
+    for kind in second_outputs:
+        second_outputs[kind] = 0

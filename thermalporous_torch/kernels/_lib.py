@@ -50,23 +50,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 
-_MODEL_ARGS = (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _P)
+_MODEL_ARGS = (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int;
 # the first argument is the dtype code, 0 = float32, 1 = float64, unless noted)
 _SIGNATURES = {
     # coef, v, y, nc, k, dim, n0, n1, n2, stream
     "tp_block_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # packed, v, y, dim, n0, n1, n2, stream
-    "tp_scalar_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
-    # packed, b, x (nullable), lam, out, y_a, y_b, d_buf, degree,
-    # lam_min_frac, safety, dim, n0, n1, n2, blocks, threads, per_block,
-    # iters, cached_quads, smem, vec, stream
-    "tp_chebyshev_smooth": (_I, _P, _P, _P, _P, _P, _P, _P, _P,
+    # packed, v, y, dim, n0, n1, n2, blocks, threads, vec, stream
+    "tp_scalar_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # packed, b, x (nullable), lam, out, out2 (nullable), y_a, y_b, d_buf,
+    # degree, lam_min_frac, safety, dim, n0, n1, n2, blocks, threads,
+    # per_block, iters, cached_quads, smem, vec, second, stream
+    "tp_chebyshev_smooth": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _D, _D, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # u, u_old (residual) or v (jvp), fields, out, dt, params (host double*),
-    # dim, n0, n1, n2, stream
+    # dim, n0, n1, n2, ty, tz, lx, stream
     "tp_twophase_residual": _MODEL_ARGS,
     "tp_singlephase_residual": _MODEL_ARGS,
     "tp_twophase_jvp": _MODEL_ARGS,

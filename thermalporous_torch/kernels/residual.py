@@ -11,11 +11,19 @@ Both wrappers take either model; ``_FORMS`` maps each model type to its C
 entry points (``tp_twophase_*``, ``tp_singlephase_*``), its constants and
 its counters (``fused_residual``/``fused_jvp`` for the two-phase kernels,
 ``fused_residual_sp``/``fused_jvp_sp`` for the single-phase ones).
+
+All four entries are one kernel body: a block marches along grid axis 0
+through a tile of the plane of the other axes (:func:`model_plan`), with
+each cell's properties computed once and each face once per tile.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
+import weakref
 
 import torch
 
@@ -57,6 +65,86 @@ def singlephase_params(model: SinglePhaseModel) -> list[float]:
     return _params(model, CoreyRelPerm())
 
 
+#: threads of a block of the residual/JVP kernel (csrc/residual.cu:
+#: kModelThreads): one per cell of the in-plane tile
+MODEL_THREADS = 256
+#: blocks per SM that :func:`model_plan` aims for when it cuts axis 0 into
+#: chunks (the dual-number form keeps fewer blocks resident, so it takes
+#: more and shorter chunks to even out its last wave: measured on the H100,
+#: PERF.md), and the fewest planes of a chunk (its first plane computes one
+#: set of properties and one face again)
+MODEL_BLOCKS_PER_SM = {False: 4, True: 8}
+MODEL_MIN_PLANES = 4
+#: properties a face reads per cell (csrc/residual.cu: NPF), by unknowns
+MODEL_FACE_PROPS = {3: 6, 2: 4}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPlan:
+    """Tiling of the residual/JVP kernel.  The grid is seen as (e0, e1, e2)
+    with e1 = 1 in 2D; a block owns ``lx`` planes along axis 0 of a tile of
+    ``ty`` rows of ``tz`` consecutive cells."""
+
+    ty: int
+    tz: int
+    lx: int
+    tiles_y: int
+    tiles_z: int
+    chunks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_y * self.tiles_z * self.chunks
+
+    @property
+    def threads(self) -> int:
+        return 32 * -(-(self.ty * self.tz) // 32)
+
+    def smem(self, dim: int, nc: int, item: int, jvp: bool) -> int:
+        """Bytes of shared memory of a block (csrc/residual.cu:
+        model_smem): two buffers of the face properties of the tile with
+        its ring, as values or as (value, tangent) pairs, and of the
+        tile's in-plane fluxes."""
+        ring_rows = 2 if dim == 3 else 0
+        cells = (self.ty + ring_rows) * (self.tz + 2)
+        scalar = item * (2 if jvp else 1)
+        return 2 * (MODEL_FACE_PROPS[nc] * cells * scalar
+                    + 2 * nc * self.ty * self.tz * item)
+
+
+@functools.cache
+def model_plan(shape: tuple[int, ...], sms: int, jvp: bool = False) -> ModelPlan:
+    """The tiling for a grid of ``shape`` on a card with ``sms`` SMs, for
+    the residual or (``jvp``) the J(u)·v form.
+
+    The in-plane tile is the one with the least work per plane: the lanes
+    of its warps (idle ones included) plus half a lane for each ring cell,
+    whose properties are computed again; rows keep at least 32 consecutive
+    cells where the grid has them.  Axis 0 is cut into chunks until there
+    are about ``MODEL_BLOCKS_PER_SM[jvp]`` blocks per SM, of at least
+    ``MODEL_MIN_PLANES`` planes each."""
+    n = math.prod(shape)
+    if len(shape) not in (2, 3) or n < 1 or n >= 2**31:
+        raise ValueError(f"residual kernel: grid {shape} (2 or 3 axes, "
+                         f"1 <= cells < 2**31)")
+    e0, e1, e2 = shape[0], (shape[1] if len(shape) == 3 else 1), shape[-1]
+    best = None
+    for tz in range(min(e2, 32), min(e2, MODEL_THREADS) + 1):
+        tiles_z = -(-e2 // tz)
+        tiles_y = -(-e1 // min(e1, MODEL_THREADS // tz))
+        ty = -(-e1 // tiles_y)
+        ring = (2 * tz if tiles_y > 1 else 0) + (2 * ty if tiles_z > 1 else 0)
+        lanes = 32 * -(-(ty * tz) // 32)
+        cost = tiles_y * tiles_z * (lanes + 16 * -(-ring // 32))
+        if best is None or cost < best[0]:
+            best = (cost, ty, tz, tiles_y, tiles_z)
+    _, ty, tz, tiles_y, tiles_z = best
+    want = -(-MODEL_BLOCKS_PER_SM[jvp] * sms // (tiles_y * tiles_z))
+    chunks = max(1, min(want, e0 // MODEL_MIN_PLANES))
+    lx = -(-e0 // chunks)
+    return ModelPlan(ty, tz, lx, tiles_y, tiles_z, -(-e0 // lx))
+
+
 #: Each model form with a kernel, by model type: the prefix of its C entry
 #: points (``<prefix>_residual``, ``<prefix>_jvp``), its ``ModelParams``
 #: constants, and the suffix of its launch counters.
@@ -70,6 +158,20 @@ _FORMS = {
 #: single-phase ones.
 launches = dict.fromkeys(
     ("fused_residual", "fused_residual_sp", "fused_jvp", "fused_jvp_sp"), 0)
+
+
+#: the constants of each model seen so far, as the C entries take them
+_PARAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _params_array(model, params_of) -> ctypes.c_void_p:
+    """``params_of(model)`` as a host double array, built once per model
+    (a model's constants do not change after it is made)."""
+    held = _PARAMS.get(model)
+    if held is None:
+        array = (ctypes.c_double * _lib.MODEL_NUM_PARAMS)(*params_of(model))
+        held = _PARAMS[model] = (array, ctypes.cast(array, ctypes.c_void_p))
+    return held[1]
 
 
 def _run(kind: str, model, u: torch.Tensor, second: torch.Tensor, u_old: torch.Tensor,
@@ -92,12 +194,12 @@ def _run(kind: str, model, u: torch.Tensor, second: torch.Tensor, u_old: torch.T
     if form is None:
         raise NotImplementedError(f"{name} kernel: {type(model).__name__} has no CUDA kernel")
     prefix, params_of, suffix = form
+    plan = model_plan(grid, _lib.limits_of(u)[0], kind == "jvp")
     out = torch.empty_like(u)
-    params = (ctypes.c_double * _lib.MODEL_NUM_PARAMS)(*params_of(model))
     _lib.launch(f"{prefix}_{kind}", _lib.dtype_code(u), u.data_ptr(), second.data_ptr(),
                 data.fields.data_ptr(), out.data_ptr(), float(dt),
-                ctypes.cast(params, ctypes.c_void_p), dim, *_lib.dims3(grid),
-                _lib.stream_of(u))
+                _params_array(model, params_of), dim, *_lib.dims3(grid),
+                plan.ty, plan.tz, plan.lx, _lib.stream_of(u))
     launches[name + suffix] += 1
     return out
 

@@ -9,6 +9,12 @@ version beside it (``*_plain``).  A wrapper checks its arguments, then:
 - for CUDA tensors, launches the kernel (or raises), and adds one to its
   ``launches`` counter.
 
+The smooth can return a second output from the same launch
+(``second="residual"``: b − A·y, ``second="product"``: A·y, of its result
+y): the scalar matvec that multigrid would run right after it.  Such a
+call counts one smooth, no ``matvec`` launch, and one in
+``second_outputs`` under its kind.
+
 Layouts (the reference's ``pack_block_stencil`` / ``pack_stencil``):
 
 - block stencil ``coef``: ``(2·dim+1, nc, nc, *grid)`` — offsets
@@ -126,15 +132,42 @@ def _check_scalar(name: str, packed: torch.Tensor, *vecs: torch.Tensor) -> tuple
     return grid
 
 
+#: cells a thread of the scalar matvec and smooth kernels takes at a time
+#: (csrc/stencil.cu: a quad)
+QUAD = 4
+#: threads of a block of the scalar matvec kernel (csrc/common.cuh: kThreads)
+MATVEC_THREADS = 256
+
+
+@functools.cache
+def matvec_plan(n: int) -> tuple[int, int]:
+    """(blocks, threads) of the scalar matvec kernel for ``n`` cells: one
+    thread per quad of 4 consecutive cells, with 32-bit indices."""
+    if n < 1 or n >= 2**31:
+        raise ValueError(f"matvec kernel: {n} cells (needs 1 <= n < 2**31)")
+    quads = -(-n // QUAD)
+    return -(-quads // MATVEC_THREADS), MATVEC_THREADS
+
+
+def vector_access(n: int, *tensors: torch.Tensor) -> bool:
+    """Whether a quad kernel may use 16-byte loads and stores: every
+    tensor starts on a 16-byte boundary and every quad is whole, so that
+    each channel of the packed stencil is aligned too."""
+    return n % QUAD == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def matvec(packed: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """y = A·v for a scalar stencil ``packed`` (2·dim+1, *grid)."""
     dev = _check("matvec", packed, v)
     grid = _check_scalar("matvec", packed, v)
     if dev.type == "cpu":
         return matvec_plain(packed, v)
+    n = v.numel()
+    blocks, threads = matvec_plan(n)
     y = torch.empty_like(v)
     _lib.launch("tp_scalar_matvec", _lib.dtype_code(v), packed.data_ptr(),
                 v.data_ptr(), y.data_ptr(), len(grid), *_lib.dims3(grid),
+                blocks, threads, int(vector_access(n, packed, v, y)),
                 _lib.stream_of(v))
     matvec.launches += 1
     return y
@@ -153,10 +186,13 @@ def chebyshev_smooth_plain(
     degree: int,
     lam_min_frac: float,
     safety: float = 1.05,
-) -> torch.Tensor:
+    second: str | None = None,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """``degree`` Chebyshev iterations on D⁻¹A x = D⁻¹b over
     [lam_min_frac·λ, safety·λ], from ``x`` (None = zero start, which skips
-    the first matvec: b − A·0 = b exactly)."""
+    the first matvec: b − A·0 = b exactly).  With ``second`` the result y
+    comes with b − A·y ("residual") or A·y ("product"), formed as the
+    smooth followed by :func:`matvec_plain`."""
     lmax = lam_max * safety
     lmin = lam_max * lam_min_frac
     theta = 0.5 * (lmax + lmin)
@@ -176,11 +212,15 @@ def chebyshev_smooth_plain(
         rho_new = 1.0 / (2.0 * sigma1 - rho)
         d = rho_new * rho * d + (2.0 * rho_new / delta) * z
         rho = rho_new
-    return x + d
+    y = x + d
+    if second is None:
+        return y
+    ay = matvec_plain(packed, y)
+    return y, (b - ay if second == "residual" else ay)
 
 
-#: cells a thread of the smooth kernel takes at a time (csrc/stencil.cu: a quad)
-SMOOTH_QUAD = 4
+#: the smooth's second outputs and their codes in csrc/stencil.cu
+SMOOTH_SECOND = {None: 0, "residual": 1, "product": 2}
 #: least quads a block of the smooth kernel is given before another block is used
 SMOOTH_MIN_QUADS_PER_BLOCK = 128
 #: csrc/stencil.cu: kSmoothMaxThreads (512 threads leave each 128 registers,
@@ -214,24 +254,17 @@ def smooth_plan(n: int, dim: int, item: int, sms: int, smem_max: int) -> SmoothP
     d in shared memory, so they come from device memory once per smooth."""
     if n < 1 or n >= 2**31:
         raise ValueError(f"chebyshev_smooth kernel: {n} cells (needs 1 <= n < 2**31)")
-    quads = -(-n // SMOOTH_QUAD)
+    quads = -(-n // QUAD)
     blocks = max(1, min(sms, -(-quads // SMOOTH_MIN_QUADS_PER_BLOCK)))
     per_block = -(-quads // blocks)
     iters = -(-per_block // SMOOTH_MAX_THREADS)
     threads = 32 * -(-(-(-per_block // iters)) // 32)
-    per_quad = (2 * dim + 3) * SMOOTH_QUAD * item
+    per_quad = (2 * dim + 3) * QUAD * item
     # the kernel's static shared memory (a few scalars) counts against the
     # same limit: leave it 1 KiB
     fit = max(0, smem_max - 1024) // per_quad
     cached = per_block if fit >= per_block else fit // 32 * 32
     return SmoothPlan(blocks, threads, per_block, iters, cached, cached * per_quad)
-
-
-def vector_access(n: int, *tensors: torch.Tensor) -> bool:
-    """Whether the smooth kernel may use 16-byte loads and stores: every
-    tensor starts on a 16-byte boundary and every quad is whole, so that
-    each channel of the packed stencil is aligned too."""
-    return n % SMOOTH_QUAD == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def chebyshev_smooth(
@@ -242,41 +275,60 @@ def chebyshev_smooth(
     degree: int,
     lam_min_frac: float,
     safety: float = 1.05,
-) -> torch.Tensor:
+    second: str | None = None,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """A whole degree-``degree`` Chebyshev smooth of D⁻¹A (see the plain
     version).  ``lam_max`` is a 0-dim tensor on the device of ``b``; the
     kernel reads it there, so the call never waits on the host.  On the
     card it is one cooperative launch (:func:`smooth_plan`), counted as one
-    smooth."""
+    smooth.
+
+    With ``second="residual"`` or ``"product"`` the call returns
+    ``(y, b − A·y)`` or ``(y, A·y)``: the kernel forms the second output
+    after its last step, behind one more grid-wide barrier, from the
+    stencil it still holds in shared memory.  That is no ``matvec`` launch;
+    it is counted in ``second_outputs``."""
     if lam_max.dim() != 0:
         raise ValueError("chebyshev_smooth: lam_max must be a 0-dim tensor")
     if degree < 1:
         raise ValueError(f"chebyshev_smooth: degree {degree} < 1")
+    if second not in SMOOTH_SECOND:
+        raise ValueError(f"chebyshev_smooth: second {second!r} not in "
+                         f"{tuple(SMOOTH_SECOND)}")
     tensors = (packed, b, lam_max) + (() if x is None else (x,))
     dev = _check("chebyshev_smooth", *tensors)
     grid = _check_scalar("chebyshev_smooth", packed, b,
                          *(() if x is None else (x,)))
     if dev.type == "cpu":
         return chebyshev_smooth_plain(packed, b, x, lam_max, degree,
-                                      lam_min_frac, safety)
+                                      lam_min_frac, safety, second)
     n = b.numel()
     plan = smooth_plan(n, len(grid), b.element_size(), *_lib.limits_of(b))
     out = torch.empty_like(b)
+    out2 = None if second is None else torch.empty_like(b)
     scratch = torch.empty((3,) + grid, dtype=b.dtype, device=dev)
-    vec = vector_access(n, packed, b, out, scratch, *(() if x is None else (x,)))
+    vec = vector_access(n, packed, b, out, scratch,
+                        *(t for t in (x, out2) if t is not None))
     _lib.launch("tp_chebyshev_smooth", _lib.dtype_code(b), packed.data_ptr(),
                 b.data_ptr(), None if x is None else x.data_ptr(),
                 lam_max.data_ptr(), out.data_ptr(),
+                None if out2 is None else out2.data_ptr(),
                 *(scratch[i].data_ptr() for i in range(3)),
                 int(degree), float(lam_min_frac), float(safety), len(grid),
                 *_lib.dims3(grid), plan.blocks, plan.threads, plan.per_block,
                 plan.iters, plan.cached_quads, plan.smem, int(vec),
-                _lib.stream_of(b))
+                SMOOTH_SECOND[second], _lib.stream_of(b))
     chebyshev_smooth.launches += 1
-    return out
+    if second is None:
+        return out
+    second_outputs[second] += 1
+    return out, out2
 
 
 chebyshev_smooth.launches = 0
+#: second outputs the smooth kernel has produced, by kind: each stands for a
+#: scalar matvec launch that did not happen
+second_outputs = {"residual": 0, "product": 0}
 
 
 # ----------------------------------------- red-black block Gauss–Seidel

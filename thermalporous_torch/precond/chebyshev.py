@@ -32,13 +32,16 @@ def chebyshev(
     lam_max: torch.Tensor | None = None,
     lam_min_frac: float = 0.25,
     lam_max_safety: float = 1.05,
-) -> torch.Tensor:
+    second: str | None = None,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """``degree`` Chebyshev iterations on D⁻¹A x = D⁻¹b from ``x`` (None =
-    zero start) over [lam_min_frac·λmax, λmax·safety]."""
+    zero start) over [lam_min_frac·λmax, λmax·safety].  With ``second``
+    ("residual" or "product") the result y comes with b − A·y or A·y from
+    the same kernel launch."""
     if lam_max is None:
         lam_max = gershgorin_lambda_max(st)
     return kst.chebyshev_smooth(st.packed, b, x, lam_max, degree, lam_min_frac,
-                                lam_max_safety)
+                                lam_max_safety, second=second)
 
 
 def block_red_black_gauss_seidel(

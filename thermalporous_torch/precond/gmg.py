@@ -200,9 +200,11 @@ def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig()) -> GMGState:
                     coarse_inv=dense_inv(stencils[-1].to_dense()))
 
 
-def _smooth(st: ScalarStencil, lam, b, x, cfg: GMGConfig) -> torch.Tensor:
+def _smooth(st: ScalarStencil, lam, b, x, cfg: GMGConfig, second: str | None = None):
+    """One smooth; with ``second`` also b − A·y ("residual") or A·y
+    ("product") of its result y, from the smooth's own launch."""
     return chebyshev(st, b, x, degree=cfg.degree, lam_max=lam,
-                     lam_min_frac=cfg.lam_min_frac)
+                     lam_min_frac=cfg.lam_min_frac, second=second)
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -239,20 +241,18 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
     the same math as one fused launch when the subtree is fusable."""
     if _fusable(state, level, cfg, rc.dtype):
         return _fused_correction(state, level, rc, cfg)
-    e1 = _v_cycle(state, level, rc, cfg)
     if (cfg.cycle_type == "v" or level == len(state.stencils) - 1
             or math.prod(state.stencils[level].grid_shape) < cfg.kcycle_min_cells):
-        return e1
-    a_mat = state.stencils[level].matvec
-    # K-cycle: flexible CG(2) on A_level preconditioned by one cycle
-    v1 = a_mat(e1)
+        return _v_cycle(state, level, rc, cfg)
+    # K-cycle: flexible CG(2) on A_level preconditioned by one cycle; each
+    # product A·e comes out of the cycle's post-smooth
+    e1, v1 = _v_cycle(state, level, rc, cfg, product=True)
     rho1 = _vdot(v1, e1)
     alpha1 = _vdot(rc, e1)
     safe = torch.where(torch.abs(rho1) > 0, rho1, 1.0)
     x = (alpha1 / safe) * e1
     r1 = rc - (alpha1 / safe) * v1
-    e2 = _v_cycle(state, level, r1, cfg)
-    v2 = a_mat(e2)
+    e2, v2 = _v_cycle(state, level, r1, cfg, product=True)
     gamma = _vdot(v1, e2)
     beta = _vdot(v2, e2)
     alpha2 = _vdot(r1, e2)
@@ -261,8 +261,10 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
     return x + (alpha2 / safe2) * (e2 - (gamma / safe) * e1)
 
 
-def _v_cycle(state: GMGState, level: int, b: torch.Tensor,
-             cfg: GMGConfig) -> torch.Tensor:
+def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
+             product: bool = False):
+    """One V-cycle from ``level`` down; with ``product`` (never on the
+    coarsest level) the result e comes with A_level·e."""
     if level == len(state.stencils) - 1:
         shape = state.stencils[level].grid_shape
         return torch.mv(state.coarse_inv, b.reshape(-1)).reshape(shape)
@@ -271,12 +273,11 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor,
     fine = st.grid_shape
     coarse = state.stencils[level + 1].grid_shape
     factors = tuple(2 if c < f else 1 for f, c in zip(fine, coarse))
-    x = _smooth(st, lam, b, None, cfg)
-    r = b - st.matvec(x)
+    x, r = _smooth(st, lam, b, None, cfg, second="residual")
     rc = _blocksum(r, fine, factors)
     ec = _coarse_correction(state, level + 1, rc, cfg)
     x = x + _prolong(ec, fine, factors)
-    return _smooth(st, lam, b, x, cfg)
+    return _smooth(st, lam, b, x, cfg, second="product" if product else None)
 
 
 def gmg_apply(state: GMGState, b: torch.Tensor,
