@@ -11,7 +11,11 @@ Phases (each prints one line with its wall time):
      against its plain PyTorch version on the card, f32 and f64, with the
      max relative error and the median time of each, on the benchmark's
      1024x1024 case and on the flagship (tp_spe10_full, 60x220x85): there
-     also the red-black Gauss-Seidel stage 2 on the flagship Jacobian, the
+     also the red-black stage 2 on the flagship Jacobian (x1 the CPTR
+     state's e_pt, beside the parent commit's route of block_matvec at
+     k = 2, a subtraction, the zero-start sweep and an add, which must give
+     its bits; no x1; x1 padded to k = 3), its layout floor, the half-sweep
+     and 2 and 3 sweeps from zero and from x0, the
      fused coarse subtree at the entry levels of the pressure and
      temperature hierarchies, each kernel's bound, a torch.sparse.mm
      yardstick for the two matvecs and for J(u)v, J(u)v also at a state
@@ -36,7 +40,10 @@ Phases (each prints one line with its wall time):
      matvec on the awkward shapes; the residual and J(u)v of both models on
      grids that are no multiple of their kernel's tile (61x219x83,
      1023x1021, 37x5x19, 9x21), two-phase also at saturations 0 and 1;
-     every kernel run twice on one input (bitwise equal);
+     the stage 2 at every k and the half-sweeps on 61x219x83 and 9x21
+     (three unknowns) and 61x219x83 (two), and on 1024x1024 beside the
+     parent's route; the stage 2 and the half-sweep bitwise equal to their
+     plain versions; every kernel run twice on one input (bitwise equal);
   3  slice parity: the benchmark configuration at 32x32, f64, 3 steps, on the
      GPU and on the CPU: Newton and FGMRES counts per step must agree;
   4  main path: the benchmark workload (two-phase CPTR step, 1024x1024, f32):
@@ -46,6 +53,7 @@ Phases (each prints one line with its wall time):
   5  flagship parity: tp_spe10_full's configuration on a 12x22x9 synthetic
      SPE10 grid, f64, through the Simulator on the GPU and on the CPU for 3
      controller steps: accepted dt, Newton and FGMRES counts must agree;
+     then the same with stage2_sweeps=2 (the half-sweep kernel's path);
   6  flagship: tp_spe10_full at 60x220x85, f32, Simulator.run for the first
      4 controller steps from dt_init = 600 s; per-step counts and walls,
      cell-updates/s, peak memory, S and T bounds, and the launch count of
@@ -53,7 +61,9 @@ Phases (each prints one line with its wall time):
   7  flagship layers: the phase-6 run again with synchronized timers
      around each layer (assembly, CPTR setup, FGMRES, CPTR apply, residual),
      the smooths, second outputs, scalar matvecs and subtree visits by
-     level, and the device's busy share over one more step from the
+     level, the block matvecs and stage 2s by block columns (no block
+     matvec at k = 2: the stage 2 is one launch), and the device's busy
+     share over one more step from the
      profiler, whose kernel events are held against the wrappers' counters;
   8  single-phase family: sp_hot_injection_2d (40x40, f64) through the
      Simulator on the GPU and on the CPU for 3 controller steps (accepted
@@ -70,8 +80,9 @@ Phases (each prints one line with its wall time):
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
-run: phase 6 for the flagship's kernels, phase 8 for the single-phase
-residual, phase 9 for the J(u)v kernels), and as the last line
+run: phase 6 for the flagship's kernels, phase 5's two-sweep run for the
+half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
+kernels), and as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
 --phases only the named phases run (after 0 and 1), and neither the
@@ -168,8 +179,11 @@ KERNEL_SOURCES = {
                        "thermalporous_tpu/kernels/residual_pallas.py:185"),
     "fused_residual_sp": ("thermalporous_torch/csrc/residual.cu",
                           "thermalporous_tpu/kernels/residual_pallas.py:185"),
-    "fused_block_rbgs": ("thermalporous_torch/csrc/rbgs.cu",
-                         "thermalporous_tpu/kernels/stencil_pallas.py:408"),
+    "fused_stage2_rbgs": ("thermalporous_torch/csrc/rbgs.cu",
+                          "thermalporous_tpu/kernels/stencil_pallas.py:408"),
+    # no Pallas twin: the reference's looped half-sweep (jnp)
+    "block_rbgs_half_sweep": ("thermalporous_torch/csrc/rbgs.cu",
+                              "thermalporous_tpu/precond/chebyshev.py:295"),
     "deep_correction": ("thermalporous_torch/csrc/deep_cycle.cu",
                         "thermalporous_tpu/kernels/deep_cycle.py:289"),
     "fused_jvp": ("thermalporous_torch/csrc/residual.cu",
@@ -178,11 +192,16 @@ KERNEL_SOURCES = {
                      "thermalporous_tpu/kernels/residual_pallas.py:196"),
 }
 # the kernels each driven path must launch: the flagship with the stencil
-# operator (phase 6), sp_geothermal_3d (phase 8; block-Jacobi stage 2, no
-# fused subtree)
+# operator (phase 6), its configuration with two stage-2 sweeps (phase 5:
+# the half-sweep runs only there), sp_geothermal_3d (phase 8; block-Jacobi
+# stage 2, no fused subtree)
 FLAGSHIP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual",
-                    "fused_block_rbgs", "deep_correction")
+                    "fused_stage2_rbgs", "deep_correction")
+SWEEPS_KERNELS = ("deep_correction", "fused_stage2_rbgs", "block_rbgs_half_sweep")
 SP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual_sp")
+# the stage-2 kernel on shapes that are no multiple of its tile, and with
+# two unknowns: (shape, unknowns)
+RBGS_SHAPES = (((61, 219, 83), 3), ((9, 21), 3), ((61, 219, 83), 2))
 
 
 def ptxas_summary(log: str) -> list:
@@ -375,11 +394,33 @@ def cost_jvp(model, u, data):
     return model_bytes(model, u.element_size()), 3 * arith + 18 * trans
 
 
-def cost_rbgs(n, dim, nc, item):
-    # the output needs the off-diagonal blocks of the black cells only (half
-    # the cells), D^-1 and b everywhere
-    return ((n // 2) * 2 * dim * nc * nc + (nc * nc + 2 * nc) * n) * item, \
-        (n // 2) * 2 * dim * 2 * nc * nc + 4 * nc * nc * n
+def cost_stage2(n, dim, nc, k, item):
+    """The stage 2 after x1 = [x1_cols; 0] over k columns: every cell's
+    column-0:k coefficients (r2 = r - A x1), the black cells' other
+    off-diagonal columns (A x_r; the red cells need none), r, x1, D^-1 and
+    the output, each once.  k = 0 is the zero-start sweep alone."""
+    nb = n // 2
+    vals = ((2 * dim + 1) * nc * k * n + nb * 2 * dim * nc * (nc - k)
+            + (2 * nc + k + nc * nc) * n)
+    ops = (n * (2 * (2 * dim + 1) * nc * k + nc + 2 * nc * nc + k)
+           + nb * (2 * 2 * dim * nc * nc + nc))
+    return vals * item, ops
+
+
+def floor_stage2_ms(n, dim, nc, k, item):
+    """The stage-2 kernel's floor on the packed layout: red and black cells
+    alternate along the contiguous axis, so the black cells' other
+    off-diagonal columns pull every sector of those planes."""
+    vals = ((2 * dim + 1) * nc * k + 2 * dim * nc * (nc - k) + 2 * nc + k + nc * nc) * n
+    return vals * item / PEAK_BYTES_S * 1e3
+
+
+def cost_half(n, dim, nc, item):
+    """One half-sweep: the cells of the colour read their stencil rows,
+    D^-1 and b; x is read and the output written everywhere."""
+    nh = -(-n // 2)
+    vals = nh * ((2 * dim + 1) * nc * nc + nc * nc + nc) + 2 * nc * n
+    return vals * item, nh * (2 * (2 * dim + 1) * nc * nc + 2 * nc * nc + 2 * nc)
 
 
 def cost_deep(shapes, degree, cycle_type, kmin, item):
@@ -585,6 +626,8 @@ def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev):
                           cost_chebyshev(n, dim, deg, xx is not None, item), None))
     for deg, kind, xx in ((4, "residual", None), (4, "product", x0), (2, "residual", None)):
         cases.append(second_case("fine", fine.packed, lam, b, xx, deg, kind, tol_st, item))
+    cases.append(stage2_case("random x1", st, state.dinv, v, rand((2,) + grid), tol_st,
+                             route=True))
     cases.append((f"fused_residual {gs}", "fused_residual",
                   lambda: kres.fused_residual(model, u, u0, 600.0, data),
                   lambda: model.residual(u, u0, 600.0, data), tol_res,
@@ -618,22 +661,27 @@ def sp_cases(model, data, st, u0, u, tol_st, tol_res, tol_jvp, dev, with_b1: boo
 
 
 def flagship_cases(st, state, pc, dtype, dev):
-    """The stage-2 sweep on the flagship Jacobian, and the coarse subtree at
+    """The stage 2 on the flagship Jacobian (x1 the CPTR state's e_pt of a
+    random residual, with the parent's route beside it; k = 0 and x1 padded
+    to k = 3), the half-sweep and 2 and 3 sweeps, and the coarse subtree at
     the entry level that each FUSE_CANDIDATES value picks on each hierarchy
     (phase 6's value first: its cases make the kernel's record)."""
-    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.core.stencil import apply_blocks
+    from thermalporous_torch.precond.cpr import _stage1_pt
     from thermalporous_torch.precond.gmg import _fusable
 
-    f64 = dtype == torch.float64
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32_STENCIL
     grid = st.grid_shape
-    n, item = math.prod(grid), st.coef.element_size()
+    item = st.coef.element_size()
     g = torch.Generator(device=dev).manual_seed(4)
-    r2 = torch.randn((3,) + grid, generator=g, dtype=dtype, device=dev)
-    gs = "x".join(map(str, grid))
-    cases = [(f"fused_block_rbgs {gs}", "fused_block_rbgs",
-              lambda: kst.fused_block_rbgs(st.coef, state.dinv, r2),
-              lambda: kst.fused_block_rbgs_plain(st.coef, state.dinv, r2),
-              TOL_F64 if f64 else TOL_F32_STENCIL, cost_rbgs(n, len(grid), 3, item), None)]
+    r, x0 = (torch.randn((3,) + grid, generator=g, dtype=dtype, device=dev) for _ in range(2))
+    e_pt = _stage1_pt(state, apply_blocks(state.w, r)[0:2], pc)
+    x1 = torch.zeros_like(r)
+    x1[0:2] = e_pt
+    cases = [stage2_case("CPTR e_pt", st, state.dinv, r, e_pt, tol, route=True),
+             stage2_case("no x1", st, state.dinv, r, r[:0], tol),
+             stage2_case("x1 padded", st, state.dinv, r, x1, tol)]
+    cases += half_cases("flagship", st, state.dinv, r, x0, tol)
     fuse_values = (FLAGSHIP_FUSE_BELOW,) + tuple(f for f in FUSE_CANDIDATES
                                                  if f != FLAGSHIP_FUSE_BELOW)
     for fb in fuse_values:
@@ -642,6 +690,118 @@ def flagship_cases(st, state, pc, dtype, dev):
             entry = next(l for l in range(1, len(hier.stencils))
                          if _fusable(hier, l, cfg, dtype))
             cases.append(deep_case(hname, hier, entry, cfg, item, g))
+    return cases
+
+
+def stage2_case(label, st, dinv, r, x1, tol, route: bool = False):
+    """The stage-2 kernel with x1 over k = x1.shape[0] columns against its
+    plain version; its check prints the kernel's layout floor, and with
+    ``route`` runs the parent commit's route beside it (block_matvec over
+    the k columns, the subtraction, the k = 0 call, the add), which must
+    give the kernel's bits, timed per call and on the card."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    k, nc = x1.shape[0], st.nc
+    grid, item = st.grid_shape, st.coef.element_size()
+    n, dim = math.prod(grid), len(grid)
+    kern = lambda: kst.fused_stage2_rbgs(st.coef, dinv, r, x1)
+
+    def parent():
+        x2 = kst.fused_block_rbgs(st.coef, dinv, r - kst.block_matvec(st.coef, x1, k))
+        x2[0:k] += x1
+        return x2
+
+    def beside():
+        floor = floor_stage2_ms(n, dim, nc, k, item)
+        extra = {"floor_ms": floor, "k": k}
+        text = f"  layout floor {floor:.4f} ms"
+        if route:
+            if not torch.equal(kern(), parent()):
+                raise SystemExit(f"stage 2 {label}: the kernel and the parent's route differ")
+            extra.update(route_ms=time_ms(parent, reps=10),
+                         route_device_ms=time_device_ms(parent, reps=10))
+            text += (f"; the parent's route (block_matvec k={k}, subtraction, k = 0 call, "
+                     f"add) {extra['route_ms']:.4f} ms ({extra['route_device_ms']:.4f} on the "
+                     f"card), bitwise equal to the kernel")
+        return text, extra
+
+    return (f"fused_stage2_rbgs k={k} {label} {'x'.join(map(str, grid))}", "fused_stage2_rbgs",
+            kern, lambda: kst.fused_stage2_rbgs_plain(st.coef, dinv, r, x1), tol,
+            cost_stage2(n, dim, nc, k, item), None, beside)
+
+
+def sweeps_plain(coef, dinv, b, x, sweeps):
+    """``sweeps`` red-black sweeps from ``x`` (None: zero) on the plain
+    versions, as block_red_black_gauss_seidel runs them on the kernels."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    if x is None:
+        x = kst.fused_block_rbgs_plain(coef, dinv, b)
+        sweeps -= 1
+    for _ in range(sweeps):
+        x = kst.block_rbgs_half_sweep_plain(coef, dinv, b, x, 0)
+        x = kst.block_rbgs_half_sweep_plain(coef, dinv, b, x, 1)
+    return x
+
+
+def half_cases(label, st, dinv, b, x0, tol):
+    """The half-sweep of each colour from x0, then 2 sweeps from zero and 3
+    from x0 (the stage-2 kernel's k = 0 sweep and half-sweeps) against the
+    plain versions."""
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.chebyshev import block_red_black_gauss_seidel
+
+    grid, item, nc = st.grid_shape, st.coef.element_size(), st.nc
+    n, dim = math.prod(grid), len(grid)
+    gs = "x".join(map(str, grid))
+    cases = []
+    for colour, cname in ((0, "red"), (1, "black")):
+        cases.append((f"block_rbgs_half_sweep {cname} {label} {gs}", "block_rbgs_half_sweep",
+                      lambda c=colour: kst.block_rbgs_half_sweep(st.coef, dinv, b, x0, c),
+                      lambda c=colour: kst.block_rbgs_half_sweep_plain(st.coef, dinv, b, x0, c),
+                      tol, cost_half(n, dim, nc, item), None))
+    for sweeps, x in ((2, None), (3, x0)):
+        halves = 2 * sweeps - (2 if x is None else 0)
+        hb, ho = cost_half(n, dim, nc, item)
+        zb, zo = cost_stage2(n, dim, nc, 0, item) if x is None else (0, 0)
+        cases.append((f"rbgs sweeps={sweeps} from {'zero' if x is None else 'x0'} {label} {gs}",
+                      "block_rbgs_half_sweep",
+                      lambda s=sweeps, x=x: block_red_black_gauss_seidel(st, dinv, b, x, s),
+                      lambda s=sweeps, x=x: sweeps_plain(st.coef, dinv, b, x, s), tol,
+                      (zb + halves * hb, zo + halves * ho), None))
+    return cases
+
+
+def random_block_stencil(shape, nc, dtype, dev, seed: int):
+    """A random block stencil with dominant diagonal blocks, zero beyond the
+    boundary."""
+    from thermalporous_torch.core import BlockStencil
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dim = len(shape)
+    coef = torch.randn((2 * dim + 1, nc, nc) + shape, generator=g, dtype=dtype, device=dev)
+    coef[0] += 4.0 * torch.eye(nc, dtype=dtype, device=dev).reshape((nc, nc) + (1,) * dim)
+    for a in range(dim):
+        idx = torch.arange(shape[a], device=dev).reshape([-1 if i == a else 1 for i in range(dim)])
+        coef[1 + 2 * a] *= idx < shape[a] - 1
+        coef[2 + 2 * a] *= idx > 0
+    return BlockStencil(coef)
+
+
+def rbgs_shape_cases(dtype, tol, dev):
+    """The stage-2 kernel at every k and the half-sweeps on RBGS_SHAPES with
+    a random block stencil."""
+    cases = []
+    for i, (shape, nc) in enumerate(RBGS_SHAPES):
+        st = random_block_stencil(shape, nc, dtype, dev, seed=70 + i)
+        dinv = st.diag_inverse()
+        g = torch.Generator(device=dev).manual_seed(80 + i)
+        r, x0 = (torch.randn((nc,) + shape, generator=g, dtype=dtype, device=dev)
+                 for _ in range(2))
+        label = f"random nc={nc}"
+        for k in range(nc + 1):
+            cases.append(stage2_case(label, st, dinv, r, x0[:k].contiguous(), tol))
+        cases += half_cases(label, st, dinv, r, x0, tol)
     return cases
 
 
@@ -900,7 +1060,7 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
         # deterministic: a second run on the same input gives the same bits
         ok = ok and same(got, kern())
         note = "  rerun bitwise"
-        if kname in ("chebyshev_smooth", "matvec"):
+        if kname in ("chebyshev_smooth", "matvec", "fused_stage2_rbgs", "block_rbgs_half_sweep"):
             ok = ok and same(got, ref)
             note += ", bitwise equal to plain"
         ms, plain_ms, device_ms = time_ms(kern), time_ms(plain), time_device_ms(kern)
@@ -1082,7 +1242,8 @@ def kernel_parity(dev) -> tuple:
                   + " cells", flush=True)
         cases = (kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev)
                  + flagship_cases(st, state, pc, dtype, dev)
-                 + level_cases(state, pc, tol_st, dev) + awkward_cases(dtype, tol_st, dev))
+                 + level_cases(state, pc, tol_st, dev) + awkward_cases(dtype, tol_st, dev)
+                 + rbgs_shape_cases(dtype, tol_st, dev))
         run_cases(tname, cases, st, rec, dtype, record=dtype == torch.float32)
         if dtype == torch.float32:
             fuse_times = fuse_apply_times(st, state, pc, dev)
@@ -1155,26 +1316,30 @@ def with_krylov_op(case, krylov_op: str):
 
 
 def gpu_cpu_counts(name: str, kernels: tuple, steps: int = 3, krylov_op: str = "stencil",
-                   pc_overrides: dict | None = None, **case_kw) -> dict:
-    """Preset ``name`` (keywords ``case_kw``) in f64 through the Simulator on
-    each device for ``steps`` controller steps; the (dt, Newton, FGMRES,
-    retries) records per device.  On the card each of ``kernels`` must
-    launch."""
+                   pc_overrides: dict | None = None, stage2_sweeps: int | None = None,
+                   **case_kw) -> dict:
+    """Preset ``name`` (keywords ``case_kw``; with ``stage2_sweeps``, that
+    many stage-2 sweeps) in f64 through the Simulator on each device for
+    ``steps`` controller steps; the (dt, Newton, FGMRES, retries) records per
+    device, and the card's launches under "launches".  On the card each of
+    ``kernels`` must launch."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
 
     out = {}
     for d in ("cpu", "cuda"):
         case = get_case(name, device=d, dtype=torch.float64, **case_kw)
-        kw = {} if pc_overrides is None else dict(pc_cfg=with_fuse(case.pc_cfg, **pc_overrides))
-        sim = case.simulator(newton_cfg=with_krylov_op(case, krylov_op), **kw)
+        pc = case.pc_cfg if pc_overrides is None else with_fuse(case.pc_cfg, **pc_overrides)
+        if stage2_sweeps is not None:
+            pc = dataclasses.replace(pc, stage2_sweeps=stage2_sweeps)
+        sim = case.simulator(newton_cfg=with_krylov_op(case, krylov_op), pc_cfg=pc)
         reset_launch_counts()
         res = sim.run(case.t_end, max_steps=steps)
         out[d] = [(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records]
         if d == "cuda":
-            launches = launch_counts()
-            print(f"  cuda launches {launches}")
-            missing = [k for k in kernels if launches[k] <= 0]
+            out["launches"] = launch_counts()
+            print(f"  cuda launches {out['launches']}")
+            missing = [k for k in kernels if out["launches"][k] <= 0]
             if missing:
                 raise SystemExit(f"{name} {krylov_op}: launched no {missing}")
     if out["cpu"] != out["cuda"]:
@@ -1182,12 +1347,15 @@ def gpu_cpu_counts(name: str, kernels: tuple, steps: int = 3, krylov_op: str = "
     return out
 
 
-def flagship_parity(krylov_op: str = "stencil") -> dict:
+def flagship_parity(krylov_op: str = "stencil", stage2_sweeps: int | None = None) -> dict:
     """Phase 5 (and 9): the flagship configuration at FLAGSHIP_SMALL, f64,
-    through the Simulator on each device."""
-    kernels = ("deep_correction",) + (("fused_jvp",) if krylov_op == "jvp" else ())
+    through the Simulator on each device (with ``stage2_sweeps`` stage-2
+    sweeps: the half-sweep kernel's path)."""
+    kernels = (SWEEPS_KERNELS if stage2_sweeps else ("deep_correction", "fused_stage2_rbgs")
+               ) + (("fused_jvp",) if krylov_op == "jvp" else ())
     return gpu_cpu_counts("tp_spe10_full", kernels, krylov_op=krylov_op,
-                          pc_overrides=SMALL_GMG, shape=FLAGSHIP_SMALL)
+                          pc_overrides=SMALL_GMG, stage2_sweeps=stage2_sweeps,
+                          shape=FLAGSHIP_SMALL)
 
 
 def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil"):
@@ -1230,7 +1398,10 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil"):
     print(f"  launches {launches}; Newton iterations over all attempts "
           f"{attempts['newton']} in {attempts['attempts']} solves")
     check_physical(res.u, case.model.grid.shape, "flagship")
-    kernels = FLAGSHIP_KERNELS + (("fused_jvp",) if krylov_op == "jvp" else ())
+    # with the J(u)v operator no block matvec is left on the path: the
+    # stage-2 residual is inside the stage-2 kernel
+    kernels = (FLAGSHIP_KERNELS if krylov_op == "stencil" else
+               tuple(k for k in FLAGSHIP_KERNELS if k != "block_matvec") + ("fused_jvp",))
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise SystemExit(f"flagship ({krylov_op}) launched no {missing}")
@@ -1294,13 +1465,28 @@ def flagship_layers(dev) -> dict:
         call.launches = 0      # the wrapper counts on the name it is called by
         return call
 
-    real_kernels = kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction
+    # the block matvec and the stage 2 by the block columns k they take
+    by_k: dict[str, int] = {}
+
+    def counted_k(name, fn, k_of):
+        def call(*args, **kw):
+            key = f"{name} k={k_of(args)}"
+            by_k[key] = by_k.get(key, 0) + 1
+            return fn(*args, **kw)
+        call.launches = 0
+        return call
+
+    real_kernels = (kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction, kst.block_matvec,
+                    kst.fused_stage2_rbgs)
     case = get_case("tp_spe10_full", device=dev)
     sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
     ttimeloop.newton_solve, tnewton.fgmres = solve, timed("FGMRES", real_fgmres)
     kst.chebyshev_smooth = by_shape("chebyshev_smooth", real_kernels[0], 1)
     kst.matvec = by_shape("matvec", real_kernels[1], 1)
     kdeep.deep_correction = by_shape("deep_correction", real_kernels[2], 3)
+    kst.block_matvec = counted_k("block_matvec", real_kernels[3], lambda a: a[2])
+    kst.fused_stage2_rbgs = counted_k("fused_stage2_rbgs", real_kernels[4],
+                                      lambda a: a[3].shape[0])
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1308,7 +1494,8 @@ def flagship_layers(dev) -> dict:
         total = time.perf_counter() - t
     finally:
         ttimeloop.newton_solve, tnewton.fgmres = real_solve, real_fgmres
-        kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction = real_kernels
+        (kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction, kst.block_matvec,
+         kst.fused_stage2_rbgs) = real_kernels
     newton = sum(r.newton_iters for r in res.records)
     for (name, shape), count in sorted(by_level.items(), key=lambda kv: (kv[0][0], -math.prod(kv[0][1]))):
         print(f"  {name} {'x'.join(map(str, shape))} ({math.prod(shape)} cells): {count} "
@@ -1317,6 +1504,13 @@ def flagship_layers(dev) -> dict:
                   for k in ("chebyshev_smooth", "chebyshev_smooth+residual",
                             "chebyshev_smooth+product", "matvec", "deep_correction")}
     print("  per Newton: " + ", ".join(f"{k} {v:.1f}" for k, v in per_newton.items()))
+    k_per_newton = {key: c / newton for key, c in sorted(by_k.items())}
+    print("  per Newton by block columns: " + ", ".join(
+        f"{key} {v:.2f}" for key, v in k_per_newton.items())
+        + " (the FGMRES operator is block_matvec k=3; the stage-2 residual, k=2 before "
+        "the stage-2 kernel, is inside fused_stage2_rbgs k=2)")
+    if by_k.get("block_matvec k=2", 0):
+        raise SystemExit("flagship: block_matvec k=2 launched; the stage 2 should be one launch")
     for name in ("assembly", "CPTR setup", "FGMRES", "CPTR apply", "residual"):
         print(f"  {name}: {wall.get(name, 0.0):.3f} s of {total:.3f} s "
               f"({100 * wall.get(name, 0.0) / total:.1f}%) in {calls.get(name, 0)} calls")
@@ -1337,13 +1531,15 @@ def flagship_layers(dev) -> dict:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
-    # one device kernel per smooth, per standalone scalar matvec and per
-    # subtree visit: the profiler's kernel events against the wrappers'
-    # counters over the same step
+    # one device kernel per smooth, per standalone scalar matvec, per subtree
+    # visit, per stage 2 and per block matvec: the profiler's kernel events
+    # against the wrappers' counters over the same step
     counted = launch_counts()
     for wrapper, kernel in (("chebyshev_smooth", "cheb_smooth_kernel"),
                             ("matvec", "scalar_matvec_kernel"),
-                            ("deep_correction", "deep_kernel")):
+                            ("deep_correction", "deep_kernel"),
+                            ("fused_stage2_rbgs", "stage2_kernel"),
+                            ("block_matvec", "block_matvec_kernel")):
         seen = [e for e in events if kernel in e.key]
         on_card = sum(e.count for e in seen)
         print(f"  {wrapper}: {counted[wrapper]} wrapper launches, {on_card} {kernel} "
@@ -1360,7 +1556,8 @@ def flagship_layers(dev) -> dict:
     return {"total_s": total, "newton": newton, "layer_s": wall, "layer_calls": calls,
             "launches_by_level": {f"{k} {'x'.join(map(str, sh))}": c
                                   for (k, sh), c in by_level.items()},
-            "launches_per_newton": per_newton, "cptr_apply_ms": apply_ms,
+            "launches_per_newton": per_newton, "launches_per_newton_by_k": k_per_newton,
+            "cptr_apply_ms": apply_ms,
             "step_second_outputs": seconds,
             "step_s": step_s, "step_newton": st.iters, "step_fgmres": st.ksp_iters,
             "device_busy_s": busy_us / 1e6}
@@ -1507,9 +1704,12 @@ def main() -> int:
     if want(5):
         t0 = time.perf_counter()
         small = flagship_parity()
+        print(f"  stage2_sweeps=2:", flush=True)
+        small2 = flagship_parity(stage2_sweeps=2)
         phase("5 flagship parity", t0, f"{'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
               f"(dt, newton, fgmres, retries) per step: cpu {small['cpu']} == cuda "
-              f"{small['cuda']}")
+              f"{small['cuda']}; with stage2_sweeps=2 cpu {small2['cpu']} == cuda "
+              f"{small2['cuda']}")
 
     # (6) the flagship
     if want(6):
@@ -1575,7 +1775,8 @@ def main() -> int:
 
     # each kernel's launches in its path's run
     path_launches = {k: launches[k] for k in FLAGSHIP_KERNELS}
-    path_launches.update(fused_residual_sp=sp_launches["fused_residual_sp"],
+    path_launches.update(block_rbgs_half_sweep=small2["launches"]["block_rbgs_half_sweep"],
+                         fused_residual_sp=sp_launches["fused_residual_sp"],
                          fused_jvp=jlaunches["fused_jvp"],
                          fused_jvp_sp=sj_launches["fused_jvp_sp"])
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCES[k][0],
@@ -1591,6 +1792,7 @@ def main() -> int:
                        "slice_counts": counts,
                        "main_steps": recs, "main_launches": bench_launches,
                        "cell_updates_per_s": cu_s, "flagship_small": small,
+                       "flagship_small_sweeps2": small2,
                        "flagship_steps": [r.as_dict() for r in frecs],
                        "flagship_newton_all_attempts": attempts,
                        "flagship_cell_updates_per_s": fcu_s, "flagship_peak_gib": peak,

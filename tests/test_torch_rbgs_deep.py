@@ -18,7 +18,7 @@ from tests.test_gmg import poisson_stencil
 from thermalporous_torch.kernels import deep_cycle as kdeep
 from thermalporous_torch.kernels import stencil as kst
 from thermalporous_torch.core import BlockStencil
-from thermalporous_torch.precond.chebyshev import _checkerboard, block_red_black_gauss_seidel
+from thermalporous_torch.precond.chebyshev import block_red_black_gauss_seidel
 from thermalporous_torch.precond import cpr as tcpr
 from thermalporous_torch.precond import gmg as tgmg
 from thermalporous_tpu.kernels import fused_block_rbgs as j_fused_block_rbgs
@@ -55,9 +55,11 @@ def test_fused_block_rbgs_matches(shape, rng):
         assert_close(got, pal, RTOL, 1e-13)
 
 
-@pytest.mark.parametrize("sweeps,start", [(2, "zero"), (1, "x0"), (3, "x0")])
+@pytest.mark.parametrize("sweeps,start", [(2, "zero"), (1, "x0"), (3, "x0"), (2, "x0"),
+                                          (3, "zero")])
 def test_block_rbgs_looped_form(sweeps, start, rng):
-    """More sweeps, or a sweep from x₀, run the reference's looped form."""
+    """More sweeps, or a sweep from x₀: the stage-2 kernel's zero-start
+    sweep and half-sweeps, which on the CPU are the reference's looped form."""
     shape = (6, 5, 4)
     js, ts = block_pair(rng, shape, 3)
     b = rng.standard_normal((3,) + shape)
@@ -71,20 +73,22 @@ def test_block_rbgs_looped_form(sweeps, start, rng):
 
 
 def test_block_rbgs_has_no_fallback_off_the_cpu():
-    """Off the CPU only the one-sweep zero start has a kernel: the looped
-    form raises instead of running there."""
+    """Off the CPU every sweep goes to a kernel wrapper, which refuses a
+    device that is neither the CPU nor CUDA: no path computes on the CPU
+    for tensors that are not there."""
     coef = torch.empty((7, 3, 3, 4, 4, 4), device="meta")
     st = BlockStencil(coef)
     dinv = torch.empty((3, 3, 4, 4, 4), device="meta")
     b = torch.empty((3, 4, 4, 4), device="meta")
-    with pytest.raises(NotImplementedError):
-        block_red_black_gauss_seidel(st, dinv, b, sweeps=2)
-    with pytest.raises(ValueError):          # the kernel wrapper refuses meta
-        block_red_black_gauss_seidel(st, dinv, b)
+    for kw in (dict(sweeps=2), dict(x=b, sweeps=1), dict(x=b, sweeps=3), {}):
+        with pytest.raises(ValueError):      # the kernel wrapper refuses meta
+            block_red_black_gauss_seidel(st, dinv, b, **kw)
+    with pytest.raises(ValueError):
+        kst.block_rbgs_half_sweep(coef, dinv, b, b, 0)
     with pytest.raises(ValueError):          # dinv of the wrong shape
         kst.fused_block_rbgs(torch.zeros((7, 3, 3, 4, 4, 4)), torch.zeros((3, 3, 4, 4)),
                              torch.zeros((3, 4, 4, 4)))
-    red = _checkerboard((3, 4), torch.float64, "cpu")
+    red = kst.checkerboard((3, 4), torch.float64, "cpu")
     assert_close(red, j_checkerboard((3, 4), jnp.float64), 0)
 
 
@@ -313,7 +317,7 @@ def test_cpr_apply_rbgs_stage2(system3d, fuse):
     jstate, tstate = jset(js), tset(ts)
     ref = japply(jstate, jnp.asarray(rhs))
     assert_close(tapply(tstate, t(rhs)), ref, 1e-10, 1e-13)
-    # two sweeps take the looped form
+    # two sweeps: the zero-start sweep of the stage-2 kernel, then two half-sweeps
     tcfg2 = dataclasses.replace(tcfg, stage2_sweeps=2)
     jcfg2 = dataclasses.replace(jcfg, stage2_sweeps=2)
     assert_close(tcpr.cpr_apply(tstate, t(rhs), tcfg2),

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port and their launch counters.
 
 The wrappers live in ``kernels/stencil.py`` (block matvec, scalar matvec,
-Chebyshev smooth, red-black block Gauss–Seidel sweep),
+Chebyshev smooth, red-black stage 2 and half-sweep),
 ``kernels/residual.py`` (fused residual and J·v of each model) and
 ``kernels/deep_cycle.py`` (fused multigrid coarse subtree).
 Importing builds nothing: the CUDA library is compiled and loaded at the
@@ -19,8 +19,9 @@ def wrappers() -> dict:
     from thermalporous_torch.kernels.residual import fused_jvp, fused_residual
     from thermalporous_torch.kernels.stencil import (
         block_matvec,
+        block_rbgs_half_sweep,
         chebyshev_smooth,
-        fused_block_rbgs,
+        fused_stage2_rbgs,
         matvec,
     )
 
@@ -30,7 +31,8 @@ def wrappers() -> dict:
         "chebyshev_smooth": chebyshev_smooth,
         "fused_residual": fused_residual,
         "fused_residual_sp": fused_residual,
-        "fused_block_rbgs": fused_block_rbgs,
+        "fused_stage2_rbgs": fused_stage2_rbgs,
+        "block_rbgs_half_sweep": block_rbgs_half_sweep,
         "deep_correction": deep_correction,
         "fused_jvp": fused_jvp,
         "fused_jvp_sp": fused_jvp,

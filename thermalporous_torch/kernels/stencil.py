@@ -1,9 +1,10 @@
-"""Stencil kernels: block matvec, scalar matvec, the whole Chebyshev smooth
-and the zero-start red-black block Gauss–Seidel sweep.
+"""Stencil kernels: block matvec, scalar matvec, the whole Chebyshev smooth,
+the red-black block Gauss–Seidel stage 2 of the CPTR apply and the
+red-black half-sweep.
 
 Each public function is a wrapper around one CUDA kernel of
-``csrc/stencil.cu`` (the sweep: ``csrc/rbgs.cu``) and has its plain PyTorch
-version beside it (``*_plain``).  A wrapper checks its arguments, then:
+``csrc/stencil.cu`` (the red-black ones: ``csrc/rbgs.cu``) and has its plain
+PyTorch version beside it (``*_plain``).  A wrapper checks its arguments, then:
 
 - for tensors on the CPU, returns the plain version;
 - for CUDA tensors, launches the kernel (or raises), and adds one to its
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -355,31 +357,203 @@ def fused_block_rbgs_plain(coef: torch.Tensor, dinv: torch.Tensor,
     return xr + black * apply_block_cols(dinv, b - block_matvec_plain(coef, xr))
 
 
-def fused_block_rbgs(coef: torch.Tensor, dinv: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
-    """One zero-start red-black block Gauss–Seidel sweep (see the plain
-    version) for a block stencil ``coef`` (2·dim+1, nc, nc, *grid), the
-    per-cell inverse diagonal blocks ``dinv`` (nc, nc, *grid) and ``b``
-    (nc, *grid): the CPTR stage 2 of the flagship, in one launch."""
-    dev = _check("fused_block_rbgs", coef, dinv, b)
+def fused_stage2_rbgs_plain(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor,
+                            x1_cols: torch.Tensor) -> torch.Tensor:
+    """The CPTR stage 2 after stage 1, composed as the apply composed it:
+    r2 = r − A·[x1_cols; 0] (:func:`block_matvec_plain` over k =
+    ``x1_cols.shape[0]`` columns; k = 0: r2 = r), one zero-start sweep on r2
+    (:func:`fused_block_rbgs_plain`), then x1_cols added to the first k
+    components."""
+    k = x1_cols.shape[0]
+    r2 = r - block_matvec_plain(coef, x1_cols) if k else r
+    x2 = fused_block_rbgs_plain(coef, dinv, r2)
+    x2[0:k] += x1_cols
+    return x2
+
+
+#: most threads of a block of the stage-2 kernel (csrc/rbgs.cu:
+#: kStage2MaxThreads): one per pair of consecutive cells of the tile's rows,
+#: then one per red cell of its one-cell ring
+STAGE2_MAX_THREADS = 384
+#: blocks per SM that :func:`stage2_plan` fills in one wave (csrc/rbgs.cu
+#: launches with __launch_bounds__(384, 1): a block's threads keep every
+#: load of a step in flight at once, in up to 170 registers), and the fewest
+#: planes of a chunk (a chunk computes the red values of the plane below it
+#: and of its first plane again)
+STAGE2_BLOCKS_PER_SM = 1
+STAGE2_MIN_PLANES = 8
+
+
+def stage2_ring(dim: int, ty: int, tz: int) -> int:
+    """Red cells of a tile's one-cell ring in a plane, at most: the ring
+    threads of its block (csrc/rbgs.cu: stage2_ring)."""
+    return 2 * -(-ty // 2) + (tz if dim == 3 else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage2Plan:
+    """Tiling of the stage-2 kernel (csrc/rbgs.cu).  The grid is seen as
+    (e0, e1, e2) with e1 = 1 in 2D; a block owns ``lx`` planes along axis 0
+    of a tile of ``ty`` rows of ``tz`` consecutive cells (``tz`` even, a
+    thread per pair), with ``ring`` more threads for the ring's red cells."""
+
+    ty: int
+    tz: int
+    lx: int
+    tiles_y: int
+    tiles_z: int
+    chunks: int
+    ring: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_y * self.tiles_z * self.chunks
+
+    @property
+    def own(self) -> int:
+        """Pair threads, whole warps: the ring threads start here."""
+        return 32 * -(-(self.ty * self.tz // 2) // 32)
+
+    @property
+    def threads(self) -> int:
+        return self.own + 32 * -(-self.ring // 32)
+
+    def smem(self, dim: int, nc: int, item: int) -> int:
+        """Bytes of shared memory of a block (csrc/rbgs.cu: stage2_smem):
+        two planes' red values of the tile with its one-cell ring."""
+        return 2 * nc * (self.ty + (2 if dim == 3 else 0)) * (self.tz + 2) * item
+
+
+@functools.cache
+def stage2_plan(shape: tuple[int, ...], sms: int) -> Stage2Plan:
+    """The tiling of the stage-2 kernel for a grid of ``shape`` on a card
+    with ``sms`` SMs.
+
+    Tiles keep rows of at least 64 consecutive cells where the grid has
+    them, and at least 4 (which keeps the shared memory under 48 KB), and at
+    most ``STAGE2_MAX_THREADS`` threads.  Axis 0 is cut into as many chunks
+    of at least ``STAGE2_MIN_PLANES`` planes as one wave of
+    ``STAGE2_BLOCKS_PER_SM`` blocks per SM holds.  Of all tiles, the one
+    with the least time: waves × planes a block × lanes a plane, a pair
+    lane counting twice a ring lane (a red and a black value against one
+    red value)."""
+    n = math.prod(shape)
+    if len(shape) not in (2, 3) or n < 1 or n >= 2**31:
+        raise ValueError(f"stage-2 kernel: grid {shape} (2 or 3 axes, "
+                         f"1 <= cells < 2**31)")
+    dim = len(shape)
+    e0, e1, e2 = shape[0], (shape[1] if dim == 3 else 1), shape[-1]
+    e2p = e2 + e2 % 2
+    lo = max(4, min(e2p, 64))
+    slots = STAGE2_BLOCKS_PER_SM * sms
+    best = None
+    for tz in range(lo, max(lo, min(e2p, 2 * STAGE2_MAX_THREADS)) + 1, 2):
+        tiles_z = -(-e2 // tz)
+        for tiles_y in range(-(-e1 // min(e1, 2 * STAGE2_MAX_THREADS // tz)), e1 + 1):
+            ty = -(-e1 // tiles_y)
+            if -(-e1 // ty) != tiles_y:
+                continue
+            ring = stage2_ring(dim, ty, tz)
+            plan = Stage2Plan(ty, tz, 1, tiles_y, tiles_z, 1, ring)
+            if plan.threads > STAGE2_MAX_THREADS:
+                continue
+            tiles = tiles_y * tiles_z
+            chunks = max(1, min(slots // tiles, e0 // STAGE2_MIN_PLANES))
+            lx = -(-e0 // chunks)
+            chunks = -(-e0 // lx)
+            cost = (-(-tiles * chunks // slots) * lx
+                    * (plan.own + plan.threads))
+            if best is None or cost < best[0]:
+                best = (cost, Stage2Plan(ty, tz, lx, tiles_y, tiles_z, chunks, ring))
+    return best[1]
+
+
+def _check_rbgs(name: str, coef: torch.Tensor, dinv: torch.Tensor,
+                *vecs: torch.Tensor) -> tuple[int, tuple[int, ...]]:
+    """(nc, grid) of a block stencil ``coef``, its inverse diagonal blocks
+    ``dinv`` and state-shaped vectors; raises on any other shape."""
     nco, nc = coef.shape[0], coef.shape[1]
     grid = tuple(coef.shape[3:])
     dim = len(grid)
     if (dim not in (2, 3) or nco != 2 * dim + 1 or coef.shape[2] != nc
             or tuple(dinv.shape) != (nc, nc) + grid
-            or tuple(b.shape) != (nc,) + grid):
-        raise ValueError(f"fused_block_rbgs: coef {tuple(coef.shape)}, dinv "
-                         f"{tuple(dinv.shape)}, b {tuple(b.shape)}")
+            or any(tuple(v.shape) != (nc,) + grid for v in vecs)):
+        raise ValueError(f"{name}: coef {tuple(coef.shape)}, dinv {tuple(dinv.shape)}, "
+                         f"vectors {[tuple(v.shape) for v in vecs]}")
+    return nc, grid
+
+
+def fused_stage2_rbgs(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor,
+                      x1_cols: torch.Tensor) -> torch.Tensor:
+    """The whole red-black stage 2 of the CPTR apply after stage 1 (see the
+    plain version): x1 = [x1_cols; 0] with k = ``x1_cols.shape[0]`` (0 ≤ k ≤
+    nc), r2 = r − A·x1 over block columns 0:k, one zero-start red-black block
+    Gauss–Seidel sweep on r2, plus x1.  ``coef`` (2·dim+1, nc, nc, *grid) is
+    the block stencil, ``dinv`` (nc, nc, *grid) its per-cell inverse
+    diagonal blocks, ``r`` (nc, *grid).  On the card one launch
+    (:func:`stage2_plan`)."""
+    dev = _check("fused_stage2_rbgs", coef, dinv, r, x1_cols)
+    nc, grid = _check_rbgs("fused_stage2_rbgs", coef, dinv, r)
+    k = x1_cols.shape[0]
+    if not 0 <= k <= nc or tuple(x1_cols.shape) != (k,) + grid:
+        raise ValueError(f"fused_stage2_rbgs: x1_cols {tuple(x1_cols.shape)} for "
+                         f"nc={nc}, grid {grid}")
     if dev.type == "cpu":
-        return fused_block_rbgs_plain(coef, dinv, b)
+        return fused_stage2_rbgs_plain(coef, dinv, r, x1_cols)
     if nc > 3:
-        raise NotImplementedError("fused_block_rbgs kernel: nc <= 3")
-    out = torch.empty_like(b)
-    _lib.launch("tp_block_rbgs_zero", _lib.dtype_code(b), coef.data_ptr(),
-                dinv.data_ptr(), b.data_ptr(), out.data_ptr(), nc, dim,
-                *_lib.dims3(grid), _lib.stream_of(b))
-    fused_block_rbgs.launches += 1
+        raise NotImplementedError("fused_stage2_rbgs kernel: nc <= 3")
+    plan = stage2_plan(grid, _lib.limits_of(r)[0])
+    out = torch.empty_like(r)
+    _lib.launch("tp_stage2_rbgs", _lib.dtype_code(r), coef.data_ptr(), dinv.data_ptr(),
+                r.data_ptr(), x1_cols.data_ptr() if k else None, out.data_ptr(), nc, k,
+                len(grid), *_lib.dims3(grid), plan.ty, plan.tz, plan.lx, _lib.stream_of(r))
+    fused_stage2_rbgs.launches += 1
     return out
 
 
-fused_block_rbgs.launches = 0
+fused_stage2_rbgs.launches = 0
+
+
+def fused_block_rbgs(coef: torch.Tensor, dinv: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """One zero-start red-black block Gauss–Seidel sweep on ``b`` (see
+    :func:`fused_block_rbgs_plain`): the stage-2 kernel with k = 0, counted
+    as a ``fused_stage2_rbgs`` launch."""
+    return fused_stage2_rbgs(coef, dinv, b, b[:0])
+
+
+def block_rbgs_half_sweep_plain(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
+                                x: torch.Tensor, colour: int) -> torch.Tensor:
+    """x + colour⊙D⁻¹(b − A·x) for one colour (0 red, 1 black): a
+    half-sweep of the looped red-black block Gauss–Seidel."""
+    mask = checkerboard(tuple(b.shape[1:]), b.dtype, b.device)
+    if colour:
+        mask = 1.0 - mask
+    return x + mask * apply_block_cols(dinv, b - block_matvec_plain(coef, x))
+
+
+def block_rbgs_half_sweep(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
+                          x: torch.Tensor, colour: int) -> torch.Tensor:
+    """One red-black half-sweep (see the plain version) from ``x``: the
+    cells of ``colour`` (0 red, 1 black) take their block solve against the
+    other colour's values.  On the card one launch, a thread a cell."""
+    dev = _check("block_rbgs_half_sweep", coef, dinv, b, x)
+    nc, grid = _check_rbgs("block_rbgs_half_sweep", coef, dinv, b, x)
+    if colour not in (0, 1):
+        raise ValueError(f"block_rbgs_half_sweep: colour {colour} not in (0, 1)")
+    if dev.type == "cpu":
+        return block_rbgs_half_sweep_plain(coef, dinv, b, x, colour)
+    if nc > 3:
+        raise NotImplementedError("block_rbgs_half_sweep kernel: nc <= 3")
+    n = math.prod(grid)
+    if n >= 2**31:
+        raise ValueError(f"block_rbgs_half_sweep kernel: {n} cells (needs n < 2**31)")
+    out = torch.empty_like(x)
+    _lib.launch("tp_block_rbgs_half", _lib.dtype_code(x), coef.data_ptr(), dinv.data_ptr(),
+                b.data_ptr(), x.data_ptr(), out.data_ptr(), colour, nc, len(grid),
+                *_lib.dims3(grid), _lib.stream_of(x))
+    block_rbgs_half_sweep.launches += 1
+    return out
+
+
+block_rbgs_half_sweep.launches = 0

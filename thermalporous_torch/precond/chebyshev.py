@@ -2,20 +2,20 @@
 Chebyshev on Jacobi-scaled scalar stencils (24-80) and red-black block
 Gauss–Seidel on block stencils (107-114, 265-300).
 
-The Chebyshev smooth is the ``chebyshev_smooth`` kernel wrapper and the
-one-sweep zero-start red-black block Gauss–Seidel the ``fused_block_rbgs``
-kernel wrapper (``kernels/stencil.py``); their plain versions are the
-reference's recurrences.  The other smoothers of the reference are not
-ported.
+The Chebyshev smooth is the ``chebyshev_smooth`` kernel wrapper; the
+red-black block Gauss–Seidel runs a zero-start sweep through the
+``fused_block_rbgs`` wrapper and every other sweep as two
+``block_rbgs_half_sweep`` calls (``kernels/stencil.py``); their plain
+versions are the reference's recurrences.  The other smoothers of the
+reference are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil, apply_blocks
+from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil
 from thermalporous_torch.kernels import stencil as kst
-from thermalporous_torch.kernels.stencil import checkerboard as _checkerboard
 
 
 def gershgorin_lambda_max(st: ScalarStencil) -> torch.Tensor:
@@ -56,21 +56,14 @@ def block_red_black_gauss_seidel(
     (``dinv``, the inverse diagonal blocks) against the other colour's fresh
     values.
 
-    One sweep from zero is the ``fused_block_rbgs`` kernel (the flagship's
-    stage 2).  Any other call runs the reference's looped form on CPU
-    tensors and raises ``NotImplementedError`` on CUDA tensors, which have
-    no kernel for it."""
-    if x is None and sweeps == 1:
-        return kst.fused_block_rbgs(st.coef, dinv, b)
-    if b.device.type != "cpu":
-        raise NotImplementedError(
-            "block_red_black_gauss_seidel on CUDA: only one sweep from zero "
-            "has a kernel")
-    red = _checkerboard(st.grid_shape, b.dtype, b.device)
-    black = 1.0 - red
+    From zero the first sweep is the ``fused_block_rbgs`` kernel (the stage-2
+    kernel with no x₁); every other sweep is two ``block_rbgs_half_sweep``
+    launches, red then black.  On CPU tensors the wrappers' plain versions
+    are the reference's looped form, statement by statement."""
     if x is None:
-        x = torch.zeros_like(b)
+        x = kst.fused_block_rbgs(st.coef, dinv, b)
+        sweeps -= 1
     for _ in range(sweeps):
-        x = x + red * apply_blocks(dinv, b - st.matvec(x))
-        x = x + black * apply_blocks(dinv, b - st.matvec(x))
+        x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 0)
+        x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 1)
     return x

@@ -9,9 +9,10 @@
   pressure block, the T residual corrected through the T←p coupling,
   multigrid on the decoupled temperature block;
 - stage 2: block Jacobi with the exact per-cell inverses, or ``sweeps``
-  red-black block Gauss–Seidel sweeps (the flagship: one, which is the
-  ``fused_block_rbgs`` kernel); its residual r − A·x₁ reads only the block
-  columns x₁ lives on (``stage2_cols``).
+  red-black block Gauss–Seidel sweeps; its residual r − A·x₁ reads only the
+  block columns x₁ lives on (``stage2_cols``).  One sweep (the flagship) is
+  the whole stage 2 in one ``fused_stage2_rbgs`` launch: the residual, the
+  sweep and the add of x₁.
 
 Ported: the options of the benchmark step and of the flagship preset,
 including the adaptive coarsening schedule (:func:`resolve_adaptive_coarsening`).
@@ -30,6 +31,7 @@ import dataclasses
 import torch
 
 from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil, apply_blocks
+from thermalporous_torch.kernels import stencil as kst
 from thermalporous_torch.precond.chebyshev import block_red_black_gauss_seidel
 from thermalporous_torch.precond.gmg import (
     GMGConfig,
@@ -136,17 +138,20 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
     """Apply M⁻¹ to a state-shaped residual r (nc, *grid)."""
     w = apply_blocks(state.w, r)                    # decoupled residual W·r
     e_pt = _stage1_pt(state, w[0:2], cfg)           # x₁ = [e_p, e_T, 0]
-    if cfg.stage2_cols and 2 < state.stencil.nc:
-        # only x₁'s block columns; with two unknowns x₁ has full support
-        # and the full matvec runs, as in the reference
-        r2 = r - state.stencil.matvec_cols(e_pt, 2)
+    st = state.stencil
+    # only x₁'s block columns; with two unknowns x₁ has full support and
+    # the full matvec runs, as in the reference
+    cols = cfg.stage2_cols and 2 < st.nc
+    if cols:
+        x1 = e_pt
     else:
         x1 = torch.zeros_like(r)
         x1[0:2] = e_pt
-        r2 = r - state.stencil.matvec(x1)
+    if cfg.stage2 == "rbgs" and cfg.stage2_sweeps == 1:
+        return kst.fused_stage2_rbgs(st.coef, state.dinv, r, x1)
+    r2 = r - (st.matvec_cols(x1, 2) if cols else st.matvec(x1))
     if cfg.stage2 == "rbgs":
-        x2 = block_red_black_gauss_seidel(state.stencil, state.dinv, r2,
-                                          sweeps=cfg.stage2_sweeps)
+        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps)
     else:
         x2 = apply_blocks(state.dinv, r2)
     x2[0:2] += e_pt
