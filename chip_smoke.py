@@ -76,13 +76,30 @@ Phases (each prints one line with its wall time):
      agree); tp_spe10_full at 60x220x85, f32, for its first 2 controller
      steps with the stencil operator and with the J(u)v operator in turns
      (stencil, jvp, jvp, stencil), beside phase 6's counts; sp_geothermal_3d
-     for 2 steps; the J(u)v kernel of each model must launch.
+     for 2 steps; the J(u)v kernel of each model must launch;
+ 10  solver options: (a) the W-cycle in the fused subtree on the flagship's
+     pressure and temperature hierarchies from the ~145k- and ~36k-cell
+     entries, f32 and f64, beside the hierarchy's own cycle and the
+     K-cycle, and on the 12x22x9 hierarchies: within tolerance of the plain
+     version, bitwise equal to it with the coarsest solve summed in the
+     kernel's order (every subtree without a K-cycle level, in phase 2 too),
+     bitwise on a rerun, its barrier count equal to barrier_count; (b)
+     tp_spe10_inner (two inner FGMRES iterations on the (p, T) system per
+     CPTR apply) at 60x220x85, f32, its kernels at that path's shapes, then
+     Simulator.run for 3 controller steps: counts, walls, cell-updates/s,
+     peak memory, S and T bounds, and every kernel of its path launched
+     (block matvec at nc = 3 and at nc = 2, stage 2 at k = 3), beside phase
+     6's counts; (c) every solver option of the parity tests on the
+     flagship configuration at 12x22x9, f64, 2 controller steps on the GPU
+     and on the CPU (tasks of a pool of worker processes): the counts must
+     agree, and the stage-2 route each took on the card is printed.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
 run: phase 6 for the flagship's kernels, phase 5's two-sweep run for the
 half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
-kernels), and as the last line
+kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
+phase 10(c) for the W-cycle), and as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
 --phases only the named phases run (after 0 and 1), and neither the
@@ -92,6 +109,7 @@ kernels' line nor the ok line is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -146,7 +164,7 @@ FUSE_CANDIDATES = (150_000, 40_000, 6_000)
 FLAGSHIP_FUSE_BELOW = 150_000
 # the one-block subtree kernel this one replaced, on the same card model at
 # the same power limit in an earlier run (ms, f32): printed beside
-DEEP_MS_ONE_BLOCK = {("p", 36_300): 1.4854, ("T", 39_600): 0.5655}
+DEEP_MS_ONE_BLOCK = {("p", 36_300, "k"): 1.4854, ("T", 39_600, "v"): 0.5655}
 # awkward shapes for the smooth: odd extents, cell counts that are no
 # multiple of 4, so quads straddle rows and the channels are not 16-byte
 # aligned
@@ -443,8 +461,12 @@ def cost_deep(shapes, degree, cycle_type, kmin, item):
 
     def corr(ell):
         ops = cycle(ell)
-        if cycle_type == "k" and ell < last and sizes[ell] >= kmin:
-            ops += cycle(ell) + 2 * mv[ell] + 16 * sizes[ell]
+        if cycle_type != "v" and ell < last and sizes[ell] >= kmin:
+            # K: two products, five dots and the updates; W: b - A e1 and
+            # the sum e1 + e2
+            extra = (2 * mv[ell] + 16 * sizes[ell] if cycle_type == "k"
+                     else mv[ell] + 2 * sizes[ell])
+            ops += cycle(ell) + extra
         return ops
 
     nbytes = (sum((2 * len(s) + 1) * m for s, m in zip(shapes, sizes))
@@ -526,12 +548,14 @@ def bench_configs(max_coarse_cells: int = 1024):
 
 
 def with_fuse(pc, fuse_below: int, **gmg_overrides):
-    """``pc`` with ``fuse_below`` (and other overrides) on both hierarchies."""
+    """``pc`` with ``fuse_below`` (and other overrides) on both hierarchies
+    (on ``gmg`` alone where the T hierarchy takes it, ``gmg_t=None``)."""
+    gmg_t = None if pc.gmg_t is None else dataclasses.replace(
+        pc.gmg_t, fuse_below=fuse_below,
+        **{k: v for k, v in gmg_overrides.items() if k != "kcycle_min_cells"})
     return dataclasses.replace(
         pc, gmg=dataclasses.replace(pc.gmg, fuse_below=fuse_below, **gmg_overrides),
-        gmg_t=dataclasses.replace(pc.gmg_t, fuse_below=fuse_below,
-                                  **{k: v for k, v in gmg_overrides.items()
-                                     if k != "kcycle_min_cells"}))
+        gmg_t=gmg_t)
 
 
 def state_amp(u0: torch.Tensor) -> torch.Tensor:
@@ -549,6 +573,25 @@ def perturbed_state(model, data, seed: int = 5):
     du = torch.as_tensor(amp * rng.standard_normal(tuple(u0.shape)),
                          dtype=u0.dtype, device=u0.device)
     return u0, (u0 + du).contiguous()
+
+
+def preset_state(name: str, dtype, dev, gmg: dict, **case_kw):
+    """Preset ``name`` (keywords ``case_kw``) at a perturbed state: (case,
+    u0, u, the configuration with its coarsening schedule baked from the
+    initial Jacobian and ``gmg`` (fuse_below and other overrides, both
+    hierarchies), the Jacobian at (u, u0) for dt = 600 s, the CPTR state on
+    it)."""
+    from thermalporous_torch.precond.cpr import cpr_setup, resolve_adaptive_coarsening
+    from thermalporous_torch.presets import get_case
+
+    case = get_case(name, device=dev, dtype=dtype, **case_kw)
+    model, data = case.model, case.data
+    u0, u = perturbed_state(model, data)
+    pc = resolve_adaptive_coarsening(
+        model.assemble_stencil(u0, u0, case.time_cfg.dt_init, data),
+        with_fuse(case.pc_cfg, **gmg))
+    st = model.assemble_stencil(u, u0, 600.0, data)
+    return case, u0, u, pc, st, cpr_setup(st, pc)
 
 
 def tie_state(u, data):
@@ -808,7 +851,10 @@ def rbgs_shape_cases(dtype, tol, dev):
 def deep_case(hname, hier, entry, cfg, item, g):
     """The fused coarse subtree of ``hier`` from level ``entry`` on a random
     right-hand side, as a case of :func:`run_cases`; its check holds the
-    barriers the kernel counted against ``barrier_count``."""
+    barriers the kernel counted against ``barrier_count`` and, where the
+    subtree has no K-cycle level (no dot products), the kernel's result
+    bitwise against the plain version with the coarsest solve summed in the
+    kernel's order."""
     from thermalporous_torch.kernels import deep_cycle as kdeep
     from thermalporous_torch.precond.gmg import _fused_correction
 
@@ -825,19 +871,31 @@ def deep_case(hname, hier, entry, cfg, item, g):
         counted = torch.zeros((), dtype=torch.int32, device=rc.device)
         kdeep.deep_correction(packed, hier.lam_max[entry:], hier.coarse_inv, rc,
                               barriers=counted, **kw)
-        kflags = kdeep.kcycle_levels(sizes, cfg.cycle_type, cfg.kcycle_min_cells)
-        new, old = (kdeep.barrier_count(kflags, cfg.degree, single_block=sb)
-                    for sb in (False, True))
+        kinds = kdeep.cycle_kinds(sizes, cfg.cycle_type, cfg.kcycle_min_cells)
+        new = kdeep.barrier_count(kinds, cfg.degree)
         if int(counted) != new:
             raise SystemExit(f"deep_correction {label}: {int(counted)} barriers, "
                              f"expected {new}")
         blocks, threads = kdeep.launch_shape(sizes[0], torch.cuda.get_device_properties(
             rc.device).multi_processor_count)
-        earlier = DEEP_MS_ONE_BLOCK.get((hname, round(sizes[0], -2)))
-        return (f"  {blocks} blocks x {threads} threads, {new} grid barriers a visit "
-                f"(one-block kernel: {old} block barriers"
-                + (f", {earlier:.4f} ms in an earlier run" if earlier and item == 4 else "")
-                + ")")
+        text = f"  {blocks} blocks x {threads} threads, {new} grid barriers a visit"
+        if kdeep.WCYCLE not in kinds:        # the one-block kernel had no W-cycle
+            old = kdeep.barrier_count(kinds, cfg.degree, single_block=True)
+            earlier = DEEP_MS_ONE_BLOCK.get((hname, round(sizes[0], -2), cfg.cycle_type))
+            text += (f" (one-block kernel: {old} block barriers"
+                     + (f", {earlier:.4f} ms in an earlier run" if earlier and item == 4
+                        else "") + ")")
+        if kdeep.KCYCLE not in kinds:
+            got = kdeep.deep_correction(packed, hier.lam_max[entry:], hier.coarse_inv, rc,
+                                        **kw)
+            ref = kdeep.deep_correction_plain(packed, hier.lam_max[entry:], hier.coarse_inv,
+                                              rc, coarse_solve=kdeep.warp_order_mv, **kw)
+            if not torch.equal(got, ref):
+                raise SystemExit(f"deep_correction {label}: not bitwise equal to the plain "
+                                 f"version with the kernel's coarsest summation order "
+                                 f"(max |d| {float((got - ref).abs().max()):.3e})")
+            text += "; bitwise equal to the plain version with the coarsest solve in the kernel's order"
+        return text
 
     return (f"deep_correction {hname} {cycle}-cycle {label} cells", "deep_correction",
             lambda: _fused_correction(hier, entry, rc, cfg),
@@ -975,24 +1033,18 @@ def awkward_cases(dtype, tol, dev):
     return cases
 
 
-def small_deep_cases(dtype, dev):
+def small_deep_cases(dtype, dev, overrides: dict | None = None):
     """The fused subtrees of phase 5's hierarchies (FLAGSHIP_SMALL with
-    SMALL_GMG): entry levels smaller than one block."""
-    from thermalporous_torch.precond.cpr import cpr_setup, resolve_adaptive_coarsening
+    SMALL_GMG): entry levels smaller than one block; ``overrides`` replace
+    fields of both hierarchies' configurations (phase 10: the W-cycle)."""
     from thermalporous_torch.precond.gmg import _fusable
-    from thermalporous_torch.presets import get_case
 
-    case = get_case("tp_spe10_full", device=dev, dtype=dtype, shape=FLAGSHIP_SMALL)
-    model, data = case.model, case.data
-    u0, u = perturbed_state(model, data)
-    pc = resolve_adaptive_coarsening(
-        model.assemble_stencil(u0, u0, case.time_cfg.dt_init, data),
-        with_fuse(case.pc_cfg, **SMALL_GMG))
-    st = model.assemble_stencil(u, u0, 600.0, data)
-    state = cpr_setup(st, pc)
+    _, _, _, pc, st, state = preset_state("tp_spe10_full", dtype, dev, SMALL_GMG,
+                                          shape=FLAGSHIP_SMALL)
     g = torch.Generator(device=dev).manual_seed(9)
     cases = []
     for hname, hier, hcfg in (("p", state.gmg_p, pc.gmg), ("T", state.gmg_t, pc.gmg_t)):
+        hcfg = dataclasses.replace(hcfg, **(overrides or {}))
         entry = next(l for l in range(1, len(hier.stencils)) if _fusable(hier, l, hcfg, dtype))
         cases.append(deep_case(f"{'x'.join(map(str, FLAGSHIP_SMALL))} {hname}", hier, entry,
                                hcfg, st.coef.element_size(), g))
@@ -1204,7 +1256,7 @@ def kernel_parity(dev) -> tuple:
     version, at the benchmark's 2D shapes and on the flagship; returns the
     flagship f32 record per kernel, the CPTR apply times per fuse_below and
     the barrier latencies."""
-    from thermalporous_torch.precond.cpr import cpr_setup, resolve_adaptive_coarsening
+    from thermalporous_torch.precond.cpr import cpr_setup
     from thermalporous_torch.presets import get_case
 
     _, bench_pc = bench_configs()
@@ -1228,14 +1280,9 @@ def kernel_parity(dev) -> tuple:
         torch.cuda.empty_cache()
         # the flagship, with its baked coarsening schedule and the subtree
         # fused as in phase 6
-        case = get_case("tp_spe10_full", device=dev, dtype=dtype)
+        case, u0, u, pc, st, state = preset_state("tp_spe10_full", dtype, dev,
+                                                  dict(fuse_below=FLAGSHIP_FUSE_BELOW))
         model, data = case.model, case.data
-        u0, u = perturbed_state(model, data)
-        pc = resolve_adaptive_coarsening(
-            model.assemble_stencil(u0, u0, case.time_cfg.dt_init, data),
-            with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
-        st = model.assemble_stencil(u, u0, 600.0, data)
-        state = cpr_setup(st, pc)
         for hname, hier in (("p", state.gmg_p), ("T", state.gmg_t)):
             print(f"  {tname} flagship {hname} hierarchy: "
                   + " -> ".join(str(math.prod(s.grid_shape)) for s in hier.stencils)
@@ -1358,17 +1405,20 @@ def flagship_parity(krylov_op: str = "stencil", stage2_sweeps: int | None = None
                           shape=FLAGSHIP_SMALL)
 
 
-def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil"):
-    """Phase 6 (and 9): tp_spe10_full at full size, f32, the first ``steps``
-    controller steps; returns (records, launches, Newton over all attempts,
-    cell-updates/s, peak GiB)."""
+def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
+                 name: str = "tp_spe10_full", by_cols: dict | None = None):
+    """Phase 6 (and 9, 10): preset ``name`` (the flagship or its
+    inner-iteration form) at full size, f32, the first ``steps`` controller
+    steps (block matvecs by (nc, k) and stage 2s by k counted into
+    ``by_cols`` when given); returns (records, launches, Newton over all
+    attempts, cell-updates/s, peak GiB)."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
 
-    case = get_case("tp_spe10_full", device=dev)
+    case = get_case(name, device=dev)
     sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW),
                          newton_cfg=with_krylov_op(case, krylov_op))
-    for hname, g in (("p", sim.pc_cfg.gmg), ("T", sim.pc_cfg.gmg_t)):
+    for hname, g in (("p", sim.pc_cfg.gmg), ("T", sim.pc_cfg.gmg_t or sim.pc_cfg.gmg)):
         print(f"  schedule {hname}: {g.level_factors}")
     attempts = {"newton": 0, "attempts": 0}
     advance = sim._advance
@@ -1383,28 +1433,29 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    res = sim.run(case.t_end, max_steps=steps)
-    torch.cuda.synchronize()
+    with count_by_columns({} if by_cols is None else by_cols):
+        res = sim.run(case.t_end, max_steps=steps)
+        torch.cuda.synchronize()
     launches = launch_counts()
     for r in res.records:
         print(f"  step {r.step} dt {r.dt:.1f} s: newton {r.newton_iters} "
               f"fgmres {r.ksp_iters} retries {r.retries} wall {r.wall_s:.3f} s "
               f"next dt {r.next_dt:.1f} s cap {r.dt_cap}")
     if res.steps < steps:
-        raise SystemExit(f"flagship: {res.steps} steps < {steps}")
+        raise SystemExit(f"{name}: {res.steps} steps < {steps}")
     later = res.records[1:]
     cu_s = (math.prod(case.model.grid.shape) * sum(r.newton_iters for r in later)
             / sum(r.wall_s for r in later))
     print(f"  launches {launches}; Newton iterations over all attempts "
           f"{attempts['newton']} in {attempts['attempts']} solves")
-    check_physical(res.u, case.model.grid.shape, "flagship")
+    check_physical(res.u, case.model.grid.shape, name)
     # with the J(u)v operator no block matvec is left on the path: the
     # stage-2 residual is inside the stage-2 kernel
     kernels = (FLAGSHIP_KERNELS if krylov_op == "stencil" else
                tuple(k for k in FLAGSHIP_KERNELS if k != "block_matvec") + ("fused_jvp",))
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"flagship ({krylov_op}) launched no {missing}")
+        raise SystemExit(f"{name} ({krylov_op}) launched no {missing}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     return res.records, launches, attempts, cu_s, peak
 
@@ -1465,37 +1516,24 @@ def flagship_layers(dev) -> dict:
         call.launches = 0      # the wrapper counts on the name it is called by
         return call
 
-    # the block matvec and the stage 2 by the block columns k they take
+    # the block matvec and the stage 2 by the block columns they take
     by_k: dict[str, int] = {}
-
-    def counted_k(name, fn, k_of):
-        def call(*args, **kw):
-            key = f"{name} k={k_of(args)}"
-            by_k[key] = by_k.get(key, 0) + 1
-            return fn(*args, **kw)
-        call.launches = 0
-        return call
-
-    real_kernels = (kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction, kst.block_matvec,
-                    kst.fused_stage2_rbgs)
+    real_kernels = (kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction)
     case = get_case("tp_spe10_full", device=dev)
     sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
     ttimeloop.newton_solve, tnewton.fgmres = solve, timed("FGMRES", real_fgmres)
     kst.chebyshev_smooth = by_shape("chebyshev_smooth", real_kernels[0], 1)
     kst.matvec = by_shape("matvec", real_kernels[1], 1)
     kdeep.deep_correction = by_shape("deep_correction", real_kernels[2], 3)
-    kst.block_matvec = counted_k("block_matvec", real_kernels[3], lambda a: a[2])
-    kst.fused_stage2_rbgs = counted_k("fused_stage2_rbgs", real_kernels[4],
-                                      lambda a: a[3].shape[0])
     try:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = sim.run(case.t_end, max_steps=FLAGSHIP_STEPS)
-        total = time.perf_counter() - t
+        with count_by_columns(by_k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = sim.run(case.t_end, max_steps=FLAGSHIP_STEPS)
+            total = time.perf_counter() - t
     finally:
         ttimeloop.newton_solve, tnewton.fgmres = real_solve, real_fgmres
-        (kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction, kst.block_matvec,
-         kst.fused_stage2_rbgs) = real_kernels
+        kst.chebyshev_smooth, kst.matvec, kdeep.deep_correction = real_kernels
     newton = sum(r.newton_iters for r in res.records)
     for (name, shape), count in sorted(by_level.items(), key=lambda kv: (kv[0][0], -math.prod(kv[0][1]))):
         print(f"  {name} {'x'.join(map(str, shape))} ({math.prod(shape)} cells): {count} "
@@ -1509,7 +1547,7 @@ def flagship_layers(dev) -> dict:
         f"{key} {v:.2f}" for key, v in k_per_newton.items())
         + " (the FGMRES operator is block_matvec k=3; the stage-2 residual, k=2 before "
         "the stage-2 kernel, is inside fused_stage2_rbgs k=2)")
-    if by_k.get("block_matvec k=2", 0):
+    if by_k.get("block_matvec nc=3 k=2", 0):
         raise SystemExit("flagship: block_matvec k=2 launched; the stage 2 should be one launch")
     for name in ("assembly", "CPTR setup", "FGMRES", "CPTR apply", "residual"):
         print(f"  {name}: {wall.get(name, 0.0):.3f} s of {total:.3f} s "
@@ -1603,6 +1641,267 @@ def sp_geothermal_run(dev, steps: int, krylov_op: str = "stencil"):
     if missing:
         raise SystemExit(f"sp_geothermal_3d ({krylov_op}) launched no {missing}")
     return res.records, launches, cu_s, rates
+
+
+# ------------------------------------------------------ phase 10: solver options
+
+# the options of the parity tests (tests/test_torch_cpr_variants.py,
+# tests/test_torch_krylov_options.py), each run on the flagship
+# configuration at FLAGSHIP_SMALL (f64, GPU against CPU): (label, CPRConfig
+# overrides, overrides of both GMG configurations, NewtonConfig overrides,
+# preconditioner name, preset and its keywords where another case is run)
+SOLVER_OPTIONS = (
+    ("decoupling=timpes", dict(decoupling="timpes"), {}, {}, "cptr", None),
+    ("decoupling=abf", dict(decoupling="abf"), {}, {}, "cptr", None),
+    ("variant=cpr", dict(variant="cpr"), {}, {}, "cptr", None),
+    ("triangular=False", dict(triangular=False), {}, {}, "cptr", None),
+    ("inner fgmres", dict(inner_iters=2), {}, {}, "cptr", None),
+    ("inner richardson", dict(inner_iters=2, inner_method="richardson"), {}, {}, "cptr", None),
+    ("s_stage=rbgs", dict(s_stage="rbgs"), {}, {}, "cptr", None),
+    ("s_stage=jacobi", dict(s_stage="jacobi"), {}, {}, "cptr", None),
+    ("s_stage=zebra", dict(s_stage="zebra", s_axis=1), {}, {}, "cptr", None),
+    ("s_stage=line", dict(s_stage="line", s_axis=2), {}, {}, "cptr", None),
+    # no stage 2 leaves the saturation unpreconditioned (x1 has no S
+    # component): that option runs on the single-phase box, as in the tests
+    ("stage2=none", dict(stage2="none"), {}, {}, "cptr",
+     ("sp_geothermal_3d", dict(nx=8, ny=8, nz=6))),
+    ("stage2=block_jacobi", dict(stage2="block_jacobi"), {}, {}, "cptr", None),
+    ("stage2=jacobi2", dict(stage2="jacobi2"), {}, {}, "cptr", None),
+    ("stage2=rbgs sweeps=2", dict(stage2_sweeps=2), {}, {}, "cptr", None),
+    ("stage2=zebra", dict(stage2="zebra"), {}, {}, "cptr", None),
+    ("stage2_fused", dict(stage2_fused=True), {}, {}, "cptr", None),
+    ("stage2_fused axes=(2,) sweeps=2", dict(stage2_fused=True, stage2_axes=(2,),
+                                              stage2_sweeps=2), {}, {}, "cptr", None),
+    ("stage2_axes=(0, 2)", dict(stage2_axes=(0, 2)), {}, {}, "cptr", None),
+    ("smoother=jacobi", {}, dict(smoother="jacobi"), {}, "cptr", None),
+    ("smoother=rbgs", {}, dict(smoother="rbgs"), {}, "cptr", None),
+    ("smoother=line", {}, dict(smoother="line", line_axis=2), {}, "cptr", None),
+    ("smoother=zebra", {}, dict(smoother="zebra"), {}, "cptr", None),
+    ("semicoarsen_z", {}, dict(semicoarsen_z=True, coarsen="geometric", level_factors=None),
+     {}, "cptr", None),
+    ("cycles=2", {}, dict(cycles=2), {}, "cptr", None),
+    ("W unfused", {}, dict(cycle_type="w", fuse_below=0), {}, "cptr", None),
+    ("W fused", {}, dict(cycle_type="w"), {}, "cptr", None),
+    ("ksp_orth=cgs1", {}, {}, dict(ksp_orth="cgs1"), "cptr", None),
+    ("ksp_orth=cgs2s", {}, {}, dict(ksp_orth="cgs2s"), "cptr", None),
+    ("ksp_orth=cgs2g", {}, {}, dict(ksp_orth="cgs2g"), "cptr", None),
+    ("ksp_orth=cgs2g2", {}, {}, dict(ksp_orth="cgs2g2"), "cptr", None),
+    ("ksp_restart=8", {}, {}, dict(ksp_restart=8), "cptr", None),
+    ("pc_lag=step", {}, {}, dict(pc_lag="step"), "cptr", None),
+    ("precond=cpr", {}, {}, {}, "cpr", None),
+    ("precond=rbgs", {}, {}, {}, "rbgs", None),
+    # the dense inverse is refused above 20,000 unknowns: 6x8x4x3 = 576
+    ("precond=lu", {}, {}, {}, "lu", ("tp_spe10_full", dict(shape=(6, 8, 4)))),
+)
+OPTION_STEPS = 2
+# phase 10(c): worker processes (the chip machine's host has 8 cores)
+OPTION_WORKERS = 8
+# phase 10(b): controller steps of tp_spe10_inner at full size
+INNER_STEPS = 3
+# phase 10(a): the W-cycle from these fuse_below entries of both flagship
+# hierarchies (the 145.2k- and 36.3k-cell pressure levels)
+W_FUSE_ENTRIES = (150_000, 40_000)
+
+
+def option_config(pc, pc_kw: dict, gmg_kw: dict):
+    """``pc`` with the option's CPRConfig and GMG overrides (both
+    hierarchies)."""
+    pc = dataclasses.replace(pc, **pc_kw)
+    gmg_t = None if pc.gmg_t is None else dataclasses.replace(pc.gmg_t, **gmg_kw)
+    return dataclasses.replace(pc, gmg=dataclasses.replace(pc.gmg, **gmg_kw), gmg_t=gmg_t)
+
+
+def w_cycle_cases(dtype, dev):
+    """Phase 10(a): the subtree on the flagship's hierarchies from each
+    W_FUSE_ENTRIES entry, with the W-cycle beside the hierarchy's own cycle
+    (K on p, V on T) and the K-cycle on T; then the W-cycle on the
+    12x22x9 hierarchies.  Returns (stencil, cases) twice."""
+    from thermalporous_torch.precond.gmg import _fusable
+
+    _, _, _, pc, st, state = preset_state("tp_spe10_full", dtype, dev,
+                                          dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+    item = st.coef.element_size()
+    g = torch.Generator(device=dev).manual_seed(12)
+    cases = []
+    for fb in W_FUSE_ENTRIES:
+        for hname, hier, hcfg, forms in (("p", state.gmg_p, pc.gmg, ("w", "k")),
+                                         ("T", state.gmg_t, pc.gmg_t, ("w", "v", "k"))):
+            base = dataclasses.replace(hcfg, fuse_below=fb)
+            entry = next(l for l in range(1, len(hier.stencils)) if _fusable(hier, l, base, dtype))
+            for form in forms:
+                cases.append(deep_case(hname, hier, entry,
+                                       dataclasses.replace(base, cycle_type=form), item, g))
+    if dtype == torch.float32:
+        line_smoother_times(st, state, dev)
+    # W from 32 cells: the entry levels below fuse_below=300 run it
+    small_st, small = small_deep_cases(dtype, dev, dict(cycle_type="w", kcycle_min_cells=32))
+    return (st, cases), (small_st, small)
+
+
+#: phase 10(a)'s line-smoother times on the flagship, for the --json record
+LINE_TIMES: dict = {}
+
+
+def line_smoother_times(st, state, dev) -> None:
+    """The line smoothers' host loops on the card, one sweep on the
+    flagship's grid (plain PyTorch: a loop over the line axis of batched
+    small operations): scalar zebra and line Jacobi along z on the
+    decoupled pressure block, the block-tridiagonal factor of the zebra
+    stage 2 along y (its set-up) and one zebra stage-2 sweep."""
+    import importlib
+
+    # precond/__init__ exports a function named chebyshev: take the module
+    tch = importlib.import_module("thermalporous_torch.precond.chebyshev")
+    g = torch.Generator(device=dev).manual_seed(14)
+    pst = state.gmg_p.stencils[0]
+    b = torch.randn(pst.grid_shape, generator=g, dtype=pst.packed.dtype, device=dev)
+    r = torch.randn((st.nc,) + st.grid_shape, generator=g, dtype=st.coef.dtype, device=dev)
+    fac = tch.block_tridiag_factor(1, st.lower[1], st.diag, st.upper[1])
+    calls = {
+        "zebra_line_gs z, 1 sweep": lambda: tch.zebra_line_gs(pst, b, axis=2, sweeps=1),
+        "line_jacobi z, 1 sweep": lambda: tch.line_jacobi(pst, b, axis=2, sweeps=1),
+        "block_tridiag_factor y (zebra stage-2 set-up)":
+            lambda: tch.block_tridiag_factor(1, st.lower[1], st.diag, st.upper[1]),
+        "block_zebra_line_gs y, 1 sweep":
+            lambda: tch.block_zebra_line_gs(st, r, axis=1, sweeps=1, factor=fac),
+    }
+    for label, fn in calls.items():
+        LINE_TIMES[label] = time_ms(fn, reps=3)
+        print(f"  f32 {label} {'x'.join(map(str, st.grid_shape))}: "
+              f"{LINE_TIMES[label]:.3f} ms (host loop, plain PyTorch on the card)", flush=True)
+
+
+def inner_cases(dtype, dev):
+    """Phase 10(b)'s kernels at the shapes tp_spe10_inner gives them: the
+    inner FGMRES operator (the decoupled (p, T) stencil, two unknowns), the
+    stage 2 over all three columns, and the subtree (K-cycle) of both
+    hierarchies (the T hierarchy takes the pressure configuration,
+    gmg_t=None).  Returns the Jacobian, the (p, T) stencil, the cases on the
+    Jacobian and the case on the (p, T) stencil."""
+    from thermalporous_torch.core.stencil import apply_blocks
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.cpr import _stage1
+    from thermalporous_torch.precond.gmg import _fusable
+
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32_STENCIL
+    _, _, _, pc, st, state = preset_state("tp_spe10_inner", dtype, dev,
+                                          dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+    grid, item = st.grid_shape, st.coef.element_size()
+    n, dim = math.prod(grid), len(grid)
+    g = torch.Generator(device=dev).manual_seed(13)
+    r = torch.randn((3,) + grid, generator=g, dtype=dtype, device=dev)
+    v2 = torch.randn((2,) + grid, generator=g, dtype=dtype, device=dev)
+    pt = state.pt
+    pt_cases = [(f"block_matvec nc=2 k=2 (p, T) {'x'.join(map(str, grid))}", "block_matvec",
+                 lambda: kst.block_matvec(pt.coef, v2, 2),
+                 lambda: kst.block_matvec_plain(pt.coef, v2), tol,
+                 cost_block_matvec(n, dim, 2, 2, item), ("block", v2))]
+    x1 = _stage1(state, apply_blocks(state.w, r), pc)
+    x1 = torch.cat([x1, torch.zeros_like(r[2:])])
+    cases = [stage2_case("tp_spe10_inner x1", st, state.dinv, r, x1, tol)]
+    for hname, hier in (("p", state.gmg_p), ("T", state.gmg_t)):
+        entry = next(l for l in range(1, len(hier.stencils)) if _fusable(hier, l, pc.gmg, dtype))
+        cases.append(deep_case(f"inner {hname}", hier, entry, pc.gmg, item, g))
+    return st, pt, cases, pt_cases
+
+
+@contextlib.contextmanager
+def count_by_columns(by: dict):
+    """Count block matvecs by (nc, k) and stage 2s by k in ``by`` while the
+    block runs (forwarders to the wrappers; the wrappers' own counters are
+    read after the block)."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    real = kst.block_matvec, kst.fused_stage2_rbgs
+
+    def bm(coef, v, k):
+        key = f"block_matvec nc={coef.shape[1]} k={k}"
+        by[key] = by.get(key, 0) + 1
+        return real[0](coef, v, k)
+
+    def s2(coef, dinv, r, x1):
+        key = f"fused_stage2_rbgs k={x1.shape[0]}"
+        by[key] = by.get(key, 0) + 1
+        return real[1](coef, dinv, r, x1)
+
+    # a wrapper counts its launches on the name it is called by: the
+    # forwarder's, added to the wrapper's own counter afterwards
+    bm.launches = s2.launches = 0
+    kst.block_matvec, kst.fused_stage2_rbgs = bm, s2
+    try:
+        yield by
+    finally:
+        kst.block_matvec, kst.fused_stage2_rbgs = real
+        real[0].launches += bm.launches
+        real[1].launches += s2.launches
+
+
+def _option_task(task):
+    """One SOLVER_OPTIONS entry (by index) on one device, in a worker
+    process of :func:`option_runs`: the (dt, Newton, FGMRES, retries)
+    records, the launches on the card, the stage 2 of the configuration
+    that ran, the seconds."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+
+    index, device = task
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    label, pc_kw, gmg_kw, newton_kw, precond, other = SOLVER_OPTIONS[index]
+    name, kw = other or ("tp_spe10_full", dict(shape=FLAGSHIP_SMALL))
+    case = get_case(name, device=device, dtype=torch.float64, **kw)
+    pc = case.pc_cfg if name != "tp_spe10_full" else with_fuse(case.pc_cfg, **SMALL_GMG)
+    pc = option_config(pc, pc_kw, gmg_kw)
+    sim = case.simulator(newton_cfg=dataclasses.replace(case.newton_cfg, **newton_kw),
+                         pc_cfg=pc, precond=precond)
+    reset_launch_counts()
+    res = sim.run(case.t_end, max_steps=OPTION_STEPS)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"records": [(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records],
+            "launches": launch_counts() if device == "cuda" else None,
+            "stage2": sim.pc_cfg.stage2, "s": time.perf_counter() - t}
+
+
+def option_runs(workers: int = OPTION_WORKERS) -> dict:
+    """Phase 10(c): every SOLVER_OPTIONS entry through the Simulator on the
+    GPU and on the CPU, OPTION_STEPS controller steps, f64, as tasks of a
+    pool of ``workers`` processes (each run is bound by the host's
+    assembly, so they overlap on the host's cores; every worker loads the
+    library phase 1 built).  The counts must agree; prints the stage-2 route
+    each took on the card, by the wrappers' counters."""
+    import multiprocessing
+
+    tasks = [(i, d) for d in ("cuda", "cpu") for i in range(len(SOLVER_OPTIONS))]
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        done = dict(zip(tasks, pool.map(_option_task, tasks, chunksize=1)))
+        pool.close()
+        pool.join()
+    out = {}
+    for i, (label, pc_kw, gmg_kw, newton_kw, precond, other) in enumerate(SOLVER_OPTIONS):
+        gpu, cpu = done[(i, "cuda")], done[(i, "cpu")]
+        lc = gpu["launches"]
+        if precond == "rbgs" or (precond in ("cpr", "cptr") and gpu["stage2"] == "rbgs"):
+            # with stage2_axes the sweeps are the plain sparsified form; the
+            # premasked first sweep with axes is plain, the sweeps after it
+            # half-sweep launches
+            route = ("kernel" if lc["fused_stage2_rbgs"] > 0 else
+                     "plain first sweep, kernel half-sweeps" if lc["block_rbgs_half_sweep"] > 0
+                     else "plain")
+        else:
+            route = ("plain torch (" + (precond if precond not in ("cpr", "cptr")
+                                         else f"stage2={gpu['stage2']}") + ")")
+        print(f"  option {label}: cpu {cpu['records']} {'==' if cpu['records'] == gpu['records'] else '!='} "
+              f"cuda {gpu['records']}; stage-2 route {route} (fused_stage2_rbgs "
+              f"{lc['fused_stage2_rbgs']}, half-sweep {lc['block_rbgs_half_sweep']}, "
+              f"deep_correction {lc['deep_correction']}, block_matvec {lc['block_matvec']}, "
+              f"matvec {lc['matvec']}); {gpu['s']:.1f} s on the card's process, "
+              f"{cpu['s']:.1f} s on the CPU's", flush=True)
+        if cpu["records"] != gpu["records"]:
+            raise SystemExit(f"option {label}: cpu {cpu['records']} != cuda {gpu['records']}")
+        out[label] = {"cpu": cpu["records"], "cuda": gpu["records"], "launches": lc,
+                      "route": route, "cuda_s": gpu["s"], "cpu_s": cpu["s"]}
+    return out
 
 
 def main() -> int:
@@ -1765,11 +2064,61 @@ def main() -> int:
               f"2-{len(jrecs)}; fused_jvp {jlaunches['fused_jvp']} and fused_jvp_sp "
               f"{sj_launches['fused_jvp_sp']} launches")
 
+    # (10) the solver options: the W-cycle kernel, tp_spe10_inner, every option
+    if want(10):
+        t0 = time.perf_counter()
+        print("  (a) the W-cycle in the fused subtree", flush=True)
+        wrec: dict = {}
+        for dtype in (torch.float64, torch.float32):
+            tname = "f64" if dtype == torch.float64 else "f32"
+            (st, cases), (sst, scases) = w_cycle_cases(dtype, dev)
+            run_cases(tname, cases, st, wrec, dtype, record=dtype == torch.float32)
+            run_cases(tname, scases, sst, {}, dtype, record=False)
+            del st, cases, sst, scases
+            torch.cuda.empty_cache()
+        print("  (b) tp_spe10_inner", flush=True)
+        irec: dict = {}
+        irec_pt: dict = {}
+        for dtype in (torch.float64, torch.float32):
+            tname = "f64" if dtype == torch.float64 else "f32"
+            st, pt, cases, pt_cases = inner_cases(dtype, dev)
+            run_cases(tname, cases, st, irec, dtype, record=dtype == torch.float32)
+            run_cases(tname, pt_cases, pt, irec_pt, dtype, record=dtype == torch.float32)
+            del st, pt, cases, pt_cases
+            torch.cuda.empty_cache()
+        inner_cols: dict = {}
+        irecs, ilaunches, iattempts, icu_s, ipeak = flagship_run(
+            dev, INNER_STEPS, name="tp_spe10_inner", by_cols=inner_cols)
+        print(f"  tp_spe10_inner launches by block columns: {inner_cols}")
+        for key in ("block_matvec nc=3 k=3", "block_matvec nc=2 k=2", "fused_stage2_rbgs k=3"):
+            if inner_cols.get(key, 0) <= 0:
+                raise SystemExit(f"tp_spe10_inner launched no {key}")
+        if want(6):
+            for ri, rf in zip(irecs, frecs):
+                print(f"  step {ri.step}: tp_spe10_inner (dt {ri.dt:.1f}, newton "
+                      f"{ri.newton_iters}, fgmres {ri.ksp_iters}) | tp_spe10_full phase 6 "
+                      f"(dt {rf.dt:.1f}, newton {rf.newton_iters}, fgmres {rf.ksp_iters})")
+        print("  (c) every solver option, GPU against CPU", flush=True)
+        opts = option_runs()
+        phase("10 solver options", t0, f"tp_spe10_inner 60x220x85 f32: {icu_s:.1f} "
+              f"cell-updates/s over steps 2-{len(irecs)}, peak mem {ipeak:.2f} GiB; "
+              f"{len(opts)} options GPU == CPU")
+
     if phases is not None:
-        if args.json and want(2):
+        if args.json:
+            part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
+                    "total_s": time.perf_counter() - t_all}
+            if want(2):
+                part.update(fuse_apply_ms=fuse_times, barrier_latencies=barriers)
+            if want(10):
+                part.update(w_cycle_cases=wrec, line_smoother_ms=LINE_TIMES,
+                            inner_cases=irec, inner_pt_cases=irec_pt,
+                            inner_steps=[r.as_dict() for r in irecs],
+                            inner_launches=ilaunches, inner_launches_by_columns=inner_cols,
+                            inner_cell_updates_per_s=icu_s, inner_peak_gib=ipeak,
+                            solver_options=opts)
             with open(args.json, "w") as fh:
-                json.dump({"device": smi, "kernel_rows": ROWS, "fuse_apply_ms": fuse_times,
-                           "barrier_latencies": barriers, "ptxas": ptxas}, fh, indent=1)
+                json.dump(part, fh, indent=1)
         print(f"partial run (phases {sorted(phases)}): no kernels line, no ok line")
         return 0
 
@@ -1785,6 +2134,28 @@ def main() -> int:
                 "plain_ms": krec[k]["plain_ms"], "bound_ms": krec[k]["bound_ms"],
                 "bound_by": krec[k]["bound_by"], "library_ms": krec[k]["library_ms"]}
                for k in KERNEL_SOURCES]
+    # phase 10: the W-cycle form of the subtree (its launches in the W
+    # option's run of phase 10(c)), and tp_spe10_inner's kernels (launches in
+    # phase 10(b); the shapes that path adds measured in phase 10, the others
+    # are phase 2's flagship records)
+    inner = [("deep_correction (W-cycle)", "deep_correction", wrec["deep_correction"],
+              opts["W fused"]["launches"]["deep_correction"])]
+    for k in ("matvec", "chebyshev_smooth", "fused_residual"):
+        inner.append((f"{k} (tp_spe10_inner)", k, krec[k], ilaunches[k]))
+    inner += [("block_matvec nc=3 (tp_spe10_inner)", "block_matvec", krec["block_matvec"],
+               inner_cols["block_matvec nc=3 k=3"]),
+              ("block_matvec nc=2 (tp_spe10_inner)", "block_matvec", irec_pt["block_matvec"],
+               inner_cols["block_matvec nc=2 k=2"]),
+              ("fused_stage2_rbgs k=3 (tp_spe10_inner)", "fused_stage2_rbgs",
+               irec["fused_stage2_rbgs"], inner_cols["fused_stage2_rbgs k=3"]),
+              ("deep_correction (tp_spe10_inner)", "deep_correction", irec["deep_correction"],
+               ilaunches["deep_correction"])]
+    kernels += [{"name": label, "route": "cuda", "source": KERNEL_SOURCES[k][0],
+                 "replaces": KERNEL_SOURCES[k][1], "launches": n_launch,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]}
+                for label, k, r, n_launch in inner]
     if args.json:
         with open(args.json, "w") as fh:
             json.dump({"device": smi, "kernels": kernels, "kernel_cases": krec,
@@ -1806,6 +2177,13 @@ def main() -> int:
                        "flagship_operator_turns": turns, "ptxas": ptxas,
                        "sp_geothermal_jvp_steps": [r.as_dict() for r in sj_recs],
                        "sp_geothermal_jvp_launches": sj_launches,
+                       "w_cycle_cases": wrec, "line_smoother_ms": LINE_TIMES,
+                       "inner_cases": irec, "inner_pt_cases": irec_pt,
+                       "inner_steps": [r.as_dict() for r in irecs],
+                       "inner_launches": ilaunches, "inner_launches_by_columns": inner_cols,
+                       "inner_newton_all_attempts": iattempts,
+                       "inner_cell_updates_per_s": icu_s, "inner_peak_gib": ipeak,
+                       "solver_options": opts,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

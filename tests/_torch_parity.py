@@ -173,3 +173,90 @@ def forbidden_imports(root: pathlib.Path = PORT_DIR) -> list[str]:
                 if top in ("jax", "jaxlib", "thermalporous_tpu"):
                     bad.append(f"{path.relative_to(root.parent)}:{node.lineno} {name}")
     return bad
+
+
+# ------------------------------------------------------- solver parity
+
+def carry_model_data(jmodel, jdata, dtype=F64):
+    """The port's model and problem data of a reference model and its
+    ``ProblemData``, carried across as plain arrays (``interop``)."""
+    import dataclasses
+
+    from thermalporous_torch.interop import case_from_numpy
+
+    w = jdata.wells
+    arrays = dict(tgeo=[np.asarray(a) for a in jdata.tgeo],
+                  tcond=[np.asarray(a) for a in jdata.tcond], phi=np.asarray(jdata.phi),
+                  wi=np.asarray(w.wi), pbh=np.asarray(w.pbh), tinj=np.asarray(w.tinj),
+                  has_tinj=np.asarray(w.has_tinj), qrate=np.asarray(w.qrate),
+                  qheat=np.asarray(w.qheat))
+    two = jmodel.nc == 3
+    case = case_from_numpy(
+        model=type(jmodel).__name__, grid=dataclasses.asdict(jmodel.grid),
+        params=dataclasses.asdict(jmodel.pp),
+        relperm=dataclasses.asdict(jmodel.relperm) if two else None,
+        s_init=jmodel.s_init if two else None, data=arrays, newton={}, pc=None,
+        time={}, t_end=0.0, dtype=dtype, device="cpu")
+    return case.model, case.data
+
+
+def newton_step_pair(jmodel, jdata, tmodel, tdata, *, precond, jpc, tpc, jnewton, tnewton,
+                     dt):
+    """One backward-Euler step from the initial state through each package's
+    ``Simulator.step``: (JAX state as numpy, JAX stats, port state as numpy,
+    port stats)."""
+    from thermalporous_torch.solve.timeloop import Simulator as TSimulator
+    from thermalporous_tpu.solve import Simulator as JSimulator
+
+    jsim = JSimulator(jmodel, jdata, precond=precond, pc_cfg=jpc, newton_cfg=jnewton)
+    ju, jst = jsim.step(jmodel.initial_state(jdata), dt)
+    tsim = TSimulator(tmodel, tdata, precond=precond, pc_cfg=tpc, newton_cfg=tnewton,
+                      device="cpu")
+    tu, tst = tsim.step(tmodel.initial_state(tdata), dt)
+    return np.asarray(ju), jst, n(tu), tst
+
+
+def assert_states_close(got, ref, rtol: float) -> None:
+    """|got − ref| ≤ rtol · (each equation's largest |ref|), elementwise."""
+    got, ref = n(got), n(ref)
+    scale = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1)
+    scale = scale.reshape((-1,) + (1,) * (ref.ndim - 1))
+    assert got.shape == ref.shape
+    assert (np.abs(got - ref) <= rtol * scale).all(), np.abs(got - ref).max()
+
+
+#: the multigrid of the solver-option cases: a 6×6 grid keeps three levels
+#: (36 → 9 → 4 cells), the finest one K-cycled
+OPTION_GMG = dict(max_coarse_cells=4, kcycle_min_cells=16, degree=2)
+OPTION_DT = 3600.0
+
+
+def newton_option_parity(jm, jd, tm, td, oracle, *, precond="cptr", pc=None, gmg=None,
+                         newton=None):
+    """One Newton step from the initial state under one solver option in
+    both packages, from the reference's configuration objects carried
+    across as dicts: identical Newton and FGMRES counts, states within 1e-8
+    of the reference's (per equation's largest value), and within the
+    reference's own oracle bound (``tests/test_newton_cptr.py``'s
+    ``_compare_states``) of the port's oracle state ``oracle``.  Returns
+    both stats."""
+    import dataclasses
+
+    from tests.test_newton_cptr import TIGHT, _compare_states
+    from thermalporous_torch.interop import config_from_dict
+    from thermalporous_torch.precond import CPRConfig
+    from thermalporous_torch.solve import NewtonConfig
+    from thermalporous_tpu.precond import CPRConfig as JCPRConfig
+    from thermalporous_tpu.precond import GMGConfig as JGMGConfig
+
+    jpc = JCPRConfig(**(pc or {}), gmg=JGMGConfig(**dict(OPTION_GMG, **(gmg or {}))))
+    jnewton = dataclasses.replace(TIGHT, **(newton or {}))
+    tpc = config_from_dict(CPRConfig, dataclasses.asdict(jpc))
+    tnewton = config_from_dict(NewtonConfig, dataclasses.asdict(jnewton))
+    ju, jst, tu, tst = newton_step_pair(jm, jd, tm, td, precond=precond, jpc=jpc, tpc=tpc,
+                                        jnewton=jnewton, tnewton=tnewton, dt=OPTION_DT)
+    assert bool(jst.converged) and tst.converged
+    assert (tst.iters, tst.ksp_iters) == (int(jst.iters), int(jst.ksp_iters))
+    assert_states_close(tu, ju, 1e-8)
+    _compare_states(tu, n(oracle))
+    return jst, tst

@@ -111,6 +111,7 @@ def _hierarchies(shape, cycle_type, rng, **overrides):
 
 @pytest.mark.parametrize("shape,cycle_type", [
     ((24, 44, 10), "k"), ((24, 44, 10), "v"), ((33, 17), "k"),
+    ((24, 44, 10), "w"), ((33, 17), "w"),
 ])
 def test_coarse_correction_fused_and_unfused(shape, cycle_type, rng):
     """The port's _coarse_correction without and with fuse_below (the
@@ -171,7 +172,7 @@ def test_coarse_correction_k_level_over_single_cycle_over_dense(degree, rng):
                                            kcycle_min_cells=500)
     sizes, _ = _check_subtree(jst, tst, jcfg, tcfg, b)
     assert sizes == [1320, 198, 36]
-    assert kdeep.kcycle_levels(sizes, "k", 500) == [True, False, False]
+    assert kdeep.cycle_kinds(sizes, "k", 500) == [kdeep.KCYCLE, kdeep.SINGLE, kdeep.SINGLE]
 
 
 @pytest.mark.parametrize("schedule", [
@@ -202,17 +203,23 @@ def test_deep_launch_shape(n_entry):
 def test_deep_barrier_count():
     """Barriers of one subtree visit: the cooperative kernel's grid barriers
     and the earlier one-block kernel's block barriers."""
+    S, K, W = kdeep.SINGLE, kdeep.KCYCLE, kdeep.WCYCLE
     # the flagship's pressure subtree from 36.3k cells: K over V over dense
-    assert kdeep.barrier_count([True, False, False], 4) == 49
-    assert kdeep.barrier_count([True, False, False], 4, single_block=True) == 88
+    assert kdeep.barrier_count([K, S, S], 4) == 49
+    assert kdeep.barrier_count([K, S, S], 4, single_block=True) == 88
     # from the 145k-cell level: K over K over V over dense
-    assert kdeep.barrier_count([True, True, False, False], 4) == 2 * (11 + 49) + 3
+    assert kdeep.barrier_count([K, K, S, S], 4) == 2 * (11 + 49) + 3
     # a V-cycle of degree 2 over three smoothed levels
-    assert kdeep.barrier_count([False] * 4, 2) == 3 * 7 + 1
-    assert kdeep.barrier_count([False], 4) == 1              # the dense solve alone
-    assert kdeep.kcycle_levels([9000, 5000, 600], "k", 8192) == [True, False, False]
-    assert kdeep.kcycle_levels([9000, 5000, 600], "v", 8192) == [False] * 3
-    assert kdeep.kcycle_levels([9000, 9000], "k", 8192) == [True, False]
+    assert kdeep.barrier_count([S] * 4, 2) == 3 * 7 + 1
+    assert kdeep.barrier_count([S], 4) == 1              # the dense solve alone
+    # W over V over dense: two cycles of 11 + 12, nothing more
+    assert kdeep.barrier_count([W, S, S], 4) == 2 * (11 + 11 + 1)
+    with pytest.raises(ValueError):                      # the one-block kernel had no W
+        kdeep.barrier_count([W, S, S], 4, single_block=True)
+    assert kdeep.cycle_kinds([9000, 5000, 600], "k", 8192) == [K, S, S]
+    assert kdeep.cycle_kinds([9000, 5000, 600], "v", 8192) == [S] * 3
+    assert kdeep.cycle_kinds([9000, 9000], "k", 8192) == [K, S]
+    assert kdeep.cycle_kinds([9000, 9000, 9000], "w", 8192) == [W, W, S]
 
 
 def test_gmg_apply_fuse_below_matches_the_reference(rng):
@@ -255,9 +262,9 @@ def test_deep_correction_checks_its_arguments(rng):
     _, tst, _, tcfg, b = _hierarchies((33, 17), "k", rng)
     packed = [s.packed for s in tst.stencils[1:]]
     kw = dict(degree=3, lam_min_frac=0.3, kcycle_min_cells=128)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):          # an unknown cycle kind
         kdeep.deep_correction(packed, tst.lam_max[1:], tst.coarse_inv, t(b),
-                              cycle_type="w", **kw)
+                              cycle_type="f", **kw)
     with pytest.raises(ValueError):          # rc off the entry level's shape
         kdeep.deep_correction(packed, tst.lam_max[1:], tst.coarse_inv, t(b)[:-1],
                               cycle_type="k", **kw)

@@ -184,10 +184,20 @@ def test_time_config_and_interop_refuse_what_is_not_ported():
     # a reference field the port lacks passes at its default only
     jpc = dataclasses.asdict(JCPRConfig())
     assert config_from_dict(CPRConfig, jpc) == CPRConfig()
-    with pytest.raises(ValueError):
-        config_from_dict(CPRConfig, dict(jpc, inner_iters=2))
-    with pytest.raises(ValueError):
-        config_from_dict(GMGConfig, dict(dataclasses.asdict(JGMGConfig()), smoother="jacobi"))
+    for key, val in (("pc_dtype", "bf16"), ("batch_pt", True), ("stage2_pallas", True),
+                     ("bgmg_cycles", 2)):
+        with pytest.raises(ValueError):
+            config_from_dict(CPRConfig, dict(jpc, **{key: val}))
+    with pytest.raises(NotImplementedError):
+        config_from_dict(CPRConfig, dict(jpc, stage2="bgmg"))
+    jgmg = dataclasses.asdict(JGMGConfig())
+    for key, val in (("transfer", "weighted"), ("transfer", "variational"),
+                     ("use_pallas", True)):
+        with pytest.raises(ValueError):
+            config_from_dict(GMGConfig, dict(jgmg, **{key: val}))
+    # the solver options of this port carry across
+    assert config_from_dict(CPRConfig, dict(jpc, inner_iters=2)).inner_iters == 2
+    assert config_from_dict(GMGConfig, dict(jgmg, smoother="jacobi")).smoother == "jacobi"
     assert config_from_dict(NewtonConfig, dataclasses.asdict(JNewtonConfig())) == NewtonConfig()
 
 

@@ -55,9 +55,15 @@ def test_fgmres(system, orth):
 
 
 def test_fgmres_unported_options_raise(system):
-    _, ts, rhs = system
-    with pytest.raises(NotImplementedError):
-        t_fgmres(ts.matvec, t(rhs), maxiter=10, orth_gram=2)
+    """Every option of the reference's FGMRES is ported; what it refuses,
+    the port refuses: an unknown Gram variant, and an iteration cap beside
+    restarts (the restart driver owns the cycles' caps)."""
+    js, ts, rhs = system
+    for fg, mv, b in ((t_fgmres, ts.matvec, t(rhs)), (j_fgmres, js.matvec, jnp.asarray(rhs))):
+        with pytest.raises(ValueError, match="orth_gram"):
+            fg(mv, b, maxiter=10, orth_gram=1)
+        with pytest.raises(ValueError, match="iter_cap"):
+            fg(mv, b, maxiter=10, restart=4, iter_cap=3)
 
 
 def _pressure_blocks(js):
@@ -111,24 +117,35 @@ def test_trivial_preconditioners(system):
 
 
 def test_cpr_unported_options_raise():
-    for kw in (dict(stage2="zebra"), dict(stage2="none"), dict(decoupling="abf")):
-        with pytest.raises(NotImplementedError):
-            tcpr.CPRConfig(**kw)
-    for name in ("cpr", "rbgs", "lu"):
-        with pytest.raises(NotImplementedError):
-            tcpr.make_preconditioner(name)
-    # options without a port have no field at all
-    for cls, kw in ((tcpr.CPRConfig, dict(inner_iters=2)),
-                    (tcpr.CPRConfig, dict(triangular=False)),
-                    (tcpr.CPRConfig, dict(stage2="rbgs", stage2_fused=True)),
-                    (tcpr.CPRConfig, dict(stage2_axes=(2,))),
+    """What stays unported: the bgmg stage 2 raises; bf16 coefficient
+    storage, the batched p/T traversal, the Pallas stage-2 switch, the bgmg
+    sizes and the weighted/variational transfers and TPU/multi-device GMG
+    options have no field; unknown names are refused."""
+    with pytest.raises(NotImplementedError):
+        tcpr.CPRConfig(stage2="bgmg")
+    for cls, kw in ((tcpr.CPRConfig, dict(pc_dtype="bf16")),
+                    (tcpr.CPRConfig, dict(batch_pt=True)),
                     (tcpr.CPRConfig, dict(stage2_pallas=True)),
-                    (tgmg.GMGConfig, dict(smoother="rbgs")),
-                    (tgmg.GMGConfig, dict(cycles=2))):
+                    (tcpr.CPRConfig, dict(bgmg_cycles=2)),
+                    (tgmg.GMGConfig, dict(transfer="weighted")),
+                    (tgmg.GMGConfig, dict(use_pallas=True))):
         with pytest.raises(TypeError):
             cls(**kw)
-    with pytest.raises(NotImplementedError):
-        tgmg.GMGConfig(cycle_type="w")
+    for kw in (dict(stage2="ilu"), dict(decoupling="x"), dict(variant="cprs"),
+               dict(inner_method="cg"), dict(s_stage="ilu")):
+        with pytest.raises(ValueError):
+            tcpr.CPRConfig(**kw)
+    for kw in (dict(cycle_type="f"), dict(smoother="sor"), dict(cycles=0)):
+        with pytest.raises(ValueError):
+            tgmg.GMGConfig(**kw)
+    with pytest.raises(ValueError):
+        tcpr.make_preconditioner("ilu")
+    # the options the reference has are constructed
+    tcpr.CPRConfig(variant="cpr", stage2="zebra", decoupling="abf", triangular=False,
+                   inner_iters=2, stage2_fused=True, stage2_axes=(2,), s_stage="line")
+    tgmg.GMGConfig(cycle_type="w", smoother="zebra", cycles=2, semicoarsen_z=True)
+    for name in ("cpr", "rbgs", "lu"):
+        tcpr.make_preconditioner(name)
 
 
 def test_plan_coarsening(rng):

@@ -131,6 +131,7 @@ def _compare_case(got, ref):
     ("tp_thermal_2d", dict(n=12)),
     ("tp_spe10_3d", dict(nx=10, ny=14, nz=6)),
     ("tp_spe10_full", {}),
+    ("tp_spe10_inner", {}),
 ])
 def test_presets_match(name, kw):
     """Every field of the port's preset equals the reference's (f64 data)."""
@@ -170,5 +171,5 @@ def test_small_flagship_is_the_flagship_configuration():
         == tpre.CASE_DESCRIPTIONS
     assert set(tpre.CASE_DESCRIPTIONS) == set(tpre.PRESETS)
     with pytest.raises(KeyError):
-        tpre.get_case("tp_spe10_inner", device="cpu")
+        tpre.get_case("tp_spe10_outer", device="cpu")
     assert isinstance(got.time_cfg, TimeConfig)

@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 
+from thermalporous_torch.core.grid import shift_minus, shift_plus
 from thermalporous_torch.kernels import stencil as kst
 
 
@@ -81,6 +82,38 @@ class BlockStencil:
         the (p, T) unknowns only.
         """
         return kst.block_matvec(self.coef, v, k)
+
+    def matvec_offdiag(self, v: torch.Tensor,
+                       axes: Sequence[int] | None = None) -> torch.Tensor:
+        """A·v without the diagonal-block term: the neighbour coupling only,
+        along ``axes`` (None = every axis; taken modulo the grid's
+        dimension and sorted, as the reference takes them).  Plain torch.
+
+        Restricting ``axes`` gives a sparsified operator (the rbgs stage 2's
+        ``stage2_axes``).  An empty ``axes`` raises ``ValueError``: there is
+        no coupling to return (the reference returns None there)."""
+        dim = self.dim
+        axs = (tuple(range(dim)) if axes is None
+               else tuple(sorted(a % dim for a in axes)))
+        if not axs:
+            raise ValueError("matvec_offdiag: axes is empty")
+        y = None
+        for a in axs:
+            t = apply_blocks(self.upper[a], shift_minus(v, a, lead=1))
+            y = t if y is None else y + t
+            y = y + apply_blocks(self.lower[a], shift_plus(v, a, lead=1))
+        return y
+
+    def transpose(self) -> "BlockStencil":
+        """The stencil of Aᵀ (exact): row i of Aᵀ couples to i+e_a through
+        L_a[i+e_a]ᵀ and to i−e_a through U_a[i−e_a]ᵀ (the zero-filled shifts
+        keep the zero-boundary convention); the diagonal blocks transpose in
+        place."""
+        bt = lambda a: a.transpose(0, 1)
+        return BlockStencil.from_parts(
+            bt(self.diag),
+            [bt(shift_minus(lo, a, lead=2)) for a, lo in enumerate(self.lower)],
+            [bt(shift_plus(up, a, lead=2)) for a, up in enumerate(self.upper)])
 
     def scalar(self, row: int, col: int) -> "ScalarStencil":
         """The scalar sub-stencil of one (equation, unknown) pair (a copy)."""

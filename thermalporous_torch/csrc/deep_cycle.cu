@@ -1,9 +1,9 @@
 // The whole multigrid coarse-grid correction below a level in one launch:
-// K- or V-cycle recursion, Chebyshev smoothing, constant-transfer
+// V-, W- or K-cycle recursion, Chebyshev smoothing, constant-transfer
 // restriction and prolongation, and the dense coarsest-level solve.
 //
 // Replaces thermalporous_tpu/kernels/deep_cycle.py:deep_correction (289-365,
-// math in _correction_math 209-268).  The W-cycle is not ported.
+// math in _correction_math 209-272, the W-cycle at 250-252).
 //
 // What bounds it on the H100: latency, not bytes.  The subtree it walks is
 // small (the flagship's pressure hierarchy below 145k cells is ~10 MB of
@@ -32,6 +32,10 @@
 //   - a pass starts all loads of a cell before it sums (the neighbours from
 //     clamped addresses, used or not), so it costs one round trip to the L2
 //     and not one per neighbour;
+//   - the W-cycle's residual b - A e1 is one pass with the first step of
+//     the second cycle's pre-smooth (both read the cell's own values after
+//     e1's barrier), and its sum e1 + e2 is written by the last step of the
+//     second cycle's post-smooth: W adds no barrier to its two cycles;
 //   - the dense coarsest solve is one warp per row of the inverse over all
 //     blocks' warps;
 //   - the recursion is an explicit loop over a per-level stage counter, and
@@ -60,6 +64,9 @@ constexpr int kMaxDegree = 16;
 constexpr int kDescPerLevel = 20;
 constexpr int kMaxDots = 3;
 
+// a level's cycle kind (kernels/deep_cycle.py: SINGLE, KCYCLE, WCYCLE)
+enum Kind { kSingle = 0, kK = 1, kW = 2 };
+
 // kYa/kYb: the two buffers a smooth alternates between; the one that does
 // not hold the pre-smoothed x also takes the residual.
 enum Vec { kB, kOut, kE1, kV1, kR1, kE2, kV2, kYa, kYb, kD, kNumVec };
@@ -70,7 +77,7 @@ struct DeepLevel {
   void* vec[kNumVec];
   Dims d;
   int fac[3];          // coarsening factors to the next level
-  int kcycle;          // 1: this level runs the K-cycle
+  int kind;            // Kind: single cycle, K-cycle or W-cycle
 };
 
 struct DeepParams {
@@ -157,10 +164,12 @@ __device__ __forceinline__ T apply_batched(const T* __restrict__ p, unsigned c,
 // One Chebyshev step on the thread's cells of level L (no barrier).
 // Step 0: z = D^-1 (b - A x), x = src (nullptr: zero, and no matvec);
 // d = z / theta.  Step s >= 1: x = src = the last step's y;
-// d = c1 * d + c2 * z.  Both write d and y = x + d to dst.
+// d = c1 * d + c2 * z.  Both write d and y = x + d to dst, or add + y
+// when `add` is given (the W-cycle's e1 + e2).
 template <typename T>
 __device__ void dk_cheb_step(Ctx<T>& cx, const DeepLevel& L, const ChebCoef<T>& k,
-                             int s, const T* b, const T* src, T* dst) {
+                             int s, const T* b, const T* src, T* dst,
+                             const T* add = nullptr) {
   const T* p = static_cast<const T*>(L.packed);
   const Dims& d = L.d;
   T* dd = vp<T>(L, kD);
@@ -177,24 +186,27 @@ __device__ void dk_cheb_step(Ctx<T>& cx, const DeepLevel& L, const ChebCoef<T>& 
     }
     const T dn = s == 0 ? z / k.theta : k.c1 * dd[c] + k.c2 * z;
     dd[c] = dn;
-    dst[c] = xc + dn;
+    const T y = xc + dn;
+    dst[c] = add == nullptr ? y : add[c] + y;
   }
 }
 
 // The smooth of b from x = ybuf[cur] (zero start: cur < 0) on level L;
 // steps first..degree-1 (the caller may have run step 0 itself), a barrier
-// after each.  The last step writes `out` when it is given.  Returns the
-// index of the buffer that holds the result (unchanged when `out` took it).
+// after each.  The last step writes `out` when it is given (add + y when
+// `add` is given too).  Returns the index of the buffer that holds the
+// result (unchanged when `out` took it).
 template <typename T>
 __device__ int dk_smooth(Ctx<T>& cx, const DeepParams& P, int ell, const T* b,
-                         int cur, int first, T* out) {
+                         int cur, int first, T* out, const T* add = nullptr) {
   const DeepLevel& L = P.lev[ell];
   T* y[2] = {vp<T>(L, kYa), vp<T>(L, kYb)};
   for (int s = first; s < P.degree; ++s) {
     const T* src = cur < 0 ? nullptr : y[cur];
     const int nxt = cur < 0 ? 0 : 1 - cur;
     const bool last = s == P.degree - 1 && out != nullptr;
-    dk_cheb_step<T>(cx, L, cx.coef[ell * P.degree + s], s, b, src, last ? out : y[nxt]);
+    dk_cheb_step<T>(cx, L, cx.coef[ell * P.degree + s], s, b, src, last ? out : y[nxt],
+                    last ? add : nullptr);
     if (!last) cur = nxt;
     cx.sync();
   }
@@ -353,15 +365,16 @@ __device__ void dk_pre_step0(Ctx<T>& cx, const DeepParams& P, int ell, const T* 
   dk_cheb_step<T>(cx, L, cx.coef[ell * P.degree], 0, b, nullptr, vp<T>(L, kYa));
 }
 
-// Second half: prolong the next level's correction, post-smooth into out.
+// Second half: prolong the next level's correction, post-smooth into out
+// (add + the smooth's result when `add` is given).
 template <typename T>
 __device__ void dk_post(Ctx<T>& cx, const DeepParams& P, int ell, const T* b,
-                        int cur, T* out) {
+                        int cur, T* out, const T* add = nullptr) {
   const DeepLevel& L = P.lev[ell];
   const DeepLevel& N = P.lev[ell + 1];
   dk_prolong_add<T>(cx, L, N, vp<T>(N, kOut), vp<T>(L, kYa + cur));
   cx.sync();
-  dk_smooth<T>(cx, P, ell, b, cur, 0, out);
+  dk_smooth<T>(cx, P, ell, b, cur, 0, out, add);
 }
 
 template <typename T>
@@ -397,9 +410,24 @@ __global__ void __launch_bounds__(kDeepMaxThreads, 1)
       xbuf[ell] = dk_pre<T>(cx, P, ell, B);
       stage[ell] = 1;
     } else if (stage[ell] == 1) {
-      if (!L.kcycle) {
+      if (L.kind == kSingle) {
         dk_post<T>(cx, P, ell, B, xbuf[ell], OUT);
         done = true;
+      } else if (L.kind == kW) {
+        // W-cycle, first half: e1 = cycle(b); r1 = b - A e1 in one pass with
+        // step 0 of the second cycle's pre-smooth (the same thread's cells)
+        T* E1 = vp<T>(L, kE1);
+        T* R1 = vp<T>(L, kR1);
+        dk_post<T>(cx, P, ell, B, xbuf[ell], E1);
+        const T* p = static_cast<const T*>(L.packed);
+        TP_FOR_CELLS(L.d.n) {
+          int idx[3];
+          coords32(L.d, c, idx);
+          R1[c] = B[c] - apply_batched(p, c, idx, L.d, E1);
+        }
+        dk_pre_step0<T>(cx, P, ell, R1);
+        xbuf[ell] = dk_pre<T>(cx, P, ell, R1);
+        stage[ell] = 2;
       } else {
         // K-cycle, first half: e1 = cycle(b); flexible-CG step on it
         T* E1 = vp<T>(L, kE1);
@@ -422,6 +450,11 @@ __global__ void __launch_bounds__(kDeepMaxThreads, 1)
         xbuf[ell] = dk_pre<T>(cx, P, ell, R1);
         stage[ell] = 2;
       }
+    } else if (L.kind == kW) {
+      // W-cycle, second half: out = e1 + cycle(r1), the sum written by the
+      // post-smooth's last step
+      dk_post<T>(cx, P, ell, vp<T>(L, kR1), xbuf[ell], OUT, vp<T>(L, kE1));
+      done = true;
     } else {
       // K-cycle, second half: e2 = cycle(r1), then the CG(2) combination
       T* E1 = vp<T>(L, kE1);
@@ -470,9 +503,10 @@ extern "C" {
 
 // desc: kDescPerLevel int64 per level, host memory: packed, lam, the
 // kNumVec vector pointers (b, out, e1, v1, r1, e2, v2, ya, yb, d), dim, n0,
-// n1, n2, three coarsening factors, kcycle.  partials: 3 * blocks values of
-// the working dtype.  barriers: nullable device int.  dtype: 0 = float32,
-// 1 = float64.  A grid that cannot be co-resident is refused with an error.
+// n1, n2, three coarsening factors, the cycle kind (0 single, 1 K, 2 W).
+// partials: 3 * blocks values of the working dtype.  barriers: nullable
+// device int.  dtype: 0 = float32, 1 = float64.  A grid that cannot be
+// co-resident, or an unknown cycle kind, is refused with an error.
 int tp_deep_correction(int dtype, const long long* desc, int n_levels,
                        const void* inv, void* partials, int* barriers,
                        int degree, double frac, double safety, int blocks,
@@ -497,7 +531,8 @@ int tp_deep_correction(int dtype, const long long* desc, int n_levels,
     for (int k = 0; k < tp::kNumVec; ++k) L.vec[k] = reinterpret_cast<void*>(q[2 + k]);
     L.d = tp::make_dims((int)q[12], (int)q[13], (int)q[14], (int)q[15]);
     for (int a = 0; a < 3; ++a) L.fac[a] = (int)q[16 + a];
-    L.kcycle = (int)q[19];
+    L.kind = (int)q[19];
+    if (L.kind < tp::kSingle || L.kind > tp::kW) return (int)cudaErrorInvalidValue;
   }
   auto st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? tp::launch_deep<float>(P, blocks, threads, st)

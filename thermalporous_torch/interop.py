@@ -31,15 +31,10 @@ from thermalporous_torch.solve.timeloop import TimeConfig
 #: the reference's configuration fields that the port lacks, at the
 #: reference's defaults (a dict may carry them only at these values)
 UNPORTED_DEFAULTS = {
-    GMGConfig: dict(smoother="chebyshev", line_axis=-1, jacobi_omega=0.8, cycles=1,
-                    use_pallas=False, semicoarsen_z=False, transfer="constant",
-                    transfer_floor=0.75, replicate_below=4096, mesh=None),
-    CPRConfig: dict(variant="cptr", stage2_axis=1, stage2_omega=1.0,
-                    stage2_fused=False, stage2_axes=None, stage2_pallas=False,
-                    bgmg_coarse_cells=256, bgmg_cycles=1, triangular=True,
-                    batch_pt=False, inner_iters=0, inner_rtol=1e-2,
-                    inner_method="fgmres", s_stage="none", s_sweeps=2, s_axis=0,
-                    pc_dtype="f32"),
+    GMGConfig: dict(use_pallas=False, transfer="constant", transfer_floor=0.75,
+                    replicate_below=4096, mesh=None),
+    CPRConfig: dict(stage2_pallas=False, bgmg_coarse_cells=256, bgmg_cycles=1,
+                    batch_pt=False, pc_dtype="f32"),
     NewtonConfig: {},
     TimeConfig: {},
 }

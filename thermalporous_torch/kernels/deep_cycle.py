@@ -1,7 +1,7 @@
 """The fused multigrid coarse-subtree correction (``csrc/deep_cycle.cu``).
 
 Counterpart of ``thermalporous_tpu/kernels/deep_cycle.py``: the whole
-coarse-grid correction below a level — the V- or K-cycle recursion,
+coarse-grid correction below a level — the V-, W- or K-cycle recursion,
 Chebyshev smoothing, constant-transfer restriction and prolongation and the
 dense coarsest-level solve — in one cooperative launch over up to one block
 per SM, with a grid-wide barrier between dependent passes, instead of a few
@@ -15,14 +15,16 @@ on CUDA tensors it launches the kernel and adds one to
 
 Sizing (:func:`subtree_bytes`) counts the subtree at the dtype the
 correction computes in — the right-hand side's — which is also the dtype the
-kernel reads the stencils in.  The W-cycle is not ported.
+kernel reads the stencils in.  Each level runs one of three cycle kinds
+(:func:`cycle_kinds`): a single cycle, the K-cycle or the W-cycle; the
+kernel reads the kind from the level's descriptor.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -49,27 +51,41 @@ def launch_shape(n_entry: int, sms: int) -> tuple[int, int]:
     return blocks, max(32, min(MAX_THREADS, threads))
 
 
-def kcycle_levels(sizes: Sequence[int], cycle_type: str,
-                  kcycle_min_cells: int) -> list[bool]:
-    """Per level of a subtree with ``sizes`` cells, whether it runs the
-    K-cycle (never the coarsest, which is solved directly)."""
+#: a level's cycle kind (csrc/deep_cycle.cu: the descriptor's kind): one
+#: cycle, the K-cycle (flexible CG(2) over two cycles) or the W-cycle (a
+#: second cycle on the first's residual, the two added)
+SINGLE, KCYCLE, WCYCLE = 0, 1, 2
+_KIND = {"v": SINGLE, "k": KCYCLE, "w": WCYCLE}
+
+
+def cycle_kinds(sizes: Sequence[int], cycle_type: str,
+                kcycle_min_cells: int) -> list[int]:
+    """Per level of a subtree with ``sizes`` cells, its cycle kind: the
+    configuration's on levels with at least ``kcycle_min_cells`` cells, a
+    single cycle below and on the coarsest (which is solved directly)."""
+    if cycle_type not in _KIND:
+        raise ValueError(f"unknown cycle_type {cycle_type!r}")
     last = len(sizes) - 1
-    return [cycle_type == "k" and ell < last and m >= kcycle_min_cells
+    return [_KIND[cycle_type] if ell < last and m >= kcycle_min_cells else SINGLE
             for ell, m in enumerate(sizes)]
 
 
-def barrier_count(kcycle: Sequence[bool], degree: int, single_block: bool = False) -> int:
+def barrier_count(kinds: Sequence[int], degree: int, single_block: bool = False) -> int:
     """Barriers on the critical path of one visit of a subtree whose levels
-    run the K-cycle where ``kcycle`` says (the last level is the dense
-    solve).  The cooperative kernel's grid barriers: per cycle of a level
-    2·degree + 3 (one per Chebyshev step, after the residual, the
-    restriction and the prolongation), per K-cycle level 3 more (two
-    reductions, the combination), 1 for the dense solve.  With
-    ``single_block``, the block barriers of the earlier one-block kernel,
-    which spent two on each Chebyshev step after the first and kept the
-    K-cycle's matvec, dots and update as separate passes."""
-    last = len(kcycle) - 1
+    run the cycle kinds ``kinds`` (the last level is the dense solve).  The
+    cooperative kernel's grid barriers: per cycle of a level 2·degree + 3
+    (one per Chebyshev step, after the residual, the restriction and the
+    prolongation), per K-cycle level 3 more (two reductions, the
+    combination), per W-cycle level none more (its residual joins the
+    second cycle's first pass, its sum the last smoothing step), 1 for the
+    dense solve.  With ``single_block``, the block barriers of the earlier
+    one-block kernel (V and K only), which spent two on each Chebyshev step
+    after the first and kept the K-cycle's matvec, dots and update as
+    separate passes."""
+    last = len(kinds) - 1
     if single_block:
+        if WCYCLE in kinds:
+            raise ValueError("the one-block kernel had no W-cycle")
         cycle, extra = 2 * (2 * degree) + 3, 10
     else:
         cycle, extra = 2 * degree + 3, 3
@@ -78,7 +94,9 @@ def barrier_count(kcycle: Sequence[bool], degree: int, single_block: bool = Fals
         if ell == last:
             return 1
         one = cycle + visit(ell + 1)
-        return 2 * one + extra if kcycle[ell] else one
+        if kinds[ell] == KCYCLE:
+            return 2 * one + extra
+        return 2 * one if kinds[ell] == WCYCLE else one
 
     return visit(0)
 
@@ -99,6 +117,24 @@ def _factors(shapes: Sequence[tuple[int, ...]]) -> list[tuple[int, ...]]:
             for fine, coarse in zip(shapes[:-1], shapes[1:])]
 
 
+def warp_order_mv(inv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """inv·b summed in the order of the kernel's coarsest solve
+    (csrc/deep_cycle.cu: dk_dense): per row, 32 lane sums over the columns
+    j ≡ lane (mod 32) in increasing j, then the warp's shuffle tree.  The
+    plain version's ``torch.mv`` sums in another order; with this one the
+    subtree's kernel and its plain version round alike wherever the
+    recursion has no dot products (V- and W-cycles)."""
+    n = b.numel()
+    v = b.reshape(-1)
+    acc = torch.zeros((n, 32), dtype=b.dtype, device=b.device)
+    for j0 in range(0, n, 32):
+        w = min(32, n - j0)
+        acc[:, :w] = acc[:, :w] + inv[:, j0:j0 + w] * v[j0:j0 + w]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:, :off] + acc[:, off:2 * off]
+    return acc[:, 0].reshape(b.shape)
+
+
 def deep_correction_plain(
     packed: Sequence[torch.Tensor],
     lam_max: Sequence[torch.Tensor],
@@ -110,12 +146,16 @@ def deep_correction_plain(
     cycle_type: str,
     kcycle_min_cells: int,
     safety: float = 1.05,
+    coarse_solve: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Approximate A₀⁻¹ rc over the subtree ``packed`` (entry level first,
     scalar stencils (2·dim+1, *grid)); ``lam_max`` has one 0-dim tensor per
     level but the coarsest.  The recursion of ``precond.gmg``: one cycle per
-    level, or the K-cycle (flexible CG(2) over two cycles) on levels with
-    at least ``kcycle_min_cells`` cells."""
+    level, or on levels with at least ``kcycle_min_cells`` cells the W-cycle
+    (a second cycle on b − A·e1, added to the first) or the K-cycle
+    (flexible CG(2) over two cycles).  ``coarse_solve(inv, b)`` is the
+    coarsest level's product (None: ``torch.mv``, as the unfused recursion
+    computes it; :func:`warp_order_mv`: the kernel's summation order)."""
     from thermalporous_torch.precond.gmg import _blocksum, _prolong
 
     shapes = [tuple(p.shape[1:]) for p in packed]
@@ -128,6 +168,8 @@ def deep_correction_plain(
 
     def v_cycle(ell, b):
         if ell == last:
+            if coarse_solve is not None:
+                return coarse_solve(coarse_inv, b)
             return torch.mv(coarse_inv, b.reshape(-1)).reshape(shapes[ell])
         x = smooth(ell, b, None)
         r = b - kst.matvec_plain(packed[ell], x)
@@ -143,6 +185,9 @@ def deep_correction_plain(
         if (cycle_type == "v" or ell == last
                 or math.prod(shapes[ell]) < kcycle_min_cells):
             return e1
+        if cycle_type == "w":
+            r1 = b - kst.matvec_plain(packed[ell], e1)
+            return e1 + v_cycle(ell, r1)
         v1 = kst.matvec_plain(packed[ell], e1)
         rho1, alpha1 = dot(v1, e1), dot(b, e1)
         safe = torch.where(torch.abs(rho1) > 0, rho1, 1.0)
@@ -176,8 +221,8 @@ def deep_correction(
     ``barriers``, a 0-dim int32 tensor on the card, receives the number of
     grid barriers the kernel went through."""
     n_lev = len(packed)
-    if cycle_type not in ("v", "k"):
-        raise NotImplementedError(f"deep_correction: cycle_type {cycle_type!r}")
+    if cycle_type not in _KIND:
+        raise ValueError(f"deep_correction: unknown cycle_type {cycle_type!r}")
     if n_lev < 1 or len(lam_max) < n_lev - 1 or degree < 1:
         raise ValueError(f"deep_correction: {n_lev} levels, {len(lam_max)} "
                          f"lambda estimates, degree {degree}")
@@ -207,7 +252,7 @@ def deep_correction(
         raise ValueError("deep_correction: barriers must be a 0-dim int32 tensor on "
                          f"{dev}")
     blocks, threads = launch_shape(sizes[0], _lib.limits_of(rc)[0])
-    kflags = kcycle_levels(sizes, cycle_type, kcycle_min_cells)
+    kinds = cycle_kinds(sizes, cycle_type, kcycle_min_cells)
     # the levels' vectors, then the blocks' partial dot products
     n_vecs = VECS_PER_LEVEL * sum(sizes)
     scratch = torch.empty(n_vecs + MAX_DOTS * blocks, dtype=rc.dtype, device=dev)
@@ -225,7 +270,7 @@ def deep_correction(
             vecs[0], vecs[1] = rc.data_ptr(), out.data_ptr()   # b in, out
         fac = tuple(factors[ell]) + (1,) * (3 - len(factors[ell]))
         row = [p.data_ptr(), lams[ell].data_ptr() if ell < n_lev - 1 else 0,
-               *vecs, len(shape), *_lib.dims3(shape), *fac, int(kflags[ell])]
+               *vecs, len(shape), *_lib.dims3(shape), *fac, kinds[ell]]
         assert len(row) == per
         desc[ell * per:(ell + 1) * per] = row
     _lib.launch("tp_deep_correction", _lib.dtype_code(rc),

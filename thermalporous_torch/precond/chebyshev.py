@@ -1,20 +1,35 @@
 """Smoothers (counterpart of ``thermalporous_tpu/precond/chebyshev.py``):
-Chebyshev on Jacobi-scaled scalar stencils (24-80) and red-black block
-Gauss–Seidel on block stencils (107-114, 265-300).
+Chebyshev, damped Jacobi, red-black Gauss–Seidel, line Jacobi and zebra
+line Gauss–Seidel on scalar stencils; red-black block Gauss–Seidel (full or
+with a sparsified coupling), the premasked zero-start block sweep, block
+tridiagonal line solves and zebra block line Gauss–Seidel on block
+stencils.
 
 The Chebyshev smooth is the ``chebyshev_smooth`` kernel wrapper; the
-red-black block Gauss–Seidel runs a zero-start sweep through the
-``fused_block_rbgs`` wrapper and every other sweep as two
-``block_rbgs_half_sweep`` calls (``kernels/stencil.py``); their plain
-versions are the reference's recurrences.  The other smoothers of the
-reference are not ported.
+red-black block Gauss–Seidel with the full coupling runs a zero-start sweep
+through the ``fused_block_rbgs`` wrapper and every other sweep as two
+``block_rbgs_half_sweep`` calls (``kernels/stencil.py``).  Everything else
+here is plain PyTorch on either device, as the reference computes it in
+jnp outside any Pallas kernel; its matvecs are the stencils' own (the
+scalar and block matvec kernels on the card).  The line solves are
+sequential recurrences along the line axis (``lax.scan`` in the
+reference): here a host loop over that axis of batched small-block
+operations, one step per plane.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil
+from thermalporous_torch.core.stencil import (
+    BlockStencil,
+    ScalarStencil,
+    apply_blocks,
+    invert_blocks,
+    multiply_blocks,
+)
 from thermalporous_torch.kernels import stencil as kst
 
 
@@ -44,26 +59,236 @@ def chebyshev(
                                 lam_max_safety, second=second)
 
 
+def weighted_jacobi(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = None,
+                    sweeps: int = 2, omega: float = 0.8) -> torch.Tensor:
+    """Damped Jacobi sweeps; from zero the first sweep is x = ωD⁻¹b with no
+    matvec."""
+    inv_diag = omega / st.diag
+    start = 0
+    if x is None:
+        x = torch.zeros_like(b)
+        if sweeps >= 1:
+            x = inv_diag * b
+            start = 1
+    for _ in range(start, sweeps):
+        x = x + inv_diag * (b - st.matvec(x))
+    return x
+
+
+def red_black_gauss_seidel(st: ScalarStencil, b: torch.Tensor,
+                           x: torch.Tensor | None = None, sweeps: int = 1) -> torch.Tensor:
+    """Red-black Gauss–Seidel sweeps: each colour's update is a masked
+    Jacobi step against the other colour's fresh values (the looped form
+    from zero as well, as the reference runs it)."""
+    red = kst.checkerboard(st.grid_shape, b.dtype, b.device)
+    black = 1.0 - red
+    inv_diag = 1.0 / st.diag
+    if x is None:
+        x = torch.zeros_like(b)
+    for _ in range(sweeps):
+        x = x + red * inv_diag * (b - st.matvec(x))
+        x = x + black * inv_diag * (b - st.matvec(x))
+    return x
+
+
+def tridiag_solve_along(axis: int, lower: torch.Tensor, diag: torch.Tensor,
+                        upper: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Independent tridiagonal systems along ``axis``, batched over the
+    other axes: the Thomas algorithm, a host loop over the line axis each
+    way.  ``upper[i]`` couples i to i+1 (zero on the last slice),
+    ``lower[i]`` couples i to i−1 (zero on the first)."""
+    mv = lambda a: torch.movedim(a, axis, 0)
+    lo, d, up, rhs = mv(lower), mv(diag), mv(upper), mv(b)
+    c_prev = y_prev = torch.zeros_like(d[0])
+    cs, ys = [], []
+    for i in range(d.shape[0]):
+        denom = d[i] - lo[i] * c_prev
+        c_prev = up[i] / denom
+        y_prev = (rhs[i] - lo[i] * y_prev) / denom
+        cs.append(c_prev)
+        ys.append(y_prev)
+    x_next = torch.zeros_like(d[0])
+    xs = [None] * len(ys)
+    for i in range(len(ys) - 1, -1, -1):
+        x_next = ys[i] - cs[i] * x_next
+        xs[i] = x_next
+    return torch.movedim(torch.stack(xs), 0, axis).contiguous()
+
+
+def _line_mask(shape: Sequence[int], line_axis: int, color: int, dtype: torch.dtype,
+               device: torch.device | str) -> torch.Tensor:
+    """Checkerboard over the axes other than ``line_axis``: each line along
+    it is one colour (the zebra 2-colouring)."""
+    parity = torch.zeros((), dtype=torch.int64, device=device)
+    for a, m in enumerate(shape):
+        if a == line_axis % len(shape):
+            continue
+        view = [1] * len(shape)
+        view[a] = m
+        parity = parity + torch.arange(m, device=device).reshape(view)
+    return (parity % 2 == color).to(dtype)
+
+
+def line_jacobi(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = None,
+                axis: int = -1, sweeps: int = 1, omega: float = 1.0) -> torch.Tensor:
+    """Simultaneous line-Jacobi relaxation x ← x + ω·T⁻¹(b − A·x), T the
+    tridiagonal part of A along ``axis``; from zero the first residual is b
+    (no matvec)."""
+    a = axis % st.dim
+    lo, up = st.lower[a], st.upper[a]
+    start = 0
+    if x is None:
+        x = torch.zeros_like(b)
+        if sweeps >= 1:
+            x = omega * tridiag_solve_along(a, lo, st.diag, up, b)
+            start = 1
+    for _ in range(start, sweeps):
+        r = b - st.matvec(x)
+        x = x + omega * tridiag_solve_along(a, lo, st.diag, up, r)
+    return x
+
+
+def zebra_line_gs(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = None,
+                  axis: int = -1, sweeps: int = 1) -> torch.Tensor:
+    """Zebra (red-black line) Gauss–Seidel along ``axis``: exact line
+    solves of the two line colours in turn, each against the other's fresh
+    values."""
+    a = axis % st.dim
+    lo, up = st.lower[a], st.upper[a]
+    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device)
+    black = 1.0 - red
+    if x is None:
+        x = torch.zeros_like(b)
+    for _ in range(sweeps):
+        x = x + red * tridiag_solve_along(a, lo, st.diag, up, b - st.matvec(x))
+        x = x + black * tridiag_solve_along(a, lo, st.diag, up, b - st.matvec(x))
+    return x
+
+
 def block_red_black_gauss_seidel(
     st: BlockStencil,
     dinv: torch.Tensor,
     b: torch.Tensor,
     x: torch.Tensor | None = None,
     sweeps: int = 1,
+    axes: Sequence[int] | None = None,
 ) -> torch.Tensor:
     """``sweeps`` red-black block Gauss–Seidel sweeps on a block stencil from
     ``x`` (None = zero): each colour's cells get exact per-cell block solves
     (``dinv``, the inverse diagonal blocks) against the other colour's fresh
     values.
 
-    From zero the first sweep is the ``fused_block_rbgs`` kernel (the stage-2
-    kernel with no x₁); every other sweep is two ``block_rbgs_half_sweep``
-    launches, red then black.  On CPU tensors the wrappers' plain versions
-    are the reference's looped form, statement by statement."""
+    With the full coupling (``axes`` None) it runs on the kernels: from
+    zero the first sweep is the ``fused_block_rbgs`` kernel (the stage-2
+    kernel with no x₁), every other sweep two ``block_rbgs_half_sweep``
+    launches, red then black; on CPU tensors the wrappers' plain versions
+    are the reference's looped form, statement by statement.
+
+    ``axes`` restricts the coupling to those grid axes, D + offdiag(axes): a
+    sparsified operator, not exact.  That route is chosen by configuration
+    and is plain PyTorch on either device — the reference's own Pallas
+    sweep takes no axes either — in the reference's looped form, from zero
+    included."""
+    if axes is None:
+        if x is None:
+            x = kst.fused_block_rbgs(st.coef, dinv, b)
+            sweeps -= 1
+        for _ in range(sweeps):
+            x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 0)
+            x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 1)
+        return x
+    red = kst.checkerboard(st.grid_shape, b.dtype, b.device)
+    black = 1.0 - red
+    mv = lambda v: apply_blocks(st.diag, v) + st.matvec_offdiag(v, axes=axes)
     if x is None:
-        x = kst.fused_block_rbgs(st.coef, dinv, b)
-        sweeps -= 1
+        x = torch.zeros_like(b)
     for _ in range(sweeps):
-        x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 0)
-        x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 1)
+        x = x + red * apply_blocks(dinv, b - mv(x))
+        x = x + black * apply_blocks(dinv, b - mv(x))
+    return x
+
+
+def block_rbgs_fused_zero(st: BlockStencil, dinv_red: torch.Tensor,
+                          dinv_black: torch.Tensor, b: torch.Tensor,
+                          axes: Sequence[int] | None = None) -> torch.Tensor:
+    """One zero-start block red-black sweep with premasked diagonal inverses
+    (``dinv_red`` = red·D⁻¹, ``dinv_black`` = black·D⁻¹, built at set-up):
+    x_r = dinv_red·b, then x_r + dinv_black·(b − A_off·x_r), the black half
+    without the diagonal term (x_r is zero on black cells).  With ``axes``
+    the black half's coupling is restricted to those axes (not exact).
+    Plain PyTorch; with the full coupling the same function is the
+    ``fused_block_rbgs`` kernel."""
+    x_red = apply_blocks(dinv_red, b)
+    return x_red + apply_blocks(dinv_black, b - st.matvec_offdiag(x_red, axes=axes))
+
+
+def block_tridiag_factor(axis: int, lower: torch.Tensor, diag: torch.Tensor,
+                         upper: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Forward elimination of the block-tridiagonal part along ``axis``,
+    once per set-up: ``(lo, c, dinv)`` in line-axis-major layout
+    (n, nc, nc, *other), the Thomas multipliers c_i = (d_i − l_i c_{i−1})⁻¹
+    u_i and the modified diagonal inverses."""
+    mvb = lambda a: torch.movedim(a, 2 + axis, 0)
+    lo, d, up = mvb(lower), mvb(diag), mvb(upper)
+    c_prev = torch.zeros_like(d[0])
+    cs, dinvs = [], []
+    for i in range(d.shape[0]):
+        dinv = invert_blocks(d[i] - multiply_blocks(lo[i], c_prev))
+        c_prev = multiply_blocks(dinv, up[i])
+        cs.append(c_prev)
+        dinvs.append(dinv)
+    return lo, torch.stack(cs), torch.stack(dinvs)
+
+
+def block_tridiag_solve_factored(axis: int, factor: tuple[torch.Tensor, ...],
+                                 b: torch.Tensor) -> torch.Tensor:
+    """Solve with a :func:`block_tridiag_factor` (no block inversions): a
+    host loop over the line axis each way."""
+    lo, c, dinv = factor
+    rhs = torch.movedim(b, 1 + axis, 0)               # (n, nc, *other)
+    y_prev = torch.zeros_like(rhs[0])
+    ys = []
+    for i in range(rhs.shape[0]):
+        y_prev = apply_blocks(dinv[i], rhs[i] - apply_blocks(lo[i], y_prev))
+        ys.append(y_prev)
+    x_next = torch.zeros_like(rhs[0])
+    xs = [None] * len(ys)
+    for i in range(len(ys) - 1, -1, -1):
+        x_next = ys[i] - apply_blocks(c[i], x_next)
+        xs[i] = x_next
+    return torch.movedim(torch.stack(xs), 0, 1 + axis).contiguous()
+
+
+def block_tridiag_solve_along(axis: int, lower: torch.Tensor, diag: torch.Tensor,
+                              upper: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Independent block-tridiagonal systems along ``axis``: blocks
+    (nc, nc, *grid) in the :class:`BlockStencil` convention, ``b`` (nc,
+    *grid)."""
+    return block_tridiag_solve_factored(
+        axis, block_tridiag_factor(axis, lower, diag, upper), b)
+
+
+def block_zebra_line_gs(
+    st: BlockStencil,
+    b: torch.Tensor,
+    x: torch.Tensor | None = None,
+    axis: int = 1,
+    sweeps: int = 1,
+    omega: float = 1.0,
+    factor: tuple[torch.Tensor, ...] | None = None,
+) -> torch.Tensor:
+    """Zebra (red-black line) block Gauss–Seidel along ``axis``: exact block
+    line solves of the two line colours in turn against the other's fresh
+    values, under-relaxed by ``omega``; ``factor`` is the set-up's
+    :func:`block_tridiag_factor` (computed here when None)."""
+    if x is None:
+        x = torch.zeros_like(b)
+    a = axis % st.dim
+    if factor is None:
+        factor = block_tridiag_factor(a, st.lower[a], st.diag, st.upper[a])
+    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device)
+    black = 1.0 - red
+    for _ in range(sweeps):
+        x = x + omega * red * block_tridiag_solve_factored(a, factor, b - st.matvec(x))
+        x = x + omega * black * block_tridiag_solve_factored(a, factor, b - st.matvec(x))
     return x

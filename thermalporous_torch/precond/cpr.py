@@ -1,67 +1,108 @@
-"""The CPTR two-stage preconditioner (counterpart of
-``thermalporous_tpu/precond/cpr.py:46-212, 363-712``).
+"""The CPR / CPTR two-stage preconditioners (counterpart of
+``thermalporous_tpu/precond/cpr.py:46-212, 363-770``).
 
     M⁻¹ r = x₁ + M₂⁻¹ (r − A x₁),   x₁ = stage1(W · r)
 
 - decoupling W: Quasi-IMPES (the last unknown's column eliminated from
-  the other equations with the cell's diagonal block);
-- stage 1: the block-triangular (p, T) solve — multigrid on the decoupled
-  pressure block, the T residual corrected through the T←p coupling,
-  multigrid on the decoupled temperature block;
-- stage 2: block Jacobi with the exact per-cell inverses, or ``sweeps``
-  red-black block Gauss–Seidel sweeps; its residual r − A·x₁ reads only the
-  block columns x₁ lives on (``stage2_cols``).  One sweep (the flagship) is
-  the whole stage 2 in one ``fused_stage2_rbgs`` launch: the residual, the
-  sweep and the add of x₁.
+  the other equations with the cell's diagonal block), True-IMPES (the
+  same with the stencil's column sums) or ABF (the diagonal blocks'
+  inverses);
+- stage 1: CPR — multigrid on the decoupled pressure block; CPTR — the
+  block-triangular (p, T) solve: multigrid on pressure, the T residual
+  corrected through the T←p coupling (or not: ``triangular=False``),
+  multigrid on temperature; optionally a few inner FGMRES or Richardson
+  iterations on the decoupled (p, T) system around it (``inner_iters``),
+  and a saturation leg (``s_stage``) that smooths the decoupled S block
+  after correcting its residual through the S←(p, T) couplings;
+- stage 2: none, block Jacobi with the exact per-cell inverses, two-step
+  block Jacobi (``jacobi2``), ``stage2_sweeps`` red-black block
+  Gauss–Seidel sweeps (optionally with a sparsified coupling,
+  ``stage2_axes``, and the premasked zero-start sweep, ``stage2_fused``)
+  or zebra block line Gauss–Seidel along ``stage2_axis``.  Its residual
+  r − A·x₁ reads only the block columns x₁ lives on (``stage2_cols``).
+  One full-coupling rbgs sweep is the whole stage 2 in one
+  ``fused_stage2_rbgs`` launch: the residual, the sweep and the add of x₁.
 
-Ported: the options of the benchmark step and of the flagship preset,
-including the adaptive coarsening schedule (:func:`resolve_adaptive_coarsening`).
-The CPR variant and the other stage-2 smoothers and decouplings raise
-``NotImplementedError``; the reference's stage-2 variants ``stage2_fused``,
-``stage2_axes`` and ``stage2_pallas`` (the CUDA sweep already is the fused
-form), the block-diagonal stage 1, inner iterations, the saturation stage,
-bf16 storage and the batched p/T traversal are not ported and have no
-field.
+Not ported, and without a field: the ``bgmg`` stage 2 (``stage2="bgmg"``
+raises ``NotImplementedError``) with ``bgmg_coarse_cells`` and
+``bgmg_cycles``, bf16 coefficient storage (``pc_dtype``), the batched p/T
+traversal (``batch_pt``), ``stage2_pallas`` (the CUDA stage 2 already is
+the fused form) and the reference's TPU guards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil, apply_blocks
 from thermalporous_torch.kernels import stencil as kst
-from thermalporous_torch.precond.chebyshev import block_red_black_gauss_seidel
+from thermalporous_torch.precond.chebyshev import (
+    block_rbgs_fused_zero,
+    block_red_black_gauss_seidel,
+    block_tridiag_factor,
+    block_zebra_line_gs,
+    line_jacobi,
+    red_black_gauss_seidel,
+    weighted_jacobi,
+    zebra_line_gs,
+)
 from thermalporous_torch.precond.gmg import (
     GMGConfig,
     GMGState,
+    dense_inv,
     gmg_apply,
     gmg_setup,
     plan_coarsening,
 )
 
+STAGE2 = ("none", "block_jacobi", "jacobi2", "rbgs", "zebra")
+
 
 @dataclasses.dataclass(frozen=True)
 class CPRConfig:
     """Configuration of the two-stage preconditioner: the reference's fields
-    that the port implements (see
-    ``thermalporous_tpu/precond/cpr.py:CPRConfig``)."""
+    that the port implements, with its defaults (see
+    ``thermalporous_tpu/precond/cpr.py:CPRConfig`` for each option)."""
 
-    stage2: str = "block_jacobi"     # ported: "block_jacobi", "rbgs"
-    stage2_sweeps: int = 1           # rbgs sweeps
+    variant: str = "cptr"            # "cpr" | "cptr"
+    stage2: str = "block_jacobi"     # "none" | "block_jacobi" | "jacobi2" | "rbgs" | "zebra"
+    stage2_sweeps: int = 1           # rbgs / zebra sweeps
     stage2_cols: bool = True         # stage-2 residual over x₁'s columns only
-    decoupling: str = "qimpes"       # ported: "qimpes"
+    # rbgs: the first sweep from premasked D⁻¹ halves (the same function as
+    # the plain first sweep with the full coupling); further sweeps in the
+    # looped form over the FULL coupling, whatever ``stage2_axes`` says, as
+    # the reference runs them
+    stage2_fused: bool = False
+    stage2_axes: tuple[int, ...] | None = None   # rbgs coupling axes (not exact)
+    stage2_axis: int = 1             # zebra line axis
+    stage2_omega: float = 1.0        # zebra and jacobi2 relaxation
+    triangular: bool = True          # CPTR stage 1: triangular vs block-diagonal
+    decoupling: str = "qimpes"       # "qimpes" | "timpes" | "abf"
+    inner_iters: int = 0             # inner iterations on the (p, T) system
+    inner_rtol: float = 1e-2
+    inner_method: str = "fgmres"     # "fgmres" | "richardson"
+    s_stage: str = "none"            # "none" | "rbgs" | "jacobi" | "zebra" | "line"
+    s_sweeps: int = 2
+    s_axis: int = 0
     gmg: GMGConfig = GMGConfig()
     gmg_t: GMGConfig | None = None   # T hierarchy (None = ``gmg``)
 
     def __post_init__(self):
-        if self.stage2 not in ("block_jacobi", "rbgs"):
-            raise NotImplementedError(f"stage2 {self.stage2!r} is not ported")
+        if self.stage2 == "bgmg":
+            raise NotImplementedError("stage2 'bgmg' is not ported")
+        checks = {"variant": ("cpr", "cptr"), "stage2": STAGE2,
+                  "decoupling": ("qimpes", "timpes", "abf"),
+                  "inner_method": ("fgmres", "richardson"),
+                  "s_stage": ("none", "rbgs", "jacobi", "zebra", "line")}
+        for field, allowed in checks.items():
+            if getattr(self, field) not in allowed:
+                raise ValueError(f"unknown {field} {getattr(self, field)!r}; "
+                                 f"one of {allowed}")
         if self.stage2_sweeps < 1:
             raise ValueError(f"stage2_sweeps {self.stage2_sweeps} < 1")
-        if self.decoupling != "qimpes":
-            raise NotImplementedError(f"decoupling {self.decoupling!r} is not ported")
 
 
 @dataclasses.dataclass
@@ -72,8 +113,16 @@ class CPRState:
     dinv: torch.Tensor               # per-cell inverse diagonal blocks (stage 2)
     w: torch.Tensor                  # per-cell decoupling blocks W
     gmg_p: GMGState                  # hierarchy of the decoupled pressure block
-    gmg_t: GMGState                  # hierarchy of the decoupled T block
-    a_tp: ScalarStencil              # decoupled T-equation ← p-unknown coupling
+    gmg_t: GMGState | None           # hierarchy of the decoupled T block (CPTR)
+    a_tp: ScalarStencil | None       # decoupled T-equation ← p-unknown coupling
+    pt: BlockStencil | None = None   # decoupled (p, T) 2×2 stencil (inner iterations)
+    a_sp: ScalarStencil | None = None   # S-equation ← p coupling (s_stage)
+    a_st: ScalarStencil | None = None   # S-equation ← T coupling (s_stage)
+    a_ss: ScalarStencil | None = None   # S-S transport operator (s_stage)
+    zebra_fac: tuple | None = None      # block-Thomas factor (stage2="zebra")
+    # premasked D⁻¹ halves (red·D⁻¹, black·D⁻¹) for stage2_fused with axes
+    dinv_red: torch.Tensor | None = None
+    dinv_black: torch.Tensor | None = None
 
 
 def _impes_weights(d: torch.Tensor) -> torch.Tensor:
@@ -91,6 +140,21 @@ def _impes_weights(d: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def _decoupling_weights(stencil: BlockStencil, cfg: CPRConfig,
+                        dinv: torch.Tensor | None = None) -> torch.Tensor:
+    """The decoupling blocks W of ``cfg.decoupling``: Quasi-IMPES from the
+    diagonal blocks, True-IMPES from the column sums, ABF the diagonal
+    blocks' inverses (``dinv`` when given)."""
+    if cfg.decoupling == "abf":
+        return stencil.diag_inverse() if dinv is None else dinv
+    if cfg.decoupling == "qimpes":
+        return _impes_weights(stencil.diag)
+    colsum = stencil.diag
+    for up, lo in zip(stencil.upper, stencil.lower):
+        colsum = colsum + up + lo
+    return _impes_weights(colsum)
+
+
 def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
                                 theta: float = 0.25) -> CPRConfig:
     """Bake the matrix-dependent coarsening schedules into ``cfg`` (once,
@@ -103,7 +167,7 @@ def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
                   and cfg.gmg_t.level_factors is None)
     if not (gmg_todo or gmg_t_todo):
         return cfg
-    dec = stencil.scale_rows(_impes_weights(stencil.diag))
+    dec = stencil.scale_rows(_decoupling_weights(stencil, cfg))
     if gmg_todo:
         schedule = plan_coarsening(dec.scalar(0, 0), cfg.gmg, theta=theta)
         cfg = dataclasses.replace(
@@ -116,62 +180,154 @@ def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
 
 
 def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
-    w = _impes_weights(stencil.diag)                # Quasi-IMPES
+    dinv = stencil.diag_inverse()
+    w = _decoupling_weights(stencil, cfg, dinv=dinv)
     dec = stencil.scale_rows(w)                     # W·A
-    return CPRState(stencil=stencil, dinv=stencil.diag_inverse(), w=w,
-                    gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg),
-                    gmg_t=gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg),
-                    a_tp=dec.scalar(1, 0))
+    state = CPRState(stencil=stencil, dinv=dinv, w=w,
+                     gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg), gmg_t=None, a_tp=None)
+    if cfg.variant == "cptr":
+        state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg)
+        state.a_tp = dec.scalar(1, 0)
+        if cfg.inner_iters > 0:
+            state.pt = dec.block(slice(0, 2), slice(0, 2))
+        if cfg.s_stage != "none" and stencil.nc >= 3:
+            state.a_sp, state.a_st, state.a_ss = (dec.scalar(2, c) for c in range(3))
+    if cfg.stage2 == "zebra":
+        a = cfg.stage2_axis % stencil.dim
+        state.zebra_fac = block_tridiag_factor(a, stencil.lower[a], stencil.diag,
+                                               stencil.upper[a])
+    if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
+        red = kst.checkerboard(stencil.grid_shape, dinv.dtype, dinv.device)
+        state.dinv_red, state.dinv_black = red * dinv, (1.0 - red) * dinv
+    return state
+
+
+def _s_smooth(a_ss: ScalarStencil, r_s: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
+    """Approximate A_ss⁻¹ r_s with ``cfg.s_sweeps`` scalar smoother sweeps."""
+    if cfg.s_stage == "rbgs":
+        return red_black_gauss_seidel(a_ss, r_s, None, sweeps=cfg.s_sweeps)
+    if cfg.s_stage == "zebra":
+        return zebra_line_gs(a_ss, r_s, None, axis=cfg.s_axis, sweeps=cfg.s_sweeps)
+    if cfg.s_stage == "line":
+        return line_jacobi(a_ss, r_s, None, axis=cfg.s_axis, sweeps=cfg.s_sweeps)
+    return weighted_jacobi(a_ss, r_s, None, sweeps=cfg.s_sweeps)
 
 
 def _stage1_pt(state: CPRState, r_pt: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
-    """Block-triangular multigrid on the (p, T) system: p, then T with its
-    residual corrected through the T←p coupling."""
+    """Block-triangular (or block-diagonal) multigrid on the (p, T) system:
+    p, then T with its residual corrected through the T←p coupling."""
     e_p = gmg_apply(state.gmg_p, r_pt[0], cfg.gmg)
-    r_t = r_pt[1] - state.a_tp.matvec(e_p)
+    r_t = r_pt[1]
+    if cfg.triangular:
+        r_t = r_t - state.a_tp.matvec(e_p)
     e_t = gmg_apply(state.gmg_t, r_t, cfg.gmg_t or cfg.gmg)
     return torch.stack([e_p, e_t])
+
+
+def _stage1(state: CPRState, w: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
+    """x₁'s leading components (k, *grid): e_p (CPR), e_pt (CPTR), or all
+    nc with the saturation leg."""
+    if cfg.variant == "cpr":
+        return gmg_apply(state.gmg_p, w[0], cfg.gmg)[None]
+    r_pt = w[0:2]
+    if cfg.inner_iters > 0 and cfg.inner_method == "richardson":
+        # preconditioned Richardson: one application and inner_iters − 1
+        # defect corrections
+        e_pt = _stage1_pt(state, r_pt, cfg)
+        for _ in range(cfg.inner_iters - 1):
+            d = r_pt - state.pt.matvec(e_pt)
+            e_pt = e_pt + _stage1_pt(state, d, cfg)
+    elif cfg.inner_iters > 0:
+        # [P2]'s inner iterations: FGMRES on the decoupled (p, T) system,
+        # preconditioned by the single-pass block combination (imported
+        # here: solve imports precond)
+        from thermalporous_torch.solve.fgmres import fgmres
+
+        e_pt = fgmres(state.pt.matvec, r_pt,
+                      precond=lambda q: _stage1_pt(state, q, cfg),
+                      rtol=cfg.inner_rtol, maxiter=cfg.inner_iters).x
+    else:
+        e_pt = _stage1_pt(state, r_pt, cfg)
+    if state.a_ss is None:
+        return e_pt
+    # the saturation leg: the S residual corrected through the S←(p, T)
+    # couplings, then the decoupled S-S operator smoothed directly
+    r_s = w[2] - state.a_sp.matvec(e_pt[0]) - state.a_st.matvec(e_pt[1])
+    e_s = _s_smooth(state.a_ss, r_s, cfg)
+    return torch.cat([e_pt, e_s[None]])
 
 
 def cpr_apply(state: CPRState, r: torch.Tensor,
               cfg: CPRConfig = CPRConfig()) -> torch.Tensor:
     """Apply M⁻¹ to a state-shaped residual r (nc, *grid)."""
     w = apply_blocks(state.w, r)                    # decoupled residual W·r
-    e_pt = _stage1_pt(state, w[0:2], cfg)           # x₁ = [e_p, e_T, 0]
+    x1 = _stage1(state, w, cfg)                     # x₁ = [x1; 0]
     st = state.stencil
-    # only x₁'s block columns; with two unknowns x₁ has full support and
-    # the full matvec runs, as in the reference
-    cols = cfg.stage2_cols and 2 < st.nc
-    if cols:
-        x1 = e_pt
-    else:
-        x1 = torch.zeros_like(r)
-        x1[0:2] = e_pt
-    if cfg.stage2 == "rbgs" and cfg.stage2_sweeps == 1:
+    k = x1.shape[0]
+    if cfg.stage2 == "none" or not (cfg.stage2_cols and k < st.nc):
+        # x₁ over all nc columns (zero-padded); with two unknowns or the
+        # saturation leg it has full support, as in the reference
+        x1 = torch.cat([x1, torch.zeros_like(r[k:])])
+        k = st.nc
+    if cfg.stage2 == "none":
+        return x1
+    rbgs_kernel = cfg.stage2 == "rbgs" and cfg.stage2_axes is None
+    if rbgs_kernel and cfg.stage2_sweeps == 1:
         return kst.fused_stage2_rbgs(st.coef, state.dinv, r, x1)
-    r2 = r - (st.matvec_cols(x1, 2) if cols else st.matvec(x1))
-    if cfg.stage2 == "rbgs":
-        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps)
-    else:
+    r2 = r - (st.matvec_cols(x1, k) if k < st.nc else st.matvec(x1))
+    if cfg.stage2 == "block_jacobi":
         x2 = apply_blocks(state.dinv, r2)
-    x2[0:2] += e_pt
+    elif cfg.stage2 == "jacobi2":
+        x2 = apply_blocks(state.dinv, r2)
+        x2 = x2 + cfg.stage2_omega * apply_blocks(state.dinv, r2 - st.matvec(x2))
+    elif cfg.stage2 == "zebra":
+        x2 = block_zebra_line_gs(st, r2, axis=cfg.stage2_axis, sweeps=cfg.stage2_sweeps,
+                                 omega=cfg.stage2_omega, factor=state.zebra_fac)
+    elif rbgs_kernel:
+        # with the full coupling stage2_fused is the same function as the
+        # kernels' zero-start sweep
+        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps)
+    elif cfg.stage2_fused:
+        x2 = block_rbgs_fused_zero(st, state.dinv_red, state.dinv_black, r2,
+                                   axes=cfg.stage2_axes)
+        if cfg.stage2_sweeps > 1:
+            # the reference's continuation sweeps take the full coupling
+            # (cpr.py:686-689); copied, pinned by the parity tests
+            x2 = block_red_black_gauss_seidel(st, state.dinv, r2, x=x2,
+                                              sweeps=cfg.stage2_sweeps - 1)
+    else:
+        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps,
+                                          axes=cfg.stage2_axes)
+    x2[0:k] += x1
     return x2
 
 
 def make_preconditioner(name: str, cfg: CPRConfig | None = None):
     """(setup, apply) closures of a named preconditioner: "none", "jacobi"
-    (per-cell block Jacobi) or "cptr".  "cpr", "rbgs" and "lu" are not
-    ported."""
+    (per-cell block Jacobi), "rbgs" (two red-black block Gauss–Seidel
+    sweeps from zero), "lu" (the exact dense inverse; at most 20,000
+    unknowns), "cpr" or "cptr"."""
     name = name.lower()
     if name == "none":
         return (lambda st: None, lambda state, r: r)
+    if name == "lu":
+        def lu_setup(st: BlockStencil) -> torch.Tensor:
+            n = st.nc * math.prod(st.grid_shape)
+            if n > 20000:
+                raise ValueError(f"'lu' preconditioner is dense ({n}² entries); "
+                                 "use it only on tiny grids")
+            return dense_inv(st.to_dense())
+
+        return (lu_setup, lambda inv, r: (inv @ r.reshape(-1)).reshape(r.shape))
     if name == "jacobi":
         return (lambda st: st.diag_inverse(),
                 lambda dinv, r: apply_blocks(dinv, r))
-    if name == "cptr":
-        cfg = cfg or CPRConfig()
+    if name == "rbgs":
+        return (lambda st: (st, st.diag_inverse()),
+                lambda state, r: block_red_black_gauss_seidel(state[0], state[1], r,
+                                                              sweeps=2))
+    if name in ("cpr", "cptr"):
+        cfg = dataclasses.replace(cfg or CPRConfig(), variant=name)
         return (lambda st: cpr_setup(st, cfg),
                 lambda state, r: cpr_apply(state, r, cfg))
-    if name in ("cpr", "rbgs", "lu"):
-        raise NotImplementedError(f"preconditioner {name!r} is not ported")
     raise ValueError(f"unknown preconditioner {name!r}")

@@ -3,18 +3,22 @@
 
 Cell-centred geometric multigrid with piecewise-constant prolongation,
 summation restriction, Galerkin coarse operators (which stay 5/7-point and
-reduce to masked block sums of the fine coefficients), Chebyshev smoothing
-and a dense inverse on the coarsest level.  Cycles: V and the K-cycle (two
-recursive cycles combined by a flexible-CG(2) update; its dot products stay
-on the device).
+reduce to masked block sums of the fine coefficients), Chebyshev (or
+damped Jacobi, red-black Gauss–Seidel, line Jacobi, zebra) smoothing and a
+dense inverse on the coarsest level.  Cycles: V, W (two recursive cycles,
+the second on the first's residual) and the K-cycle (two recursive cycles
+combined by a flexible-CG(2) update; its dot products stay on the device);
+``cycles`` of them per apply.
 
-Ported: geometric full coarsening and the adaptive schedule (a baked
-``level_factors`` from :func:`plan_coarsening`), constant transfer,
-Chebyshev smoothing, one cycle per apply, and the fused coarse subtree
-(``fuse_below``: the whole correction below a small enough level in one
-launch of the ``deep_correction`` kernel).  The W-cycle, the other
-smoothers, semicoarsening, weighted/variational transfers, repeated cycles
-and the multi-device options are not ported.
+Ported: geometric full coarsening (optionally never along the last axis of
+a 3D grid, ``semicoarsen_z``) and the adaptive schedule (a baked
+``level_factors`` from :func:`plan_coarsening`), constant transfer, every
+smoother, and the fused coarse subtree (``fuse_below``: the whole
+correction below a small enough level in one launch of the
+``deep_correction`` kernel, Chebyshev smoothing only).  The weighted and
+variational transfers and the TPU and multi-device options
+(``use_pallas``, ``replicate_below``, ``mesh``) are not ported and have no
+field.
 """
 
 from __future__ import annotations
@@ -26,7 +30,14 @@ import torch
 
 from thermalporous_torch.core.stencil import ScalarStencil
 from thermalporous_torch.kernels import deep_cycle as kdeep
-from thermalporous_torch.precond.chebyshev import chebyshev, gershgorin_lambda_max
+from thermalporous_torch.precond.chebyshev import (
+    chebyshev,
+    gershgorin_lambda_max,
+    line_jacobi,
+    red_black_gauss_seidel,
+    weighted_jacobi,
+    zebra_line_gs,
+)
 
 #: Hopper eligibility of the fused coarse subtree: the bytes it touches
 #: (:func:`kernels.deep_cycle.subtree_bytes`, at the apply dtype) must fit
@@ -35,24 +46,33 @@ from thermalporous_torch.precond.chebyshev import chebyshev, gershgorin_lambda_m
 #: from L2 instead of HBM.
 FUSE_L2_BUDGET_BYTES = 32 * 2**20
 
+SMOOTHERS = ("chebyshev", "jacobi", "rbgs", "line", "zebra")
+
 
 @dataclasses.dataclass(frozen=True)
 class GMGConfig:
     """Static multigrid configuration: the reference's fields for geometric
-    coarsening, constant transfer and Chebyshev smoothing (see
-    ``thermalporous_tpu/precond/gmg.py:GMGConfig``).  Its other options are
-    not ported and have no field here."""
+    coarsening and constant transfer (see
+    ``thermalporous_tpu/precond/gmg.py:GMGConfig``).  Its transfer and
+    TPU/multi-device options are not ported and have no field here."""
 
-    degree: int = 2                   # Chebyshev steps pre and post
+    smoother: str = "chebyshev"       # "chebyshev" | "jacobi" | "rbgs" |
+                                      # "line" (line Jacobi) | "zebra"
+    line_axis: int = -1               # line axis of the line smoothers
+    degree: int = 2                   # smoothing steps pre and post
     lam_min_frac: float = 0.3         # Chebyshev interval lower end
+    jacobi_omega: float = 0.8
     max_coarse_cells: int = 64        # stop coarsening at/below this size
     max_levels: int = 16
-    cycle_type: str = "k"             # "v" | "k"
+    cycles: int = 1                   # cycles per apply
+    cycle_type: str = "k"             # "v" | "w" | "k"
     kcycle_min_cells: int = 256       # smaller levels take a single cycle
     # fused coarse subtree: from a level with at most this many cells whose
     # subtree fits FUSE_L2_BUDGET_BYTES, the whole correction below is one
     # deep_correction launch (0 = off)
     fuse_below: int = 0
+    # never coarsen the last axis of a 3D grid while another axis can be
+    semicoarsen_z: bool = False
     # per-level coarsening factors from plan_coarsening (None = geometric)
     level_factors: tuple[tuple[int, ...], ...] | None = None
     # "geometric" = full coarsening; "adaptive" asks the caller (Simulator /
@@ -61,10 +81,12 @@ class GMGConfig:
     coarsen: str = "geometric"
 
     def __post_init__(self):
-        if self.cycle_type == "w":
-            raise NotImplementedError("the W-cycle is not ported")
-        if self.cycle_type not in ("v", "k"):
+        if self.cycle_type not in ("v", "w", "k"):
             raise ValueError(f"unknown cycle_type {self.cycle_type!r}")
+        if self.smoother not in SMOOTHERS:
+            raise ValueError(f"unknown smoother {self.smoother!r}")
+        if self.cycles < 1:
+            raise ValueError(f"cycles {self.cycles} < 1")
         if self.coarsen not in ("geometric", "adaptive"):
             raise ValueError(f"unknown coarsen {self.coarsen!r}")
 
@@ -147,7 +169,10 @@ def _level_factors(shape: tuple[int, ...], cfg: GMGConfig,
     if (cfg.level_factors is not None and level is not None
             and level < len(cfg.level_factors)):
         return tuple(f if n > 1 else 1 for f, n in zip(cfg.level_factors[level], shape))
-    return tuple(2 if n > 1 else 1 for n in shape)
+    factors = [2 if n > 1 else 1 for n in shape]
+    if cfg.semicoarsen_z and len(shape) == 3 and any(n > 1 for n in shape[:2]):
+        factors[2] = 1
+    return tuple(factors)
 
 
 def axis_strengths(st: ScalarStencil) -> tuple[float, ...]:
@@ -202,9 +227,23 @@ def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig()) -> GMGState:
 
 def _smooth(st: ScalarStencil, lam, b, x, cfg: GMGConfig, second: str | None = None):
     """One smooth; with ``second`` also b − A·y ("residual") or A·y
-    ("product") of its result y, from the smooth's own launch."""
-    return chebyshev(st, b, x, degree=cfg.degree, lam_max=lam,
-                     lam_min_frac=cfg.lam_min_frac, second=second)
+    ("product") of its result y: for Chebyshev from the smooth's own
+    launch, for the other smoothers a matvec after it."""
+    if cfg.smoother == "chebyshev":
+        return chebyshev(st, b, x, degree=cfg.degree, lam_max=lam,
+                         lam_min_frac=cfg.lam_min_frac, second=second)
+    if cfg.smoother == "rbgs":
+        y = red_black_gauss_seidel(st, b, x, sweeps=cfg.degree)
+    elif cfg.smoother == "line":
+        y = line_jacobi(st, b, x, axis=cfg.line_axis, sweeps=cfg.degree)
+    elif cfg.smoother == "zebra":
+        y = zebra_line_gs(st, b, x, axis=cfg.line_axis, sweeps=cfg.degree)
+    else:
+        y = weighted_jacobi(st, b, x, sweeps=cfg.degree, omega=cfg.jacobi_omega)
+    if second is None:
+        return y
+    ay = st.matvec(y)
+    return y, (b - ay if second == "residual" else ay)
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -216,8 +255,9 @@ def _fusable(state: GMGState, level: int, cfg: GMGConfig,
     """Whether the correction at ``level`` runs as one fused subtree (one
     cooperative launch over up to one block per SM): the level has at most
     ``fuse_below`` cells and the subtree, sized at the apply dtype
-    ``dtype``, fits FUSE_L2_BUDGET_BYTES."""
-    if cfg.fuse_below <= 0:
+    ``dtype``, fits FUSE_L2_BUDGET_BYTES; the kernel smooths with
+    Chebyshev only."""
+    if cfg.fuse_below <= 0 or cfg.smoother != "chebyshev":
         return False
     if math.prod(state.stencils[level].grid_shape) > cfg.fuse_below:
         return False
@@ -237,22 +277,27 @@ def _fused_correction(state: GMGState, level: int, rc: torch.Tensor,
 
 def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
                        cfg: GMGConfig) -> torch.Tensor:
-    """Approximate A_level⁻¹ rc: one cycle ("v") or the K-cycle ("k"), or
-    the same math as one fused launch when the subtree is fusable."""
+    """Approximate A_level⁻¹ rc: one cycle ("v"), two cycles ("w": the
+    second on the first's residual) or the K-cycle ("k"), or the same math
+    as one fused launch when the subtree is fusable."""
     if _fusable(state, level, cfg, rc.dtype):
         return _fused_correction(state, level, rc, cfg)
     if (cfg.cycle_type == "v" or level == len(state.stencils) - 1
             or math.prod(state.stencils[level].grid_shape) < cfg.kcycle_min_cells):
         return _v_cycle(state, level, rc, cfg)
+    if cfg.cycle_type == "w":
+        # r1 = rc − A·e1 comes out of e1's post-smooth, which ran against rc
+        e1, r1 = _v_cycle(state, level, rc, cfg, second="residual")
+        return e1 + _v_cycle(state, level, r1, cfg)
     # K-cycle: flexible CG(2) on A_level preconditioned by one cycle; each
     # product A·e comes out of the cycle's post-smooth
-    e1, v1 = _v_cycle(state, level, rc, cfg, product=True)
+    e1, v1 = _v_cycle(state, level, rc, cfg, second="product")
     rho1 = _vdot(v1, e1)
     alpha1 = _vdot(rc, e1)
     safe = torch.where(torch.abs(rho1) > 0, rho1, 1.0)
     x = (alpha1 / safe) * e1
     r1 = rc - (alpha1 / safe) * v1
-    e2, v2 = _v_cycle(state, level, r1, cfg, product=True)
+    e2, v2 = _v_cycle(state, level, r1, cfg, second="product")
     gamma = _vdot(v1, e2)
     beta = _vdot(v2, e2)
     alpha2 = _vdot(r1, e2)
@@ -262,9 +307,10 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
 
 
 def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
-             product: bool = False):
-    """One V-cycle from ``level`` down; with ``product`` (never on the
-    coarsest level) the result e comes with A_level·e."""
+             second: str | None = None):
+    """One V-cycle from ``level`` down; with ``second`` (never on the
+    coarsest level) the result e comes with b − A_level·e ("residual") or
+    A_level·e ("product") from its post-smooth."""
     if level == len(state.stencils) - 1:
         shape = state.stencils[level].grid_shape
         return torch.mv(state.coarse_inv, b.reshape(-1)).reshape(shape)
@@ -277,10 +323,15 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     rc = _blocksum(r, fine, factors)
     ec = _coarse_correction(state, level + 1, rc, cfg)
     x = x + _prolong(ec, fine, factors)
-    return _smooth(st, lam, b, x, cfg, second="product" if product else None)
+    return _smooth(st, lam, b, x, cfg, second=second)
 
 
 def gmg_apply(state: GMGState, b: torch.Tensor,
               cfg: GMGConfig = GMGConfig()) -> torch.Tensor:
-    """Approximate A⁻¹b with one cycle."""
-    return _v_cycle(state, 0, b, cfg)
+    """Approximate A⁻¹b with ``cfg.cycles`` cycles, each after the first on
+    the residual of the sum so far."""
+    x = _v_cycle(state, 0, b, cfg)
+    for _ in range(cfg.cycles - 1):
+        r = b - state.stencils[0].matvec(x)
+        x = x + _v_cycle(state, 0, r, cfg)
+    return x

@@ -5,8 +5,8 @@ Each preset returns a :class:`Case`: the model, its problem data on
 reference's preset of the same name sets.  Ported: the single-phase
 presets ``sp_hot_injection_2d``, ``sp_spe10_layer_2d`` and
 ``sp_geothermal_3d``, the two-phase presets ``tp_thermal_2d``,
-``tp_spe10_3d``, the flagship ``tp_spe10_full`` and ``tp_spe10_padded``.
-``tp_spe10_inner`` waits for CPTR inner iterations.
+``tp_spe10_3d``, the flagship ``tp_spe10_full``, its inner-iteration form
+``tp_spe10_inner`` and ``tp_spe10_padded``.
 
 Every preset builds on the card unless the caller passes ``device="cpu"``.
 """
@@ -274,6 +274,28 @@ def tp_spe10_full(seed: int = 2020, *, shape: tuple[int, int, int] = SPE10_SHAPE
     )
 
 
+def tp_spe10_inner(seed: int = 2020, *, shape: tuple[int, int, int] = SPE10_SHAPE,
+                   device: torch.device | str = "cuda",
+                   dtype: torch.dtype = torch.float32) -> Case:
+    """[P2]'s inner-iteration CPTR on the flagship problem: two inner FGMRES
+    iterations on the decoupled (p, T) system per outer preconditioner
+    application, with the reference preset's historical settings (one
+    hierarchy configuration for p and T, ``gmg_t=None``; the stage-2
+    residual over all columns, ``stage2_cols=False``).  ``shape`` as in
+    :func:`tp_spe10_full`."""
+    case = tp_spe10_full(seed=seed, shape=shape, device=device, dtype=dtype)
+    nx, ny, nz = shape
+    return dataclasses.replace(
+        case,
+        name="tp_spe10_inner",
+        description=("FULL SPE10-size, [P2]-faithful inner-iteration CPTR"
+                     if tuple(shape) == SPE10_SHAPE
+                     else f"inner-iteration CPTR configuration at {nx}x{ny}x{nz}"),
+        pc_cfg=dataclasses.replace(case.pc_cfg, inner_iters=2, gmg_t=None,
+                                   stage2_cols=False),
+    )
+
+
 def tp_spe10_padded(nz_pad: int = 128, seed: int = 2020, *,
                     device: torch.device | str = "cuda",
                     dtype: torch.dtype = torch.float32) -> Case:
@@ -313,6 +335,7 @@ PRESETS = {
     "tp_thermal_2d": tp_thermal_2d,
     "tp_spe10_3d": tp_spe10_3d,
     "tp_spe10_full": tp_spe10_full,
+    "tp_spe10_inner": tp_spe10_inner,
     "tp_spe10_padded": tp_spe10_padded,
 }
 
@@ -324,6 +347,7 @@ CASE_DESCRIPTIONS = {
     "tp_thermal_2d": "2D two-phase dead-oil thermal displacement (60x60)",
     "tp_spe10_3d": "3D two-phase SPE10-subset thermal flood (60x110x16)",
     "tp_spe10_full": "FULL SPE10-size two-phase thermal (60x220x85, 3.37M dof)",
+    "tp_spe10_inner": "FULL SPE10-size, [P2]-faithful inner-iteration CPTR",
     "tp_spe10_padded": "flagship z-padded with inert layers (diagnostic; "
                        "qualify_shape probe)",
 }

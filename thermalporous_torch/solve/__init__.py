@@ -1,6 +1,7 @@
 from thermalporous_torch.solve.fgmres import FGMRESResult, fgmres
 from thermalporous_torch.solve.newton import NewtonConfig, NewtonStats, newton_solve
+from thermalporous_torch.solve.oracle import dense_newton_step, oracle_run
 from thermalporous_torch.solve.timeloop import make_step_fn
 
 __all__ = ["FGMRESResult", "fgmres", "NewtonConfig", "NewtonStats",
-           "newton_solve", "make_step_fn"]
+           "newton_solve", "dense_newton_step", "oracle_run", "make_step_fn"]

@@ -1,8 +1,9 @@
 """Flexible GMRES, right-preconditioned (counterpart of
 ``thermalporous_tpu/solve/fgmres.py``).
 
-One cycle of at most ``maxiter`` Arnoldi steps with early exit, as the
-reference runs it on the step's main path.  Vectors keep their state shape;
+One cycle of at most ``maxiter`` Arnoldi steps with early exit, from zero
+or from a warm start ``x0``, or FGMRES(r) restart cycles up to ``maxiter``
+iterations in total (``restart``).  Vectors keep their state shape;
 the Arnoldi basis V may be stored in bf16 (``basis_dtype``) with projections
 computed in the compute dtype, the flexible basis Z and the solution stay in
 the compute dtype, and the scalar-producing reductions (β, ‖b‖, h_{j+1,j},
@@ -13,12 +14,14 @@ runs on the host in the compute dtype (numpy f32/f64 scalars round like the
 device scalars of the reference); each iteration fetches its new
 Hessenberg column once, which is also where the loop decides to stop.
 
-Orthogonalization: ``orth_gram=0`` is CGS2 (two classical passes);
-``orth_gram=3`` is the low-synchronization CGS2 of the reference's
-``cgs2g`` (the second projection from the carried Gram matrix of the stored
-basis, whose new column comes from real dots).  Warm starts, restarts,
-single-pass CGS, selective reorthogonalization and the algebraic-Gram
-variant are not ported.
+Orthogonalization (``orth_gram=0``): CGS2 (two classical passes,
+``orth_passes=2``), one pass (``orth_passes=1``, ``cgs1``), or the second
+pass only where the first cancelled most of the vector
+(``orth_selective``, ``cgs2s``: Rutishauser's test from scalars in hand,
+decided on the host).  ``orth_gram=3`` and ``2`` are the low-synchronization
+CGS2 of the reference's ``cgs2g`` and ``cgs2g2``: the second projection
+from the carried Gram matrix of the stored basis, whose new column comes
+from real dots (3) or algebraically (2).
 """
 
 from __future__ import annotations
@@ -59,18 +62,33 @@ def fgmres(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
     precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    x0: torch.Tensor | None = None,
     rtol: float = 1e-5,
     atol: float = 0.0,
     maxiter: int = 60,
+    restart: int | None = None,
+    iter_cap: int | None = None,
     basis_dtype: torch.dtype | None = None,
+    orth_passes: int = 2,
+    orth_selective: bool = False,
     orth_gram: int = 0,
 ) -> FGMRESResult:
-    """Solve A x = b from x₀ = 0; stop when the Givens residual estimate is
-    ≤ max(rtol·‖b‖, atol) or after ``maxiter`` iterations."""
-    if orth_gram not in (0, 3):
-        raise NotImplementedError(f"fgmres: orth_gram={orth_gram} is not ported")
+    """Solve A x = b from ``x0`` (None = zero, and no matvec); stop when the
+    Givens residual estimate is ≤ max(rtol·‖b‖, atol) or after ``maxiter``
+    iterations (``iter_cap`` lowers that bound for this call; the restart
+    driver's).  ``restart=r < maxiter`` runs FGMRES(r) cycles, each warm
+    started from the last, up to ``maxiter`` iterations in total."""
+    if orth_gram not in (0, 2, 3):
+        raise ValueError(f"orth_gram must be 0, 2 or 3, got {orth_gram}")
     if precond is None:
         precond = lambda r: r
+    orth = dict(basis_dtype=basis_dtype, orth_passes=orth_passes,
+                orth_selective=orth_selective, orth_gram=orth_gram)
+    if restart is not None and int(restart) < int(maxiter):
+        if iter_cap is not None:
+            raise ValueError("iter_cap cannot be combined with restart")
+        return _fgmres_restarted(matvec, b, precond, x0, rtol, atol, int(maxiter),
+                                 int(restart), **orth)
 
     m = int(maxiter)
     dtype, shape, dev = b.dtype, tuple(b.shape), b.device
@@ -79,9 +97,15 @@ def fgmres(
     rd = reduce_dtype(dtype)
     n = b.numel()
 
-    # cold start: r0 = b, no matvec
-    beta = npt(_norm(b).item())
-    tol = np.maximum(npt(rtol) * beta, npt(atol))
+    if x0 is None:
+        # cold start: r0 = b, no matvec
+        r0 = b
+        beta = b_norm = npt(_norm(b).item())
+    else:
+        r0 = b - matvec(x0)
+        beta, b_norm = (npt(v) for v in torch.stack([_norm(r0), _norm(b)]).cpu().numpy())
+    tol = np.maximum(npt(rtol) * b_norm, npt(atol))
+    jmax = m if iter_cap is None else min(m, int(iter_cap))
 
     V = torch.zeros((m + 1, n), dtype=bd, device=dev)
     Z = torch.empty((m,) + shape, dtype=dtype, device=dev)
@@ -89,7 +113,7 @@ def fgmres(
     cs = np.zeros(m, dtype=npt)
     sn = np.zeros(m, dtype=npt)
     g = np.zeros(m + 1, dtype=npt)
-    V[0] = (b / float(beta if beta > 0 else 1.0)).reshape(-1).to(bd)
+    V[0] = (r0 / float(beta if beta > 0 else 1.0)).reshape(-1).to(bd)
     g[0] = beta
     G = None
     if orth_gram:
@@ -108,7 +132,7 @@ def fgmres(
     tiny = torch.tensor(1e-300, dtype=dtype, device=dev)   # 0 in f32, as in the reference
     j, res, done = 0, beta, bool(beta <= tol)
     breakdown = False
-    while j < m and not done:
+    while j < jmax and not done:
         z = precond(V[j].to(dtype).reshape(shape))
         Z[j] = z
         w = matvec(z).reshape(-1)
@@ -118,17 +142,39 @@ def fgmres(
             hr = c1r + (c1r - G[: j + 1, : j + 1] @ c1r)
             h = hr.to(dtype)
             w = recon(Vs, h, w)
+            h_next = _norm(w)
         else:
             h = proj(Vs, w)
             w = recon(Vs, h, w)
-            h2 = proj(Vs, w)
-            w = recon(Vs, h2, w)
-            h = h + h2
-        h_next = _norm(w)
+            if orth_passes >= 2 and orth_selective:
+                # reorthogonalize only when the first pass cancelled more
+                # than 1 − 1/√2 of w: ‖w_pre‖² = ‖h‖² + ‖w₁‖²
+                h1n = _norm(w)
+                hh = torch.sum((h * h).to(rd)).to(dtype)
+                if bool(h1n * h1n < 0.5 * (hh + h1n * h1n)):
+                    h2 = proj(Vs, w)
+                    w = recon(Vs, h2, w)
+                    h = h + h2
+                    h_next = _norm(w)
+                else:
+                    h_next = h1n
+            else:
+                if orth_passes >= 2:
+                    h2 = proj(Vs, w)
+                    w = recon(Vs, h2, w)
+                    h = h + h2
+                h_next = _norm(w)
         brk = h_next <= tiny
         V[j + 1] = torch.where(brk, 0.0, w / torch.where(brk, 1.0, h_next)).to(bd)
-        if orth_gram:
+        if orth_gram == 3:
+            # real dots against the stored basis, the new vector included
             gcol = proj(V[: j + 2], V[j + 1].to(dtype)).to(rd)
+        elif orth_gram == 2:
+            # algebraic column: Vᵀv_{j+1} = (c₁ − G(c₁ + c₂)) / h_{j+1,j}
+            denom = torch.where(brk, 1.0, h_next).to(rd)
+            gcol = torch.where(brk, 0.0, (c1r - G[: j + 1, : j + 1] @ hr) / denom)
+            gcol = torch.cat([gcol, torch.where(brk, 0.0, 1.0).to(rd).reshape(1)])
+        if orth_gram:
             G[j + 1, : j + 2] = gcol
             G[: j + 2, j + 1] = gcol
         col = torch.cat([h, h_next.reshape(1)]).cpu().numpy()
@@ -161,8 +207,30 @@ def fgmres(
         y[i] = acc / H[i, i]
     if j > 0:
         x = torch.tensordot(torch.as_tensor(y, device=dev), Z[:j], dims=1)
+        if x0 is not None:
+            x = x0 + x
     else:
-        x = torch.zeros_like(b)
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
     converged = bool(res <= tol)
     return FGMRESResult(x=x, iters=j, res_norm=float(res), converged=converged,
                         breakdown=done and not converged)
+
+
+def _fgmres_restarted(matvec, b, precond, x0, rtol, atol, maxiter: int, r: int,
+                      **orth) -> FGMRESResult:
+    """FGMRES(r): single cycles of at most r iterations, each warm started
+    from the last cycle's iterate (one matvec for its true residual), until
+    one converges or breaks down or ``maxiter`` iterations are spent (the
+    last cycle is capped so the total never exceeds it)."""
+    x, tot = x0, 0
+    for _ in range(-(-maxiter // r)):
+        # a cold first cycle starts from zero with r0 = b, which is the
+        # reference's warm start at zero exactly (b − A·0 = b); every cycle
+        # stops at the same tolerance max(rtol·‖b‖, atol)
+        out = fgmres(matvec, b, precond=precond, x0=x, rtol=rtol, atol=atol,
+                     maxiter=r, iter_cap=min(r, maxiter - tot), **orth)
+        tot += out.iters
+        x = out.x
+        if out.converged or out.breakdown or tot >= maxiter:
+            break
+    return dataclasses.replace(out, iters=tot)

@@ -15,11 +15,12 @@ computes it on the device.
 Ported: the Armijo and nonmonotone line searches (``ls_growth``,
 ``ls_div_ratio``), Eisenstat–Walker forcing (with the left-scaling of the
 linear system by the material-balance scales), scaled norms with the
-dtype-aware floor, ``norm_from``, the ``chop`` hook, ``pc_lag="every"`` and
-every ``krylov_op``: ``"stencil_pallas"`` is ``"stencil"`` here, whose
-matvec already is the hand-written block-matvec kernel.  The frozen
-preconditioner (``pc_lag="step"``), restarts and recycling raise
-``NotImplementedError``.
+dtype-aware floor, ``norm_from``, the ``chop`` hook, every ``ksp_orth`` and
+``ksp_restart``, ``pc_lag`` ``"every"`` and ``"step"`` (the preconditioner
+set up once, at the step's first iterate) and every ``krylov_op``:
+``"stencil_pallas"`` is ``"stencil"`` here, whose matvec already is the
+hand-written block-matvec kernel.  Krylov recycling (``ksp_recycle``)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class NewtonConfig:
     ew_threshold: float = 0.1
     ksp_restart: int | None = None
     ksp_basis: str = "same"       # Arnoldi basis storage: "same" | "bf16"
-    ksp_orth: str = "cgs2"        # ported: "cgs2" | "cgs2g"
+    ksp_orth: str = "cgs2"        # "cgs2" | "cgs1" | "cgs2s" | "cgs2g" | "cgs2g2"
     ksp_recycle: int = 0
     max_backtracks: int = 6
     ls_decrease: float = 1e-4
@@ -61,7 +62,7 @@ class NewtonConfig:
     ls_growth: float = 0.25
     ls_div_ratio: float = 4.0
     ds_max: float | None = None
-    pc_lag: str = "every"         # ported: "every"
+    pc_lag: str = "every"         # "every" | "step" (set up once a step)
     krylov_op: str = "stencil"    # "stencil" | "jvp" | "stencil_pallas"
 
     def __post_init__(self):
@@ -79,14 +80,8 @@ class NewtonConfig:
 
 
 def _check_ported(cfg: NewtonConfig) -> None:
-    if cfg.ksp_orth not in ("cgs2", "cgs2g"):
-        raise NotImplementedError(f"ksp_orth {cfg.ksp_orth!r} is not ported")
-    if cfg.ksp_restart is not None and cfg.ksp_restart < cfg.ksp_maxiter:
-        raise NotImplementedError("FGMRES restarts are not ported")
     if cfg.ksp_recycle:
         raise NotImplementedError("Krylov recycling is not ported")
-    if cfg.pc_lag != "every":
-        raise NotImplementedError(f"pc_lag {cfg.pc_lag!r} is not ported")
 
 
 @dataclasses.dataclass
@@ -155,11 +150,21 @@ def newton_solve(
     eta = npt(min(max(cfg.ew_rtol0, cfg.ksp_rtol), cfg.ew_rtolmax)) if cfg.ksp_ew else None
     tiny = npt(torch.finfo(dtype).tiny)
 
+    orth = dict(orth_passes=1 if cfg.ksp_orth == "cgs1" else 2,
+                orth_selective=cfg.ksp_orth == "cgs2s",
+                orth_gram={"cgs2g": 3, "cgs2g2": 2}.get(cfg.ksp_orth, 0))
+
     u, f, nrm, k, ksp, failed = u0, f0, nrm_start, 0, 0, False
     while nrm > tol and k < cfg.max_iters and not failed:
-        st = assemble(u)                 # exact J: the preconditioner's input
-        pcs = pc_setup(st)
-        op = jvp_at(u) if cfg.krylov_op == "jvp" else st.matvec
+        if cfg.krylov_op == "jvp":
+            op = jvp_at(u)
+            if k == 0 or cfg.pc_lag == "every":
+                pcs = pc_setup(assemble(u))
+        else:
+            st = assemble(u)             # exact J: the operator
+            op = st.matvec
+            if k == 0 or cfg.pc_lag == "every":
+                pcs = pc_setup(st)       # and the preconditioner's input
         if cfg.ksp_ew and scale is not None:
             # left-scale the system by the material-balance scales, so that
             # FGMRES enforces η in the norm Newton gates on
@@ -172,8 +177,8 @@ def newton_solve(
         result = fgmres(
             matvec, rhs, precond=krylov_pc,
             rtol=eta if cfg.ksp_ew else cfg.ksp_rtol, atol=cfg.ksp_atol,
-            maxiter=cfg.ksp_maxiter, basis_dtype=basis,
-            orth_gram=3 if cfg.ksp_orth == "cgs2g" else 0,
+            maxiter=cfg.ksp_maxiter, restart=cfg.ksp_restart, basis_dtype=basis,
+            **orth,
         )
         dx = result.x
         if chop is not None:
