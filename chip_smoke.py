@@ -1433,7 +1433,7 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    with count_by_columns({} if by_cols is None else by_cols):
+    with contextlib.nullcontext() if by_cols is None else count_by_columns(by_cols):
         res = sim.run(case.t_end, max_steps=steps)
         torch.cuda.synchronize()
     launches = launch_counts()
@@ -1805,6 +1805,32 @@ def inner_cases(dtype, dev):
     return st, pt, cases, pt_cases
 
 
+def inner_apply_times(dev) -> dict:
+    """Phase 10(b): the CPTR apply of tp_spe10_inner (two inner FGMRES
+    iterations at most, the stage 2 at k = 3) against tp_spe10_full's on
+    their own Jacobians at the same perturbed state, f32, in turns (full,
+    inner, inner, full), with the subtree launches of one apply."""
+    from thermalporous_torch.kernels import deep_cycle as kdeep
+    from thermalporous_torch.precond.cpr import cpr_apply
+
+    runs = {}
+    for name in ("tp_spe10_full", "tp_spe10_inner"):
+        _, _, _, pc, st, state = preset_state(name, torch.float32, dev,
+                                              dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+        g = torch.Generator(device=dev).manual_seed(15)
+        r = torch.randn((3,) + st.grid_shape, generator=g, dtype=torch.float32, device=dev)
+        runs[name] = (lambda state=state, r=r, pc=pc: cpr_apply(state, r, pc))
+    times: dict = {}
+    for name in ("tp_spe10_full", "tp_spe10_inner", "tp_spe10_inner", "tp_spe10_full"):
+        kdeep.deep_correction.launches = 0
+        runs[name]()
+        per_apply = kdeep.deep_correction.launches
+        times.setdefault(name, []).append(time_ms(runs[name], reps=10))
+        print(f"  CPTR apply {name}: {times[name][-1]:.3f} ms ({per_apply} deep_correction "
+              f"launches an apply)", flush=True)
+    return times
+
+
 @contextlib.contextmanager
 def count_by_columns(by: dict):
     """Count block matvecs by (nc, k) and stage 2s by k in ``by`` while the
@@ -2086,6 +2112,7 @@ def main() -> int:
             run_cases(tname, pt_cases, pt, irec_pt, dtype, record=dtype == torch.float32)
             del st, pt, cases, pt_cases
             torch.cuda.empty_cache()
+        apply_ms = inner_apply_times(dev)
         inner_cols: dict = {}
         irecs, ilaunches, iattempts, icu_s, ipeak = flagship_run(
             dev, INNER_STEPS, name="tp_spe10_inner", by_cols=inner_cols)
@@ -2113,7 +2140,7 @@ def main() -> int:
             if want(10):
                 part.update(w_cycle_cases=wrec, line_smoother_ms=LINE_TIMES,
                             inner_cases=irec, inner_pt_cases=irec_pt,
-                            inner_steps=[r.as_dict() for r in irecs],
+                            inner_steps=[r.as_dict() for r in irecs], inner_apply_ms=apply_ms,
                             inner_launches=ilaunches, inner_launches_by_columns=inner_cols,
                             inner_cell_updates_per_s=icu_s, inner_peak_gib=ipeak,
                             solver_options=opts)
@@ -2179,7 +2206,7 @@ def main() -> int:
                        "sp_geothermal_jvp_launches": sj_launches,
                        "w_cycle_cases": wrec, "line_smoother_ms": LINE_TIMES,
                        "inner_cases": irec, "inner_pt_cases": irec_pt,
-                       "inner_steps": [r.as_dict() for r in irecs],
+                       "inner_steps": [r.as_dict() for r in irecs], "inner_apply_ms": apply_ms,
                        "inner_launches": ilaunches, "inner_launches_by_columns": inner_cols,
                        "inner_newton_all_attempts": iattempts,
                        "inner_cell_updates_per_s": icu_s, "inner_peak_gib": ipeak,
