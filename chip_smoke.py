@@ -74,8 +74,8 @@ Phases (each prints one line with its wall time):
   9  matrix-free Krylov operator (krylov_op="jvp"): the flagship
      configuration at 12x22x9, f64, on the GPU and on the CPU (counts must
      agree); tp_spe10_full at 60x220x85, f32, for its first 2 controller
-     steps with the stencil operator and with the J(u)v operator in turns
-     (stencil, jvp, jvp, stencil), beside phase 6's counts; sp_geothermal_3d
+     steps with the stencil operator, then with the J(u)v operator, beside
+     phase 6's counts; sp_geothermal_3d
      for 2 steps; the J(u)v kernel of each model must launch;
  10  solver options: (a) the W-cycle in the fused subtree on the flagship's
      pressure and temperature hierarchies from the ~145k- and ~36k-cell
@@ -92,7 +92,25 @@ Phases (each prints one line with its wall time):
      6's counts; (c) every solver option of the parity tests on the
      flagship configuration at 12x22x9, f64, 2 controller steps on the GPU
      and on the CPU (tasks of a pool of worker processes): the counts must
-     agree, and the stage-2 route each took on the card is printed.
+     agree, and the stage-2 route each took on the card is printed;
+ 11  the run_case path: (a) thermalporous_torch.run_case.main in this
+     process on tp_spe10_full at 60x220x85, f32, for 3 steps with a
+     checkpoint and a VTK frame every step, JSONL metrics and the balance
+     audit: per-step counts and walls, cell-updates/s over steps 2-3, the
+     ms of each checkpoint, frame (about 13.5 MB each; the native VTI
+     writer must write every frame) and audit call, the balance rows
+     (complete, finite), every flagship kernel launched; then --resume from
+     the step-2 checkpoint, whose step-3 checkpoint must equal the
+     uninterrupted run's bit for bit; then python -m
+     thermalporous_torch.run_case on tp_thermal_2d in a subprocess; (b) the
+     flagship configuration at 12x22x9, f64, in blocks of 3 for 6 steps on
+     the GPU and the CPU (dt, counts and the state-consistent pattern must
+     agree) and the host loop on the GPU (the same records, final state and
+     balance audit); (c) tp_thermal_2d at 60x60, f64, under two control
+     segments (the producer shut in halfway) on the GPU and the CPU: counts
+     must agree, a step must land on the boundary, the balance audit must
+     close below 1e-9; the CPU runs of (b) and (c) and the card's host-loop
+     run in three worker processes at the same time as the rest.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -113,6 +131,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import pathlib
 import re
 import shutil
 import statistics
@@ -122,6 +141,8 @@ import time
 
 import numpy as np
 import torch
+
+REPO = pathlib.Path(__file__).resolve().parent
 
 # Tolerances, as max|kernel - plain| / max|plain| over each output component.
 TOL_F64 = 1e-12
@@ -149,6 +170,7 @@ N_MAIN = 1024          # bench.py grid
 N_SLICE = 32           # phase-3 grid
 SLICE_COARSE = 16      # phase-3 max_coarse_cells: keeps a 4-level hierarchy at 32^2
 FLAGSHIP_SMALL = (12, 22, 9)   # phase-5 grid
+SPE10_FULL = (60, 220, 85)     # the flagship's grid
 # phase 5: coarsest levels of at most 16 cells keep >= 3 levels in both
 # hierarchies, K-cycles from 256 cells run at this size, and the subtree
 # below 300 cells is fused
@@ -173,7 +195,7 @@ AWKWARD_SHAPES = ((61, 219, 83), (1023, 1021))
 # tile in any axis; the last two have extents smaller than a tile
 MODEL_SHAPES = ((61, 219, 83), (1023, 1021), (37, 5, 19), (9, 21))
 # phase 9: the Krylov operators of the full-size flagship runs, in turns
-OPERATOR_TURNS = ("stencil", "jvp", "jvp", "stencil")
+OPERATOR_TURNS = ("stencil", "jvp")
 # (kind, blocks, threads) of the barrier probe: grid barriers, then
 # cluster barriers (a cluster of 16 is the non-portable size)
 BARRIER_PROBES = ((0, 8, 256), (0, 36, 1024), (0, 132, 256), (0, 132, 512),
@@ -1930,6 +1952,274 @@ def option_runs(workers: int = OPTION_WORKERS) -> dict:
     return out
 
 
+# phase 11: the run_case path
+CLI_STEPS = 3          # controller steps of the flagship CLI run
+BLOCK_STEPS = 3        # phase 11(b): steps per block
+BLOCK_RUN_STEPS = 6    # phase 11(b): controller steps
+SCHED_T_END = 6 * 3600.0   # phase 11(c): the producer is shut in at half of it
+SCHED_NEWTON = dict(rtol=1e-10, max_iters=20)   # tests/test_schedule.py's tolerance
+CLOSURE_TOL = 1e-9     # the audit's relative closure at that tolerance (f64)
+
+
+def cli_flagship(out_dir) -> dict:
+    """Phase 11(a): ``run_case.main`` in this process on tp_spe10_full
+    (60x220x85, f32) for CLI_STEPS steps with a checkpoint and a VTK frame
+    every step, JSONL metrics and the balance audit; the writes timed (the
+    checkpoint's save, the frame's device-to-host copy and write, the
+    audit's call), the native VTI writer required; every flagship kernel launched; then a
+    resume from the step-2 checkpoint, whose step-3 checkpoint must equal
+    the uninterrupted run's bit for bit; then the module entry point in a
+    subprocess."""
+    from unittest import mock
+
+    import thermalporous_torch.io as tio
+    from thermalporous_torch import run_case
+    from thermalporous_torch.io import checkpoint as tckpt
+    from thermalporous_torch.io import native
+    from thermalporous_torch.io import vti as tvti
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ck, ck2 = out_dir / "ck", out_dir / "ck2"
+    metrics, metrics2 = out_dir / "m.jsonl", out_dir / "m2.jsonl"
+    times = {"checkpoint_ms": [], "vtk_copy_ms": [], "vtk_write_ms": [], "audit_ms": []}
+    native_writes = [0]
+    auditors = []
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return call
+
+    def raw(*args):
+        wrote = real_raw(*args)
+        native_writes[0] += int(wrote)
+        return wrote
+
+    class Auditor(tio.BalanceAuditor):
+        def __init__(self, *args):
+            super().__init__(*args)
+            auditors.append(self)
+
+        def __call__(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().__call__(*args)
+            times["audit_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    real_raw = native.write_vti_raw
+    flags = ["--case", "tp_spe10_full", "--f32", "--max-steps", str(CLI_STEPS),
+             "--fuse-below", str(FLAGSHIP_FUSE_BELOW), "--quiet"]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            tckpt, "save_checkpoint", timed(tckpt.save_checkpoint, "checkpoint_ms")))
+        stack.enter_context(mock.patch.object(
+            tio, "state_fields", timed(tio.state_fields, "vtk_copy_ms")))
+        stack.enter_context(mock.patch.object(
+            tvti, "write_vti", timed(tvti.write_vti, "vtk_write_ms")))
+        stack.enter_context(mock.patch.object(native, "write_vti_raw", raw))
+        stack.enter_context(mock.patch.object(tio, "BalanceAuditor", Auditor))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        run_case.main(flags + ["--ckpt-dir", str(ck), "--ckpt-every", "1",
+                               "--metrics", str(metrics), "--vtk", str(out_dir / "vtk"),
+                               "--vtk-every", "1", "--balance"])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    recs = [json.loads(line) for line in open(metrics)]
+    for r in recs:
+        print(f"  step {r['step']} dt {r['dt']:.1f} s: newton {r['newton_iters']} fgmres "
+              f"{r['ksp_iters']} retries {r['retries']} wall {r['wall_s']:.3f} s")
+    if len(recs) != CLI_STEPS:
+        raise SystemExit(f"cli: {len(recs)} steps, want {CLI_STEPS}")
+    later = recs[1:]
+    cu_s = (math.prod(SPE10_FULL) * sum(r["newton_iters"] for r in later)
+            / sum(r["wall_s"] for r in later))
+    print(f"  launches {launches}")
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"cli: launched no {missing}")
+    n_frames = CLI_STEPS + 1
+    frame_bytes = (out_dir / "vtk" / "tp_spe10_full_00001.vti").stat().st_size
+    ckpt_bytes = (ck / "ckpt_0000001.npz").stat().st_size
+    print(f"  native VTI writer available {native.available()}, wrote "
+          f"{native_writes[0]} of {n_frames} frames; frame {frame_bytes} B, checkpoint "
+          f"{ckpt_bytes} B")
+    if not native.available() or native_writes[0] != n_frames:
+        raise SystemExit("cli: the native VTI writer did not write every frame")
+    for key, vals in times.items():
+        print(f"  {key}: " + ", ".join(f"{v:.3f}" for v in vals))
+    if (len(times["checkpoint_ms"]) != CLI_STEPS or len(times["audit_ms"]) != CLI_STEPS
+            or len(times["vtk_write_ms"]) != n_frames):
+        raise SystemExit(f"cli: writes {times}")
+    rep = auditors[0].report()
+    rel = {lab: row["rel_error"] for lab, row in rep["rows"].items()}
+    print(f"  balance: complete {rep['complete']}, {rep['steps']} steps, rel_error {rel}")
+    if not (rep["complete"] and rep["steps"] == CLI_STEPS
+            and all(math.isfinite(v) for v in rel.values())):
+        raise SystemExit(f"cli: balance report {rep}")
+    final = np.load(ck / f"ckpt_{CLI_STEPS:07d}.npz")
+    check_physical(torch.as_tensor(final["u"]), SPE10_FULL, "cli")
+
+    print("  resumed from the step-2 checkpoint:", flush=True)
+    run_case.main(flags + ["--resume", str(ck / "ckpt_0000002.npz"), "--ckpt-dir", str(ck2),
+                           "--ckpt-every", "1", "--metrics", str(metrics2)])
+    again = np.load(ck2 / f"ckpt_{CLI_STEPS:07d}.npz")
+    same = {k: bool(np.array_equal(final[k], again[k])) for k in ("u", "t", "dt", "step")}
+    rec2 = [json.loads(line) for line in open(metrics2)]
+    key = lambda r: (r["step"], r["t"], r["dt"], r["newton_iters"], r["ksp_iters"])
+    print(f"  resumed step: {[key(r) for r in rec2]} | uninterrupted {key(recs[-1])}; "
+          f"bitwise {same}")
+    if not all(same.values()) or [key(r) for r in rec2] != [key(recs[-1])]:
+        raise SystemExit("cli: the resumed run is not the uninterrupted run's bits")
+
+    sub = subprocess.run([sys.executable, "-m", "thermalporous_torch.run_case", "--case",
+                          "tp_thermal_2d", "--f32", "--t-end-days", "0.05", "--quiet"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    done = [line for line in sub.stdout.splitlines() if line.startswith("# done:")]
+    print(f"  python -m thermalporous_torch.run_case: rc {sub.returncode}; {done}")
+    if sub.returncode != 0 or not done:
+        raise SystemExit(f"cli module entry point failed:\n{sub.stdout}\n{sub.stderr}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"steps": recs, "cell_updates_per_s": cu_s, "launches": launches,
+            "write_ms": times, "frame_bytes": frame_bytes, "checkpoint_bytes": ckpt_bytes,
+            "balance": rep, "resumed_bitwise": same}
+
+
+def blocked_run(device: str, block_steps: int):
+    """One run of phase 11(b): the flagship configuration at FLAGSHIP_SMALL,
+    f64, in blocks of ``block_steps`` for BLOCK_RUN_STEPS steps with the
+    balance audit; returns ((dt, Newton, FGMRES, retries, state-consistent)
+    per record, the audit's rel_error per row, the auditor, the final state,
+    the launches)."""
+    from thermalporous_torch.io import BalanceAuditor
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+
+    case = get_case("tp_spe10_full", device=device, dtype=torch.float64, shape=FLAGSHIP_SMALL)
+    sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, **SMALL_GMG),
+                         time_cfg=dataclasses.replace(case.time_cfg, block_steps=block_steps))
+    aud = BalanceAuditor(case.model, case.data, case.model.initial_state(case.data))
+    reset_launch_counts()
+    res = sim.run(case.t_end, max_steps=BLOCK_RUN_STEPS, callback=aud)
+    recs = [(r.dt, r.newton_iters, r.ksp_iters, r.retries, r.state_consistent)
+            for r in res.records]
+    rel = {k: v["rel_error"] for k, v in aud.report()["rows"].items()}
+    return recs, rel, aud, res.u, launch_counts()
+
+
+def schedule_run(device: str) -> dict:
+    """One run of phase 11(c): tp_thermal_2d at its preset size (60x60),
+    f64, at SCHED_NEWTON, under two control segments (the producer shut in
+    at SCHED_T_END / 2) with the balance audit."""
+    from thermalporous_torch.io import BalanceAuditor
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.physics import WellFields
+    from thermalporous_torch.presets import get_case
+
+    t_switch = SCHED_T_END / 2
+    case = get_case("tp_thermal_2d", device=device, dtype=torch.float64)
+    sim = case.simulator(newton_cfg=dataclasses.replace(case.newton_cfg, **SCHED_NEWTON))
+    wells = case.data.wells
+    prod = torch.as_tensor(case.well_masks["PROD"], device=wells.wi.device)
+    shut = WellFields(**{f.name: torch.where(prod, 0.0, getattr(wells, f.name))
+                         for f in dataclasses.fields(WellFields)})
+    u0 = case.model.initial_state(case.data)
+    aud = BalanceAuditor(case.model, case.data, u0)
+    reset_launch_counts()
+    res = sim.run_schedule([(0.0, wells), (t_switch, shut)], t_end=SCHED_T_END, u0=u0,
+                           callback=aud)
+    rep = aud.report()
+    return {"records": [(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records],
+            "on_boundary": any(r.t == t_switch for r in res.records), "t": res.t,
+            "rel_error": {lab: row["rel_error"] for lab, row in rep["rows"].items()},
+            "complete": rep["complete"], "launches": launch_counts()}
+
+
+def _phase11_task(kind: str, threads: int) -> dict:
+    """One run of phase 11(b) or (c) in a worker process of
+    :func:`phase11_parity`: "blocked cpu", "host cuda" (the host loop, with
+    the caller's ``threads``, so that any host-side reduction sums as the
+    caller's does) or "schedule cpu"; returns plain data (the caller checks
+    it)."""
+    torch.set_num_threads(threads if kind == "host cuda" else 1)
+    t = time.perf_counter()
+    if kind == "schedule cpu":
+        out = schedule_run("cpu")
+    else:
+        device = kind.split()[1]
+        recs, rel, aud, u, _ = blocked_run(device, BLOCK_STEPS if kind == "blocked cpu" else 1)
+        out = {"records": recs, "rel_error": rel, "steps": aud.steps, "cum": aud.cum,
+               "m_last": aud.m_last, "u": u.cpu().numpy()}
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def phase11_parity() -> tuple[dict, dict]:
+    """Phase 11(b) and (c): the card's blocked run and schedule here, the
+    CPU's runs and the card's host-loop run in three worker processes at the
+    same time.  (b): (dt, Newton, FGMRES, retries, state-consistent) per
+    record equal on the GPU and the CPU, and the blocked run's records, final
+    state and audit equal to the host loop's on the card (the audit's
+    closure at the flagship's Newton tolerance printed).  (c): (dt, Newton,
+    FGMRES, retries) equal, a step on the boundary and the audit closed below
+    CLOSURE_TOL on each device."""
+    import multiprocessing
+
+    kinds = ("blocked cpu", "host cuda", "schedule cpu")
+    with multiprocessing.get_context("spawn").Pool(len(kinds)) as pool:
+        pending = {k: pool.apply_async(_phase11_task, (k, torch.get_num_threads()))
+                   for k in kinds}
+        t = time.perf_counter()
+        recs, rel, aud, u, launches = blocked_run("cuda", BLOCK_STEPS)
+        blocked_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sched = {"cuda": schedule_run("cuda")}
+        sched["cuda"]["s"] = time.perf_counter() - t
+        done = {k: p.get(timeout=900) for k, p in pending.items()}
+        pool.close()
+        pool.join()
+    cpu, host = done["blocked cpu"], done["host cuda"]
+    blocked = {"cpu": cpu["records"], "cuda": recs, "host cuda": host["records"],
+               "rel_error cpu": cpu["rel_error"], "rel_error cuda": rel,
+               "rel_error host cuda": host["rel_error"], "launches": launches,
+               "cpu_s": cpu["s"], "cuda_s": blocked_s, "host_cuda_s": host["s"]}
+    for label in ("cpu", "cuda", "host cuda"):
+        print(f"  (b) {label}: audit rel_error {blocked['rel_error ' + label]}; "
+              f"{blocked[label.replace(' ', '_') + '_s']:.1f} s")
+    print(f"  (b) launches (blocked, cuda) {launches}")
+    consistent = [r[4] for r in recs]
+    if (cpu["records"] != recs or len(recs) != BLOCK_RUN_STEPS
+            or consistent != [(i + 1) % BLOCK_STEPS == 0 for i in range(BLOCK_RUN_STEPS)]):
+        raise SystemExit(f"blocked: cpu {cpu['records']} != cuda {recs}")
+    if ([r[:4] for r in host["records"]] != [r[:4] for r in recs]
+            or not np.array_equal(u.cpu().numpy(), host["u"])):
+        raise SystemExit(f"blocked: blocked {recs} != host loop {host['records']} "
+                         "(or their states)")
+    if not (aud.steps == host["steps"] and aud.report()["complete"]
+            and np.allclose(aud.cum, host["cum"], rtol=1e-12, atol=0)
+            and np.array_equal(aud.m_last, host["m_last"])):
+        raise SystemExit(f"blocked: audit {aud.report()} != the host loop's")
+    sched["cpu"] = done["schedule cpu"]
+    for d in ("cpu", "cuda"):
+        r = sched[d]
+        print(f"  (c) {d}: {len(r['records'])} steps to t={r['t']:.1f} s, a step on "
+              f"{SCHED_T_END / 2:.0f} s {r['on_boundary']}, rel_error {r['rel_error']}; "
+              f"{r['s']:.1f} s")
+        if not (r["on_boundary"] and r["complete"] and r["t"] == SCHED_T_END
+                and all(v < CLOSURE_TOL for v in r["rel_error"].values())):
+            raise SystemExit(f"schedule ({d}): {r}")
+    print(f"  (c) launches (cuda) {sched['cuda']['launches']}")
+    if sched["cpu"]["records"] != sched["cuda"]["records"]:
+        raise SystemExit(f"schedule: cpu {sched['cpu']['records']} != cuda "
+                         f"{sched['cuda']['records']}")
+    return blocked, sched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the full record to this path")
@@ -2131,6 +2421,26 @@ def main() -> int:
               f"cell-updates/s over steps 2-{len(irecs)}, peak mem {ipeak:.2f} GiB; "
               f"{len(opts)} options GPU == CPU")
 
+    # (11) the run_case path: the CLI, blocked stepping, a control schedule
+    if want(11):
+        t0 = time.perf_counter()
+        print("  (a) run_case on tp_spe10_full, every output on", flush=True)
+        cli = cli_flagship(REPO / "out" / "chip_smoke_p11")
+        t_a = time.perf_counter() - t0
+        print(f"  (a) {t_a:.1f} s; (b) blocked stepping and (c) a control schedule",
+              flush=True)
+        blocked, sched = phase11_parity()
+        print(f"  (b) {'x'.join(map(str, FLAGSHIP_SMALL))} f64 in blocks of {BLOCK_STEPS} "
+              f"(dt, newton, fgmres, retries, consistent): cpu {blocked['cpu']} == cuda "
+              f"{blocked['cuda']} == cuda host loop {blocked['host cuda']}")
+        print(f"  (c) tp_thermal_2d 60x60 f64 (dt, newton, fgmres, retries): cpu "
+              f"{sched['cpu']['records']} == cuda {sched['cuda']['records']}")
+        phase("11 run_case path", t0, f"run_case tp_spe10_full f32: {cli['cell_updates_per_s']:.1f} "
+              f"cell-updates/s over steps 2-{CLI_STEPS}, checkpoint "
+              f"{statistics.median(cli['write_ms']['checkpoint_ms']):.3f} ms, VTK frame "
+              f"{statistics.median(cli['write_ms']['vtk_write_ms']):.3f} ms (median), resume "
+              f"bitwise; blocked and schedule GPU == CPU")
+
     if phases is not None:
         if args.json:
             part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
@@ -2144,6 +2454,8 @@ def main() -> int:
                             inner_launches=ilaunches, inner_launches_by_columns=inner_cols,
                             inner_cell_updates_per_s=icu_s, inner_peak_gib=ipeak,
                             solver_options=opts)
+            if want(11):
+                part.update(cli=cli, blocked=blocked, schedule=sched)
             with open(args.json, "w") as fh:
                 json.dump(part, fh, indent=1)
         print(f"partial run (phases {sorted(phases)}): no kernels line, no ok line")
@@ -2210,7 +2522,8 @@ def main() -> int:
                        "inner_launches": ilaunches, "inner_launches_by_columns": inner_cols,
                        "inner_newton_all_attempts": iattempts,
                        "inner_cell_updates_per_s": icu_s, "inner_peak_gib": ipeak,
-                       "solver_options": opts,
+                       "solver_options": opts, "cli": cli, "blocked": blocked,
+                       "schedule": sched,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

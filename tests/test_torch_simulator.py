@@ -177,8 +177,12 @@ def test_dt_cap_seeds_and_resumes(runs):
 
 
 def test_time_config_and_interop_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        TimeConfig(block_steps=4)
+    # blocked stepping is ported: block_steps > 1 constructs and carries across
+    assert TimeConfig(block_steps=4).block_steps == 4
+    assert config_from_dict(TimeConfig, dataclasses.asdict(JTimeConfig(block_steps=4))) == (
+        TimeConfig(block_steps=4))
+    with pytest.raises(ValueError, match="predictor"):
+        TimeConfig(predictor="quadratic")
     assert ({f.name for f in dataclasses.fields(TimeConfig)}
             == {f.name for f in dataclasses.fields(JTimeConfig)})
     # a reference field the port lacks passes at its default only

@@ -43,10 +43,15 @@ class SPE10Fields:
 
 
 def _read_floats(path: str, nmax: int) -> np.ndarray:
-    """Whitespace-separated floats of a text file.  ``nmax`` is the most the
-    caller expects; the caller checks the count."""
-    del nmax
-    return np.fromfile(path, sep=" ")
+    """Whitespace-separated floats of a text file, at most ``nmax`` (the
+    caller checks the count): through the native parser when its library
+    builds, else numpy."""
+    from thermalporous_torch.io import native
+
+    vals = native.parse_floats(path, nmax)
+    if vals is None:
+        vals = np.fromfile(path, sep=" ")
+    return vals
 
 
 def load_spe10(perm_path: str, phi_path: str) -> SPE10Fields:

@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 from torch.func import jvp
 
+from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.core.grid import (
     Grid,
     divergence_add,
@@ -81,6 +82,17 @@ class ProblemData:
     def wells(self) -> WellFields:
         base = 2 * self.dim + 1
         return WellFields(*(self.fields[base + i] for i in range(len(WELL_FIELDS))))
+
+    def with_wells(self, wells: WellFields) -> "ProblemData":
+        """The same problem under other well/heater fields (a control
+        segment): a new packed tensor with the six well channels written from
+        ``wells``; this one's tensor, which other runs may share, is left as
+        it is."""
+        fields = self.fields.clone()
+        base = 2 * self.dim + 1
+        for i, name in enumerate(WELL_FIELDS):
+            fields[base + i].copy_(getattr(wells, name))
+        return ProblemData(fields)
 
 
 def make_problem_data(
@@ -152,9 +164,10 @@ class ThermalModelBase:
         raise NotImplementedError
 
     def source_totals(self, u, data: ProblemData) -> torch.Tensor:
-        """Net well/heater source per equation row at state ``u``, (nc,)."""
+        """Net well/heater source per equation row at state ``u``, (nc,),
+        summed in f64 when the state is f32."""
         q = self.well_sources(u, data.wells)
-        return q.reshape(self.nc, -1).sum(dim=1)
+        return q.reshape(self.nc, -1).sum(dim=1, dtype=reduce_dtype(u.dtype))
 
     # -- residual -----------------------------------------------------------
     def residual(self, u: torch.Tensor, u_old: torch.Tensor, dt,

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.physics.wells import WellFields
 
@@ -61,13 +62,15 @@ class SinglePhaseModel(ThermalModelBase):
 
     def in_place_totals(self, u, data: ProblemData) -> torch.Tensor:
         """(total fluid mass [kg], total thermal energy [J]): the integrals
-        of the ``cell_terms`` accumulation densities."""
+        of the ``cell_terms`` accumulation densities, summed in f64 when the
+        state is f32."""
         pp = self.pp
         vol = self.grid.cell_volume
         p, T = u[0], u[1]
         m = vol * data.phi * pp.rho_w(p, T)
         e = vol * pp.energy_density_sp(p, T, data.phi)
-        return torch.stack([m.sum(), e.sum()])
+        acc = reduce_dtype(u.dtype)
+        return torch.stack([m.sum(dtype=acc), e.sum(dtype=acc)])
 
     def face_terms(self, axis, u_l, u_r, tgeo, tcond):
         pp = self.pp

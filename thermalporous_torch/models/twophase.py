@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.core.grid import Grid
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.physics.props import PhysicalParams
@@ -84,6 +85,19 @@ class TwoPhaseModel(ThermalModelBase):
         acc_e = vol * (pp.energy_density_tp(p, T, s, phi)
                        - pp.energy_density_tp(p0, T0, s0, phi)) / dt
         return torch.stack([acc_w, acc_e, acc_o]) - self.well_sources(u, well)
+
+    def in_place_totals(self, u, data: ProblemData) -> torch.Tensor:
+        """(water mass [kg], thermal energy [J], oil mass [kg]) in the
+        equation-row order: the integrals of the ``cell_terms`` accumulation
+        densities, summed in f64 when the state is f32."""
+        pp = self.pp
+        vol = self.grid.cell_volume
+        p, T, s = u[0], u[1], u[2]
+        w = vol * data.phi * pp.rho_w(p, T) * s
+        o = vol * data.phi * pp.rho_o(p, T) * (1.0 - s)
+        e = vol * pp.energy_density_tp(p, T, s, data.phi)
+        acc = reduce_dtype(u.dtype)
+        return torch.stack([w.sum(dtype=acc), e.sum(dtype=acc), o.sum(dtype=acc)])
 
     def face_terms(self, axis, u_l, u_r, tgeo, tcond):
         pp = self.pp
