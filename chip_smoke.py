@@ -74,8 +74,8 @@ Phases (each prints one line with its wall time):
   9  matrix-free Krylov operator (krylov_op="jvp"): the flagship
      configuration at 12x22x9, f64, on the GPU and on the CPU (counts must
      agree); tp_spe10_full at 60x220x85, f32, for its first 2 controller
-     steps with the stencil operator, then with the J(u)v operator, beside
-     phase 6's counts; sp_geothermal_3d
+     steps with the J(u)v operator, beside phase 6's counts with the
+     stencil operator; sp_geothermal_3d
      for 2 steps; the J(u)v kernel of each model must launch;
  10  solver options: (a) the W-cycle in the fused subtree on the flagship's
      pressure and temperature hierarchies from the ~145k- and ~36k-cell
@@ -90,7 +90,7 @@ Phases (each prints one line with its wall time):
      peak memory, S and T bounds, and every kernel of its path launched
      (block matvec at nc = 3 and at nc = 2, stage 2 at k = 3), beside phase
      6's counts; (c) every solver option of the parity tests on the
-     flagship configuration at 12x22x9, f64, 2 controller steps on the GPU
+     flagship configuration at 12x22x9, f64, 1 controller step on the GPU
      and on the CPU (tasks of a pool of worker processes): the counts must
      agree, and the stage-2 route each took on the card is printed;
  11  the run_case path: (a) thermalporous_torch.run_case.main in this
@@ -110,14 +110,35 @@ Phases (each prints one line with its wall time):
      segments (the producer shut in halfway) on the GPU and the CPU: counts
      must agree, a step must land on the boundary, the balance audit must
      close below 1e-9; the CPU runs of (b) and (c) and the card's host-loop
-     run in three worker processes at the same time as the rest.
+     run in three worker processes at the same time as the rest;
+ 12  bf16 coefficients and the batched p/T traversal: (a) every kernel that
+     reads preconditioner coefficients (block matvec at nc = 3, k = 2 and 3
+     and on the (p, T) stencil, the scalar matvec, the smooth from x0 and
+     from zero and with both second outputs, the stage 2 at k = 2 and 3,
+     the half-sweep, the subtree's p K-cycle and T V-cycle) at the
+     flagship's shapes with bf16 coefficients, f32 and f64 vectors, against
+     its plain version (bitwise where the f32 form is), beside the same
+     cases on f32 coefficients (phases 2 and 10(b)'s rows when they ran);
+     (b) the flagship's first step (600 s) in each storage mode (phase 6
+     has the f32 one), tp_spe10_full at 60x220x85, f32, with
+     pc_dtype="bf16" for 3 controller steps (every step converges; counts
+     beside the f32 run's), one CPTR apply in each storage mode in turns,
+     peak memory, every bf16 kernel of the path launched; (c) bench.py's
+     step with pc_dtype="bf16" (the 600 s step and one doubling); (d) the
+     flagship with batch_pt: one apply bitwise equal to the sequential
+     block-diagonal one with half its smooth and subtree launches, the
+     batched smooth and subtree beside their two sequential launches
+     (bitwise), then 2 controller steps; (e) the storage modes and batch_pt
+     among phase 10(c)'s options, GPU against CPU (run here when phase 10
+     is not).
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
 run: phase 6 for the flagship's kernels, phase 5's two-sweep run for the
 half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
 kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
-phase 10(c) for the W-cycle), and as the last line
+phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
+and batched instantiations), and as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
 --phases only the named phases run (after 0 and 1), and neither the
@@ -194,8 +215,10 @@ AWKWARD_SHAPES = ((61, 219, 83), (1023, 1021))
 # grids for the residual and J(u)v kernels that are no multiple of their
 # tile in any axis; the last two have extents smaller than a tile
 MODEL_SHAPES = ((61, 219, 83), (1023, 1021), (37, 5, 19), (9, 21))
-# phase 9: the Krylov operators of the full-size flagship runs, in turns
-OPERATOR_TURNS = ("stencil", "jvp")
+# phase 9: the Krylov operators of the full-size flagship runs, in turns (the
+# stencil operator's first steps are phase 6's, which the jvp turn is held
+# beside when phase 6 ran)
+OPERATOR_TURNS = ("jvp",)
 # (kind, blocks, threads) of the barrier probe: grid barriers, then
 # cluster barriers (a cluster of 16 is the non-portable size)
 BARRIER_PROBES = ((0, 8, 256), (0, 36, 1024), (0, 132, 256), (0, 132, 512),
@@ -219,10 +242,10 @@ KERNEL_SOURCES = {
                        "thermalporous_tpu/kernels/residual_pallas.py:185"),
     "fused_residual_sp": ("thermalporous_torch/csrc/residual.cu",
                           "thermalporous_tpu/kernels/residual_pallas.py:185"),
-    "fused_stage2_rbgs": ("thermalporous_torch/csrc/rbgs.cu",
+    "fused_stage2_rbgs": ("thermalporous_torch/csrc/rbgs.cuh",
                           "thermalporous_tpu/kernels/stencil_pallas.py:408"),
     # no Pallas twin: the reference's looped half-sweep (jnp)
-    "block_rbgs_half_sweep": ("thermalporous_torch/csrc/rbgs.cu",
+    "block_rbgs_half_sweep": ("thermalporous_torch/csrc/rbgs.cuh",
                               "thermalporous_tpu/precond/chebyshev.py:295"),
     "deep_correction": ("thermalporous_torch/csrc/deep_cycle.cu",
                         "thermalporous_tpu/kernels/deep_cycle.py:289"),
@@ -347,32 +370,33 @@ def time_device_ms(fn, reps: int = 20) -> float:
 # Each kernel's least time on the card: the bytes its function must move
 # (each input it needs read once, each output written once) over the HBM
 # rate, against its operations over the FP32 rate.  ``n`` cells, ``dim``
-# axes, ``item`` bytes per value.
+# axes, ``item`` bytes per vector value, ``citem`` per stored coefficient
+# (2 with bf16 coefficients; None: ``item``).
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
-def cost_block_matvec(n, dim, nc, k, item):
-    return (((2 * dim + 1) * nc * k + k + nc) * n * item,
+def cost_block_matvec(n, dim, nc, k, item, citem=None):
+    return (((2 * dim + 1) * nc * k * (citem or item) + (k + nc) * item) * n,
             2 * (2 * dim + 1) * nc * k * n)
 
 
-def cost_matvec(n, dim, item):
-    return (2 * dim + 3) * n * item, 2 * (2 * dim + 1) * n
+def cost_matvec(n, dim, item, citem=None):
+    return ((2 * dim + 1) * (citem or item) + 2 * item) * n, 2 * (2 * dim + 1) * n
 
 
-def cost_chebyshev(n, dim, degree, from_x0, item):
+def cost_chebyshev(n, dim, degree, from_x0, item, citem=None):
     mv = 2 * (2 * dim + 1) * n
     ops = (mv if from_x0 else 0) + 3 * n + (degree - 1) * (mv + 7 * n) + n
-    return (2 * dim + 3 + int(from_x0)) * n * item, ops
+    return ((2 * dim + 1) * (citem or item) + (2 + int(from_x0)) * item) * n, ops
 
 
-def cost_chebyshev_second(n, dim, degree, from_x0, kind, item):
+def cost_chebyshev_second(n, dim, degree, from_x0, kind, item, citem=None):
     """The smooth with its second output: one more vector out, one more
     product (and a subtraction for the residual)."""
-    nbytes, ops = cost_chebyshev(n, dim, degree, from_x0, item)
+    nbytes, ops = cost_chebyshev(n, dim, degree, from_x0, item, citem)
     return nbytes + n * item, ops + 2 * (2 * dim + 1) * n + (n if kind == "residual" else 0)
 
 
@@ -434,36 +458,35 @@ def cost_jvp(model, u, data):
     return model_bytes(model, u.element_size()), 3 * arith + 18 * trans
 
 
-def cost_stage2(n, dim, nc, k, item):
+def cost_stage2(n, dim, nc, k, item, citem=None):
     """The stage 2 after x1 = [x1_cols; 0] over k columns: every cell's
     column-0:k coefficients (r2 = r - A x1), the black cells' other
     off-diagonal columns (A x_r; the red cells need none), r, x1, D^-1 and
     the output, each once.  k = 0 is the zero-start sweep alone."""
     nb = n // 2
-    vals = ((2 * dim + 1) * nc * k * n + nb * 2 * dim * nc * (nc - k)
-            + (2 * nc + k + nc * nc) * n)
+    coefs = (2 * dim + 1) * nc * k * n + nb * 2 * dim * nc * (nc - k) + nc * nc * n
     ops = (n * (2 * (2 * dim + 1) * nc * k + nc + 2 * nc * nc + k)
            + nb * (2 * 2 * dim * nc * nc + nc))
-    return vals * item, ops
+    return coefs * (citem or item) + (2 * nc + k) * n * item, ops
 
 
-def floor_stage2_ms(n, dim, nc, k, item):
+def floor_stage2_ms(n, dim, nc, k, item, citem=None):
     """The stage-2 kernel's floor on the packed layout: red and black cells
     alternate along the contiguous axis, so the black cells' other
     off-diagonal columns pull every sector of those planes."""
-    vals = ((2 * dim + 1) * nc * k + 2 * dim * nc * (nc - k) + 2 * nc + k + nc * nc) * n
-    return vals * item / PEAK_BYTES_S * 1e3
+    coefs = ((2 * dim + 1) * nc * k + 2 * dim * nc * (nc - k) + nc * nc) * n
+    return (coefs * (citem or item) + (2 * nc + k) * n * item) / PEAK_BYTES_S * 1e3
 
 
-def cost_half(n, dim, nc, item):
+def cost_half(n, dim, nc, item, citem=None):
     """One half-sweep: the cells of the colour read their stencil rows,
     D^-1 and b; x is read and the output written everywhere."""
     nh = -(-n // 2)
-    vals = nh * ((2 * dim + 1) * nc * nc + nc * nc + nc) + 2 * nc * n
-    return vals * item, nh * (2 * (2 * dim + 1) * nc * nc + 2 * nc * nc + 2 * nc)
+    nbytes = nh * (((2 * dim + 1) * nc * nc + nc * nc) * (citem or item) + nc * item)
+    return nbytes + 2 * nc * n * item, nh * (2 * (2 * dim + 1) * nc * nc + 2 * nc * nc + 2 * nc)
 
 
-def cost_deep(shapes, degree, cycle_type, kmin, item):
+def cost_deep(shapes, degree, cycle_type, kmin, item, citem=None, batch=1):
     """Bytes: every level's stencil, the dense inverse, rc and the output,
     once.  Operations: the recursion's passes, walked as the kernel walks
     them."""
@@ -491,9 +514,9 @@ def cost_deep(shapes, degree, cycle_type, kmin, item):
             ops += cycle(ell) + extra
         return ops
 
-    nbytes = (sum((2 * len(s) + 1) * m for s, m in zip(shapes, sizes))
-              + sizes[-1] ** 2 + 2 * sizes[0]) * item
-    return nbytes, corr(0)
+    nbytes = (sum((2 * len(s) + 1) * m for s, m in zip(shapes, sizes)) * (citem or item)
+              + (sizes[-1] ** 2 + 2 * sizes[0]) * item)
+    return batch * nbytes, batch * corr(0)
 
 
 # ------------------------------------------------------- library yardsticks
@@ -767,7 +790,7 @@ def stage2_case(label, st, dinv, r, x1, tol, route: bool = False):
     from thermalporous_torch.kernels import stencil as kst
 
     k, nc = x1.shape[0], st.nc
-    grid, item = st.grid_shape, st.coef.element_size()
+    grid, item, citem = st.grid_shape, r.element_size(), st.coef.element_size()
     n, dim = math.prod(grid), len(grid)
     kern = lambda: kst.fused_stage2_rbgs(st.coef, dinv, r, x1)
 
@@ -777,7 +800,7 @@ def stage2_case(label, st, dinv, r, x1, tol, route: bool = False):
         return x2
 
     def beside():
-        floor = floor_stage2_ms(n, dim, nc, k, item)
+        floor = floor_stage2_ms(n, dim, nc, k, item, citem)
         extra = {"floor_ms": floor, "k": k}
         text = f"  layout floor {floor:.4f} ms"
         if route:
@@ -792,7 +815,7 @@ def stage2_case(label, st, dinv, r, x1, tol, route: bool = False):
 
     return (f"fused_stage2_rbgs k={k} {label} {'x'.join(map(str, grid))}", "fused_stage2_rbgs",
             kern, lambda: kst.fused_stage2_rbgs_plain(st.coef, dinv, r, x1), tol,
-            cost_stage2(n, dim, nc, k, item), None, beside)
+            cost_stage2(n, dim, nc, k, item, citem), None, beside)
 
 
 def sweeps_plain(coef, dinv, b, x, sweeps):
@@ -809,26 +832,27 @@ def sweeps_plain(coef, dinv, b, x, sweeps):
     return x
 
 
-def half_cases(label, st, dinv, b, x0, tol):
+def half_cases(label, st, dinv, b, x0, tol, colours=((0, "red"), (1, "black")),
+               sweeps_cases: bool = True):
     """The half-sweep of each colour from x0, then 2 sweeps from zero and 3
     from x0 (the stage-2 kernel's k = 0 sweep and half-sweeps) against the
     plain versions."""
     from thermalporous_torch.kernels import stencil as kst
     from thermalporous_torch.precond.chebyshev import block_red_black_gauss_seidel
 
-    grid, item, nc = st.grid_shape, st.coef.element_size(), st.nc
+    grid, item, citem, nc = st.grid_shape, b.element_size(), st.coef.element_size(), st.nc
     n, dim = math.prod(grid), len(grid)
     gs = "x".join(map(str, grid))
     cases = []
-    for colour, cname in ((0, "red"), (1, "black")):
+    for colour, cname in colours:
         cases.append((f"block_rbgs_half_sweep {cname} {label} {gs}", "block_rbgs_half_sweep",
                       lambda c=colour: kst.block_rbgs_half_sweep(st.coef, dinv, b, x0, c),
                       lambda c=colour: kst.block_rbgs_half_sweep_plain(st.coef, dinv, b, x0, c),
-                      tol, cost_half(n, dim, nc, item), None))
-    for sweeps, x in ((2, None), (3, x0)):
+                      tol, cost_half(n, dim, nc, item, citem), None))
+    for sweeps, x in ((2, None), (3, x0)) if sweeps_cases else ():
         halves = 2 * sweeps - (2 if x is None else 0)
-        hb, ho = cost_half(n, dim, nc, item)
-        zb, zo = cost_stage2(n, dim, nc, 0, item) if x is None else (0, 0)
+        hb, ho = cost_half(n, dim, nc, item, citem)
+        zb, zo = cost_stage2(n, dim, nc, 0, item, citem) if x is None else (0, 0)
         cases.append((f"rbgs sweeps={sweeps} from {'zero' if x is None else 'x0'} {label} {gs}",
                       "block_rbgs_half_sweep",
                       lambda s=sweeps, x=x: block_red_black_gauss_seidel(st, dinv, b, x, s),
@@ -883,7 +907,9 @@ def deep_case(hname, hier, entry, cfg, item, g):
     shapes = [s.grid_shape for s in hier.stencils[entry:]]
     sizes = [math.prod(s) for s in shapes]
     packed = [s.packed for s in hier.stencils[entry:]]
-    rc = torch.randn(shapes[0], generator=g, dtype=packed[0].dtype, device=packed[0].device)
+    citem = packed[0].element_size()
+    rc = torch.randn(shapes[0], generator=g, dtype=hier.coarse_inv.dtype,
+                     device=packed[0].device)
     kw = dict(degree=cfg.degree, lam_min_frac=cfg.lam_min_frac,
               cycle_type=cfg.cycle_type, kcycle_min_cells=cfg.kcycle_min_cells)
     cycle = cfg.cycle_type if sizes[0] >= cfg.kcycle_min_cells else "v"
@@ -919,13 +945,14 @@ def deep_case(hname, hier, entry, cfg, item, g):
             text += "; bitwise equal to the plain version with the coarsest solve in the kernel's order"
         return text
 
-    return (f"deep_correction {hname} {cycle}-cycle {label} cells", "deep_correction",
+    return (f"deep_correction {hname} {cycle}-cycle {label} cells"
+            + (" bf16 coefficients" if citem == 2 else ""), "deep_correction",
             lambda: _fused_correction(hier, entry, rc, cfg),
             lambda: kdeep.deep_correction_plain(packed, hier.lam_max[entry:],
                                                 hier.coarse_inv, rc, **kw),
             TOL_F64_DEEP if item == 8 else TOL_F32_DEEP,
-            cost_deep(shapes, cfg.degree, cfg.cycle_type, cfg.kcycle_min_cells, item), None,
-            check)
+            cost_deep(shapes, cfg.degree, cfg.cycle_type, cfg.kcycle_min_cells, item, citem),
+            None, check)
 
 
 def spd_stencil(shape, dtype, dev, seed: int) -> torch.Tensor:
@@ -956,7 +983,8 @@ def smooth_case(label, packed, lam, b, x, deg, tol, item):
             f"{'x'.join(map(str, grid))}", "chebyshev_smooth",
             lambda: kst.chebyshev_smooth(*args),
             lambda: kst.chebyshev_smooth_plain(*args), tol,
-            cost_chebyshev(math.prod(grid), len(grid), deg, x is not None, item), None)
+            cost_chebyshev(math.prod(grid), len(grid), deg, x is not None, item,
+                           packed.element_size()), None)
 
 
 def second_case(label, packed, lam, b, x, deg, kind, tol, item):
@@ -986,7 +1014,8 @@ def second_case(label, packed, lam, b, x, deg, kind, tol, item):
             f"{'x'.join(map(str, grid))}", "chebyshev_smooth",
             lambda: kst.chebyshev_smooth(*args, second=kind),
             lambda: kst.chebyshev_smooth_plain(*args, second=kind), tol,
-            cost_chebyshev_second(math.prod(grid), len(grid), deg, x is not None, kind, item),
+            cost_chebyshev_second(math.prod(grid), len(grid), deg, x is not None, kind, item,
+                                  packed.element_size()),
             None, beside)
 
 
@@ -1428,18 +1457,21 @@ def flagship_parity(krylov_op: str = "stencil", stage2_sweeps: int | None = None
 
 
 def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
-                 name: str = "tp_spe10_full", by_cols: dict | None = None):
-    """Phase 6 (and 9, 10): preset ``name`` (the flagship or its
-    inner-iteration form) at full size, f32, the first ``steps`` controller
-    steps (block matvecs by (nc, k) and stage 2s by k counted into
-    ``by_cols`` when given); returns (records, launches, Newton over all
-    attempts, cell-updates/s, peak GiB)."""
-    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+                 name: str = "tp_spe10_full", by_cols: dict | None = None,
+                 pc_overrides: dict | None = None, variants: dict | None = None,
+                 kernels: tuple = FLAGSHIP_KERNELS):
+    """Phase 6 (and 9, 10, 12): preset ``name`` (the flagship or its
+    inner-iteration form) at full size, f32, with the CPRConfig
+    ``pc_overrides``, the first ``steps`` controller steps (block matvecs
+    by (nc, k) and stage 2s by k counted into ``by_cols`` when given, the
+    bf16 and batched launches into ``variants``); returns (records,
+    launches, Newton over all attempts, cell-updates/s, peak GiB)."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts, variant_counts
     from thermalporous_torch.presets import get_case
 
     case = get_case(name, device=dev)
-    sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW),
-                         newton_cfg=with_krylov_op(case, krylov_op))
+    pc = dataclasses.replace(with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW), **(pc_overrides or {}))
+    sim = case.simulator(pc_cfg=pc, newton_cfg=with_krylov_op(case, krylov_op))
     for hname, g in (("p", sim.pc_cfg.gmg), ("T", sim.pc_cfg.gmg_t or sim.pc_cfg.gmg)):
         print(f"  schedule {hname}: {g.level_factors}")
     attempts = {"newton": 0, "attempts": 0}
@@ -1459,6 +1491,8 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
         res = sim.run(case.t_end, max_steps=steps)
         torch.cuda.synchronize()
     launches = launch_counts()
+    if variants is not None:
+        variants.update(variant_counts())
     for r in res.records:
         print(f"  step {r.step} dt {r.dt:.1f} s: newton {r.newton_iters} "
               f"fgmres {r.ksp_iters} retries {r.retries} wall {r.wall_s:.3f} s "
@@ -1473,8 +1507,8 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
     check_physical(res.u, case.model.grid.shape, name)
     # with the J(u)v operator no block matvec is left on the path: the
     # stage-2 residual is inside the stage-2 kernel
-    kernels = (FLAGSHIP_KERNELS if krylov_op == "stencil" else
-               tuple(k for k in FLAGSHIP_KERNELS if k != "block_matvec") + ("fused_jvp",))
+    if krylov_op != "stencil":
+        kernels = tuple(k for k in kernels if k != "block_matvec") + ("fused_jvp",)
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise SystemExit(f"{name} ({krylov_op}) launched no {missing}")
@@ -1585,7 +1619,9 @@ def flagship_layers(dev) -> dict:
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t
     reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: the host's thousands of operator events of
+    # an assembly would take the profiler a minute to gather
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sim.step(res.u, dt)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -1714,8 +1750,23 @@ SOLVER_OPTIONS = (
     ("precond=rbgs", {}, {}, {}, "rbgs", None),
     # the dense inverse is refused above 20,000 unknowns: 6x8x4x3 = 576
     ("precond=lu", {}, {}, {}, "lu", ("tp_spe10_full", dict(shape=(6, 8, 4)))),
+    # bf16 coefficient storage (each mode; with jacobi2 the stage-2 block
+    # matvecs read bf16, with two sweeps the half-sweeps) and the batched
+    # p/T traversal (the T hierarchy takes the pressure configuration)
+    ("pc_dtype=bf16", dict(pc_dtype="bf16"), {}, {}, "cptr", None),
+    ("pc_dtype=bf16 stage2=jacobi2", dict(pc_dtype="bf16", stage2="jacobi2"), {}, {}, "cptr",
+     None),
+    ("pc_dtype=bf16_gmg", dict(pc_dtype="bf16_gmg"), {}, {}, "cptr", None),
+    ("pc_dtype=bf16_s2 sweeps=2", dict(pc_dtype="bf16_s2", stage2_sweeps=2), {}, {}, "cptr",
+     None),
+    ("batch_pt", dict(batch_pt=True, triangular=False, gmg_t=None), {}, {}, "cptr", None),
+    ("batch_pt pc_dtype=bf16 inner", dict(batch_pt=True, triangular=False, gmg_t=None,
+                                          pc_dtype="bf16", inner_iters=2), {}, {}, "cptr", None),
 )
-OPTION_STEPS = 2
+#: phase 12(e): the options of SOLVER_OPTIONS that phase 12 reports
+PC12_OPTIONS = ("pc_dtype=bf16", "pc_dtype=bf16 stage2=jacobi2", "pc_dtype=bf16_gmg",
+                "pc_dtype=bf16_s2 sweeps=2", "batch_pt", "batch_pt pc_dtype=bf16 inner")
+OPTION_STEPS = 1
 # phase 10(c): worker processes (the chip machine's host has 8 cores)
 OPTION_WORKERS = 8
 # phase 10(b): controller steps of tp_spe10_inner at full size
@@ -1889,7 +1940,7 @@ def _option_task(task):
     process of :func:`option_runs`: the (dt, Newton, FGMRES, retries)
     records, the launches on the card, the stage 2 of the configuration
     that ran, the seconds."""
-    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts, variant_counts
     from thermalporous_torch.presets import get_case
 
     index, device = task
@@ -1908,10 +1959,11 @@ def _option_task(task):
         torch.cuda.synchronize()
     return {"records": [(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records],
             "launches": launch_counts() if device == "cuda" else None,
+            "variants": variant_counts() if device == "cuda" else None,
             "stage2": sim.pc_cfg.stage2, "s": time.perf_counter() - t}
 
 
-def option_runs(workers: int = OPTION_WORKERS) -> dict:
+def option_runs(workers: int = OPTION_WORKERS, labels: tuple | None = None) -> dict:
     """Phase 10(c): every SOLVER_OPTIONS entry through the Simulator on the
     GPU and on the CPU, OPTION_STEPS controller steps, f64, as tasks of a
     pool of ``workers`` processes (each run is bound by the host's
@@ -1920,13 +1972,15 @@ def option_runs(workers: int = OPTION_WORKERS) -> dict:
     each took on the card, by the wrappers' counters."""
     import multiprocessing
 
-    tasks = [(i, d) for d in ("cuda", "cpu") for i in range(len(SOLVER_OPTIONS))]
+    chosen = [i for i, o in enumerate(SOLVER_OPTIONS) if labels is None or o[0] in labels]
+    tasks = [(i, d) for d in ("cuda", "cpu") for i in chosen]
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
         done = dict(zip(tasks, pool.map(_option_task, tasks, chunksize=1)))
         pool.close()
         pool.join()
     out = {}
-    for i, (label, pc_kw, gmg_kw, newton_kw, precond, other) in enumerate(SOLVER_OPTIONS):
+    for i in chosen:
+        label, pc_kw, gmg_kw, newton_kw, precond, other = SOLVER_OPTIONS[i]
         gpu, cpu = done[(i, "cuda")], done[(i, "cpu")]
         lc = gpu["launches"]
         if precond == "rbgs" or (precond in ("cpr", "cptr") and gpu["stage2"] == "rbgs"):
@@ -1943,12 +1997,15 @@ def option_runs(workers: int = OPTION_WORKERS) -> dict:
               f"cuda {gpu['records']}; stage-2 route {route} (fused_stage2_rbgs "
               f"{lc['fused_stage2_rbgs']}, half-sweep {lc['block_rbgs_half_sweep']}, "
               f"deep_correction {lc['deep_correction']}, block_matvec {lc['block_matvec']}, "
-              f"matvec {lc['matvec']}); {gpu['s']:.1f} s on the card's process, "
-              f"{cpu['s']:.1f} s on the CPU's", flush=True)
+              f"matvec {lc['matvec']})"
+              + (f"; bf16/batched {gpu['variants']}" if gpu["variants"] else "")
+              + f"; {gpu['s']:.1f} s on the card's process, {cpu['s']:.1f} s on the CPU's",
+              flush=True)
         if cpu["records"] != gpu["records"]:
             raise SystemExit(f"option {label}: cpu {cpu['records']} != cuda {gpu['records']}")
         out[label] = {"cpu": cpu["records"], "cuda": gpu["records"], "launches": lc,
-                      "route": route, "cuda_s": gpu["s"], "cpu_s": cpu["s"]}
+                      "variants": gpu["variants"], "route": route, "cuda_s": gpu["s"],
+                      "cpu_s": cpu["s"]}
     return out
 
 
@@ -2220,6 +2277,271 @@ def phase11_parity() -> tuple[dict, dict]:
     return blocked, sched
 
 
+# ------------------------------------------ phase 12: pc_dtype and batch_pt
+
+#: the CPTR apply's coefficient storage modes, timed in turns in phase 12(b)
+PC_DTYPE_MODES = ("f32", "bf16", "bf16_gmg", "bf16_s2")
+BF16_STEPS = 3          # phase 12(b): controller steps of the bf16 flagship
+BATCH_STEPS = 2         # phase 12(d): controller steps with batch_pt
+# phase 12(d): the flagship configuration with the batched traversal and the
+# sequential form it is held to (the T hierarchy takes the pressure
+# configuration and schedule: the two must be congruent)
+SEQ_PT = dict(triangular=False, gmg_t=None)
+BATCH_PT = dict(SEQ_PT, batch_pt=True)
+
+
+def _rows_since(start: int) -> dict:
+    """The rows run_cases appended to ROWS from index ``start``, by case."""
+    return {r["case"]: r for r in ROWS[start:]}
+
+
+def bf16_kernel_cases(dtype, dev, with_f32: bool = True):
+    """Phase 12(a): each kernel that reads preconditioner coefficients, at
+    the flagship's shapes (60x220x85, the CPTR state of its Jacobian with
+    two inner iterations, so that the (p, T) stencil exists), with every
+    coefficient group cast to bf16 (cast_coefficients) and, for f32
+    vectors, the same cases on the f32 coefficients beside: B1 (nc = 3 at
+    k = 2 and 3, the (p, T) stencil at nc = k = 2), B2 (the T<-p
+    coupling), B3 (the finest pressure level, degree 4 from x0 and from
+    zero, both second outputs), B5 (k = 2, 3), the red half-sweep and B6
+    (the pressure K-cycle and the temperature V-cycle from their fused
+    entries).  Without ``with_f32`` (phase 2 has run the f32 form of every
+    case on the same shapes) the f32 coefficients are left out.  Returns
+    (the Jacobian, {"bf16": cases[, "f32": cases]})."""
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.cpr import cast_coefficients, cpr_setup
+    from thermalporous_torch.precond.gmg import _fusable
+
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32_STENCIL
+    _, _, _, pc, st, _ = preset_state("tp_spe10_full", dtype, dev,
+                                      dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+    full = cpr_setup(st, dataclasses.replace(pc, inner_iters=2))
+    sets = {"bf16": cast_coefficients(full, "bf16")}
+    if dtype == torch.float32 and with_f32:
+        sets["f32"] = full
+    grid = st.grid_shape
+    n, dim, item = math.prod(grid), len(grid), st.coef.element_size()
+    g = torch.Generator(device=dev).manual_seed(16)
+    rand = lambda shape: torch.randn(shape, generator=g, dtype=dtype, device=dev)
+    v3, r, x0, b = rand((3,) + grid), rand((3,) + grid), rand((3,) + grid), rand(grid)
+    gs = "x".join(map(str, grid))
+    out = {}
+    for cname, S in sets.items():
+        cst, citem, note = S.stencil, S.stencil.coef.element_size(), f"{cname} coefficients"
+        cases = []
+        for label, coef, nc, k in (("nc=3 k=2", cst.coef, 3, 2), ("nc=k=3", cst.coef, 3, 3),
+                                   ("nc=k=2 (p, T)", S.pt.coef, 2, 2)):
+            vk = v3[:k].contiguous()
+            cases.append((f"block_matvec {label} {note} {gs}", "block_matvec",
+                          lambda c=coef, vk=vk, k=k: kst.block_matvec(c, vk, k),
+                          lambda c=coef, vk=vk: kst.block_matvec_plain(c, vk), tol,
+                          cost_block_matvec(n, dim, nc, k, item, citem), None))
+        atp = S.a_tp.packed
+        cases.append((f"matvec T<-p {note} {gs}", "matvec",
+                      lambda p=atp: kst.matvec(p, b), lambda p=atp: kst.matvec_plain(p, b),
+                      tol, cost_matvec(n, dim, item, citem), None))
+        fine, lam = S.gmg_p.stencils[0].packed, S.gmg_p.lam_max[0]
+        for xx in (x0[0], None):
+            cases.append(smooth_case(f"fine {note}", fine, lam, b, xx, 4, tol, item))
+        for kind, xx in (("residual", None), ("product", x0[0])):
+            cases.append(second_case(f"fine {note}", fine, lam, b, xx, 4, kind, tol, item))
+        for k in (2, 3):
+            cases.append(stage2_case(note, cst, S.dinv, r, x0[:k].contiguous(), tol))
+        cases += half_cases(note, cst, S.dinv, r, x0, tol, colours=((0, "red"),),
+                            sweeps_cases=False)
+        for hname, hier, hcfg in (("p", S.gmg_p, pc.gmg), ("T", S.gmg_t, pc.gmg_t)):
+            entry = next(l for l in range(1, len(hier.stencils))
+                         if _fusable(hier, l, hcfg, dtype))
+            cases.append(deep_case(hname, hier, entry, hcfg, item, g))
+        out[cname] = cases
+    return st, out
+
+
+def pc_dtype_apply_times(dev) -> dict:
+    """Phase 12(b): one CPTR apply of the flagship (f32, the subtree fused
+    from 145.2k cells) in each storage mode, on the same Jacobian and
+    residual, in turns (f32, bf16, bf16_gmg, bf16_s2 and back): ms per call
+    and on the card."""
+    from thermalporous_torch.precond.cpr import cpr_apply, cpr_setup
+
+    _, _, _, pc, st, _ = preset_state("tp_spe10_full", torch.float32, dev,
+                                      dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+    g = torch.Generator(device=dev).manual_seed(17)
+    r = torch.randn((3,) + st.grid_shape, generator=g, dtype=torch.float32, device=dev)
+    cfgs = {m: dataclasses.replace(pc, pc_dtype=m) for m in PC_DTYPE_MODES}
+    states = {m: cpr_setup(st, cfgs[m]) for m in PC_DTYPE_MODES}
+    times: dict = {}
+    for m in PC_DTYPE_MODES + PC_DTYPE_MODES[::-1]:
+        fn = lambda m=m: cpr_apply(states[m], r, cfgs[m])
+        t = times.setdefault(m, {"ms": [], "device_ms": []})
+        t["ms"].append(time_ms(fn, reps=10))
+        t["device_ms"].append(time_device_ms(fn, reps=10))
+        print(f"  CPTR apply pc_dtype={m}: {t['ms'][-1]:.3f} ms ({t['device_ms'][-1]:.3f} on "
+              f"the card)", flush=True)
+    return times
+
+
+def first_step_modes(dev, modes=PC_DTYPE_MODES) -> dict:
+    """Phase 12(b): the flagship's first step (dt_init = 600 s from the
+    initial state, f32) in each storage mode, one Newton solve each, with
+    the stage 1 and the stage 2 cast apart (bf16_gmg, bf16_s2) to show
+    which group's rounding a change in the counts comes from."""
+    from thermalporous_torch.precond.cpr import resolve_adaptive_coarsening
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import make_step_fn
+
+    case = get_case("tp_spe10_full", device=dev)
+    model, data, dt = case.model, case.data, float(case.time_cfg.dt_init)
+    u0 = model.initial_state(data)
+    pc = resolve_adaptive_coarsening(model.assemble_stencil(u0, u0, dt, data),
+                                     with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
+    out = {}
+    for mode in modes:
+        step = make_step_fn(model, case.precond, case.newton_cfg,
+                            dataclasses.replace(pc, pc_dtype=mode), device=dev)
+        t = time.perf_counter()
+        _, st = step(u0, dt, data)
+        torch.cuda.synchronize()
+        out[mode] = {"newton": st.iters, "fgmres": st.ksp_iters, "converged": st.converged,
+                     "failed": st.failed, "norm0": st.norm0, "norm": st.norm,
+                     "wall_s": time.perf_counter() - t}
+        print(f"  first step at {dt:.0f} s, pc_dtype={mode}: newton {st.iters} fgmres "
+              f"{st.ksp_iters} converged {st.converged} norm {st.norm0:.3e} -> {st.norm:.3e}",
+              flush=True)
+    return out
+
+
+def bench_bf16_steps(dev) -> dict:
+    """Phase 12(c): bench.py's step (1024x1024, f32, block-Jacobi stage 2:
+    the stage-2 residual is a bf16 block matvec over x1's columns) with
+    pc_dtype="bf16": the 600 s step and one doubling."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+    from thermalporous_torch.solve import make_step_fn
+
+    cfg, pc = bench_configs()
+    pc = dataclasses.replace(pc, pc_dtype="bf16")
+    model, data = bench_case(N_MAIN, torch.float32, dev)
+    step = make_step_fn(model, "cptr", cfg, pc, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    recs, u = run_steps(step, model, data, 600.0, 1, torch.cuda.synchronize)
+    launches, variants = launch_counts(), variant_counts()
+    for rr in recs:
+        print(f"  bench bf16 step {rr['step']} dt {rr['dt']:.0f} s: newton {rr['newton']} "
+              f"fgmres {rr['fgmres']} retries {rr['retries']} wall {rr['wall_s']:.3f} s",
+              flush=True)
+    check_physical(u, (N_MAIN, N_MAIN), "bench step, pc_dtype=bf16")
+    print(f"  launches {launches}; bf16 {variants}")
+    if variants.get("block_matvec bf16", 0) <= 0:
+        raise SystemExit("bench step, pc_dtype=bf16: no bf16 block matvec launched")
+    return {"steps": recs, "launches": launches, "variants": variants}
+
+
+def batched_cases(st, bat, pc_bat, dev):
+    """Phase 12(d): the batched smooth (the finest level, degree 4 from
+    zero) and the batched subtree (from the fused entry) of the stacked
+    (p, T) hierarchy against their plain versions, each beside its two
+    sequential launches, which must give its bits."""
+    from thermalporous_torch.kernels import deep_cycle as kdeep
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.gmg import _fusable
+
+    h, cfg = bat.gmg_p, pc_bat.gmg
+    dtype, item = st.coef.dtype, st.coef.element_size()
+    g = torch.Generator(device=dev).manual_seed(18)
+    grid = h.shape(0)
+    n, dim = math.prod(grid), len(grid)
+    b2 = torch.randn((2,) + grid, generator=g, dtype=dtype, device=dev)
+    packed, lam = h.stencils[0].packed, h.lam_max[0]
+    args = (cfg.degree, cfg.lam_min_frac)
+    smooth = lambda: kst.chebyshev_smooth(packed, b2, None, lam, *args)
+    smooth_seq = lambda: [kst.chebyshev_smooth(packed[m], b2[m], None, lam[m], *args)
+                          for m in range(2)]
+    entry = next(l for l in range(1, len(h.stencils)) if _fusable(h, l, cfg, dtype))
+    shapes = [h.shape(l) for l in range(entry, len(h.stencils))]
+    sub = [s.packed for s in h.stencils[entry:]]
+    rc = torch.randn((2,) + shapes[0], generator=g, dtype=dtype, device=dev)
+    kw = dict(degree=cfg.degree, lam_min_frac=cfg.lam_min_frac, cycle_type=cfg.cycle_type,
+              kcycle_min_cells=cfg.kcycle_min_cells)
+    deep = lambda: kdeep.deep_correction(sub, h.lam_max[entry:], h.coarse_inv, rc, **kw)
+    deep_seq = lambda: [kdeep.deep_correction([p[m] for p in sub],
+                                              [x[m] for x in h.lam_max[entry:]],
+                                              h.coarse_inv[m], rc[m], **kw) for m in range(2)]
+
+    def beside(kern, seq, label):
+        def check():
+            if not torch.equal(kern(), torch.stack(seq())):
+                raise SystemExit(f"{label}: the batched launch and the two sequential "
+                                 "launches differ")
+            t = {"sequential_ms": time_ms(seq, reps=10),
+                 "sequential_device_ms": time_device_ms(seq, reps=10)}
+            return (f"  the two sequential launches {t['sequential_ms']:.4f} ms "
+                    f"({t['sequential_device_ms']:.4f} on the card), bitwise equal to the "
+                    f"batched launch", t)
+        return check
+
+    sizes = " -> ".join(str(math.prod(s)) for s in shapes)
+    sb, so = cost_chebyshev(n, dim, cfg.degree, False, item)
+    label_s = f"chebyshev batch_pt (p, T) fine deg={cfg.degree} zero {'x'.join(map(str, grid))}"
+    label_d = f"deep_correction batch_pt (p, T) {cfg.cycle_type}-cycle {sizes} cells"
+    return [(label_s, "chebyshev_smooth", smooth,
+             lambda: kst.chebyshev_smooth_plain(packed, b2, None, lam, *args),
+             TOL_F64 if item == 8 else TOL_F32_STENCIL, (2 * sb, 2 * so), None,
+             beside(smooth, smooth_seq, label_s)),
+            (label_d, "deep_correction", deep,
+             lambda: kdeep.deep_correction_plain(sub, h.lam_max[entry:], h.coarse_inv, rc, **kw),
+             TOL_F64_DEEP if item == 8 else TOL_F32_DEEP,
+             cost_deep(shapes, cfg.degree, cfg.cycle_type, cfg.kcycle_min_cells, item, batch=2),
+             None, beside(deep, deep_seq, label_d))]
+
+
+def batch_pt_apply(dev) -> tuple:
+    """Phase 12(d): the flagship's CPTR apply (f32) with the batched p/T
+    traversal against the sequential block-diagonal form on the same
+    Jacobian: bitwise equal, half the smooth and subtree launches, timed in
+    turns; then the batched kernels' cases.  Returns (the record, the
+    Jacobian, the cases)."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.precond.cpr import cpr_apply, cpr_setup
+
+    _, _, _, pc, st, _ = preset_state("tp_spe10_full", torch.float32, dev,
+                                      dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+    pc_seq = dataclasses.replace(pc, **SEQ_PT)
+    pc_bat = dataclasses.replace(pc, **BATCH_PT)
+    seq, bat = cpr_setup(st, pc_seq), cpr_setup(st, pc_bat)
+    g = torch.Generator(device=dev).manual_seed(19)
+    r = torch.randn((3,) + st.grid_shape, generator=g, dtype=torch.float32, device=dev)
+    counts, outs = {}, {}
+    for name, state, cfg in (("sequential", seq, pc_seq), ("batched", bat, pc_bat)):
+        reset_launch_counts()
+        outs[name] = cpr_apply(state, r, cfg)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+    if not torch.equal(outs["sequential"], outs["batched"]):
+        d = float((outs["sequential"] - outs["batched"]).abs().max())
+        raise SystemExit(f"batch_pt apply: not bitwise equal to the sequential one ({d:.3e})")
+    for k in ("chebyshev_smooth", "deep_correction"):
+        if 2 * counts["batched"][k] != counts["sequential"][k] or counts["batched"][k] <= 0:
+            raise SystemExit(f"batch_pt apply: {counts['batched'][k]} {k} launches against "
+                             f"{counts['sequential'][k]} sequential")
+    times: dict = {}
+    for name in ("sequential", "batched", "batched", "sequential"):
+        state, cfg = (seq, pc_seq) if name == "sequential" else (bat, pc_bat)
+        fn = lambda state=state, cfg=cfg: cpr_apply(state, r, cfg)
+        t = times.setdefault(name, {"ms": [], "device_ms": []})
+        t["ms"].append(time_ms(fn, reps=10))
+        t["device_ms"].append(time_device_ms(fn, reps=10))
+    print(f"  batch_pt apply bitwise equal to the sequential one; launches an apply: "
+          f"smooth {counts['batched']['chebyshev_smooth']} against "
+          f"{counts['sequential']['chebyshev_smooth']}, subtree "
+          f"{counts['batched']['deep_correction']} against "
+          f"{counts['sequential']['deep_correction']}; apply "
+          + ", ".join(f"{k} {statistics.mean(v['ms']):.3f} ms ({statistics.mean(v['device_ms']):.3f}"
+                      f" on the card)" for k, v in times.items()), flush=True)
+    rec = {"launches_per_apply": counts, "apply": times}
+    return rec, st, batched_cases(st, bat, pc_bat, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the full record to this path")
@@ -2369,7 +2691,9 @@ def main() -> int:
                   + ", ".join(f"{w:.3f}" for w in t["wall_s"])
                   + f" s; {t['cell_updates_per_s']:.1f} cell-updates/s over step 2")
         jrecs, jlaunches, jcu_s = first["jvp"]
-        for rj, rs in zip(jrecs, first["stencil"][0]):
+        stencil_recs = (first["stencil"][0] if "stencil" in first
+                        else frecs if want(6) else [])
+        for rj, rs in zip(jrecs, stencil_recs):
             print(f"  flagship step {rj.step}: jvp (dt {rj.dt:.1f}, newton {rj.newton_iters}, "
                   f"fgmres {rj.ksp_iters}) | stencil (dt {rs.dt:.1f}, newton {rs.newton_iters}, "
                   f"fgmres {rs.ksp_iters})"
@@ -2441,10 +2765,82 @@ def main() -> int:
               f"{statistics.median(cli['write_ms']['vtk_write_ms']):.3f} ms (median), resume "
               f"bitwise; blocked and schedule GPU == CPU")
 
+    # (12) bf16 coefficients and the batched p/T traversal
+    if want(12):
+        t0 = time.perf_counter()
+        print("  (a) the kernels with bf16 coefficients", flush=True)
+        brec: dict = {}
+        for dtype in (torch.float64, torch.float32):
+            tname = "f64" if dtype == torch.float64 else "f32"
+            # the f32 form of each case ran in phase 2 (and 10(b)) of this call
+            st12, sets = bf16_kernel_cases(dtype, dev, with_f32=not (want(2) and want(10)))
+            for cname, cases in sets.items():
+                start = len(ROWS)
+                run_cases(tname, cases, st12, {}, dtype, record=False)
+                if dtype == torch.float32:
+                    brec[cname] = _rows_since(start)
+            del st12, sets
+            torch.cuda.empty_cache()
+        print("  (b) tp_spe10_full with pc_dtype='bf16'", flush=True)
+        apply12 = pc_dtype_apply_times(dev)
+        # phase 6's first step is the f32 one
+        first12 = first_step_modes(dev, PC_DTYPE_MODES[1:] if want(6) else PC_DTYPE_MODES)
+        bvar: dict = {}
+        brecs, blaunches, _, bcu_s, bpeak = flagship_run(
+            dev, BF16_STEPS, pc_overrides=dict(pc_dtype="bf16"), variants=bvar)
+        print(f"  bf16 launches {bvar}; (newton, fgmres, retries) "
+              f"{[(r.newton_iters, r.ksp_iters, r.retries) for r in brecs]}"
+              + (f" (f32, phase 6: {[(r.newton_iters, r.ksp_iters, r.retries) for r in frecs]})"
+                 if want(6) else ""), flush=True)
+        for k in ("matvec", "chebyshev_smooth", "fused_stage2_rbgs", "deep_correction"):
+            if bvar.get(f"{k} bf16", 0) <= 0:
+                raise SystemExit(f"flagship, pc_dtype=bf16: no bf16 {k} launched")
+        print("  (c) the bench step with pc_dtype='bf16'", flush=True)
+        bench12 = bench_bf16_steps(dev)
+        print("  (d) batch_pt", flush=True)
+        batch12, st12, cases12 = batch_pt_apply(dev)
+        start = len(ROWS)
+        run_cases("f32", cases12, st12, {}, torch.float32, record=False)
+        batch_rows = _rows_since(start)
+        del st12, cases12
+        torch.cuda.empty_cache()
+        dvar: dict = {}
+        # the block-diagonal stage 1 has no T<-p coupling product: no matvec
+        drecs, dlaunches, _, dcu_s, dpeak = flagship_run(
+            dev, BATCH_STEPS, pc_overrides=BATCH_PT, variants=dvar,
+            kernels=tuple(k for k in FLAGSHIP_KERNELS if k != "matvec"))
+        print(f"  batched launches {dvar}", flush=True)
+        for k in ("chebyshev_smooth", "deep_correction"):
+            if dvar.get(f"{k} batched", 0) <= 0:
+                raise SystemExit(f"flagship, batch_pt: no batched {k} launched")
+        print("  (e) the storage modes and batch_pt, GPU against CPU", flush=True)
+        opts12 = ({k: opts[k] for k in PC12_OPTIONS} if want(10)
+                  else option_runs(labels=PC12_OPTIONS))
+        for label, need in (("pc_dtype=bf16 stage2=jacobi2", "block_matvec bf16"),
+                            ("pc_dtype=bf16_s2 sweeps=2", "block_rbgs_half_sweep bf16"),
+                            ("batch_pt pc_dtype=bf16 inner", "block_matvec bf16"),
+                            ("batch_pt", "deep_correction batched")):
+            if (opts12[label]["variants"] or {}).get(need, 0) <= 0:
+                raise SystemExit(f"option {label}: no {need} launched")
+        pc12 = {"bf16_rows": brec, "apply_ms": apply12, "first_step_modes": first12,
+                "flagship_bf16_steps": [r.as_dict() for r in brecs],
+                "flagship_bf16_launches": blaunches, "flagship_bf16_variants": bvar,
+                "flagship_bf16_cell_updates_per_s": bcu_s, "flagship_bf16_peak_gib": bpeak,
+                "bench_bf16": bench12, "batch_pt": batch12, "batch_rows": batch_rows,
+                "flagship_batch_steps": [r.as_dict() for r in drecs],
+                "flagship_batch_launches": dlaunches, "flagship_batch_variants": dvar,
+                "flagship_batch_cell_updates_per_s": dcu_s, "flagship_batch_peak_gib": dpeak,
+                "options": opts12}
+        phase("12 pc_dtype and batch_pt", t0, f"flagship bf16 {bcu_s:.1f} cell-updates/s over "
+              f"steps 2-{len(brecs)}, peak {bpeak:.2f} GiB; batch_pt {dcu_s:.1f} over step 2; "
+              f"{len(opts12)} options GPU == CPU")
+
     if phases is not None:
         if args.json:
             part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_all}
+            if want(12):
+                part.update(pc_dtype_batch_pt=pc12)
             if want(2):
                 part.update(fuse_apply_ms=fuse_times, barrier_latencies=barriers)
             if want(10):
@@ -2489,6 +2885,38 @@ def main() -> int:
                irec["fused_stage2_rbgs"], inner_cols["fused_stage2_rbgs k=3"]),
               ("deep_correction (tp_spe10_inner)", "deep_correction", irec["deep_correction"],
                ilaunches["deep_correction"])]
+    # phase 12: the bf16 instantiations (f32 vectors, the flagship's shapes;
+    # launches in the bf16 flagship run, the bf16 bench step and the
+    # options that reach them) and the batched ones (launches in the
+    # batch_pt flagship run)
+    gs = "x".join(map(str, SPE10_FULL))
+    row = lambda label: brec["bf16"][label]
+    inner += [
+        ("block_matvec (bf16 coefficients)", "block_matvec",
+         row(f"block_matvec nc=3 k=2 bf16 coefficients {gs}"),
+         bench12["variants"]["block_matvec bf16"]),
+        ("block_matvec nc=2 (bf16 coefficients)", "block_matvec",
+         row(f"block_matvec nc=k=2 (p, T) bf16 coefficients {gs}"),
+         opts12["batch_pt pc_dtype=bf16 inner"]["variants"]["block_matvec bf16"]),
+        ("matvec (bf16 coefficients)", "matvec", row(f"matvec T<-p bf16 coefficients {gs}"),
+         bvar["matvec bf16"]),
+        ("chebyshev_smooth (bf16 coefficients)", "chebyshev_smooth",
+         row(f"chebyshev fine bf16 coefficients deg=4 x0 {gs}"), bvar["chebyshev_smooth bf16"]),
+        ("fused_stage2_rbgs (bf16 coefficients)", "fused_stage2_rbgs",
+         row(f"fused_stage2_rbgs k=2 bf16 coefficients {gs}"), bvar["fused_stage2_rbgs bf16"]),
+        ("block_rbgs_half_sweep (bf16 coefficients)", "block_rbgs_half_sweep",
+         row(f"block_rbgs_half_sweep red bf16 coefficients {gs}"),
+         opts12["pc_dtype=bf16_s2 sweeps=2"]["variants"]["block_rbgs_half_sweep bf16"]),
+        ("deep_correction (bf16 coefficients)", "deep_correction",
+         next(r for c, r in brec["bf16"].items() if c.startswith("deep_correction p")),
+         bvar["deep_correction bf16"]),
+        ("chebyshev_smooth (batch_pt)", "chebyshev_smooth",
+         next(r for c, r in batch_rows.items() if c.startswith("chebyshev batch_pt")),
+         dvar["chebyshev_smooth batched"]),
+        ("deep_correction (batch_pt)", "deep_correction",
+         next(r for c, r in batch_rows.items() if c.startswith("deep_correction batch_pt")),
+         dvar["deep_correction batched"]),
+    ]
     kernels += [{"name": label, "route": "cuda", "source": KERNEL_SOURCES[k][0],
                  "replaces": KERNEL_SOURCES[k][1], "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2523,7 +2951,7 @@ def main() -> int:
                        "inner_newton_all_attempts": iattempts,
                        "inner_cell_updates_per_s": icu_s, "inner_peak_gib": ipeak,
                        "solver_options": opts, "cli": cli, "blocked": blocked,
-                       "schedule": sched,
+                       "schedule": sched, "pc_dtype_batch_pt": pc12,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -260,3 +260,58 @@ def newton_option_parity(jm, jd, tm, td, oracle, *, precond="cptr", pc=None, gmg
     assert_states_close(tu, ju, 1e-8)
     _compare_states(tu, n(oracle))
     return jst, tst
+
+
+# ------------------------------------------------- preconditioner states
+
+def carry_array(a) -> torch.Tensor | None:
+    """A reference array as a contiguous CPU tensor of the same dtype (bf16
+    through f32, which holds every bf16 value exactly)."""
+    if a is None:
+        return None
+    if str(a.dtype) == "bfloat16":
+        return torch.as_tensor(np.asarray(a, dtype=np.float32)).to(torch.bfloat16).contiguous()
+    return torch.as_tensor(np.array(a)).contiguous()
+
+
+def carry_cpr_state(js):
+    """The port's ``CPRState`` of a reference ``CPRState``, leaf by leaf
+    and dtype by dtype (the stencils repacked in the port's layout), so
+    that the port applies exactly the reference's set-up: its cast
+    coefficients included."""
+    from thermalporous_torch.precond.cpr import CPRState
+    from thermalporous_torch.precond.gmg import GMGState
+
+    def block(st):
+        if st is None:
+            return None
+        coef = carry_array(pack_block_stencil(st))
+        return tc.BlockStencil(coef.reshape((-1, st.nc, st.nc) + tuple(st.grid_shape)))
+
+    def scalar(st):
+        return None if st is None else tc.ScalarStencil(carry_array(pack_stencil(st)))
+
+    def gmg(g):
+        if g is None:
+            return None
+        assert not g.transfers
+        batch = g.coarse_inv.ndim == 3
+        if batch:   # stacked: pack each member and stack
+            stencils = []
+            for s in g.stencils:
+                members = [JScalarStencil(diag=s.diag[m], upper=tuple(u[m] for u in s.upper),
+                                          lower=tuple(lo[m] for lo in s.lower))
+                           for m in range(g.coarse_inv.shape[0])]
+                stencils.append(tc.ScalarStencil(torch.stack(
+                    [carry_array(pack_stencil(x)) for x in members])))
+        else:
+            stencils = [scalar(s) for s in g.stencils]
+        return GMGState(tuple(stencils), tuple(carry_array(x) for x in g.lam_max),
+                        carry_array(g.coarse_inv), batch=g.coarse_inv.shape[0] if batch else 0)
+
+    fac = None if js.zebra_fac is None else tuple(carry_array(x) for x in js.zebra_fac)
+    return CPRState(stencil=block(js.stencil), dinv=carry_array(js.dinv), w=carry_array(js.w),
+                    gmg_p=gmg(js.gmg_p), gmg_t=gmg(js.gmg_t), a_tp=scalar(js.a_tp),
+                    pt=block(js.pt), a_sp=scalar(js.a_sp), a_st=scalar(js.a_st),
+                    a_ss=scalar(js.a_ss), zebra_fac=fac, dinv_red=carry_array(js.dinv_red),
+                    dinv_black=carry_array(js.dinv_black))

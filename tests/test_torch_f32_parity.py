@@ -141,14 +141,15 @@ def _flagship_jax(dtype):
 FLAGSHIP_STEPS = 2
 
 
-def _flagship_runs(basis: str):
-    """Each package's Simulator on the flagship configuration in f32 for
-    FLAGSHIP_STEPS controller steps: per step (Newton, FGMRES, state
-    before, state after, Δt)."""
+def _flagship_runs(basis: str, pc_dtype: str = "f32"):
+    """Each package's Simulator on the flagship configuration in f32 (with
+    ``pc_dtype`` coefficient storage) for FLAGSHIP_STEPS controller steps:
+    per step (Newton, FGMRES, state before, state after, Δt)."""
     time_cfg, newton_cfg, pc_cfg = tpre.flagship_configs()
     gmg = lambda g, **kw: JGMGConfig(**dict(dataclasses.asdict(g), **SMALL_GMG, **kw))
     pc = dataclasses.asdict(pc_cfg)
-    pc.update(gmg=gmg(pc_cfg.gmg, kcycle_min_cells=64), gmg_t=gmg(pc_cfg.gmg_t))
+    pc.update(gmg=gmg(pc_cfg.gmg, kcycle_min_cells=64), gmg_t=gmg(pc_cfg.gmg_t),
+              pc_dtype=pc_dtype)
     jtime = JTimeConfig(**dataclasses.asdict(time_cfg))
     jnewton = JNewtonConfig(**dict(dataclasses.asdict(newton_cfg), ksp_basis=basis))
     jpc = JCPRConfig(**pc)
@@ -206,9 +207,13 @@ def true_norm(model64, data64, u_old, u, dt) -> float:
 @pytest.mark.parametrize("basis", ["same", "bf16"])
 @pytest.mark.parametrize("case", ["bench_step", "flagship"])
 def test_f32_runs_match_the_reference(case, basis):
-    reset_launch_counts()
     runs = _bench_runs if case == "bench_step" else _flagship_runs
-    jout, tout, model64, data64, newton = runs(basis)
+    check_f32_runs(*runs(basis))
+
+
+def check_f32_runs(jout, tout, model64, data64, newton) -> None:
+    """The bands of the module docstring, step by step, and no launch (the
+    port ran on the CPU)."""
     assert len(tout) == len(jout) >= 2
     assert [s[0] for s in tout] == [s[0] for s in jout]
     for (_, jk, *_), (_, tk, *_) in zip(jout, tout):
@@ -231,3 +236,4 @@ def test_f32_runs_match_the_reference(case, basis):
     assert (err <= STATE_RTOL * scale).all(), err / scale
     # the port ran on the CPU: no kernel launched
     assert launch_counts() == {name: 0 for name in wrappers()}
+    reset_launch_counts()

@@ -188,10 +188,12 @@ def test_time_config_and_interop_refuse_what_is_not_ported():
     # a reference field the port lacks passes at its default only
     jpc = dataclasses.asdict(JCPRConfig())
     assert config_from_dict(CPRConfig, jpc) == CPRConfig()
-    for key, val in (("pc_dtype", "bf16"), ("batch_pt", True), ("stage2_pallas", True),
-                     ("bgmg_cycles", 2)):
+    for key, val in (("stage2_pallas", True), ("bgmg_cycles", 2)):
         with pytest.raises(ValueError):
             config_from_dict(CPRConfig, dict(jpc, **{key: val}))
+    # bf16 coefficients and the batched p/T traversal are carried across
+    for key, val in (("pc_dtype", "bf16"), ("pc_dtype", "bf16_s2"), ("batch_pt", True)):
+        assert getattr(config_from_dict(CPRConfig, dict(jpc, **{key: val})), key) == val
     with pytest.raises(NotImplementedError):
         config_from_dict(CPRConfig, dict(jpc, stage2="bgmg"))
     jgmg = dataclasses.asdict(JGMGConfig())

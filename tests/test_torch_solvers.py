@@ -117,22 +117,21 @@ def test_trivial_preconditioners(system):
 
 
 def test_cpr_unported_options_raise():
-    """What stays unported: the bgmg stage 2 raises; bf16 coefficient
-    storage, the batched p/T traversal, the Pallas stage-2 switch, the bgmg
-    sizes and the weighted/variational transfers and TPU/multi-device GMG
-    options have no field; unknown names are refused."""
+    """What stays unported: the bgmg stage 2 raises; the Pallas stage-2
+    switch, the bgmg sizes and the weighted/variational transfers and
+    TPU/multi-device GMG options have no field; unknown names are refused
+    (bf16 coefficient storage and the batched p/T traversal are ported:
+    tests/test_torch_pc_dtype.py, tests/test_torch_batch_pt.py)."""
     with pytest.raises(NotImplementedError):
         tcpr.CPRConfig(stage2="bgmg")
-    for cls, kw in ((tcpr.CPRConfig, dict(pc_dtype="bf16")),
-                    (tcpr.CPRConfig, dict(batch_pt=True)),
-                    (tcpr.CPRConfig, dict(stage2_pallas=True)),
+    for cls, kw in ((tcpr.CPRConfig, dict(stage2_pallas=True)),
                     (tcpr.CPRConfig, dict(bgmg_cycles=2)),
                     (tgmg.GMGConfig, dict(transfer="weighted")),
                     (tgmg.GMGConfig, dict(use_pallas=True))):
         with pytest.raises(TypeError):
             cls(**kw)
     for kw in (dict(stage2="ilu"), dict(decoupling="x"), dict(variant="cprs"),
-               dict(inner_method="cg"), dict(s_stage="ilu")):
+               dict(inner_method="cg"), dict(s_stage="ilu"), dict(pc_dtype="f16")):
         with pytest.raises(ValueError):
             tcpr.CPRConfig(**kw)
     for kw in (dict(cycle_type="f"), dict(smoother="sor"), dict(cycles=0)):

@@ -1,10 +1,54 @@
 // Shared helpers of the thermalporous_torch CUDA kernels: grid extents and
-// strides of a C-contiguous 2D/3D cell array, and the launch shape.
+// strides of a C-contiguous 2D/3D cell array, the launch shape, and the
+// storage type of preconditioner coefficients.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace tp {
+
+using bf16 = __nv_bfloat16;
+
+// Preconditioner coefficients are stored as C: the vectors' type T, or bf16
+// (CPRConfig.pc_dtype).  A kernel converts each coefficient to T before any
+// arithmetic, which is exact, so its sums keep the order and the rounding of
+// the T form: the reference's bf16 array times an f32 or f64 array promotes
+// the same way.
+template <typename T, typename C>
+struct Cvt {
+  static __device__ __forceinline__ T f(C x) { return x; }
+};
+template <typename T>
+struct Cvt<T, bf16> {
+  static __device__ __forceinline__ T f(bf16 x) { return T(__bfloat162float(x)); }
+};
+template <typename T, typename C>
+__device__ __forceinline__ T cv(C x) {
+  return Cvt<T, C>::f(x);
+}
+
+// 1 / d of a diagonal coefficient d (already converted to T).  With bf16
+// storage the reference's 1.0 / diag is a bf16 value (a Python scalar does
+// not promote): the float quotient rounded to bf16, as torch and XLA form it.
+template <typename T, typename C>
+__device__ __forceinline__ T recip(T d) {
+  if constexpr (std::is_same_v<C, bf16>)
+    return T(__bfloat162float(__float2bfloat16_rn(1.0f / float(d))));
+  else
+    return T(1) / d;
+}
+
+// Dispatch on the entries' dtype code (kernels/_lib.py: dtype_code):
+// 0 float, 1 double, 2 float with bf16 coefficients, 3 double with bf16.
+#define TP_DISPATCH_TC(code, FN, ...)                         \
+  ((code) == 0   ? FN<float, float>(__VA_ARGS__)              \
+   : (code) == 1 ? FN<double, double>(__VA_ARGS__)            \
+   : (code) == 2 ? FN<float, ::tp::bf16>(__VA_ARGS__)         \
+   : (code) == 3 ? FN<double, ::tp::bf16>(__VA_ARGS__)        \
+                 : (int)cudaErrorInvalidValue)
 
 constexpr int kThreads = 256;
 

@@ -55,6 +55,21 @@
 //     <= 512 threads per SM keeps in flight; on the coarse levels the launch
 //     (~5 us) and the barriers.
 //
+// Coefficient storage (CPRConfig.pc_dtype): each kernel takes its stencil as
+// C, the vectors' type T or bf16, and converts a coefficient to T as it is
+// loaded (common.cuh: cv, recip), so the sums are the T form's.  With bf16
+// a quad of one channel is one 8-byte load (load4), half the bytes of the
+// f32 form's 16; the shared-memory cache of the smooth keeps the converted
+// values.  Instantiated for (T, C) = (float, float), (double, double),
+// (float, bf16) and (double, bf16).
+//
+// Batches (CPRConfig.batch_pt): the smooth takes up to kSmoothMaxBatch
+// congruent members stacked along a leading axis of its stencil, vectors and
+// lambda_max, numbered quad by quad one member after the other, in ONE
+// launch with one member's barriers (a member's cells compute exactly what
+// they compute alone: the smooth has no reduction).  The member count is a
+// template parameter, so the unbatched kernel does no member arithmetic.
+//
 // Each kernel reproduces the plain PyTorch version's order of operations
 // (thermalporous_torch/kernels/stencil.py); compiled with --fmad=false it
 // rounds the same way.
@@ -70,8 +85,8 @@ namespace tp {
 // y = A v over block columns 0:k.  coef: ((2*dim+1)*NC*NC, n), v: (k, n),
 // y: (NC, n).  Order per output row: diagonal block, then per axis the
 // upper and the lower neighbour block, each a left-to-right sum over j.
-template <typename T, int NC>
-__global__ void block_matvec_kernel(const T* __restrict__ coef,
+template <typename T, typename C, int NC>
+__global__ void block_matvec_kernel(const C* __restrict__ coef,
                                     const T* __restrict__ v,
                                     T* __restrict__ y, int k, Dims d) {
   const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -82,36 +97,36 @@ __global__ void block_matvec_kernel(const T* __restrict__ coef,
   T out[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
-    const T* w = coef + (long)(i * NC) * n + c;
-    T acc = w[0] * v[c];
+    const C* w = coef + (long)(i * NC) * n + c;
+    T acc = cv<T>(w[0]) * v[c];
 #pragma unroll
     for (int j = 1; j < NC; ++j)
-      if (j < k) acc = acc + w[(long)j * n] * v[(long)j * n + c];
+      if (j < k) acc = acc + cv<T>(w[(long)j * n]) * v[(long)j * n + c];
     out[i] = acc;
   }
   for (int a = 0; a < d.dim; ++a) {
     const long s = d.stride[a];
     if (idx[a] + 1 < d.ext[a]) {
-      const T* blk = coef + (long)((1 + 2 * a) * NC * NC) * n + c;
+      const C* blk = coef + (long)((1 + 2 * a) * NC * NC) * n + c;
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
-        const T* w = blk + (long)(i * NC) * n;
-        T acc = w[0] * v[c + s];
+        const C* w = blk + (long)(i * NC) * n;
+        T acc = cv<T>(w[0]) * v[c + s];
 #pragma unroll
         for (int j = 1; j < NC; ++j)
-          if (j < k) acc = acc + w[(long)j * n] * v[(long)j * n + c + s];
+          if (j < k) acc = acc + cv<T>(w[(long)j * n]) * v[(long)j * n + c + s];
         out[i] = out[i] + acc;
       }
     }
     if (idx[a] > 0) {
-      const T* blk = coef + (long)((2 + 2 * a) * NC * NC) * n + c;
+      const C* blk = coef + (long)((2 + 2 * a) * NC * NC) * n + c;
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
-        const T* w = blk + (long)(i * NC) * n;
-        T acc = w[0] * v[c - s];
+        const C* w = blk + (long)(i * NC) * n;
+        T acc = cv<T>(w[0]) * v[c - s];
 #pragma unroll
         for (int j = 1; j < NC; ++j)
-          if (j < k) acc = acc + w[(long)j * n] * v[(long)j * n + c - s];
+          if (j < k) acc = acc + cv<T>(w[(long)j * n]) * v[(long)j * n + c - s];
         out[i] = out[i] + acc;
       }
     }
@@ -129,10 +144,25 @@ struct alignas(16) Pack16 {
   T v[16 / sizeof(T)];
 };
 
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, bool vec, unsigned c0, unsigned n,
+// Four bf16 coefficients of a channel: one 8-byte load.
+struct alignas(8) Bf16x4 {
+  bf16 v[4];
+};
+
+// Values of type C (T, or bf16 coefficients), converted to T.
+template <typename T, typename C>
+__device__ __forceinline__ void load4(const C* p, bool vec, unsigned c0, unsigned n,
                                       T (&v)[4]) {
-  if (vec) {
+  if constexpr (std::is_same_v<C, bf16>) {
+    if (vec) {
+      const Bf16x4 t = *reinterpret_cast<const Bf16x4*>(p + c0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = cv<T>(t.v[j]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = c0 + q < n ? cv<T>(p[c0 + q]) : T(0);
+    }
+  } else if (vec) {
     constexpr int kPer = 16 / sizeof(T);
 #pragma unroll
     for (int h = 0; h < 4 / kPer; ++h) {
@@ -301,9 +331,9 @@ __device__ __forceinline__ void quad_matvec(T (&w)[2 * DIM + 1][4], const T* v,
 // L1/L2 (along the last axis the quad's own values serve), one 16-byte store.  No barrier and no shared memory, so as many
 // blocks are resident as the registers allow, and every SM has many loads in
 // flight.
-template <typename T, int DIM>
+template <typename T, typename C, int DIM>
 __global__ void __launch_bounds__(kThreads)
-    scalar_matvec_kernel(const T* __restrict__ p, const T* __restrict__ v,
+    scalar_matvec_kernel(const C* __restrict__ p, const T* __restrict__ v,
                          T* __restrict__ y, const __grid_constant__ QuadGrid g) {
   constexpr int NCH = 2 * DIM + 1;
   const unsigned q = blockIdx.x * blockDim.x + threadIdx.x;
@@ -319,13 +349,16 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kSmoothMaxThreads = 512;
 constexpr int kSmoothTableSteps = 16;   // steps whose scalars are tabulated
+constexpr int kSmoothMaxBatch = 2;      // members of one launch (batch_pt: p and T)
+static_assert(kSmoothMaxBatch == 2, "cheb_smooth_kernel picks a quad's member by one compare");
 
 struct SmoothPlan {
-  QuadGrid g;
-  unsigned per_block;    // quads a block owns (a contiguous range)
+  QuadGrid g;            // one member's grid
+  unsigned per_block;    // quads a block owns (a contiguous range over all members)
   unsigned cached_quads; // of which the first keep their channels in shared memory
   int iters;             // block-stride iterations over the block's range
   int second;            // 0: none; 1: also b - A y; 2: also A y (y the result)
+  int batch;             // members, each g.quads quads, stacked one after the other
 };
 
 // The whole Chebyshev smooth in one cooperative launch.  Step 0:
@@ -343,9 +376,13 @@ struct SmoothPlan {
 // of the final iterate to `out2`, with the channels and b of the cached
 // quads still in shared memory: the scalar matvec that would follow the
 // smooth, without its launch and without reading the stencil again.
-template <typename T, int DIM>
+// A batch (NM = 2 members; NM = 1 is the unbatched kernel, with no member
+// arithmetic): quad q of the launch is quad q - m * g.quads of member m,
+// whose stencil starts (2*DIM+1) * n coefficients and whose vectors n
+// values after member m - 1's, and whose lambda_max is lam[m].
+template <typename T, typename C, int DIM, int NM>
 __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
-    cheb_smooth_kernel(const T* __restrict__ p, const T* __restrict__ b,
+    cheb_smooth_kernel(const C* __restrict__ p, const T* __restrict__ b,
                        const T* __restrict__ x0, const T* __restrict__ lam, T frac,
                        T safety, int degree, T* ya, T* yb, T* dbuf, T* out, T* out2,
                        const __grid_constant__ SmoothPlan pl) {
@@ -353,36 +390,55 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
   // the cache: [slot][cached quad], slots 0..NCH-1 the channels, NCH b, NCH+1 d
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Quad<T>* cache = reinterpret_cast<Quad<T>*>(smem_raw);
-  __shared__ T coef_s[kSmoothTableSteps][3];
+  __shared__ T coef_s[NM][kSmoothTableSteps][3];
   cg::grid_group grid = cg::this_grid();
   const unsigned n = pl.g.n;
+  const unsigned mq = pl.g.quads;       // quads of one member
+  const unsigned total = NM * mq;
   const unsigned ncq = pl.cached_quads;
   const bool vec = pl.g.vec != 0;
   T* ybuf[2] = {ya, yb};
 
-  // the recurrence scalars of every step, once per block (thread s: step s)
-  if (threadIdx.x < kSmoothTableSteps && (int)threadIdx.x < degree)
-    cheb_scalars(*lam, frac, safety, (int)threadIdx.x, &coef_s[threadIdx.x][0],
-                 &coef_s[threadIdx.x][1], &coef_s[threadIdx.x][2]);
+  // the recurrence scalars of every member's steps, once per block (thread
+  // t: member t / kSmoothTableSteps, step t % kSmoothTableSteps)
+  {
+    const int tm = (int)threadIdx.x / kSmoothTableSteps;
+    const int ts = (int)threadIdx.x % kSmoothTableSteps;
+    if (tm < NM && ts < degree)
+      cheb_scalars(lam[tm], frac, safety, ts, &coef_s[tm][ts][0], &coef_s[tm][ts][1],
+                   &coef_s[tm][ts][2]);
+  }
   __syncthreads();
 
   // the first step that reads the off-diagonal channels
   const int first_off = x0 == nullptr ? 1 : 0;
 
   for (int s = 0; s < degree; ++s) {
-    T theta, c1, c2;
-    if (s < kSmoothTableSteps) {
-      theta = coef_s[s][0], c1 = coef_s[s][1], c2 = coef_s[s][2];
-    } else {
-      cheb_scalars(*lam, frac, safety, s, &theta, &c1, &c2);
+    const T* src_all = s == 0 ? x0 : ybuf[(s - 1) & 1];
+    T* dst_all = s == degree - 1 ? out : ybuf[s & 1];
+    // this step's scalars of each member
+    T theta_m[NM], c1_m[NM], c2_m[NM];
+#pragma unroll
+    for (int k = 0; k < NM; ++k) {
+      if (s < kSmoothTableSteps) {
+        theta_m[k] = coef_s[k][s][0], c1_m[k] = coef_s[k][s][1], c2_m[k] = coef_s[k][s][2];
+      } else {
+        cheb_scalars(lam[k], frac, safety, s, &theta_m[k], &c1_m[k], &c2_m[k]);
+      }
     }
-    const T* src = s == 0 ? x0 : ybuf[(s - 1) & 1];
-    T* dst = s == degree - 1 ? out : ybuf[s & 1];
     for (int it = 0; it < pl.iters; ++it) {
       const unsigned lq = it * blockDim.x + threadIdx.x;
-      const unsigned q = blockIdx.x * pl.per_block + lq;
-      if (lq >= pl.per_block || q >= pl.g.quads) continue;
-      const unsigned c0 = 4 * q;
+      const unsigned gq = blockIdx.x * pl.per_block + lq;
+      if (lq >= pl.per_block || gq >= total) continue;
+      const unsigned m = NM > 1 && gq >= mq ? 1u : 0u;     // NM <= 2
+      const unsigned c0 = 4 * (gq - m * mq);
+      const size_t vo = (size_t)m * n;                       // the member's vectors
+      const C* pm = p + (size_t)m * NCH * n;                 // and stencil
+      const T* bm = b + vo;
+      const T* src = src_all == nullptr ? nullptr : src_all + vo;
+      const T theta = theta_m[NM > 1 ? m : 0];
+      const T c1 = c1_m[NM > 1 ? m : 0];
+      const T c2 = c2_m[NM > 1 ? m : 0];
       const bool cached = lq < ncq;
       Quad<T>* slot = cache + lq;          // slot k of this quad: slot[k * ncq]
 
@@ -395,9 +451,9 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
         get4(slot[NCH * ncq], bb);
         get4(slot[(NCH + 1) * ncq], dd);
       } else {
-        load4(p, vec, c0, n, w[0]);
-        load4(b, vec, c0, n, bb);
-        if (s > 0) load4(dbuf, vec, c0, n, dd);
+        load4(pm, vec, c0, n, w[0]);
+        load4(bm, vec, c0, n, bb);
+        if (s > 0) load4(dbuf + vo, vec, c0, n, dd);
         if (cached) {
           put4(slot[0], w[0]);
           put4(slot[NCH * ncq], bb);
@@ -413,7 +469,7 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
           for (int ch = 1; ch < NCH; ++ch) get4(slot[ch * ncq], w[ch]);
         } else {
 #pragma unroll
-          for (int ch = 1; ch < NCH; ++ch) load4(p + (size_t)ch * n, vec, c0, n, w[ch]);
+          for (int ch = 1; ch < NCH; ++ch) load4(pm + (size_t)ch * n, vec, c0, n, w[ch]);
           if (cached) {
 #pragma unroll
             for (int ch = 1; ch < NCH; ++ch) put4(slot[ch * ncq], w[ch]);
@@ -424,7 +480,7 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
       T y[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const T inv_diag = T(1) / w[0][j];
+        const T inv_diag = recip<T, C>(w[0][j]);
         const T z = src == nullptr ? inv_diag * bb[j] : inv_diag * (bb[j] - acc[j]);
         dd[j] = s == 0 ? z / theta : c1 * dd[j] + c2 * z;
         y[j] = xc[j] + dd[j];
@@ -433,10 +489,10 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
         if (cached) {
           put4(slot[(NCH + 1) * ncq], dd);
         } else {
-          store4(dbuf, vec, c0, n, dd);
+          store4(dbuf + vo, vec, c0, n, dd);
         }
       }
-      store4(dst, vec, c0, n, y);
+      store4(dst_all + vo, vec, c0, n, y);
     }
     if (s < degree - 1) grid.sync();
   }
@@ -449,9 +505,12 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
   const bool off_cached = degree > first_off;
   for (int it = 0; it < pl.iters; ++it) {
     const unsigned lq = it * blockDim.x + threadIdx.x;
-    const unsigned q = blockIdx.x * pl.per_block + lq;
-    if (lq >= pl.per_block || q >= pl.g.quads) continue;
-    const unsigned c0 = 4 * q;
+    const unsigned gq = blockIdx.x * pl.per_block + lq;
+    if (lq >= pl.per_block || gq >= total) continue;
+    const unsigned m = NM > 1 && gq >= mq ? 1u : 0u;
+    const unsigned c0 = 4 * (gq - m * mq);
+    const size_t vo = (size_t)m * n;
+    const C* pm = p + (size_t)m * NCH * n;
     const bool cached = lq < ncq;
     Quad<T>* slot = cache + lq;
     T w[NCH][4], bb[4];
@@ -459,63 +518,66 @@ __global__ void __launch_bounds__(kSmoothMaxThreads, 1)
       get4(slot[0], w[0]);
       get4(slot[NCH * ncq], bb);
     } else {
-      load4(p, vec, c0, n, w[0]);
-      load4(b, vec, c0, n, bb);
+      load4(pm, vec, c0, n, w[0]);
+      load4(b + vo, vec, c0, n, bb);
     }
     if (cached && off_cached) {
 #pragma unroll
       for (int ch = 1; ch < NCH; ++ch) get4(slot[ch * ncq], w[ch]);
     } else {
 #pragma unroll
-      for (int ch = 1; ch < NCH; ++ch) load4(p + (size_t)ch * n, vec, c0, n, w[ch]);
+      for (int ch = 1; ch < NCH; ++ch) load4(pm + (size_t)ch * n, vec, c0, n, w[ch]);
     }
     T yc[4], acc[4], r[4];
-    quad_matvec<T, DIM, false>(w, out, c0, pl.g, yc, acc);
+    quad_matvec<T, DIM, false>(w, out + vo, c0, pl.g, yc, acc);
 #pragma unroll
     for (int j = 0; j < 4; ++j) r[j] = pl.second == 1 ? bb[j] - acc[j] : acc[j];
-    store4(out2, vec, c0, n, r);
+    store4(out2 + vo, vec, c0, n, r);
   }
 }
 
-template <typename T>
+template <typename T, typename C>
 int block_matvec(const void* coef, const void* v, void* y, int nc, int k,
                  Dims d, cudaStream_t st) {
-  const T* c_ = static_cast<const T*>(coef);
+  const C* c_ = static_cast<const C*>(coef);
   const T* v_ = static_cast<const T*>(v);
   T* y_ = static_cast<T*>(y);
   const unsigned g = blocks_for(d.n);
   switch (nc) {
-    case 1: block_matvec_kernel<T, 1><<<g, kThreads, 0, st>>>(c_, v_, y_, k, d); break;
-    case 2: block_matvec_kernel<T, 2><<<g, kThreads, 0, st>>>(c_, v_, y_, k, d); break;
-    case 3: block_matvec_kernel<T, 3><<<g, kThreads, 0, st>>>(c_, v_, y_, k, d); break;
+    case 1: block_matvec_kernel<T, C, 1><<<g, kThreads, 0, st>>>(c_, v_, y_, k, d); break;
+    case 2: block_matvec_kernel<T, C, 2><<<g, kThreads, 0, st>>>(c_, v_, y_, k, d); break;
+    case 3: block_matvec_kernel<T, C, 3><<<g, kThreads, 0, st>>>(c_, v_, y_, k, d); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM>
-int launch_smooth(const T* p, const T* b, const T* x, const T* lam, T frac, T safety,
+template <typename T, typename C, int DIM>
+int launch_smooth(const C* p, const T* b, const T* x, const T* lam, T frac, T safety,
                   int degree, T* ya, T* yb, T* dbuf, T* out, T* out2, SmoothPlan pl,
                   int blocks, int threads, size_t smem, cudaStream_t st) {
-  const void* fn = reinterpret_cast<const void*>(&cheb_smooth_kernel<T, DIM>);
+  const void* fn =
+      pl.batch == 2 ? reinterpret_cast<const void*>(&cheb_smooth_kernel<T, C, DIM, 2>)
+                    : reinterpret_cast<const void*>(&cheb_smooth_kernel<T, C, DIM, 1>);
   // more than 48 KB of dynamic shared memory must be opted in to, per
   // function and device: remember what was granted
   constexpr int kMaxDevices = 64;
-  static size_t allowed[kMaxDevices] = {};
+  static size_t allowed[2][kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > allowed[dev]) {
+  size_t& granted = allowed[pl.batch == 2][dev];
+  if (smem > 48 * 1024 && smem > granted) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    allowed[dev] = smem;
+    granted = smem;
   }
   void* args[] = {&p, &b, &x, &lam, &frac, &safety, &degree, &ya, &yb, &dbuf, &out, &out2,
                   &pl};
   return (int)cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem, st);
 }
 
-template <typename T>
+template <typename T, typename C>
 int chebyshev_smooth(const void* packed, const void* b, const void* x,
                      const void* lam, void* out, void* out2, void* y_a, void* y_b,
                      void* d_buf, int degree, double frac, double safety,
@@ -523,25 +585,26 @@ int chebyshev_smooth(const void* packed, const void* b, const void* x,
                      cudaStream_t st) {
   auto c = [](const void* q) { return static_cast<const T*>(q); };
   auto m = [](void* q) { return static_cast<T*>(q); };
+  const C* p = static_cast<const C*>(packed);
   return dim == 2
-             ? launch_smooth<T, 2>(c(packed), c(b), c(x), c(lam), T(frac), T(safety),
-                                   degree, m(y_a), m(y_b), m(d_buf), m(out), m(out2), pl,
-                                   blocks, threads, smem, st)
-             : launch_smooth<T, 3>(c(packed), c(b), c(x), c(lam), T(frac), T(safety),
-                                   degree, m(y_a), m(y_b), m(d_buf), m(out), m(out2), pl,
-                                   blocks, threads, smem, st);
+             ? launch_smooth<T, C, 2>(p, c(b), c(x), c(lam), T(frac), T(safety),
+                                      degree, m(y_a), m(y_b), m(d_buf), m(out), m(out2), pl,
+                                      blocks, threads, smem, st)
+             : launch_smooth<T, C, 3>(p, c(b), c(x), c(lam), T(frac), T(safety),
+                                      degree, m(y_a), m(y_b), m(d_buf), m(out), m(out2), pl,
+                                      blocks, threads, smem, st);
 }
 
-template <typename T>
+template <typename T, typename C>
 int scalar_matvec(const void* packed, const void* v, void* y, int dim, const QuadGrid& g,
                   int blocks, int threads, cudaStream_t st) {
-  const T* p_ = static_cast<const T*>(packed);
+  const C* p_ = static_cast<const C*>(packed);
   const T* v_ = static_cast<const T*>(v);
   T* y_ = static_cast<T*>(y);
   if (dim == 2)
-    scalar_matvec_kernel<T, 2><<<blocks, threads, 0, st>>>(p_, v_, y_, g);
+    scalar_matvec_kernel<T, C, 2><<<blocks, threads, 0, st>>>(p_, v_, y_, g);
   else
-    scalar_matvec_kernel<T, 3><<<blocks, threads, 0, st>>>(p_, v_, y_, g);
+    scalar_matvec_kernel<T, C, 3><<<blocks, threads, 0, st>>>(p_, v_, y_, g);
   return (int)cudaGetLastError();
 }
 
@@ -549,14 +612,14 @@ int scalar_matvec(const void* packed, const void* v, void* y, int dim, const Qua
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64.
+// dtype: kernels/_lib.py: dtype_code (0 float, 1 double, 2 float with bf16
+// coefficients, 3 double with bf16 coefficients).
 int tp_block_matvec(int dtype, const void* coef, const void* v, void* y,
                     int nc, int k, int dim, int n0, int n1, int n2,
                     void* stream) {
   const tp::Dims d = tp::make_dims(dim, n0, n1, n2);
   auto st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? tp::block_matvec<float>(coef, v, y, nc, k, d, st)
-                    : tp::block_matvec<double>(coef, v, y, nc, k, d, st);
+  return TP_DISPATCH_TC(dtype, tp::block_matvec, coef, v, y, nc, k, d, st);
 }
 
 // `blocks` x `threads` threads, one quad (4 consecutive cells) each.  vec:
@@ -571,27 +634,28 @@ int tp_scalar_matvec(int dtype, const void* packed, const void* v, void* y,
     return (int)cudaErrorInvalidValue;
   const tp::QuadGrid g = tp::make_quad_grid(d, vec);
   auto st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? tp::scalar_matvec<float>(packed, v, y, dim, g, blocks, threads, st)
-                    : tp::scalar_matvec<double>(packed, v, y, dim, g, blocks, threads, st);
+  return TP_DISPATCH_TC(dtype, tp::scalar_matvec, packed, v, y, dim, g, blocks, threads, st);
 }
 
 // One cooperative launch of `blocks` x `threads`; a block owns `per_block`
-// quads (4 consecutive cells) and walks them in `iters` block-stride
-// iterations; its first `cached_quads` quads keep their channels in `smem`
-// bytes of dynamic shared memory.  y_a, y_b, d_buf: n values each
-// (y_b and d_buf are untouched at degree <= 2 and 1).  second: 0, or 1 to
-// write b - A out, or 2 to write A out, to out2 (n values; else unused).
-// vec: 16-byte accesses (every pointer 16-byte aligned and n % 4 == 0).
-// A grid that cannot be co-resident is refused with an error.
+// quads (4 consecutive cells) of the `batch` members' quads and walks them
+// in `iters` block-stride iterations; its first `cached_quads` quads keep
+// their channels in `smem` bytes of dynamic shared memory.  y_a, y_b, d_buf:
+// batch * n values each (y_b and d_buf are untouched at degree <= 2 and 1).
+// second: 0, or 1 to write b - A out, or 2 to write A out, to out2
+// (batch * n values; else unused).  vec: 16-byte accesses (every pointer
+// 16-byte aligned and n % 4 == 0).  A grid that cannot be co-resident is
+// refused with an error.
 int tp_chebyshev_smooth(int dtype, const void* packed, const void* b,
                         const void* x, const void* lam, void* out, void* out2,
                         void* y_a, void* y_b, void* d_buf, int degree,
                         double lam_min_frac, double safety, int dim, int n0,
                         int n1, int n2, int blocks, int threads, int per_block,
                         int iters, int cached_quads, int smem, int vec, int second,
-                        void* stream) {
+                        int batch, void* stream) {
   const tp::Dims d = tp::make_dims(dim, n0, n1, n2);
-  if ((dim != 2 && dim != 3) || d.n < 1 || d.n >= (1L << 31) || degree < 1 || blocks < 1 ||
+  if ((dim != 2 && dim != 3) || d.n < 1 || batch < 1 || batch > tp::kSmoothMaxBatch ||
+      batch * d.n >= (1L << 31) || degree < 1 || blocks < 1 ||
       threads < 32 || threads > tp::kSmoothMaxThreads || threads % 32 != 0 ||
       per_block < 1 ||
       iters < 1 || cached_quads < 0 || cached_quads > per_block || smem < 0 ||
@@ -604,19 +668,16 @@ int tp_chebyshev_smooth(int dtype, const void* packed, const void* b,
   pl.iters = iters;
   pl.cached_quads = (unsigned)cached_quads;
   pl.second = second;
-  const long quad_bytes = 4L * (dtype == 0 ? 4 : 8);
-  if ((long)blocks * per_block < pl.g.quads ||
+  pl.batch = batch;
+  const long quad_bytes = 4L * (dtype % 2 == 0 ? 4 : 8);
+  if ((long)blocks * per_block < (long)batch * pl.g.quads ||
       (long)cached_quads * (2 * dim + 3) * quad_bytes > smem ||
       (cached_quads < per_block && cached_quads % 32 != 0))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? tp::chebyshev_smooth<float>(packed, b, x, lam, out, out2, y_a, y_b, d_buf,
-                                           degree, lam_min_frac, safety, pl, dim,
-                                           blocks, threads, (size_t)smem, st)
-             : tp::chebyshev_smooth<double>(packed, b, x, lam, out, out2, y_a, y_b, d_buf,
-                                            degree, lam_min_frac, safety, pl, dim,
-                                            blocks, threads, (size_t)smem, st);
+  return TP_DISPATCH_TC(dtype, tp::chebyshev_smooth, packed, b, x, lam, out, out2, y_a,
+                        y_b, d_buf, degree, lam_min_frac, safety, pl, dim, blocks,
+                        threads, (size_t)smem, st);
 }
 
 }  // extern "C"

@@ -33,8 +33,7 @@ from thermalporous_torch.solve.timeloop import TimeConfig
 UNPORTED_DEFAULTS = {
     GMGConfig: dict(use_pallas=False, transfer="constant", transfer_floor=0.75,
                     replicate_below=4096, mesh=None),
-    CPRConfig: dict(stage2_pallas=False, bgmg_coarse_cells=256, bgmg_cycles=1,
-                    batch_pt=False, pc_dtype="f32"),
+    CPRConfig: dict(stage2_pallas=False, bgmg_coarse_cells=256, bgmg_cycles=1),
     NewtonConfig: {},
     TimeConfig: {},
 }

@@ -46,6 +46,15 @@ def launch_counts() -> dict[str, int]:
             for name, fn in wrappers().items()}
 
 
+def variant_counts() -> dict[str, int]:
+    """Launches of the kernels' bf16-coefficient and batched instantiations
+    ("<wrapper> bf16", "<wrapper> batched"), each also counted in
+    :func:`launch_counts` under its wrapper."""
+    from thermalporous_torch.kernels.stencil import variant_launches
+
+    return dict(variant_launches)
+
+
 def second_output_counts() -> dict[str, int]:
     """Second outputs of the smooth kernel by kind ("residual", "product"):
     scalar matvecs that ran inside a smooth's launch, not as ``matvec``."""
@@ -56,7 +65,7 @@ def second_output_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     from thermalporous_torch.kernels.residual import launches
-    from thermalporous_torch.kernels.stencil import second_outputs
+    from thermalporous_torch.kernels.stencil import second_outputs, variant_launches
 
     for name, fn in wrappers().items():
         if name in launches:
@@ -65,3 +74,4 @@ def reset_launch_counts() -> None:
             fn.launches = 0
     for kind in second_outputs:
         second_outputs[kind] = 0
+    variant_launches.clear()

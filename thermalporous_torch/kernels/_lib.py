@@ -37,8 +37,8 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("common.cuh", "dual.cuh", "stencil.cu", "residual.cu", "rbgs.cu",
-           "deep_cycle.cu", "device.cu")
+SOURCES = ("common.cuh", "dual.cuh", "rbgs.cuh", "stencil.cu", "residual.cu", "rbgs.cu",
+           "rbgs_bf16.cu", "deep_cycle.cu", "device.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -53,7 +53,7 @@ _D = ctypes.c_double
 _MODEL_ARGS = (_I, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int;
-# the first argument is the dtype code, 0 = float32, 1 = float64, unless noted)
+# the first argument is the dtype code of :func:`dtype_code` unless noted)
 _SIGNATURES = {
     # coef, v, y, nc, k, dim, n0, n1, n2, stream
     "tp_block_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -61,10 +61,10 @@ _SIGNATURES = {
     "tp_scalar_matvec": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # packed, b, x (nullable), lam, out, out2 (nullable), y_a, y_b, d_buf,
     # degree, lam_min_frac, safety, dim, n0, n1, n2, blocks, threads,
-    # per_block, iters, cached_quads, smem, vec, second, stream
+    # per_block, iters, cached_quads, smem, vec, second, batch, stream
     "tp_chebyshev_smooth": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _D, _D, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # u, u_old (residual) or v (jvp), fields, out, dt, params (host double*),
     # dim, n0, n1, n2, ty, tz, lx, stream
     "tp_twophase_residual": _MODEL_ARGS,
@@ -78,8 +78,8 @@ _SIGNATURES = {
     "tp_block_rbgs_half": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # desc (host int64*, DEEP_DESC_PER_LEVEL per level), n_levels, inv,
     # partials, barriers (nullable), degree, lam_min_frac, safety, blocks,
-    # threads, stream
-    "tp_deep_correction": (_I, _P, _I, _P, _P, _P, _I, _D, _D, _I, _I, _P),
+    # threads, batch, stream
+    "tp_deep_correction": (_I, _P, _I, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P),
     # device, sms (host int*), smem_optin (host int*)      [no dtype code]
     "tp_device_limits": (_I, _P, _P),
     # kind (0 grid, 1 cluster), blocks, threads, iters, stream  [no dtype code]
@@ -172,8 +172,13 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def dtype_code(t: torch.Tensor) -> int:
-    return {torch.float32: 0, torch.float64: 1}[t.dtype]
+def dtype_code(t: torch.Tensor, coef: torch.Tensor | None = None) -> int:
+    """The entries' dtype code of vectors ``t`` and, where the kernel reads
+    preconditioner coefficients, their tensor ``coef``: 0 = float32, 1 =
+    float64, each with coefficients of the same dtype; 2 = float32 and 3 =
+    float64 with bfloat16 coefficients (``CPRConfig.pc_dtype``)."""
+    code = {torch.float32: 0, torch.float64: 1}[t.dtype]
+    return code + 2 if coef is not None and coef.dtype == torch.bfloat16 else code
 
 
 def launch(name: str, *args) -> None:

@@ -13,11 +13,18 @@ version, ``deep_correction_plain`` (the counterpart of the reference's
 on CUDA tensors it launches the kernel and adds one to
 ``deep_correction.launches``.
 
-Sizing (:func:`subtree_bytes`) counts the subtree at the dtype the
-correction computes in — the right-hand side's — which is also the dtype the
-kernel reads the stencils in.  Each level runs one of three cycle kinds
-(:func:`cycle_kinds`): a single cycle, the K-cycle or the W-cycle; the
-kernel reads the kind from the level's descriptor.
+Sizing (:func:`subtree_bytes`) counts the stencils at the dtype they are
+stored in (bf16 under ``CPRConfig.pc_dtype``) and the vectors and the dense
+coarsest inverse at the dtype the correction computes in — the right-hand
+side's — and every member of a batch.  Each level runs one of three cycle
+kinds (:func:`cycle_kinds`): a single cycle, the K-cycle or the W-cycle;
+the kernel reads the kind from the level's descriptor.
+
+A batch (``CPRConfig.batch_pt``: the pressure and temperature hierarchies,
+congruent, stacked along a leading axis of every stencil, λ estimate,
+inverse and vector) runs in ONE launch: every pass covers each member's
+cells in turn, with the same barriers as one member's visit and each
+member's K-cycle scalars its own.
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ from thermalporous_torch.kernels import stencil as kst
 #: vectors per level the kernel keeps in its scratch buffer (csrc/deep_cycle.cu:
 #: b, out, e1, v1, r1, e2, v2, ya, yb, d)
 VECS_PER_LEVEL = 10
-#: partial dot products a block leaves in scratch (csrc/deep_cycle.cu: kMaxDots)
+#: partial dot products a block leaves in scratch per member (csrc/deep_cycle.cu:
+#: kMaxDots), and the most members of a launch (kDeepMaxBatch)
 MAX_DOTS = 3
+MAX_BATCH = 2
 #: cells of the entry level per block before another block is used
 MIN_CELLS_PER_BLOCK = 256
 MAX_THREADS = 1024
@@ -102,14 +111,31 @@ def barrier_count(kinds: Sequence[int], degree: int, single_block: bool = False)
 
 
 def subtree_bytes(shapes: Sequence[tuple[int, ...]], inv_numel: int,
-                  dtype: torch.dtype) -> int:
-    """Bytes a fused subtree touches at ``dtype``: the packed stencils, the
-    kernel's per-level vectors and the dense coarsest inverse."""
+                  dtype: torch.dtype, coef_dtype: torch.dtype | None = None,
+                  batch: int = 1) -> int:
+    """Bytes a fused subtree of ``batch`` members touches: the packed
+    stencils at their stored ``coef_dtype`` (None: ``dtype``), the kernel's
+    per-level vectors and the dense coarsest inverse at the apply dtype
+    ``dtype``."""
     item = torch.empty((), dtype=dtype).element_size()
+    citem = item if coef_dtype is None else torch.empty((), dtype=coef_dtype).element_size()
     total = inv_numel * item
     for shape in shapes:
-        total += (2 * len(shape) + 1 + VECS_PER_LEVEL) * math.prod(shape) * item
-    return total
+        cells = math.prod(shape)
+        total += ((2 * len(shape) + 1) * citem + VECS_PER_LEVEL * item) * cells
+    return batch * total
+
+
+def scratch_offsets(sizes: Sequence[int], members: int) -> list[list[int]]:
+    """Offsets (in values) into the kernel's scratch of each level's
+    VECS_PER_LEVEL vectors, member 0's: a vector of a level of n cells
+    holds its members n values apart (csrc/deep_cycle.cu: the kernel adds
+    m·n), and the next vector starts after its last member."""
+    out, off = [], 0
+    for n in sizes:
+        out.append([off + k * members * n for k in range(VECS_PER_LEVEL)])
+        off += VECS_PER_LEVEL * members * n
+    return out
 
 
 def _factors(shapes: Sequence[tuple[int, ...]]) -> list[tuple[int, ...]]:
@@ -155,8 +181,21 @@ def deep_correction_plain(
     (a second cycle on b − A·e1, added to the first) or the K-cycle
     (flexible CG(2) over two cycles).  ``coarse_solve(inv, b)`` is the
     coarsest level's product (None: ``torch.mv``, as the unfused recursion
-    computes it; :func:`warp_order_mv`: the kernel's summation order)."""
+    computes it; :func:`warp_order_mv`: the kernel's summation order).
+
+    A ``coarse_inv`` of shape (batch, m, m) corrects that many members
+    stacked along a leading axis of every stencil, λ estimate and ``rc``,
+    one after the other."""
     from thermalporous_torch.precond.gmg import _blocksum, _prolong
+
+    if coarse_inv.dim() == 3:
+        return torch.stack([
+            deep_correction_plain([p[m] for p in packed], [lam[m] for lam in lam_max],
+                                  coarse_inv[m], rc[m], degree=degree,
+                                  lam_min_frac=lam_min_frac, cycle_type=cycle_type,
+                                  kcycle_min_cells=kcycle_min_cells, safety=safety,
+                                  coarse_solve=coarse_solve)
+            for m in range(coarse_inv.shape[0])])
 
     shapes = [tuple(p.shape[1:]) for p in packed]
     factors = _factors(shapes)
@@ -219,7 +258,12 @@ def deep_correction(
     """The whole coarse correction below the entry level ``packed[0]`` (see
     the plain version) in one cooperative launch (:func:`launch_shape`).
     ``barriers``, a 0-dim int32 tensor on the card, receives the number of
-    grid barriers the kernel went through."""
+    grid barriers the kernel went through.  The stencils may be stored in
+    bf16 (``CPRConfig.pc_dtype``); the λ estimates, the inverse and ``rc``
+    share the apply dtype.  With a ``coarse_inv`` of shape (batch, m, m)
+    the members stacked along the leading axes are corrected in the same
+    launch, each as it would be alone (:func:`launch_shape` of one
+    member's entry level, the same passes and summation orders)."""
     n_lev = len(packed)
     if cycle_type not in _KIND:
         raise ValueError(f"deep_correction: unknown cycle_type {cycle_type!r}")
@@ -227,23 +271,29 @@ def deep_correction(
         raise ValueError(f"deep_correction: {n_lev} levels, {len(lam_max)} "
                          f"lambda estimates, degree {degree}")
     lams = list(lam_max[: n_lev - 1])
-    dev = kst._check("deep_correction", rc, coarse_inv, *packed, *lams)
-    shapes = [tuple(p.shape[1:]) for p in packed]
+    dev = kst._check("deep_correction", rc, coarse_inv, *lams, coefs=tuple(packed))
+    batch = coarse_inv.shape[0] if coarse_inv.dim() == 3 else 0
+    lead = (batch,) if batch else ()
+    nl = len(lead)
+    shapes = [tuple(p.shape[nl + 1:]) for p in packed]
     n_last = math.prod(shapes[-1])
-    if (tuple(rc.shape) != shapes[0] or tuple(coarse_inv.shape) != (n_last, n_last)
-            or any(p.shape[0] != 2 * len(s) + 1 or len(s) not in (2, 3)
-                   for p, s in zip(packed, shapes))
-            or any(lam.dim() != 0 for lam in lams)):
-        raise ValueError(f"deep_correction: rc {tuple(rc.shape)}, levels {shapes}, "
-                         f"inverse {tuple(coarse_inv.shape)}")
+    if (tuple(rc.shape) != lead + shapes[0]
+            or tuple(coarse_inv.shape) != lead + (n_last, n_last)
+            or any(tuple(p.shape[:nl + 1]) != lead + (2 * len(s) + 1,)
+                   or len(s) not in (2, 3) for p, s in zip(packed, shapes))
+            or any(tuple(lam.shape) != lead for lam in lams)):
+        raise ValueError(f"deep_correction: rc {tuple(rc.shape)}, levels "
+                         f"{[tuple(p.shape) for p in packed]}, inverse "
+                         f"{tuple(coarse_inv.shape)}")
     if dev.type == "cpu":
         return deep_correction_plain(packed, lams, coarse_inv, rc, degree=degree,
                                      lam_min_frac=lam_min_frac, cycle_type=cycle_type,
                                      kcycle_min_cells=kcycle_min_cells, safety=safety)
-    if n_lev > _lib.DEEP_MAX_LEVELS or degree > _lib.DEEP_MAX_DEGREE:
+    if n_lev > _lib.DEEP_MAX_LEVELS or degree > _lib.DEEP_MAX_DEGREE or batch > MAX_BATCH:
         raise NotImplementedError(f"deep_correction kernel: {n_lev} levels > "
-                                  f"{_lib.DEEP_MAX_LEVELS} or degree {degree} > "
-                                  f"{_lib.DEEP_MAX_DEGREE}")
+                                  f"{_lib.DEEP_MAX_LEVELS}, degree {degree} > "
+                                  f"{_lib.DEEP_MAX_DEGREE} or batch {batch} > {MAX_BATCH}")
+    members = max(batch, 1)
     sizes = [math.prod(s) for s in shapes]
     if sizes[0] >= 2**31:
         raise NotImplementedError(f"deep_correction kernel: {sizes[0]} cells >= 2**31")
@@ -253,19 +303,19 @@ def deep_correction(
                          f"{dev}")
     blocks, threads = launch_shape(sizes[0], _lib.limits_of(rc)[0])
     kinds = cycle_kinds(sizes, cycle_type, kcycle_min_cells)
-    # the levels' vectors, then the blocks' partial dot products
-    n_vecs = VECS_PER_LEVEL * sum(sizes)
-    scratch = torch.empty(n_vecs + MAX_DOTS * blocks, dtype=rc.dtype, device=dev)
+    # the levels' vectors, each with its members n cells apart, then the
+    # blocks' partial dot products
+    n_vecs = VECS_PER_LEVEL * members * sum(sizes)
+    scratch = torch.empty(n_vecs + MAX_DOTS * members * blocks, dtype=rc.dtype, device=dev)
     out = torch.empty_like(rc)
     factors = _factors(shapes) + [(1, 1, 1)]
     per = _lib.DEEP_DESC_PER_LEVEL
     desc = (ctypes.c_longlong * (per * n_lev))()
     base = scratch.data_ptr()
     item = rc.element_size()
-    off = 0
+    offsets = scratch_offsets(sizes, members)
     for ell, (p, shape) in enumerate(zip(packed, shapes)):
-        vecs = [base + (off + k * sizes[ell]) * item for k in range(VECS_PER_LEVEL)]
-        off += VECS_PER_LEVEL * sizes[ell]
+        vecs = [base + o * item for o in offsets[ell]]
         if ell == 0:
             vecs[0], vecs[1] = rc.data_ptr(), out.data_ptr()   # b in, out
         fac = tuple(factors[ell]) + (1,) * (3 - len(factors[ell]))
@@ -273,12 +323,13 @@ def deep_correction(
                *vecs, len(shape), *_lib.dims3(shape), *fac, kinds[ell]]
         assert len(row) == per
         desc[ell * per:(ell + 1) * per] = row
-    _lib.launch("tp_deep_correction", _lib.dtype_code(rc),
+    _lib.launch("tp_deep_correction", _lib.dtype_code(rc, packed[0]),
                 ctypes.cast(desc, ctypes.c_void_p), n_lev, coarse_inv.data_ptr(),
                 base + n_vecs * item, None if barriers is None else barriers.data_ptr(),
                 int(degree), float(lam_min_frac), float(safety), blocks, threads,
-                _lib.stream_of(rc))
+                members, _lib.stream_of(rc))
     deep_correction.launches += 1
+    kst.count_variant("deep_correction", packed[0], batch)
     return out
 
 

@@ -40,15 +40,37 @@ from thermalporous_torch.kernels import _lib
 _FLOATS = (torch.float32, torch.float64)
 
 
-def _check(name: str, *tensors: torch.Tensor) -> torch.device:
-    """Same device and float dtype, contiguous; returns the device."""
+#: launches of each wrapper's bf16-coefficient and batched instantiations,
+#: by "<wrapper> bf16" and "<wrapper> batched" (a launch counts in its
+#: wrapper's ``launches`` too)
+variant_launches: dict[str, int] = {}
+
+
+def count_variant(wrapper: str, coef: torch.Tensor, batch: int = 0) -> None:
+    """Count a launch of ``wrapper`` that has just been counted in its
+    ``launches`` under its variants: bf16 coefficients, a batch of
+    members."""
+    for key, on in (("bf16", coef.dtype == torch.bfloat16), ("batched", batch > 0)):
+        if on:
+            name = f"{wrapper} {key}"
+            variant_launches[name] = variant_launches.get(name, 0) + 1
+
+
+def _check(name: str, *tensors: torch.Tensor, coefs: tuple = ()) -> torch.device:
+    """Same device, contiguous; returns the device.  ``tensors`` (vectors)
+    share one float dtype; the coefficient tensors ``coefs`` share either
+    that dtype or bfloat16, the storage of ``CPRConfig.pc_dtype``: the
+    kernels read such coefficients as bf16 and compute in the vectors'
+    dtype."""
     dev, dt = tensors[0].device, tensors[0].dtype
     if dt not in _FLOATS:
         raise TypeError(f"{name}: dtype {dt} not in {_FLOATS}")
-    for t in tensors:
-        if t.device != dev or t.dtype != dt:
+    cdt = coefs[0].dtype if coefs and coefs[0].dtype == torch.bfloat16 else dt
+    for t in tensors + tuple(coefs):
+        want = dt if not any(t is c for c in coefs) else cdt
+        if t.device != dev or t.dtype != want:
             raise ValueError(f"{name}: mixed devices/dtypes "
-                             f"({t.device}/{t.dtype} vs {dev}/{dt})")
+                             f"({t.device}/{t.dtype} vs {dev}/{want})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     if dev.type not in ("cpu", "cuda"):
@@ -89,7 +111,7 @@ def block_matvec(coef: torch.Tensor, v: torch.Tensor, k: int) -> torch.Tensor:
     padded with nc−k zero components, while the kernel reads only k/nc of
     the coefficients.
     """
-    dev = _check("block_matvec", coef, v)
+    dev = _check("block_matvec", v, coefs=(coef,))
     nco, nc = coef.shape[0], coef.shape[1]
     grid = tuple(coef.shape[3:])
     dim = len(grid)
@@ -102,10 +124,11 @@ def block_matvec(coef: torch.Tensor, v: torch.Tensor, k: int) -> torch.Tensor:
     if nc > 3:
         raise NotImplementedError("block_matvec kernel: nc <= 3")
     y = torch.empty((nc,) + grid, dtype=v.dtype, device=dev)
-    _lib.launch("tp_block_matvec", _lib.dtype_code(v), coef.data_ptr(),
+    _lib.launch("tp_block_matvec", _lib.dtype_code(v, coef), coef.data_ptr(),
                 v.data_ptr(), y.data_ptr(), nc, k, dim, *_lib.dims3(grid),
                 _lib.stream_of(v))
     block_matvec.launches += 1
+    count_variant("block_matvec", coef)
     return y
 
 
@@ -123,14 +146,21 @@ def matvec_plain(packed: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _check_scalar(name: str, packed: torch.Tensor, *vecs: torch.Tensor) -> tuple:
-    grid = tuple(packed.shape[1:])
+def _check_scalar(name: str, packed: torch.Tensor, *vecs: torch.Tensor,
+                  batch: int = 0) -> tuple:
+    """The grid of a scalar stencil ``packed`` (2·dim+1, *grid) and its
+    vectors (*grid); with ``batch`` members stacked along a leading axis of
+    each: (batch, 2·dim+1, *grid) and (batch, *grid)."""
+    lead = (batch,) if batch else ()
+    grid = tuple(packed.shape[len(lead) + 1:])
     dim = len(grid)
-    if dim not in (2, 3) or packed.shape[0] != 2 * dim + 1:
-        raise ValueError(f"{name}: packed stencil shape {tuple(packed.shape)}")
+    if (dim not in (2, 3) or tuple(packed.shape[:len(lead)]) != lead
+            or packed.shape[len(lead)] != 2 * dim + 1):
+        raise ValueError(f"{name}: packed stencil shape {tuple(packed.shape)}"
+                         + (f" for a batch of {batch}" if batch else ""))
     for t in vecs:
-        if tuple(t.shape) != grid:
-            raise ValueError(f"{name}: vector shape {tuple(t.shape)} != {grid}")
+        if tuple(t.shape) != lead + grid:
+            raise ValueError(f"{name}: vector shape {tuple(t.shape)} != {lead + grid}")
     return grid
 
 
@@ -154,24 +184,43 @@ def matvec_plan(n: int) -> tuple[int, int]:
 def vector_access(n: int, *tensors: torch.Tensor) -> bool:
     """Whether a quad kernel may use 16-byte loads and stores: every
     tensor starts on a 16-byte boundary and every quad is whole, so that
-    each channel of the packed stencil is aligned too."""
+    each channel of the packed stencil is aligned too.  A quad of bf16
+    coefficients is one 8-byte load, whose channel offsets (multiples of 4
+    values) keep it aligned; the members of a batch lie n values (vectors)
+    or (2·dim+1)·n values (stencils) apart, which keeps them aligned too
+    (:func:`quad_address`)."""
     return n % QUAD == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def quad_address(gq: int, n: int, batch: int, channels: int) -> tuple[int, int, int]:
+    """The smooth kernel's index arithmetic for global quad ``gq`` of a
+    batch of ``batch`` members of ``n`` cells (csrc/stencil.cu:
+    cheb_smooth_kernel): (member, its first cell, the offset in values of
+    its channel 0 from the stencil's base, members ``channels`` channels
+    of n values apart)."""
+    quads = -(-n // QUAD)
+    if not 0 <= gq < batch * quads:
+        raise ValueError(f"quad {gq} outside {batch} x {quads}")
+    m = gq // quads
+    c0 = QUAD * (gq - m * quads)
+    return m, c0, m * channels * n + c0
 
 
 def matvec(packed: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """y = A·v for a scalar stencil ``packed`` (2·dim+1, *grid)."""
-    dev = _check("matvec", packed, v)
+    dev = _check("matvec", v, coefs=(packed,))
     grid = _check_scalar("matvec", packed, v)
     if dev.type == "cpu":
         return matvec_plain(packed, v)
     n = v.numel()
     blocks, threads = matvec_plan(n)
     y = torch.empty_like(v)
-    _lib.launch("tp_scalar_matvec", _lib.dtype_code(v), packed.data_ptr(),
+    _lib.launch("tp_scalar_matvec", _lib.dtype_code(v, packed), packed.data_ptr(),
                 v.data_ptr(), y.data_ptr(), len(grid), *_lib.dims3(grid),
                 blocks, threads, int(vector_access(n, packed, v, y)),
                 _lib.stream_of(v))
     matvec.launches += 1
+    count_variant("matvec", packed)
     return y
 
 
@@ -194,7 +243,20 @@ def chebyshev_smooth_plain(
     [lam_min_frac·λ, safety·λ], from ``x`` (None = zero start, which skips
     the first matvec: b − A·0 = b exactly).  With ``second`` the result y
     comes with b − A·y ("residual") or A·y ("product"), formed as the
-    smooth followed by :func:`matvec_plain`."""
+    smooth followed by :func:`matvec_plain`.
+
+    A ``lam_max`` of shape (batch,) smooths that many members stacked along
+    a leading axis of ``packed``, ``b`` and ``x``, one after the other.
+    With bf16 coefficients ``1.0 / packed[0]`` is a bf16 value, as the
+    reference's weakly typed quotient is; it multiplies the vectors in
+    their dtype."""
+    if lam_max.dim() == 1:
+        outs = [chebyshev_smooth_plain(packed[m], b[m], None if x is None else x[m],
+                                       lam_max[m], degree, lam_min_frac, safety, second)
+                for m in range(lam_max.shape[0])]
+        if second is None:
+            return torch.stack(outs)
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     lmax = lam_max * safety
     lmin = lam_max * lam_min_frac
     theta = 0.5 * (lmax + lmin)
@@ -228,6 +290,9 @@ SMOOTH_MIN_QUADS_PER_BLOCK = 128
 #: csrc/stencil.cu: kSmoothMaxThreads (512 threads leave each 128 registers,
 #: enough to have all of a quad's loads in flight at once)
 SMOOTH_MAX_THREADS = 512
+#: most members one smooth launch takes (csrc/stencil.cu: kSmoothMaxBatch):
+#: the pressure and temperature hierarchies of ``CPRConfig.batch_pt``
+SMOOTH_MAX_BATCH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,20 +308,25 @@ class SmoothPlan:
 
 
 @functools.cache
-def smooth_plan(n: int, dim: int, item: int, sms: int, smem_max: int) -> SmoothPlan:
-    """The launch shape for ``n`` cells of a ``dim``-axis grid at ``item``
-    bytes a value on a card with ``sms`` SMs and ``smem_max`` bytes of
-    shared memory a block.
+def smooth_plan(n: int, dim: int, item: int, sms: int, smem_max: int,
+                batch: int = 1) -> SmoothPlan:
+    """The launch shape for ``batch`` members of ``n`` cells each of a
+    ``dim``-axis grid at ``item`` bytes a value (the vectors' dtype: the
+    cache holds the coefficients converted to it) on a card with ``sms``
+    SMs and ``smem_max`` bytes of shared memory a block.
 
     The grid must be co-resident (the steps are separated by grid-wide
     barriers), so there is at most one block per SM; small levels use fewer
-    blocks.  Each block owns a contiguous range of quads and walks it in
-    ``iters`` equally filled block-stride iterations.  As many of its quads
-    as fit (whole warps of them) keep their 2·dim+1 stencil channels, b and
-    d in shared memory, so they come from device memory once per smooth."""
-    if n < 1 or n >= 2**31:
-        raise ValueError(f"chebyshev_smooth kernel: {n} cells (needs 1 <= n < 2**31)")
-    quads = -(-n // QUAD)
+    blocks.  The members' quads are numbered one member after the other (a
+    quad never straddles two) and each block owns a contiguous range of
+    them, which it walks in ``iters`` equally filled block-stride
+    iterations.  As many of its quads as fit (whole warps of them) keep
+    their 2·dim+1 stencil channels, b and d in shared memory, so they come
+    from device memory once per smooth."""
+    if n < 1 or batch * n >= 2**31 or not 1 <= batch <= SMOOTH_MAX_BATCH:
+        raise ValueError(f"chebyshev_smooth kernel: {batch} x {n} cells (needs "
+                         f"1 <= batch * n < 2**31, batch <= {SMOOTH_MAX_BATCH})")
+    quads = batch * -(-n // QUAD)
     blocks = max(1, min(sms, -(-quads // SMOOTH_MIN_QUADS_PER_BLOCK)))
     per_block = -(-quads // blocks)
     iters = -(-per_block // SMOOTH_MAX_THREADS)
@@ -283,35 +353,41 @@ def chebyshev_smooth(
     version).  ``lam_max`` is a 0-dim tensor on the device of ``b``; the
     kernel reads it there, so the call never waits on the host.  On the
     card it is one cooperative launch (:func:`smooth_plan`), counted as one
-    smooth.
+    smooth.  ``packed`` may hold bf16 coefficients (``CPRConfig.pc_dtype``).
+
+    A ``lam_max`` of shape (batch,) smooths ``batch`` members stacked
+    along a leading axis of ``packed``, ``b`` and ``x`` (``batch_pt``'s p
+    and T levels) in the same single launch.
 
     With ``second="residual"`` or ``"product"`` the call returns
     ``(y, b − A·y)`` or ``(y, A·y)``: the kernel forms the second output
     after its last step, behind one more grid-wide barrier, from the
     stencil it still holds in shared memory.  That is no ``matvec`` launch;
     it is counted in ``second_outputs``."""
-    if lam_max.dim() != 0:
-        raise ValueError("chebyshev_smooth: lam_max must be a 0-dim tensor")
+    if lam_max.dim() > 1:
+        raise ValueError("chebyshev_smooth: lam_max must be a 0-dim tensor or one "
+                         "per member")
+    batch = lam_max.shape[0] if lam_max.dim() == 1 else 0
     if degree < 1:
         raise ValueError(f"chebyshev_smooth: degree {degree} < 1")
     if second not in SMOOTH_SECOND:
         raise ValueError(f"chebyshev_smooth: second {second!r} not in "
                          f"{tuple(SMOOTH_SECOND)}")
-    tensors = (packed, b, lam_max) + (() if x is None else (x,))
-    dev = _check("chebyshev_smooth", *tensors)
+    vecs = (b, lam_max) + (() if x is None else (x,))
+    dev = _check("chebyshev_smooth", *vecs, coefs=(packed,))
     grid = _check_scalar("chebyshev_smooth", packed, b,
-                         *(() if x is None else (x,)))
+                         *(() if x is None else (x,)), batch=batch)
     if dev.type == "cpu":
         return chebyshev_smooth_plain(packed, b, x, lam_max, degree,
                                       lam_min_frac, safety, second)
-    n = b.numel()
-    plan = smooth_plan(n, len(grid), b.element_size(), *_lib.limits_of(b))
+    n = math.prod(grid)
+    plan = smooth_plan(n, len(grid), b.element_size(), *_lib.limits_of(b), max(batch, 1))
     out = torch.empty_like(b)
     out2 = None if second is None else torch.empty_like(b)
-    scratch = torch.empty((3,) + grid, dtype=b.dtype, device=dev)
+    scratch = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=dev)
     vec = vector_access(n, packed, b, out, scratch,
                         *(t for t in (x, out2) if t is not None))
-    _lib.launch("tp_chebyshev_smooth", _lib.dtype_code(b), packed.data_ptr(),
+    _lib.launch("tp_chebyshev_smooth", _lib.dtype_code(b, packed), packed.data_ptr(),
                 b.data_ptr(), None if x is None else x.data_ptr(),
                 lam_max.data_ptr(), out.data_ptr(),
                 None if out2 is None else out2.data_ptr(),
@@ -319,8 +395,9 @@ def chebyshev_smooth(
                 int(degree), float(lam_min_frac), float(safety), len(grid),
                 *_lib.dims3(grid), plan.blocks, plan.threads, plan.per_block,
                 plan.iters, plan.cached_quads, plan.smem, int(vec),
-                SMOOTH_SECOND[second], _lib.stream_of(b))
+                SMOOTH_SECOND[second], max(batch, 1), _lib.stream_of(b))
     chebyshev_smooth.launches += 1
+    count_variant("chebyshev_smooth", packed, batch)
     if second is None:
         return out
     second_outputs[second] += 1
@@ -492,7 +569,7 @@ def fused_stage2_rbgs(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor,
     the block stencil, ``dinv`` (nc, nc, *grid) its per-cell inverse
     diagonal blocks, ``r`` (nc, *grid).  On the card one launch
     (:func:`stage2_plan`)."""
-    dev = _check("fused_stage2_rbgs", coef, dinv, r, x1_cols)
+    dev = _check("fused_stage2_rbgs", r, x1_cols, coefs=(coef, dinv))
     nc, grid = _check_rbgs("fused_stage2_rbgs", coef, dinv, r)
     k = x1_cols.shape[0]
     if not 0 <= k <= nc or tuple(x1_cols.shape) != (k,) + grid:
@@ -504,10 +581,11 @@ def fused_stage2_rbgs(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor,
         raise NotImplementedError("fused_stage2_rbgs kernel: nc <= 3")
     plan = stage2_plan(grid, _lib.limits_of(r)[0])
     out = torch.empty_like(r)
-    _lib.launch("tp_stage2_rbgs", _lib.dtype_code(r), coef.data_ptr(), dinv.data_ptr(),
+    _lib.launch("tp_stage2_rbgs", _lib.dtype_code(r, coef), coef.data_ptr(), dinv.data_ptr(),
                 r.data_ptr(), x1_cols.data_ptr() if k else None, out.data_ptr(), nc, k,
                 len(grid), *_lib.dims3(grid), plan.ty, plan.tz, plan.lx, _lib.stream_of(r))
     fused_stage2_rbgs.launches += 1
+    count_variant("fused_stage2_rbgs", coef)
     return out
 
 
@@ -537,7 +615,7 @@ def block_rbgs_half_sweep(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tenso
     """One red-black half-sweep (see the plain version) from ``x``: the
     cells of ``colour`` (0 red, 1 black) take their block solve against the
     other colour's values.  On the card one launch, a thread a cell."""
-    dev = _check("block_rbgs_half_sweep", coef, dinv, b, x)
+    dev = _check("block_rbgs_half_sweep", b, x, coefs=(coef, dinv))
     nc, grid = _check_rbgs("block_rbgs_half_sweep", coef, dinv, b, x)
     if colour not in (0, 1):
         raise ValueError(f"block_rbgs_half_sweep: colour {colour} not in (0, 1)")
@@ -549,10 +627,11 @@ def block_rbgs_half_sweep(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tenso
     if n >= 2**31:
         raise ValueError(f"block_rbgs_half_sweep kernel: {n} cells (needs n < 2**31)")
     out = torch.empty_like(x)
-    _lib.launch("tp_block_rbgs_half", _lib.dtype_code(x), coef.data_ptr(), dinv.data_ptr(),
+    _lib.launch("tp_block_rbgs_half", _lib.dtype_code(x, coef), coef.data_ptr(), dinv.data_ptr(),
                 b.data_ptr(), x.data_ptr(), out.data_ptr(), colour, nc, len(grid),
                 *_lib.dims3(grid), _lib.stream_of(x))
     block_rbgs_half_sweep.launches += 1
+    count_variant("block_rbgs_half_sweep", coef)
     return out
 
 

@@ -62,8 +62,10 @@ def chebyshev(
 def weighted_jacobi(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = None,
                     sweeps: int = 2, omega: float = 0.8) -> torch.Tensor:
     """Damped Jacobi sweeps; from zero the first sweep is x = ωD⁻¹b with no
-    matvec."""
-    inv_diag = omega / st.diag
+    matvec.  ω takes the stencil's dtype before the quotient, as the
+    reference's weakly typed ω does: with bf16 coefficients that is
+    bf16(0.8) = 0.80078125 (a Python float would divide in float32)."""
+    inv_diag = torch.tensor(omega, dtype=st.diag.dtype, device=st.diag.device) / st.diag
     start = 0
     if x is None:
         x = torch.zeros_like(b)
@@ -96,7 +98,16 @@ def tridiag_solve_along(axis: int, lower: torch.Tensor, diag: torch.Tensor,
     """Independent tridiagonal systems along ``axis``, batched over the
     other axes: the Thomas algorithm, a host loop over the line axis each
     way.  ``upper[i]`` couples i to i+1 (zero on the last slice),
-    ``lower[i]`` couples i to i−1 (zero on the first)."""
+    ``lower[i]`` couples i to i−1 (zero on the first).
+
+    Coefficients of another dtype than ``b`` (bf16 storage under
+    ``CPRConfig.pc_dtype``) raise ``TypeError``, as the reference's
+    ``lax.scan`` refuses them: its carry starts in the coefficients' dtype
+    and the elimination of ``b`` returns the vector's."""
+    if not lower.dtype == diag.dtype == upper.dtype == b.dtype:
+        raise TypeError(f"tridiag_solve_along: coefficients of dtype {diag.dtype} with "
+                        f"a right-hand side of {b.dtype} (the reference's scan carry "
+                        "refuses them too)")
     mv = lambda a: torch.movedim(a, axis, 0)
     lo, d, up, rhs = mv(lower), mv(diag), mv(upper), mv(b)
     c_prev = y_prev = torch.zeros_like(d[0])

@@ -21,13 +21,20 @@
   or zebra block line Gauss–Seidel along ``stage2_axis``.  Its residual
   r − A·x₁ reads only the block columns x₁ lives on (``stage2_cols``).
   One full-coupling rbgs sweep is the whole stage 2 in one
-  ``fused_stage2_rbgs`` launch: the residual, the sweep and the add of x₁.
+  ``fused_stage2_rbgs`` launch: the residual, the sweep and the add of x₁;
+- ``pc_dtype``: bf16 storage of the preconditioner's coefficients (set up
+  in full precision, then cast; every group as the reference casts it, see
+  :func:`cast_coefficients`), read as bf16 by every stencil kernel with the
+  arithmetic in the vectors' dtype;
+- ``batch_pt``: the p and T hierarchies (block-diagonal stage 1) stacked and
+  traversed together, each smooth and each fused subtree one launch for
+  both.
 
 Not ported, and without a field: the ``bgmg`` stage 2 (``stage2="bgmg"``
 raises ``NotImplementedError``) with ``bgmg_coarse_cells`` and
-``bgmg_cycles``, bf16 coefficient storage (``pc_dtype``), the batched p/T
-traversal (``batch_pt``), ``stage2_pallas`` (the CUDA stage 2 already is
-the fused form) and the reference's TPU guards.
+``bgmg_cycles``, ``stage2_pallas`` (the CUDA stage 2 already is the fused
+form) and the reference's TPU guards (among them its refusal of
+``batch_pt`` at 0.5M cells and more on its TPU backend).
 """
 
 from __future__ import annotations
@@ -56,9 +63,11 @@ from thermalporous_torch.precond.gmg import (
     gmg_apply,
     gmg_setup,
     plan_coarsening,
+    stack_states,
 )
 
 STAGE2 = ("none", "block_jacobi", "jacobi2", "rbgs", "zebra")
+PC_DTYPES = ("f32", "bf16", "bf16_gmg", "bf16_s2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +89,10 @@ class CPRConfig:
     stage2_axis: int = 1             # zebra line axis
     stage2_omega: float = 1.0        # zebra and jacobi2 relaxation
     triangular: bool = True          # CPTR stage 1: triangular vs block-diagonal
+    # the p and T hierarchies stacked and traversed together (CPTR with
+    # triangular=False and gmg_t=None; checked in cpr_setup, as the reference
+    # does, since variant="cpr" ignores it)
+    batch_pt: bool = False
     decoupling: str = "qimpes"       # "qimpes" | "timpes" | "abf"
     inner_iters: int = 0             # inner iterations on the (p, T) system
     inner_rtol: float = 1e-2
@@ -87,6 +100,11 @@ class CPRConfig:
     s_stage: str = "none"            # "none" | "rbgs" | "jacobi" | "zebra" | "line"
     s_sweeps: int = 2
     s_axis: int = 0
+    # storage of the preconditioner's coefficients: "f32" (the state's
+    # dtype), or bf16 for every group ("bf16"), the stage-1 hierarchies and
+    # T←p coupling only ("bf16_gmg") or the stage-2 stencil and D⁻¹ only
+    # ("bf16_s2")
+    pc_dtype: str = "f32"
     gmg: GMGConfig = GMGConfig()
     gmg_t: GMGConfig | None = None   # T hierarchy (None = ``gmg``)
 
@@ -96,7 +114,8 @@ class CPRConfig:
         checks = {"variant": ("cpr", "cptr"), "stage2": STAGE2,
                   "decoupling": ("qimpes", "timpes", "abf"),
                   "inner_method": ("fgmres", "richardson"),
-                  "s_stage": ("none", "rbgs", "jacobi", "zebra", "line")}
+                  "s_stage": ("none", "rbgs", "jacobi", "zebra", "line"),
+                  "pc_dtype": PC_DTYPES}
         for field, allowed in checks.items():
             if getattr(self, field) not in allowed:
                 raise ValueError(f"unknown {field} {getattr(self, field)!r}; "
@@ -113,6 +132,7 @@ class CPRState:
     dinv: torch.Tensor               # per-cell inverse diagonal blocks (stage 2)
     w: torch.Tensor                  # per-cell decoupling blocks W
     gmg_p: GMGState                  # hierarchy of the decoupled pressure block
+                                     # (batch_pt: the stacked (p, T) one, gmg_t None)
     gmg_t: GMGState | None           # hierarchy of the decoupled T block (CPTR)
     a_tp: ScalarStencil | None       # decoupled T-equation ← p-unknown coupling
     pt: BlockStencil | None = None   # decoupled (p, T) 2×2 stencil (inner iterations)
@@ -188,6 +208,17 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
     if cfg.variant == "cptr":
         state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg)
         state.a_tp = dec.scalar(1, 0)
+        if cfg.batch_pt:
+            if cfg.triangular:
+                raise ValueError(
+                    "batch_pt requires triangular=False: the triangular T-residual "
+                    "correction depends on e_p, so the two hierarchies cannot be "
+                    "traversed together")
+            if cfg.gmg_t is not None:
+                raise ValueError(
+                    "batch_pt requires gmg_t=None: the stacked traversal needs "
+                    "congruent p/T hierarchies")
+            state.gmg_p, state.gmg_t = stack_states([state.gmg_p, state.gmg_t]), None
         if cfg.inner_iters > 0:
             state.pt = dec.block(slice(0, 2), slice(0, 2))
         if cfg.s_stage != "none" and stencil.nc >= 3:
@@ -199,7 +230,38 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
     if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
         red = kst.checkerboard(stencil.grid_shape, dinv.dtype, dinv.device)
         state.dinv_red, state.dinv_black = red * dinv, (1.0 - red) * dinv
-    return state
+    return cast_coefficients(state, cfg.pc_dtype)
+
+
+def cast_coefficients(state: CPRState, pc_dtype: str) -> CPRState:
+    """``state`` with its stored coefficients in bf16 as ``pc_dtype`` asks
+    (the reference's groups, ``cpr.py:536-561``): "bf16" and "bf16_s2" the
+    stage-2 stencil (a cast copy: the Newton operator's stencil is never
+    cast), D⁻¹ and its premasked halves; "bf16" and "bf16_gmg" the T←p
+    coupling and both hierarchies' level stencils — not their λ estimates
+    and not the dense coarsest inverses; "bf16" also W, the (p, T) stencil
+    and the saturation couplings.  The zebra factor, formed before, stays
+    in full precision.  "f32" returns ``state`` unchanged."""
+    if pc_dtype == "f32":
+        return state
+    bf = lambda t: None if t is None else t.to(torch.bfloat16)
+    scalar = lambda s: None if s is None else ScalarStencil(bf(s.packed))
+    levels = lambda g: None if g is None else dataclasses.replace(
+        g, stencils=tuple(scalar(s) for s in g.stencils))
+    out = dataclasses.replace(state)
+    if pc_dtype in ("bf16", "bf16_s2"):
+        out.stencil = BlockStencil(bf(state.stencil.coef))
+        out.dinv, out.dinv_red, out.dinv_black = (bf(state.dinv), bf(state.dinv_red),
+                                                  bf(state.dinv_black))
+    if pc_dtype in ("bf16", "bf16_gmg"):
+        out.a_tp = scalar(state.a_tp)
+        out.gmg_p, out.gmg_t = levels(state.gmg_p), levels(state.gmg_t)
+    if pc_dtype == "bf16":
+        out.w = bf(state.w)
+        out.pt = None if state.pt is None else BlockStencil(bf(state.pt.coef))
+        out.a_sp, out.a_st, out.a_ss = (scalar(state.a_sp), scalar(state.a_st),
+                                        scalar(state.a_ss))
+    return out
 
 
 def _s_smooth(a_ss: ScalarStencil, r_s: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
@@ -215,7 +277,11 @@ def _s_smooth(a_ss: ScalarStencil, r_s: torch.Tensor, cfg: CPRConfig) -> torch.T
 
 def _stage1_pt(state: CPRState, r_pt: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
     """Block-triangular (or block-diagonal) multigrid on the (p, T) system:
-    p, then T with its residual corrected through the T←p coupling."""
+    p, then T with its residual corrected through the T←p coupling; with
+    ``batch_pt`` both block-diagonal cycles in one batched traversal of the
+    stacked hierarchy."""
+    if cfg.batch_pt:
+        return gmg_apply(state.gmg_p, r_pt.contiguous(), cfg.gmg)
     e_p = gmg_apply(state.gmg_p, r_pt[0], cfg.gmg)
     r_t = r_pt[1]
     if cfg.triangular:

@@ -19,6 +19,15 @@ correction below a small enough level in one launch of the
 variational transfers and the TPU and multi-device options
 (``use_pallas``, ``replicate_below``, ``mesh``) are not ported and have no
 field.
+
+A :class:`GMGState` may hold a batch of congruent hierarchies stacked along
+a leading axis of every leaf (:func:`stack_states`; ``CPRConfig.batch_pt``'s
+p and T): :func:`gmg_apply` then takes and returns (batch, *grid) vectors,
+the reference's ``jax.vmap`` written out.  The Chebyshev smooth and the
+fused subtree run every member in one launch; the transfers are batched
+tensor operations; the dot products, the dense coarsest solve and the
+other smoothers run member by member, so that each member computes what it
+computes alone.
 """
 
 from __future__ import annotations
@@ -93,19 +102,50 @@ class GMGConfig:
 
 @dataclasses.dataclass
 class GMGState:
-    """Per-Newton-iteration multigrid hierarchy."""
+    """Per-Newton-iteration multigrid hierarchy, or with ``batch`` > 0 that
+    many congruent hierarchies stacked along a leading axis of every leaf
+    (each stencil's ``packed`` (batch, 2·dim+1, *grid), each λ estimate
+    (batch,), the inverse (batch, m, m))."""
 
     stencils: tuple[ScalarStencil, ...]
     lam_max: tuple[torch.Tensor, ...]   # 0-dim device tensors, one per smoothed level
     coarse_inv: torch.Tensor            # dense inverse of the coarsest operator
+    batch: int = 0
+
+    def shape(self, level: int) -> tuple[int, ...]:
+        """The grid of ``level`` (without the batch axis)."""
+        return tuple(self.stencils[level].packed.shape[2 if self.batch else 1:])
+
+    def member(self, m: int) -> "GMGState":
+        """Member ``m`` of a batch as a hierarchy of its own (views)."""
+        return GMGState(tuple(ScalarStencil(s.packed[m]) for s in self.stencils),
+                        tuple(lam[m] for lam in self.lam_max), self.coarse_inv[m])
+
+
+def stack_states(states) -> GMGState:
+    """Congruent hierarchies stacked member by member into one batched
+    state (the reference's ``jax.tree.map(jnp.stack, ...)``)."""
+    first = states[0]
+    if any(len(s.stencils) != len(first.stencils)
+           or any(a.packed.shape != b.packed.shape
+                  for a, b in zip(s.stencils, first.stencils)) for s in states):
+        raise ValueError("stack_states: the hierarchies are not congruent")
+    return GMGState(
+        tuple(ScalarStencil(torch.stack([s.stencils[l].packed for s in states]))
+              for l in range(len(first.stencils))),
+        tuple(torch.stack([s.lam_max[l] for s in states])
+              for l in range(len(first.lam_max))),
+        torch.stack([s.coarse_inv for s in states]), batch=len(states))
 
 
 def _blocksum(x: torch.Tensor, fine_shape: tuple[int, ...],
-              factors: tuple[int, ...] | None = None) -> torch.Tensor:
-    """Sum over 2-cell blocks on factor-2 axes (ragged tail zero-padded)."""
-    for axis in range(len(fine_shape)):
-        if factors is not None and factors[axis] == 1:
+              factors: tuple[int, ...] | None = None, lead: int = 0) -> torch.Tensor:
+    """Sum over 2-cell blocks on factor-2 axes (ragged tail zero-padded),
+    after ``lead`` leading (batch) axes."""
+    for ax in range(len(fine_shape)):
+        if factors is not None and factors[ax] == 1:
             continue
+        axis = ax + lead
         if x.shape[axis] % 2 == 1:
             pad = torch.zeros_like(x.narrow(axis, 0, 1))
             x = torch.cat([x, pad], dim=axis)
@@ -115,13 +155,15 @@ def _blocksum(x: torch.Tensor, fine_shape: tuple[int, ...],
 
 
 def _prolong(e: torch.Tensor, fine_shape: tuple[int, ...],
-             factors: tuple[int, ...] | None = None) -> torch.Tensor:
-    """Piecewise-constant injection back to the fine grid."""
-    for axis in range(len(fine_shape)):
-        if factors is not None and factors[axis] == 1:
+             factors: tuple[int, ...] | None = None, lead: int = 0) -> torch.Tensor:
+    """Piecewise-constant injection back to the fine grid, after ``lead``
+    leading (batch) axes."""
+    for ax in range(len(fine_shape)):
+        if factors is not None and factors[ax] == 1:
             continue
+        axis = ax + lead
         e = torch.repeat_interleave(e, 2, dim=axis)
-        n = fine_shape[axis]
+        n = fine_shape[ax]
         if e.shape[axis] != n:
             e = e.narrow(axis, 0, n)
     return e.contiguous()
@@ -246,29 +288,60 @@ def _smooth(st: ScalarStencil, lam, b, x, cfg: GMGConfig, second: str | None = N
     return y, (b - ay if second == "residual" else ay)
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _each(state: GMGState, fn, *vecs):
+    """``fn(member state, member vectors...)`` of every member of a batched
+    ``state``, stacked (a tuple result stacked item by item); None vectors
+    stay None."""
+    outs = [fn(state.member(m), *(None if v is None else v[m] for v in vecs))
+            for m in range(state.batch)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def _smooth_level(state: GMGState, level: int, b, x, cfg: GMGConfig,
+                  second: str | None = None):
+    """:func:`_smooth` on ``level``; a batch's Chebyshev smooth is one
+    launch over every member, its other smoothers run member by member."""
+    if state.batch and cfg.smoother != "chebyshev":
+        return _each(state, lambda s, bb, xx: _smooth_level(s, level, bb, xx, cfg, second),
+                     b, x)
+    return _smooth(state.stencils[level], state.lam_max[level], b, x, cfg, second=second)
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor, batch: int = 0) -> torch.Tensor:
+    """⟨a, b⟩; with ``batch`` one per member, shaped to scale (batch, *grid)
+    vectors member by member."""
+    if not batch:
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+    dots = torch.stack([torch.dot(a[m].reshape(-1), b[m].reshape(-1)) for m in range(batch)])
+    return dots.reshape((batch,) + (1,) * (a.dim() - 1))
 
 
 def _fusable(state: GMGState, level: int, cfg: GMGConfig,
              dtype: torch.dtype) -> bool:
     """Whether the correction at ``level`` runs as one fused subtree (one
     cooperative launch over up to one block per SM): the level has at most
-    ``fuse_below`` cells and the subtree, sized at the apply dtype
+    ``fuse_below`` cells and the subtree of every member, its stencils
+    sized at their stored dtype and its vectors at the apply dtype
     ``dtype``, fits FUSE_L2_BUDGET_BYTES; the kernel smooths with
     Chebyshev only."""
     if cfg.fuse_below <= 0 or cfg.smoother != "chebyshev":
         return False
-    if math.prod(state.stencils[level].grid_shape) > cfg.fuse_below:
+    if math.prod(state.shape(level)) > cfg.fuse_below:
         return False
-    shapes = [s.grid_shape for s in state.stencils[level:]]
-    return (kdeep.subtree_bytes(shapes, state.coarse_inv.numel(), dtype)
+    shapes = [state.shape(l) for l in range(level, len(state.stencils))]
+    inv_numel = state.coarse_inv.numel() // max(state.batch, 1)
+    return (kdeep.subtree_bytes(shapes, inv_numel, dtype,
+                                coef_dtype=state.stencils[level].packed.dtype,
+                                batch=max(state.batch, 1))
             <= FUSE_L2_BUDGET_BYTES)
 
 
 def _fused_correction(state: GMGState, level: int, rc: torch.Tensor,
                       cfg: GMGConfig) -> torch.Tensor:
-    """The correction at ``level`` as one ``deep_correction`` launch."""
+    """The correction at ``level`` as one ``deep_correction`` launch (every
+    member of a batch in it)."""
     return kdeep.deep_correction(
         [s.packed for s in state.stencils[level:]], state.lam_max[level:],
         state.coarse_inv, rc, degree=cfg.degree, lam_min_frac=cfg.lam_min_frac,
@@ -283,27 +356,37 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
     if _fusable(state, level, cfg, rc.dtype):
         return _fused_correction(state, level, rc, cfg)
     if (cfg.cycle_type == "v" or level == len(state.stencils) - 1
-            or math.prod(state.stencils[level].grid_shape) < cfg.kcycle_min_cells):
+            or math.prod(state.shape(level)) < cfg.kcycle_min_cells):
         return _v_cycle(state, level, rc, cfg)
     if cfg.cycle_type == "w":
         # r1 = rc − A·e1 comes out of e1's post-smooth, which ran against rc
         e1, r1 = _v_cycle(state, level, rc, cfg, second="residual")
         return e1 + _v_cycle(state, level, r1, cfg)
     # K-cycle: flexible CG(2) on A_level preconditioned by one cycle; each
-    # product A·e comes out of the cycle's post-smooth
+    # product A·e comes out of the cycle's post-smooth.  A batch's scalars
+    # are per member (the guards selects per member, as the reference's
+    # vmapped jnp.where)
+    dot = lambda a, b: _vdot(a, b, state.batch)
     e1, v1 = _v_cycle(state, level, rc, cfg, second="product")
-    rho1 = _vdot(v1, e1)
-    alpha1 = _vdot(rc, e1)
+    rho1 = dot(v1, e1)
+    alpha1 = dot(rc, e1)
     safe = torch.where(torch.abs(rho1) > 0, rho1, 1.0)
     x = (alpha1 / safe) * e1
     r1 = rc - (alpha1 / safe) * v1
     e2, v2 = _v_cycle(state, level, r1, cfg, second="product")
-    gamma = _vdot(v1, e2)
-    beta = _vdot(v2, e2)
-    alpha2 = _vdot(r1, e2)
+    gamma = dot(v1, e2)
+    beta = dot(v2, e2)
+    alpha2 = dot(r1, e2)
     rho2 = beta - gamma * gamma / safe
     safe2 = torch.where(torch.abs(rho2) > 0, rho2, 1.0)
     return x + (alpha2 / safe2) * (e2 - (gamma / safe) * e1)
+
+
+def _coarsest_solve(state: GMGState, b: torch.Tensor) -> torch.Tensor:
+    """The dense coarsest solve (member by member in a batch)."""
+    if state.batch:
+        return _each(state, lambda s, bb: _coarsest_solve(s, bb), b)
+    return torch.mv(state.coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
 def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
@@ -312,26 +395,28 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     coarsest level) the result e comes with b − A_level·e ("residual") or
     A_level·e ("product") from its post-smooth."""
     if level == len(state.stencils) - 1:
-        shape = state.stencils[level].grid_shape
-        return torch.mv(state.coarse_inv, b.reshape(-1)).reshape(shape)
-    st = state.stencils[level]
-    lam = state.lam_max[level]
-    fine = st.grid_shape
-    coarse = state.stencils[level + 1].grid_shape
+        return _coarsest_solve(state, b)
+    lead = 1 if state.batch else 0
+    fine = state.shape(level)
+    coarse = state.shape(level + 1)
     factors = tuple(2 if c < f else 1 for f, c in zip(fine, coarse))
-    x, r = _smooth(st, lam, b, None, cfg, second="residual")
-    rc = _blocksum(r, fine, factors)
+    x, r = _smooth_level(state, level, b, None, cfg, second="residual")
+    rc = _blocksum(r, fine, factors, lead)
     ec = _coarse_correction(state, level + 1, rc, cfg)
-    x = x + _prolong(ec, fine, factors)
-    return _smooth(st, lam, b, x, cfg, second=second)
+    x = x + _prolong(ec, fine, factors, lead)
+    return _smooth_level(state, level, b, x, cfg, second=second)
 
 
 def gmg_apply(state: GMGState, b: torch.Tensor,
               cfg: GMGConfig = GMGConfig()) -> torch.Tensor:
     """Approximate A⁻¹b with ``cfg.cycles`` cycles, each after the first on
-    the residual of the sum so far."""
+    the residual of the sum so far (of every member of a batched
+    ``state``, ``b`` then (batch, *grid))."""
     x = _v_cycle(state, 0, b, cfg)
     for _ in range(cfg.cycles - 1):
-        r = b - state.stencils[0].matvec(x)
-        x = x + _v_cycle(state, 0, r, cfg)
+        if state.batch:
+            ax = _each(state, lambda s, xx: s.stencils[0].matvec(xx), x)
+        else:
+            ax = state.stencils[0].matvec(x)
+        x = x + _v_cycle(state, 0, b - ax, cfg)
     return x
