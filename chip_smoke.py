@@ -51,7 +51,7 @@ Phases (each prints one line with its wall time):
      rule; per-step counts and walls, cell-updates/s, and each kernel's
      launch count in that run (each must be > 0);
   5  flagship parity: tp_spe10_full's configuration on a 12x22x9 synthetic
-     SPE10 grid, f64, through the Simulator on the GPU and on the CPU for 3
+     SPE10 grid, f64, through the Simulator on the GPU and on the CPU for 2
      controller steps: accepted dt, Newton and FGMRES counts must agree;
      then the same with stage2_sweeps=2 (the half-sweep kernel's path);
   6  flagship: tp_spe10_full at 60x220x85, f32, Simulator.run for the first
@@ -86,7 +86,7 @@ Phases (each prints one line with its wall time):
      bitwise on a rerun, its barrier count equal to barrier_count; (b)
      tp_spe10_inner (two inner FGMRES iterations on the (p, T) system per
      CPTR apply) at 60x220x85, f32, its kernels at that path's shapes, then
-     Simulator.run for 3 controller steps: counts, walls, cell-updates/s,
+     Simulator.run for 2 controller steps: counts, walls, cell-updates/s,
      peak memory, S and T bounds, and every kernel of its path launched
      (block matvec at nc = 3 and at nc = 2, stage 2 at k = 3), beside phase
      6's counts; (c) every solver option of the parity tests on the
@@ -121,7 +121,7 @@ Phases (each prints one line with its wall time):
      cases on f32 coefficients (phases 2 and 10(b)'s rows when they ran);
      (b) the flagship's first step (600 s) in each storage mode (phase 6
      has the f32 one), tp_spe10_full at 60x220x85, f32, with
-     pc_dtype="bf16" for 3 controller steps (every step converges; counts
+     pc_dtype="bf16" for 2 controller steps (every step converges; counts
      beside the f32 run's), one CPTR apply in each storage mode in turns,
      peak memory, every bf16 kernel of the path launched; (c) bench.py's
      step with pc_dtype="bf16" (the 600 s step and one doubling); (d) the
@@ -130,7 +130,37 @@ Phases (each prints one line with its wall time):
      batched smooth and subtree beside their two sequential launches
      (bitwise), then 2 controller steps; (e) the storage modes and batch_pt
      among phase 10(c)'s options, GPU against CPU (run here when phase 10
-     is not).
+     is not);
+ 13  transfers, bgmg, recycling and the adjoint: (a) the GMG set-up and one
+     apply on the flagship's decoupled pressure stencil (60x220x85, f32)
+     with transfer="constant", "weighted" and "variational" (set-up and
+     apply ms, each level's class and widths, the launches of an apply: the
+     smooth on the finest level, no fused subtree under a weighted or
+     variational transfer), the CPTR set-up and apply with each, then the
+     flagship's first step (600 s) with "variational" on both hierarchies;
+     (b) the bgmg hierarchy of the flagship Jacobian (levels, set-up, one
+     bgmg stage 2 beside the rbgs stage 2 and the CPTR apply with each),
+     then tp_spe10_full with stage2="bgmg" for 2 controller steps: counts
+     beside phase 6's, walls, cell-updates/s, peak memory, the red-black
+     kernels' launches by level (each > 0); (c) the flagship with
+     ksp_recycle=4 for 2 steps: counts beside phase 6's, the ms of each
+     prepare_recycle and harvest, peak memory; (d) the adjoint: the
+     flagship configuration at 12x22x9, f64, 3 recorded steps, a terminal
+     and a running objective, on the CPU (a worker process) and the GPU:
+     equal FGMRES counts per backward step, gradients within 1e-8, and a
+     central-difference probe on tgeo[0] on the card within 1e-5; then the
+     flagship (60x220x85, f32) over its first 2 accepted steps with rtol
+     1e-5: converged, FGMRES per backward step, the wall per step split into
+     assembly, the CPTR set-up on the transpose and FGMRES with the VJP's
+     ms per transposed product, peak memory, every CPTR kernel launched on
+     the transposed hierarchy; (e) the transfers (also with
+     pc_dtype="bf16_gmg"), bgmg (also with bgmg_cycles=2 and
+     stage2_sweeps=2, and pc_dtype="bf16_s2") and ksp_recycle=4 among phase
+     10(c)'s options, GPU against CPU (run here when phase 10 is not), each
+     with the launches its path must show; (f) python -m
+     thermalporous_torch.adjoint_study --ascent 1 on the card in a
+     subprocess beside the rest of the phase: its FD line's relative error
+     below 1e-4.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -138,7 +168,8 @@ run: phase 6 for the flagship's kernels, phase 5's two-sweep run for the
 half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
 kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
 phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
-and batched instantiations), and as the last line
+and batched instantiations, phase 13's bgmg run by level and its full-size
+adjoint), and as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
 --phases only the named phases run (after 0 and 1), and neither the
@@ -191,6 +222,7 @@ N_MAIN = 1024          # bench.py grid
 N_SLICE = 32           # phase-3 grid
 SLICE_COARSE = 16      # phase-3 max_coarse_cells: keeps a 4-level hierarchy at 32^2
 FLAGSHIP_SMALL = (12, 22, 9)   # phase-5 grid
+SMALL_STEPS = 2                # phase-5 (and 9) controller steps at FLAGSHIP_SMALL
 SPE10_FULL = (60, 220, 85)     # the flagship's grid
 # phase 5: coarsest levels of at most 16 cells keep >= 3 levels in both
 # hierarchies, K-cycles from 256 cells run at this size, and the subtree
@@ -263,8 +295,10 @@ FLAGSHIP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residua
 SWEEPS_KERNELS = ("deep_correction", "fused_stage2_rbgs", "block_rbgs_half_sweep")
 SP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual_sp")
 # the stage-2 kernel on shapes that are no multiple of its tile, and with
-# two unknowns: (shape, unknowns)
-RBGS_SHAPES = (((61, 219, 83), 3), ((9, 21), 3), ((61, 219, 83), 2))
+# two unknowns, and the flagship's two smallest smoothed bgmg levels (a
+# 4-plane axis, odd extents): (shape, unknowns)
+RBGS_SHAPES = (((61, 219, 83), 3), ((9, 21), 3), ((61, 219, 83), 2), ((8, 28, 11), 3),
+               ((4, 14, 6), 3))
 
 
 def ptxas_summary(log: str) -> list:
@@ -1451,7 +1485,7 @@ def flagship_parity(krylov_op: str = "stencil", stage2_sweeps: int | None = None
     sweeps: the half-sweep kernel's path)."""
     kernels = (SWEEPS_KERNELS if stage2_sweeps else ("deep_correction", "fused_stage2_rbgs")
                ) + (("fused_jvp",) if krylov_op == "jvp" else ())
-    return gpu_cpu_counts("tp_spe10_full", kernels, krylov_op=krylov_op,
+    return gpu_cpu_counts("tp_spe10_full", kernels, steps=SMALL_STEPS, krylov_op=krylov_op,
                           pc_overrides=SMALL_GMG, stage2_sweeps=stage2_sweeps,
                           shape=FLAGSHIP_SMALL)
 
@@ -1459,19 +1493,26 @@ def flagship_parity(krylov_op: str = "stencil", stage2_sweeps: int | None = None
 def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
                  name: str = "tp_spe10_full", by_cols: dict | None = None,
                  pc_overrides: dict | None = None, variants: dict | None = None,
-                 kernels: tuple = FLAGSHIP_KERNELS):
-    """Phase 6 (and 9, 10, 12): preset ``name`` (the flagship or its
+                 kernels: tuple = FLAGSHIP_KERNELS, gmg_overrides: dict | None = None,
+                 newton_overrides: dict | None = None, counting=None):
+    """Phase 6 (and 9, 10, 12, 13): preset ``name`` (the flagship or its
     inner-iteration form) at full size, f32, with the CPRConfig
-    ``pc_overrides``, the first ``steps`` controller steps (block matvecs
-    by (nc, k) and stage 2s by k counted into ``by_cols`` when given, the
-    bf16 and batched launches into ``variants``); returns (records,
-    launches, Newton over all attempts, cell-updates/s, peak GiB)."""
+    ``pc_overrides``, the GMG overrides ``gmg_overrides`` (both
+    hierarchies) and the NewtonConfig overrides ``newton_overrides``, the
+    first ``steps`` controller steps (block matvecs by (nc, k) and stage 2s
+    by k counted into ``by_cols`` when given, the bf16 and batched launches
+    into ``variants``, inside the context manager ``counting`` when given);
+    returns (records, launches, Newton over all attempts, cell-updates/s
+    over the steps after the first (over the one step when there is one),
+    peak GiB)."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts, variant_counts
     from thermalporous_torch.presets import get_case
 
     case = get_case(name, device=dev)
     pc = dataclasses.replace(with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW), **(pc_overrides or {}))
-    sim = case.simulator(pc_cfg=pc, newton_cfg=with_krylov_op(case, krylov_op))
+    pc = option_config(pc, {}, gmg_overrides or {})
+    newton = dataclasses.replace(with_krylov_op(case, krylov_op), **(newton_overrides or {}))
+    sim = case.simulator(pc_cfg=pc, newton_cfg=newton)
     for hname, g in (("p", sim.pc_cfg.gmg), ("T", sim.pc_cfg.gmg_t or sim.pc_cfg.gmg)):
         print(f"  schedule {hname}: {g.level_factors}")
     attempts = {"newton": 0, "attempts": 0}
@@ -1487,7 +1528,8 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    with contextlib.nullcontext() if by_cols is None else count_by_columns(by_cols):
+    with (contextlib.nullcontext() if by_cols is None else count_by_columns(by_cols)), \
+            (contextlib.nullcontext() if counting is None else counting):
         res = sim.run(case.t_end, max_steps=steps)
         torch.cuda.synchronize()
     launches = launch_counts()
@@ -1499,7 +1541,7 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
               f"next dt {r.next_dt:.1f} s cap {r.dt_cap}")
     if res.steps < steps:
         raise SystemExit(f"{name}: {res.steps} steps < {steps}")
-    later = res.records[1:]
+    later = res.records[1:] or res.records
     cu_s = (math.prod(case.model.grid.shape) * sum(r.newton_iters for r in later)
             / sum(r.wall_s for r in later))
     print(f"  launches {launches}; Newton iterations over all attempts "
@@ -1762,15 +1804,43 @@ SOLVER_OPTIONS = (
     ("batch_pt", dict(batch_pt=True, triangular=False, gmg_t=None), {}, {}, "cptr", None),
     ("batch_pt pc_dtype=bf16 inner", dict(batch_pt=True, triangular=False, gmg_t=None,
                                           pc_dtype="bf16", inner_iters=2), {}, {}, "cptr", None),
+    # the operator-weighted and variational transfers (wide coarse levels:
+    # no fused subtree), the bgmg stage 2 and Krylov recycling
+    ("transfer=weighted", {}, dict(transfer="weighted"), {}, "cptr", None),
+    ("transfer=variational", {}, dict(transfer="variational"), {}, "cptr", None),
+    ("transfer=variational pc_dtype=bf16_gmg", dict(pc_dtype="bf16_gmg"),
+     dict(transfer="variational"), {}, "cptr", None),
+    ("stage2=bgmg", dict(stage2="bgmg"), {}, {}, "cptr", None),
+    ("stage2=bgmg cycles=2 sweeps=2", dict(stage2="bgmg", bgmg_cycles=2, stage2_sweeps=2),
+     {}, {}, "cptr", None),
+    ("stage2=bgmg pc_dtype=bf16_s2", dict(stage2="bgmg", pc_dtype="bf16_s2"), {}, {}, "cptr",
+     None),
+    ("ksp_recycle=4", {}, {}, dict(ksp_recycle=4), "cptr", None),
 )
 #: phase 12(e): the options of SOLVER_OPTIONS that phase 12 reports
 PC12_OPTIONS = ("pc_dtype=bf16", "pc_dtype=bf16 stage2=jacobi2", "pc_dtype=bf16_gmg",
                 "pc_dtype=bf16_s2 sweeps=2", "batch_pt", "batch_pt pc_dtype=bf16 inner")
+#: phase 13(e): the options of SOLVER_OPTIONS that phase 13 reports, and the
+#: launches each must show on the card: (counter, kind) with kind "wrapper"
+#: (> 0), "none" (== 0) or "variant" (a bf16 instantiation, > 0)
+P13_CHECKS = {
+    "transfer=weighted": (("chebyshev_smooth", "wrapper"), ("deep_correction", "none")),
+    "transfer=variational": (("chebyshev_smooth", "wrapper"), ("deep_correction", "none")),
+    "transfer=variational pc_dtype=bf16_gmg": (("chebyshev_smooth bf16", "variant"),
+                                                ("deep_correction", "none")),
+    "stage2=bgmg": (("fused_stage2_rbgs", "wrapper"), ("block_rbgs_half_sweep", "wrapper")),
+    "stage2=bgmg cycles=2 sweeps=2": (("fused_stage2_rbgs", "wrapper"),
+                                      ("block_rbgs_half_sweep", "wrapper")),
+    "stage2=bgmg pc_dtype=bf16_s2": (("fused_stage2_rbgs bf16", "variant"),
+                                     ("block_rbgs_half_sweep bf16", "variant")),
+    "ksp_recycle=4": (("deep_correction", "wrapper"), ("fused_stage2_rbgs", "wrapper")),
+}
+P13_OPTIONS = tuple(P13_CHECKS)
 OPTION_STEPS = 1
 # phase 10(c): worker processes (the chip machine's host has 8 cores)
 OPTION_WORKERS = 8
 # phase 10(b): controller steps of tp_spe10_inner at full size
-INNER_STEPS = 3
+INNER_STEPS = 2
 # phase 10(a): the W-cycle from these fuse_below entries of both flagship
 # hierarchies (the 145.2k- and 36.3k-cell pressure levels)
 W_FUSE_ENTRIES = (150_000, 40_000)
@@ -1983,7 +2053,9 @@ def option_runs(workers: int = OPTION_WORKERS, labels: tuple | None = None) -> d
         label, pc_kw, gmg_kw, newton_kw, precond, other = SOLVER_OPTIONS[i]
         gpu, cpu = done[(i, "cuda")], done[(i, "cpu")]
         lc = gpu["launches"]
-        if precond == "rbgs" or (precond in ("cpr", "cptr") and gpu["stage2"] == "rbgs"):
+        if precond in ("cpr", "cptr") and gpu["stage2"] == "bgmg":
+            route = "kernels (bgmg: each level's zero-start sweep and half-sweeps)"
+        elif precond == "rbgs" or (precond in ("cpr", "cptr") and gpu["stage2"] == "rbgs"):
             # with stage2_axes the sweeps are the plain sparsified form; the
             # premasked first sweep with axes is plain, the sweeps after it
             # half-sweep launches
@@ -2281,7 +2353,7 @@ def phase11_parity() -> tuple[dict, dict]:
 
 #: the CPTR apply's coefficient storage modes, timed in turns in phase 12(b)
 PC_DTYPE_MODES = ("f32", "bf16", "bf16_gmg", "bf16_s2")
-BF16_STEPS = 3          # phase 12(b): controller steps of the bf16 flagship
+BF16_STEPS = 2          # phase 12(b): controller steps of the bf16 flagship
 BATCH_STEPS = 2         # phase 12(d): controller steps with batch_pt
 # phase 12(d): the flagship configuration with the batched traversal and the
 # sequential form it is held to (the T hierarchy takes the pressure
@@ -2540,6 +2612,484 @@ def batch_pt_apply(dev) -> tuple:
                       f" on the card)" for k, v in times.items()), flush=True)
     rec = {"launches_per_apply": counts, "apply": times}
     return rec, st, batched_cases(st, bat, pc_bat, dev)
+
+
+# ------------------------------ phase 13: transfers, bgmg, recycling, adjoint
+
+TRANSFERS = ("constant", "weighted", "variational")
+BGMG_STEPS = 2          # phase 13(b): controller steps with stage2="bgmg"
+BGMG_COARSE = 256       # phase 13(b): bgmg_coarse_cells (the reference's default)
+RECYCLE_STEPS = 2       # phase 13(c): controller steps with ksp_recycle
+RECYCLE_K = 4
+ADJ_SMALL_STEPS = 3     # phase 13(d): recorded steps at FLAGSHIP_SMALL
+ADJ_FULL_STEPS = 2      # phase 13(d): recorded steps at full size
+ADJ_RTOL_FULL = 1e-5
+ADJ_MAXITER = 200
+# phase 13(d) at FLAGSHIP_SMALL, f64: the recorded trajectory's Newton (no
+# absolute floor, no bf16 basis, no forcing: the central difference needs
+# states converged to the f64 floor), the adjoint's FGMRES tolerance, the
+# relative perturbation of the FD probe
+ADJ_NEWTON = dict(rtol=1e-12, atol=0.0, ksp_rtol=1e-10, ksp_basis="same", ksp_ew=False,
+                  max_iters=30, ksp_maxiter=120)
+ADJ_RTOL_SMALL = 1e-11
+ADJ_FD_EPS = 1e-4
+ADJ_GRAD_TOL = 1e-8
+ADJ_FD_TOL = 1e-5
+CLI_FD_TOL = 1e-4       # phase 13(f): the adjoint_study CLI's FD line
+
+
+def adj_objectives():
+    """Phase 13(d)'s objectives on a flagship-shaped state (3, nx, ny, nz):
+    the mean pressure [MPa] of the block of a corner producer (terminal) and
+    the Δt-weighted mean temperature around the central injector (running,
+    scaled to MPa-like size)."""
+    def terminal(u, d):
+        nx, ny, _ = u.shape[1:]
+        return 1e-6 * torch.mean(u[0, : max(nx // 4, 1), : max(ny // 4, 1)])
+
+    def running(u, dt, d):
+        nx, ny, _ = u.shape[1:]
+        cx, cy = nx // 2, ny // 2
+        return 1e-6 * dt * torch.mean(u[1, max(cx - 1, 0):cx + 2, max(cy - 1, 0):cy + 2])
+
+    return terminal, running
+
+
+def _level_desc(st) -> str:
+    grid = "x".join(map(str, st.grid_shape))
+    if hasattr(st, "packed"):
+        return f"{grid} scalar 7-point"
+    widths = tuple(st.coef.shape[: st.dim])
+    return f"{grid} {type(st).__name__} {'x'.join(map(str, widths))}"
+
+
+def wall_ms(fn, reps: int = 2) -> float:
+    """Median milliseconds of ``fn()`` by the host's clock around a
+    synchronized call, after one warm-up call (for calls of tenths of a
+    second, whose host time is the time)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def transfer_cases(dev, flagship) -> dict:
+    """Phase 13(a): the GMG set-up and one apply on the flagship's decoupled
+    pressure stencil (60x220x85, f32, phase 6's configuration) under each
+    transfer, then the CPTR set-up and apply with it on both hierarchies:
+    set-up and apply ms, the levels with their class and widths, and the
+    launches of one apply (the smooth on the finest level, no fused subtree
+    under a weighted or variational transfer, the scalar matvec in the CPTR
+    apply's T<-p product).  ``flagship`` is :func:`preset_state`'s tuple."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.precond.chebyshev import chebyshev
+    from thermalporous_torch.precond.cpr import _decoupling_weights, cpr_apply, cpr_setup
+    from thermalporous_torch.precond.gmg import gmg_apply, gmg_setup
+
+    case, u0, u, pc, st, _ = flagship
+    app = st.scale_rows(_decoupling_weights(st, pc)).scalar(0, 0)
+    g = torch.Generator(device=dev).manual_seed(13)
+    b = torch.randn(app.grid_shape, generator=g, dtype=torch.float32, device=dev)
+    r = torch.randn((3,) + app.grid_shape, generator=g, dtype=torch.float32, device=dev)
+    out = {}
+    for tr in TRANSFERS:
+        cfg = dataclasses.replace(pc.gmg, transfer=tr)
+        setup_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = gmg_setup(app, cfg)
+            torch.cuda.synchronize()
+            setup_s.append(time.perf_counter() - t0)
+        reset_launch_counts()
+        x = gmg_apply(state, b, cfg)
+        torch.cuda.synchronize()
+        lc = launch_counts()
+        if not bool(torch.isfinite(x).all()):
+            raise SystemExit(f"transfer={tr}: the GMG apply is not finite")
+        apply_ms = (time_ms(lambda: gmg_apply(state, b, cfg), reps=10) if tr == "constant"
+                    else wall_ms(lambda: gmg_apply(state, b, cfg)))
+        levels = [_level_desc(s) for s in state.stencils]
+        lams = [float(v) for v in state.lam_max]
+        # the first coarse level's matvec and smooth: kernels (B2, B3) on a
+        # scalar level, plain torch on a wide one; the matvec's byte bound
+        # reads each coefficient once, v once and writes y once
+        lvl = state.stencils[1]
+        v1 = torch.randn(lvl.grid_shape, generator=g, dtype=torch.float32, device=dev)
+        mv = lambda: lvl.matvec(v1)
+        sm = lambda: chebyshev(lvl, v1, None, degree=cfg.degree, lam_max=state.lam_max[1],
+                               lam_min_frac=cfg.lam_min_frac)
+        timer = (lambda f: time_ms(f, reps=10)) if tr == "constant" else wall_ms
+        n1 = math.prod(lvl.grid_shape)
+        offsets = (2 * len(lvl.grid_shape) + 1 if tr == "constant"
+                   else math.prod(lvl.coef.shape[:lvl.dim]))
+        level1 = {"matvec_ms": timer(mv), "smooth_ms": timer(sm),
+                  "matvec_bound_ms": bound_ms((offsets + 2) * n1 * 4, 2 * offsets * n1)[0],
+                  "offsets": offsets, "degree": cfg.degree}
+        pcx = option_config(pc, {}, dict(transfer=tr))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cst = cpr_setup(st, pcx)
+        torch.cuda.synchronize()
+        cpr_setup_s = time.perf_counter() - t0
+        reset_launch_counts()
+        y = cpr_apply(cst, r, pcx)
+        torch.cuda.synchronize()
+        clc = launch_counts()
+        if not bool(torch.isfinite(y).all()):
+            raise SystemExit(f"transfer={tr}: the CPTR apply is not finite")
+        cpr_ms = (time_ms(lambda: cpr_apply(cst, r, pcx), reps=10) if tr == "constant"
+                  else wall_ms(lambda: cpr_apply(cst, r, pcx)))
+        print(f"  transfer={tr}: p levels " + " -> ".join(levels), flush=True)
+        print(f"    lam {['%.4g' % v for v in lams]}; GMG set-up {setup_s[0]:.3f} / "
+              f"{setup_s[1]:.3f} s (first / second), apply {apply_ms:.3f} ms; launches of "
+              f"one apply: chebyshev_smooth {lc['chebyshev_smooth']}, matvec {lc['matvec']}, "
+              f"deep_correction {lc['deep_correction']}; CPTR set-up {cpr_setup_s:.3f} s, "
+              f"apply {cpr_ms:.3f} ms (chebyshev_smooth {clc['chebyshev_smooth']}, matvec "
+              f"{clc['matvec']}, deep_correction {clc['deep_correction']}, "
+              f"fused_stage2_rbgs {clc['fused_stage2_rbgs']}); level 1 ({offsets} offsets): "
+              f"matvec {level1['matvec_ms']:.4f} ms (bound {level1['matvec_bound_ms']:.4f}), "
+              f"smooth (degree {cfg.degree}) {level1['smooth_ms']:.4f} ms", flush=True)
+        if lc["chebyshev_smooth"] <= 0 or clc["matvec"] <= 0:
+            raise SystemExit(f"transfer={tr}: no smooth or no T<-p matvec launched")
+        if (lc["deep_correction"] == 0) != (tr != "constant"):
+            raise SystemExit(f"transfer={tr}: deep_correction launched "
+                             f"{lc['deep_correction']} times")
+        out[tr] = {"levels": levels, "lam_max": lams, "gmg_setup_s": setup_s, "level1": level1,
+                   "gmg_apply_ms": apply_ms, "gmg_launches": lc, "cpr_setup_s": cpr_setup_s,
+                   "cpr_apply_ms": cpr_ms, "cpr_launches": clc}
+        del state, cst, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def count_by_level(by: dict, names=("fused_stage2_rbgs", "block_rbgs_half_sweep",
+                                    "block_matvec")):
+    """Count the calls of the red-black wrappers and the block matvec by the
+    grid of their stencil in ``by`` while the block runs (forwarders, as
+    :func:`count_by_columns`)."""
+    from thermalporous_torch.kernels import stencil as kst
+
+    real = {n: getattr(kst, n) for n in names}
+    fwds = {}
+    for n in names:
+        def fwd(coef, *a, _n=n, **k):
+            key = f"{_n} {'x'.join(map(str, coef.shape[3:]))}"
+            by[key] = by.get(key, 0) + 1
+            return real[_n](coef, *a, **k)
+
+        fwd.launches = 0
+        fwds[n] = fwd
+        setattr(kst, n, fwd)
+    try:
+        yield by
+    finally:
+        for n in names:
+            setattr(kst, n, real[n])
+            real[n].launches += fwds[n].launches
+
+
+def bgmg_apply_times(dev, flagship) -> dict:
+    """Phase 13(b): the bgmg hierarchy of the flagship Jacobian (60x220x85,
+    f32): its levels and set-up time, one bgmg stage 2 (one V-cycle, one
+    sweep a smooth) beside the rbgs stage 2 (one zero-start sweep) on the
+    same residual, per call and on the card, and the whole CPTR apply with
+    each.  ``flagship`` is :func:`preset_state`'s tuple."""
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.block_gmg import block_gmg_apply, block_gmg_setup
+    from thermalporous_torch.precond.cpr import cpr_apply, cpr_setup
+
+    case, u0, u, pc, st, state = flagship
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = block_gmg_setup(st, pc.gmg, max_coarse_cells=BGMG_COARSE)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    g = torch.Generator(device=dev).manual_seed(14)
+    r = torch.randn((3,) + st.grid_shape, generator=g, dtype=torch.float32, device=dev)
+    bg = lambda: block_gmg_apply(bst, r, pc.gmg, sweeps=1, cycles=1)
+    rb = lambda: kst.fused_block_rbgs(st.coef, state.dinv, r)
+    if not bool(torch.isfinite(bg()).all()):
+        raise SystemExit("bgmg apply not finite")
+    pcb = dataclasses.replace(pc, stage2="bgmg", bgmg_coarse_cells=BGMG_COARSE)
+    sb = cpr_setup(st, pcb)
+    out = {"levels": ["x".join(map(str, s.grid_shape)) for s in bst.stencils],
+           "coarse_unknowns": int(bst.coarse_inv.shape[0]), "setup_s": times,
+           "bgmg_ms": time_ms(bg, reps=10), "bgmg_device_ms": time_device_ms(bg, reps=10),
+           "rbgs_ms": time_ms(rb, reps=10), "rbgs_device_ms": time_device_ms(rb, reps=10),
+           "cptr_bgmg_ms": time_ms(lambda: cpr_apply(sb, r, pcb), reps=5),
+           "cptr_rbgs_ms": time_ms(lambda: cpr_apply(state, r, pc), reps=5)}
+    print(f"  bgmg levels {' -> '.join(out['levels'])} (dense coarsest: "
+          f"{out['coarse_unknowns']} unknowns); set-up {times[0]:.3f} / {times[1]:.3f} s; "
+          f"one bgmg stage 2 {out['bgmg_ms']:.3f} ms ({out['bgmg_device_ms']:.3f} on the card) "
+          f"against the rbgs stage 2 {out['rbgs_ms']:.4f} ms ({out['rbgs_device_ms']:.4f}); "
+          f"CPTR apply with bgmg {out['cptr_bgmg_ms']:.3f} ms, with rbgs "
+          f"{out['cptr_rbgs_ms']:.3f} ms", flush=True)
+    del bst, sb
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recycle_timers(rec: dict):
+    """Time each prepare_recycle and harvest of the deflated solver (each
+    synchronized with the card) into ``rec`` while the block runs."""
+    from thermalporous_torch.solve import deflate
+
+    real = deflate.prepare_recycle, deflate.harvest
+
+    def timed(fn, key):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    deflate.prepare_recycle = timed(real[0], "prepare_recycle_ms")
+    deflate.harvest = timed(real[1], "harvest_ms")
+    try:
+        yield rec
+    finally:
+        deflate.prepare_recycle, deflate.harvest = real
+
+
+def _adjoint_small_task(task) -> dict:
+    """Phase 13(d), small, on one device (a worker process for the CPU): the
+    flagship configuration at FLAGSHIP_SMALL, f64, with ADJ_NEWTON; ``dts``
+    None takes the first ADJ_SMALL_STEPS controller steps' Δt; the
+    trajectory recorded over them, then adjoint_gradients with both
+    objectives.  Returns plain values (numpy gradients), and with ``fd`` the
+    central-difference probe along a relative perturbation of tgeo[0]."""
+    from thermalporous_torch.interop import problem_data_to_numpy
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.models.base import ProblemData
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import adjoint_gradients, record_trajectory
+
+    device, dts, fd = task
+    if device == "cpu":
+        torch.set_num_threads(2)
+    terminal, running = adj_objectives()
+    t0 = time.perf_counter()
+    case = get_case("tp_spe10_full", device=device, dtype=torch.float64, shape=FLAGSHIP_SMALL)
+    newton = dataclasses.replace(case.newton_cfg, **ADJ_NEWTON)
+    sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, **SMALL_GMG), newton_cfg=newton)
+    data = case.data
+    if dts is None:
+        dts = [r.dt for r in sim.run(case.t_end, max_steps=ADJ_SMALL_STEPS).records]
+    states = record_trajectory(sim, case.model.initial_state(data), dts)
+    reset_launch_counts()
+    res = adjoint_gradients(case.model, data, states, dts, terminal=terminal, running=running,
+                            pc_cfg=sim.pc_cfg, rtol=ADJ_RTOL_SMALL, maxiter=ADJ_MAXITER)
+    out = {"dts": dts, "value": float(res.value), "step_iters": res.step_iters,
+           "converged": res.converged, "grad": problem_data_to_numpy(res.grad_data),
+           "grad_u0": res.grad_u0.cpu().numpy(), "s": time.perf_counter() - t0,
+           "launches": launch_counts() if device == "cuda" else None}
+    if fd:
+        g = np.random.default_rng(17).standard_normal(FLAGSHIP_SMALL)
+        delta = data.tgeo[0] * torch.as_tensor(g, dtype=torch.float64, device=device)
+
+        def j_of(sign):
+            f = data.fields.clone()
+            f[0] = f[0] + sign * ADJ_FD_EPS * delta
+            sim.data = ProblemData(f)
+            try:
+                sts = record_trajectory(sim, case.model.initial_state(sim.data), dts)
+                return float(terminal(sts[-1], sim.data)) + sum(
+                    float(running(sts[k], dts[k - 1], sim.data)) for k in range(1, len(sts)))
+            finally:
+                sim.data = data
+
+        out["fd"] = (j_of(1.0) - j_of(-1.0)) / (2 * ADJ_FD_EPS)
+        out["adjoint_fd"] = float(torch.sum(res.grad_data.tgeo[0] * delta))
+        out["fd_rel"] = abs(out["adjoint_fd"] - out["fd"]) / abs(out["fd"])
+    return out
+
+
+def adjoint_small_start():
+    """Phase 13(d), small: the CPU's run in a worker process, started
+    beside the rest of the phase; returns (pool, async result)."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(_adjoint_small_task, (("cpu", None, False),))
+
+
+def _grad_gap(a: dict, b: dict) -> float:
+    """Largest relative difference of two gradients as
+    ``problem_data_to_numpy`` gives them, leaf by leaf against the leaf's
+    largest value (a leaf zero in both counts 0)."""
+    worst = 0.0
+    for name in a:
+        pairs = zip(a[name], b[name]) if isinstance(a[name], tuple) else [(a[name], b[name])]
+        for x, y in pairs:
+            scale = float(np.abs(y).max())
+            diff = float(np.abs(x - y).max())
+            worst = max(worst, diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf))
+    return worst
+
+
+def adjoint_small(started) -> dict:
+    """Phase 13(d), small: the CPU's run (``started``, from
+    :func:`adjoint_small_start`) and the card's on the CPU's Δt schedule:
+    the FGMRES counts per backward step must be equal, J, every gradient
+    leaf and grad_u0 within ADJ_GRAD_TOL; the card's central-difference
+    probe within ADJ_FD_TOL."""
+    pool, pending = started
+    cpu = pending.get(timeout=1200)
+    pool.close()
+    pool.join()
+    gpu = _adjoint_small_task(("cuda", cpu["dts"], True))
+    gap = _grad_gap(gpu["grad"], cpu["grad"])
+    u0_gap = float(np.abs(gpu["grad_u0"] - cpu["grad_u0"]).max() / np.abs(cpu["grad_u0"]).max())
+    j_gap = abs(gpu["value"] - cpu["value"]) / abs(cpu["value"])
+    print(f"  {'x'.join(map(str, FLAGSHIP_SMALL))} f64, dts {cpu['dts']}: J cpu "
+          f"{cpu['value']:.12e} cuda {gpu['value']:.12e}; adjoint FGMRES per step cpu "
+          f"{cpu['step_iters']} cuda {gpu['step_iters']}; gradient gaps: leaves {gap:.2e}, "
+          f"grad_u0 {u0_gap:.2e}, J {j_gap:.2e}; {cpu['s']:.1f} s on the CPU, {gpu['s']:.1f} s "
+          f"on the card; card launches {gpu['launches']}", flush=True)
+    print(f"  FD probe on tgeo[0] (card): adjoint {gpu['adjoint_fd']:.10e} vs central "
+          f"difference {gpu['fd']:.10e}, rel err {gpu['fd_rel']:.2e}", flush=True)
+    if not (cpu["converged"] and gpu["converged"]) or cpu["step_iters"] != gpu["step_iters"]:
+        raise SystemExit("adjoint 12x22x9: not converged, or the counts differ")
+    if max(gap, u0_gap, j_gap) > ADJ_GRAD_TOL:
+        raise SystemExit(f"adjoint 12x22x9: GPU against CPU {max(gap, u0_gap, j_gap):.2e}")
+    if not gpu["fd_rel"] <= ADJ_FD_TOL:
+        raise SystemExit(f"adjoint FD probe: rel err {gpu['fd_rel']:.2e} > {ADJ_FD_TOL}")
+    for k in ("chebyshev_smooth", "matvec", "deep_correction", "fused_stage2_rbgs"):
+        if gpu["launches"][k] <= 0:
+            raise SystemExit(f"adjoint 12x22x9: no {k} launched")
+    return {"dts": cpu["dts"], "ksp_cpu": cpu["step_iters"], "ksp_cuda": gpu["step_iters"],
+            "J": [cpu["value"], gpu["value"]], "grad_gap": gap, "grad_u0_gap": u0_gap,
+            "J_gap": j_gap, "cpu_s": cpu["s"], "cuda_s": gpu["s"], "fd": gpu["fd"],
+            "adjoint_fd": gpu["adjoint_fd"], "fd_rel": gpu["fd_rel"],
+            "launches": gpu["launches"]}
+
+
+@contextlib.contextmanager
+def adjoint_timers(model, prof: dict):
+    """Time the parts of ``adjoint_gradients`` into ``prof`` while the block
+    runs, each synchronized with the card: the assemblies, the CPTR set-ups
+    on the transposes, the FGMRES solves and, inside them, every transposed
+    product (forwarders in the adjoint module and on ``model``)."""
+    from thermalporous_torch.solve import adjoint
+
+    def timed(fn, key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            prof[key] = prof.get(key, 0.0) + time.perf_counter() - t0
+            prof[key + "_calls"] = prof.get(key + "_calls", 0) + 1
+            return out
+        return call
+
+    real_pc, real_fgmres = adjoint.make_preconditioner, adjoint.fgmres
+
+    def make_pc(*a, **k):
+        setup, apply = real_pc(*a, **k)
+        return timed(setup, "pc_setup_s"), apply
+
+    adjoint.make_preconditioner = make_pc
+    adjoint.fgmres = lambda matvec, *a, **k: timed(real_fgmres, "fgmres_s")(
+        timed(matvec, "vjp_s"), *a, **k)
+    model.assemble_stencil = timed(model.assemble_stencil, "assemble_s")
+    try:
+        yield prof
+    finally:
+        adjoint.make_preconditioner, adjoint.fgmres = real_pc, real_fgmres
+        del model.assemble_stencil
+
+
+def adjoint_full(dev, dts) -> dict:
+    """Phase 13(d), full size: the flagship (60x220x85, f32) recorded over
+    the accepted steps ``dts``, then adjoint_gradients at ADJ_RTOL_FULL with
+    the CPTR set up on each transposed Jacobian: converged, FGMRES per
+    backward step, the wall per step split into assembly, CPTR set-up,
+    FGMRES and the transposed products (the VJP ms per product beside phase
+    2's J(u)v kernel), peak memory, and every CPTR kernel launched."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import adjoint_gradients, record_trajectory
+
+    terminal, running = adj_objectives()
+    case = get_case("tp_spe10_full", device=dev)
+    sim = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
+    t0 = time.perf_counter()
+    states = record_trajectory(sim, case.model.initial_state(case.data), dts)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    prof: dict = {}
+    t0 = time.perf_counter()
+    with adjoint_timers(case.model, prof):
+        res = adjoint_gradients(case.model, case.data, states, dts, terminal=terminal,
+                                running=running, pc_cfg=sim.pc_cfg, rtol=ADJ_RTOL_FULL,
+                                maxiter=ADJ_MAXITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lc = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nstep = len(dts)
+    vjp_ms = 1e3 * prof["vjp_s"] / prof["vjp_s_calls"]
+    finite = (bool(torch.isfinite(res.grad_data.fields).all())
+              and bool(torch.isfinite(res.grad_u0).all()))
+    out = {"dts": dts, "record_s": record_s, "converged": res.converged,
+           "ksp_per_step": res.step_iters, "wall_s": wall, "wall_per_step_s": wall / nstep,
+           "assemble_per_step_s": prof["assemble_s"] / nstep,
+           "pc_setup_per_step_s": prof["pc_setup_s"] / nstep,
+           "fgmres_per_step_s": prof["fgmres_s"] / nstep, "vjp_ms_per_product": vjp_ms,
+           "products": prof["vjp_s_calls"], "profile": prof, "peak_gib": peak, "launches": lc,
+           "J": float(res.value)}
+    print(f"  60x220x85 f32, dts {dts} (recorded in {record_s:.1f} s): converged "
+          f"{res.converged}, FGMRES per backward step {res.step_iters}; per step {wall / nstep:.3f} "
+          f"s = assembly {out['assemble_per_step_s']:.3f} + CPTR set-up on the transpose "
+          f"{out['pc_setup_per_step_s']:.3f} + FGMRES {out['fgmres_per_step_s']:.3f} (the VJP "
+          f"{vjp_ms:.3f} ms a product, {prof['vjp_s_calls']} products) + the rest; peak "
+          f"{peak:.2f} GiB; launches {lc}", flush=True)
+    if not (res.converged and finite):
+        raise SystemExit("adjoint at full size: not converged or not finite")
+    missing = [k for k in ("chebyshev_smooth", "matvec", "deep_correction", "fused_stage2_rbgs")
+               if lc[k] <= 0]
+    if missing:
+        raise SystemExit(f"adjoint at full size: no {missing} on the transposed hierarchy")
+    del states, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def adjoint_cli_start():
+    """Phase 13(f): ``python -m thermalporous_torch.adjoint_study --ascent 1``
+    (on the card, f64) started in a subprocess that runs beside the rest of
+    the phase."""
+    return subprocess.Popen([sys.executable, "-m", "thermalporous_torch.adjoint_study",
+                             "--ascent", "1"], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def adjoint_cli_finish(proc) -> dict:
+    out, err = proc.communicate(timeout=900)
+    print("\n".join("  | " + line for line in out.splitlines()), flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"adjoint_study exited {proc.returncode}: {err[-2000:]}")
+    fd_line = next(line for line in out.splitlines() if line.startswith("FD probe"))
+    rel = float(fd_line.split("rel err ")[1].rstrip(")"))
+    if not rel < CLI_FD_TOL:
+        raise SystemExit(f"adjoint_study: FD rel err {rel:.2e} >= {CLI_FD_TOL}")
+    return {"stdout": out, "fd_rel": rel}
 
 
 def main() -> int:
@@ -2835,12 +3385,96 @@ def main() -> int:
               f"steps 2-{len(brecs)}, peak {bpeak:.2f} GiB; batch_pt {dcu_s:.1f} over step 2; "
               f"{len(opts12)} options GPU == CPU")
 
+    # (13) transfers, bgmg, recycling, the adjoint
+    if want(13):
+        t0 = time.perf_counter()
+        cli13 = adjoint_cli_start()
+        small_started = adjoint_small_start()
+        print("  (a) weighted and variational transfers on the flagship's pressure stencil",
+              flush=True)
+        flag13 = preset_state("tp_spe10_full", torch.float32, dev,
+                              dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+        tr13 = transfer_cases(dev, flag13)
+        var_recs, var_launches, _, var_cu_s, var_peak = flagship_run(
+            dev, 1, gmg_overrides=dict(transfer="variational"),
+            kernels=tuple(k for k in FLAGSHIP_KERNELS if k != "deep_correction"))
+        if var_launches["deep_correction"] != 0:
+            raise SystemExit("flagship, transfer=variational: deep_correction launched")
+        print(f"  variational first step: (newton, fgmres) "
+              f"{[(r.newton_iters, r.ksp_iters) for r in var_recs]}, wall "
+              f"{var_recs[0].wall_s:.3f} s, peak {var_peak:.2f} GiB"
+              + (f" (constant, phase 6: ({frecs[0].newton_iters}, {frecs[0].ksp_iters}), "
+                 f"{frecs[0].wall_s:.3f} s)" if want(6) else ""), flush=True)
+        print("  (b) tp_spe10_full with stage2='bgmg'", flush=True)
+        bgmg13 = bgmg_apply_times(dev, flag13)
+        del flag13
+        torch.cuda.empty_cache()
+        by_level: dict = {}
+        g_recs, g_launches, g_attempts, g_cu_s, g_peak = flagship_run(
+            dev, BGMG_STEPS, pc_overrides=dict(stage2="bgmg", bgmg_coarse_cells=BGMG_COARSE),
+            kernels=FLAGSHIP_KERNELS + ("block_rbgs_half_sweep",),
+            counting=count_by_level(by_level))
+        print(f"  bgmg launches by level: {by_level}", flush=True)
+        print(f"  bgmg (newton, fgmres) {[(r.newton_iters, r.ksp_iters) for r in g_recs]}"
+              + (f" (rbgs, phase 6: {[(r.newton_iters, r.ksp_iters) for r in frecs[:BGMG_STEPS]]})"
+                 if want(6) else "") + f"; {g_cu_s:.1f} cell-updates/s, peak {g_peak:.2f} GiB",
+              flush=True)
+        print("  (c) tp_spe10_full with ksp_recycle=4", flush=True)
+        rec_t: dict = {}
+        c_recs, c_launches, c_attempts, c_cu_s, c_peak = flagship_run(
+            dev, RECYCLE_STEPS, newton_overrides=dict(ksp_recycle=RECYCLE_K),
+            counting=recycle_timers(rec_t))
+        print(f"  recycle (newton, fgmres) {[(r.newton_iters, r.ksp_iters) for r in c_recs]}"
+              + (f" (phase 6: {[(r.newton_iters, r.ksp_iters) for r in frecs[:RECYCLE_STEPS]]})"
+                 if want(6) else "")
+              + f"; prepare_recycle {statistics.median(rec_t['prepare_recycle_ms']):.3f} ms, "
+              f"harvest {statistics.median(rec_t['harvest_ms']):.3f} ms a solve (median of "
+              f"{len(rec_t['harvest_ms'])}); {c_cu_s:.1f} cell-updates/s, peak {c_peak:.2f} GiB",
+              flush=True)
+        print("  (d) the adjoint", flush=True)
+        adj_small = adjoint_small(small_started)
+        adj_dts = ([r.dt for r in frecs[:ADJ_FULL_STEPS]] if want(6) else
+                   [r.dt for r in flagship_run(dev, ADJ_FULL_STEPS)[0]])
+        adj_full = adjoint_full(dev, adj_dts)
+        if want(2):
+            print(f"  the VJP {adj_full['vjp_ms_per_product']:.3f} ms a transposed product "
+                  f"against the J(u)v kernel's {krec['fused_jvp']['ms']:.4f} ms "
+                  f"({adj_full['vjp_ms_per_product'] / krec['fused_jvp']['ms']:.0f}x)", flush=True)
+        print("  (e) the new options, GPU against CPU", flush=True)
+        opts13 = ({k: opts[k] for k in P13_OPTIONS} if want(10)
+                  else option_runs(labels=P13_OPTIONS))
+        for label, needs in P13_CHECKS.items():
+            for key, kind in needs:
+                n_l = ((opts13[label]["variants"] or {}).get(key, 0) if kind == "variant"
+                       else opts13[label]["launches"][key])
+                if (n_l == 0) != (kind == "none"):
+                    raise SystemExit(f"option {label}: {key} launched {n_l} times")
+        print("  (f) python -m thermalporous_torch.adjoint_study --ascent 1", flush=True)
+        cli_adj = adjoint_cli_finish(cli13)
+        p13 = {"transfers": tr13, "variational_first_step": [r.as_dict() for r in var_recs],
+               "variational_launches": var_launches, "variational_peak_gib": var_peak,
+               "bgmg": bgmg13, "bgmg_steps": [r.as_dict() for r in g_recs],
+               "bgmg_launches": g_launches, "bgmg_launches_by_level": by_level,
+               "bgmg_newton_all_attempts": g_attempts, "bgmg_cell_updates_per_s": g_cu_s,
+               "bgmg_peak_gib": g_peak, "recycle_steps": [r.as_dict() for r in c_recs],
+               "recycle_launches": c_launches, "recycle_ms": rec_t,
+               "recycle_cell_updates_per_s": c_cu_s, "recycle_peak_gib": c_peak,
+               "adjoint_small": adj_small, "adjoint_full": adj_full, "options": opts13,
+               "adjoint_study": cli_adj}
+        phase("13 transfers, bgmg, recycling, adjoint", t0,
+              f"bgmg {g_cu_s:.1f} cell-updates/s over step 2, recycle {c_cu_s:.1f}; adjoint "
+              f"{'x'.join(map(str, FLAGSHIP_SMALL))} GPU == CPU (gaps {adj_small['grad_gap']:.1e}), "
+              f"FD {adj_small['fd_rel']:.1e}; full size {adj_full['wall_per_step_s']:.2f} s a "
+              f"backward step; {len(opts13)} options GPU == CPU; CLI FD {cli_adj['fd_rel']:.1e}")
+
     if phases is not None:
         if args.json:
             part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_all}
             if want(12):
                 part.update(pc_dtype_batch_pt=pc12)
+            if want(13):
+                part.update(transfers_bgmg_recycle_adjoint=p13)
             if want(2):
                 part.update(fuse_apply_ms=fuse_times, barrier_latencies=barriers)
             if want(10):
@@ -2917,6 +3551,26 @@ def main() -> int:
          next(r for c, r in batch_rows.items() if c.startswith("deep_correction batch_pt")),
          dvar["deep_correction batched"]),
     ]
+    # phase 13: the stage-2 kernel at k = 0 and the half-sweep as the bgmg
+    # levels run them (launches at that level in phase 13(b)'s run; the
+    # finest level's rows are phase 2's flagship ones, the coarse levels'
+    # phase 2's random-stencil rows at those shapes), and the CPTR kernels
+    # on the transposed hierarchy of the full-size adjoint (phase 2's
+    # flagship rows; launches in phase 13(d)'s sweep)
+    row_of = lambda case: next(r for r in ROWS if r["dtype"] == "f32" and r["case"] == case)
+    for g in ((60, 220, 85), (8, 28, 11), (4, 14, 6)):
+        gs13 = "x".join(map(str, g))
+        lab = "no x1" if g == (60, 220, 85) else "random nc=3"
+        hlab = "flagship" if g == (60, 220, 85) else "random nc=3"
+        inner += [(f"fused_stage2_rbgs k=0 (bgmg level {gs13})", "fused_stage2_rbgs",
+                   row_of(f"fused_stage2_rbgs k=0 {lab} {gs13}"),
+                   by_level.get(f"fused_stage2_rbgs {gs13}", 0)),
+                  (f"block_rbgs_half_sweep (bgmg level {gs13})", "block_rbgs_half_sweep",
+                   row_of(f"block_rbgs_half_sweep red {hlab} {gs13}"),
+                   by_level.get(f"block_rbgs_half_sweep {gs13}", 0))]
+    for k in ("chebyshev_smooth", "matvec", "deep_correction", "fused_stage2_rbgs"):
+        inner.append((f"{k} (adjoint, transposed hierarchy)", k, krec[k],
+                      adj_full["launches"][k]))
     kernels += [{"name": label, "route": "cuda", "source": KERNEL_SOURCES[k][0],
                  "replaces": KERNEL_SOURCES[k][1], "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2952,6 +3606,7 @@ def main() -> int:
                        "inner_cell_updates_per_s": icu_s, "inner_peak_gib": ipeak,
                        "solver_options": opts, "cli": cli, "blocked": blocked,
                        "schedule": sched, "pc_dtype_batch_pt": pc12,
+                       "transfers_bgmg_recycle_adjoint": p13,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

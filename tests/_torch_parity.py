@@ -279,8 +279,18 @@ def carry_cpr_state(js):
     and dtype by dtype (the stencils repacked in the port's layout), so
     that the port applies exactly the reference's set-up: its cast
     coefficients included."""
+    from thermalporous_torch.precond import transfer as ttr
+    from thermalporous_torch.precond.block_gmg import BlockGMGState
     from thermalporous_torch.precond.cpr import CPRState
     from thermalporous_torch.precond.gmg import GMGState
+    from thermalporous_tpu.precond import transfer as jtr
+
+    wide = {jtr.WideStencil: ttr.WideStencil, jtr.BoxStencil: ttr.BoxStencil}
+
+    def weights(ws):
+        return tuple(None if w is None else ttr.AxisWeights(carry_array(w.w_self),
+                                                            carry_array(w.w_out))
+                     for w in ws)
 
     def block(st):
         if st is None:
@@ -294,24 +304,53 @@ def carry_cpr_state(js):
     def gmg(g):
         if g is None:
             return None
-        assert not g.transfers
         batch = g.coarse_inv.ndim == 3
-        if batch:   # stacked: pack each member and stack
-            stencils = []
-            for s in g.stencils:
+        stencils = []
+        for s in g.stencils:
+            if type(s) in wide:     # weighted/variational levels: one tensor
+                stencils.append(wide[type(s)](carry_array(s.coef)))
+            elif batch:             # stacked: pack each member and stack
                 members = [JScalarStencil(diag=s.diag[m], upper=tuple(u[m] for u in s.upper),
                                           lower=tuple(lo[m] for lo in s.lower))
                            for m in range(g.coarse_inv.shape[0])]
                 stencils.append(tc.ScalarStencil(torch.stack(
                     [carry_array(pack_stencil(x)) for x in members])))
-        else:
-            stencils = [scalar(s) for s in g.stencils]
+            else:
+                stencils.append(scalar(s))
         return GMGState(tuple(stencils), tuple(carry_array(x) for x in g.lam_max),
-                        carry_array(g.coarse_inv), batch=g.coarse_inv.shape[0] if batch else 0)
+                        carry_array(g.coarse_inv), batch=g.coarse_inv.shape[0] if batch else 0,
+                        transfers=tuple(weights(ws) for ws in g.transfers))
+
+    def bgmg(b):
+        if b is None:
+            return None
+        return BlockGMGState(tuple(block(s) for s in b.stencils),
+                             tuple(carry_array(d) for d in b.dinvs), carry_array(b.coarse_inv))
 
     fac = None if js.zebra_fac is None else tuple(carry_array(x) for x in js.zebra_fac)
     return CPRState(stencil=block(js.stencil), dinv=carry_array(js.dinv), w=carry_array(js.w),
                     gmg_p=gmg(js.gmg_p), gmg_t=gmg(js.gmg_t), a_tp=scalar(js.a_tp),
                     pt=block(js.pt), a_sp=scalar(js.a_sp), a_st=scalar(js.a_st),
-                    a_ss=scalar(js.a_ss), zebra_fac=fac, dinv_red=carry_array(js.dinv_red),
-                    dinv_black=carry_array(js.dinv_black))
+                    a_ss=scalar(js.a_ss), zebra_fac=fac, bgmg=bgmg(js.bgmg),
+                    dinv_red=carry_array(js.dinv_red), dinv_black=carry_array(js.dinv_black))
+
+
+def assert_grad_data_close(got, ref, rtol: float) -> None:
+    """A port ``ProblemData``-shaped gradient against the reference's, leaf by
+    leaf (``tgeo``/``tcond`` per axis, ``phi`` and each well field):
+    |got − ref| ≤ rtol · max|ref leaf| elementwise (a leaf that is zero in the
+    reference must be zero in the port)."""
+    from thermalporous_torch.interop import problem_data_to_numpy
+
+    g = problem_data_to_numpy(got)
+    w = ref.wells
+    want = dict(tgeo=ref.tgeo, tcond=ref.tcond, phi=ref.phi, wi=w.wi, pbh=w.pbh,
+                tinj=w.tinj, has_tinj=w.has_tinj, qrate=w.qrate, qheat=w.qheat)
+    assert set(g) == set(want)
+    for name, r in want.items():
+        pairs = (zip(g[name], r) if isinstance(r, (tuple, list)) else [(g[name], r)])
+        for i, (a, b) in enumerate(pairs):
+            b = np.asarray(b)
+            assert a.shape == b.shape, (name, i)
+            err = float(np.abs(a - b).max())
+            assert err <= rtol * float(np.abs(b).max()), (name, i, err, float(np.abs(b).max()))

@@ -86,6 +86,8 @@ APPLY_CONFIGS = {
     "rbgs-fused-axes-sweeps": dict(stage2="rbgs", stage2_fused=True, stage2_axes=(2,),
                                    stage2_sweeps=2, gmg=dict(smoother="jacobi")),
     "zebra": dict(stage2="zebra", stage2_axis=1, stage2_sweeps=2),
+    "bgmg-sweeps-cycles": dict(stage2="bgmg", bgmg_coarse_cells=16, stage2_sweeps=2,
+                               bgmg_cycles=2),
 }
 
 
@@ -99,6 +101,9 @@ def _leaf_dtypes_ref(js) -> dict:
         if g is not None:
             out.update({f"{h}.stencils": leaves(g.stencils), f"{h}.lam_max": leaves(g.lam_max),
                         f"{h}.coarse_inv": leaves(g.coarse_inv)})
+    if js.bgmg is not None:
+        out.update({f"bgmg.{k}": leaves(getattr(js.bgmg, k))
+                    for k in ("stencils", "dinvs", "coarse_inv")})
     return out
 
 
@@ -118,21 +123,25 @@ def _leaf_dtypes_port(ts) -> dict:
         raise TypeError(type(x))
 
     out = {f.name: leaves(getattr(ts, f.name)) for f in dataclasses.fields(ts)
-           if f.name not in ("gmg_p", "gmg_t")}
+           if f.name not in ("gmg_p", "gmg_t", "bgmg")}
     for h in ("gmg_p", "gmg_t"):
         g = getattr(ts, h)
         if g is not None:
             out.update({f"{h}.stencils": leaves(g.stencils), f"{h}.lam_max": leaves(g.lam_max),
                         f"{h}.coarse_inv": leaves(g.coarse_inv)})
+    if ts.bgmg is not None:
+        out.update({f"bgmg.{k}": leaves(getattr(ts.bgmg, k))
+                    for k in ("stencils", "dinvs", "coarse_inv")})
     return out
 
 
 @pytest.mark.parametrize("mode,config", [(m, "rbgs-inner-s_stage-fused")
-                                         for m in ("f32",) + MODES] + [("bf16", "zebra")])
+                                         for m in ("f32",) + MODES] + [("bf16", "zebra")]
+                         + [(m, "bgmg-sweeps-cycles") for m in MODES])
 def test_cast_leaf_dtypes(system, mode, config):
     js, ts, _ = system
     kw = dict(APPLY_CONFIGS[config])
-    if config != "zebra":       # the premasked halves too
+    if config.startswith("rbgs"):       # the premasked halves too
         kw.update(stage2_fused=True, stage2_axes=(2,))
     jcfg, tcfg = _configs(pc_dtype=mode, **kw)
     jstate = jax.jit(lambda s: jcpr.cpr_setup(s, jcfg))(js)

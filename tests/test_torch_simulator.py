@@ -188,19 +188,22 @@ def test_time_config_and_interop_refuse_what_is_not_ported():
     # a reference field the port lacks passes at its default only
     jpc = dataclasses.asdict(JCPRConfig())
     assert config_from_dict(CPRConfig, jpc) == CPRConfig()
-    for key, val in (("stage2_pallas", True), ("bgmg_cycles", 2)):
-        with pytest.raises(ValueError):
-            config_from_dict(CPRConfig, dict(jpc, **{key: val}))
-    # bf16 coefficients and the batched p/T traversal are carried across
-    for key, val in (("pc_dtype", "bf16"), ("pc_dtype", "bf16_s2"), ("batch_pt", True)):
+    with pytest.raises(ValueError):
+        config_from_dict(CPRConfig, dict(jpc, stage2_pallas=True))
+    # bf16 coefficients, the batched p/T traversal and the bgmg stage 2 with
+    # its sizes are carried across
+    for key, val in (("pc_dtype", "bf16"), ("pc_dtype", "bf16_s2"), ("batch_pt", True),
+                     ("stage2", "bgmg"), ("bgmg_cycles", 2), ("bgmg_coarse_cells", 64)):
         assert getattr(config_from_dict(CPRConfig, dict(jpc, **{key: val})), key) == val
-    with pytest.raises(NotImplementedError):
-        config_from_dict(CPRConfig, dict(jpc, stage2="bgmg"))
     jgmg = dataclasses.asdict(JGMGConfig())
+    with pytest.raises(ValueError):
+        config_from_dict(GMGConfig, dict(jgmg, use_pallas=True))
+    # so are the weighted and variational transfers, and recycling
     for key, val in (("transfer", "weighted"), ("transfer", "variational"),
-                     ("use_pallas", True)):
-        with pytest.raises(ValueError):
-            config_from_dict(GMGConfig, dict(jgmg, **{key: val}))
+                     ("transfer_floor", 0.5)):
+        assert getattr(config_from_dict(GMGConfig, dict(jgmg, **{key: val})), key) == val
+    jnewton = dataclasses.asdict(JNewtonConfig(ksp_recycle=4))
+    assert config_from_dict(NewtonConfig, jnewton).ksp_recycle == 4
     # the solver options of this port carry across
     assert config_from_dict(CPRConfig, dict(jpc, inner_iters=2)).inner_iters == 2
     assert config_from_dict(GMGConfig, dict(jgmg, smoother="jacobi")).smoother == "jacobi"

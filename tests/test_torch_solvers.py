@@ -117,17 +117,21 @@ def test_trivial_preconditioners(system):
 
 
 def test_cpr_unported_options_raise():
-    """What stays unported: the bgmg stage 2 raises; the Pallas stage-2
-    switch, the bgmg sizes and the weighted/variational transfers and
-    TPU/multi-device GMG options have no field; unknown names are refused
-    (bf16 coefficient storage and the batched p/T traversal are ported:
-    tests/test_torch_pc_dtype.py, tests/test_torch_batch_pt.py)."""
-    with pytest.raises(NotImplementedError):
-        tcpr.CPRConfig(stage2="bgmg")
+    """The bgmg stage 2 with its sizes and the weighted and variational
+    transfers construct (their parity: tests/test_torch_block_gmg.py,
+    tests/test_torch_transfer.py); an unknown transfer is refused; the
+    Pallas stage-2 switch and the TPU/multi-device GMG options have no
+    field; unknown names are refused (bf16 coefficient storage and the
+    batched p/T traversal are ported: tests/test_torch_pc_dtype.py,
+    tests/test_torch_batch_pt.py)."""
+    assert tcpr.CPRConfig(stage2="bgmg", bgmg_cycles=2, bgmg_coarse_cells=64).bgmg_cycles == 2
+    for transfer in ("constant", "weighted", "variational"):
+        assert tgmg.GMGConfig(transfer=transfer, transfer_floor=0.5).transfer == transfer
+    with pytest.raises(ValueError, match="transfer"):
+        tgmg.GMGConfig(transfer="linear")
     for cls, kw in ((tcpr.CPRConfig, dict(stage2_pallas=True)),
-                    (tcpr.CPRConfig, dict(bgmg_cycles=2)),
-                    (tgmg.GMGConfig, dict(transfer="weighted")),
-                    (tgmg.GMGConfig, dict(use_pallas=True))):
+                    (tgmg.GMGConfig, dict(use_pallas=True)),
+                    (tgmg.GMGConfig, dict(replicate_below=16))):
         with pytest.raises(TypeError):
             cls(**kw)
     for kw in (dict(stage2="ilu"), dict(decoupling="x"), dict(variant="cprs"),

@@ -165,11 +165,16 @@ def test_predictor_guess_anchors_on_the_step_start():
 
 
 def test_unported_newton_options_raise():
-    """Krylov recycling is the one Newton option still unported; the
-    single-pass and selective orthogonalization, restarts and the frozen
-    preconditioner run (their parity: tests/test_torch_krylov_options.py)."""
-    model, data, step = _torch_step("same", ksp_recycle=2)
-    with pytest.raises(NotImplementedError):
+    """Every Newton option of the reference is ported: Krylov recycling
+    converges, and with ``ksp_restart`` it raises ``ValueError`` as the
+    reference does; the single-pass and selective orthogonalization,
+    restarts and the frozen preconditioner run (their parity:
+    tests/test_torch_krylov_options.py, tests/test_torch_deflate.py)."""
+    model, data, step = _torch_step("same", ksp_recycle=4)
+    _, st = step(model.initial_state(data), DT0, data)
+    assert st.converged
+    model, data, step = _torch_step("same", ksp_recycle=4, ksp_restart=8)
+    with pytest.raises(ValueError, match="ksp_recycle"):
         step(model.initial_state(data), DT0, data)
     for kw in (dict(ksp_orth="cgs1"), dict(ksp_restart=8), dict(pc_lag="step")):
         model, data, step = _torch_step("same", **kw)

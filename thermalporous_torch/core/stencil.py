@@ -133,12 +133,29 @@ class BlockStencil:
         return BlockStencil(multiply_blocks(w, self.coef))
 
     def to_dense(self) -> torch.Tensor:
-        """Dense (nc·N, nc·N) matrix (tests and tiny grids only)."""
-        nc, n = self.nc, math.prod(self.grid_shape)
-        eye = torch.eye(nc * n, dtype=self.coef.dtype, device=self.coef.device)
-        cols = [self.matvec(e.reshape((nc,) + self.grid_shape).contiguous())
-                for e in eye]
-        return torch.stack(cols).reshape(nc * n, nc * n).T
+        """Dense (nc·N, nc·N) matrix, unknowns component-major (the order of
+        ``v.reshape(-1)`` for v (nc, *grid)), by index scatter: each block
+        entry lands once, a boundary coupling (zero) nowhere.  The coarsest
+        level of the block multigrid, the "lu" preconditioner, tests."""
+        nc, shape = self.nc, self.grid_shape
+        dev, dt = self.coef.device, self.coef.dtype
+        n = math.prod(shape)
+        lin = torch.arange(n, device=dev).reshape(shape)
+        idx = torch.stack(torch.meshgrid(*[torch.arange(s, device=dev) for s in shape],
+                                         indexing="ij"))
+        comp = torch.arange(nc, device=dev)
+        ci, cj = comp.reshape(nc, 1, 1), comp.reshape(1, nc, 1)
+        rows = lin.reshape(1, 1, n)
+        dense = torch.zeros((nc, n, nc, n), dtype=dt, device=dev)
+        dense.index_put_((ci, rows, cj, rows), self.diag.reshape(nc, nc, n), accumulate=True)
+        for a in range(self.dim):
+            stride = math.prod(shape[a + 1:])
+            for blocks, ok, step in ((self.upper[a], idx[a] < shape[a] - 1, stride),
+                                     (self.lower[a], idx[a] > 0, -stride)):
+                cols = torch.where(ok, lin + step, lin).reshape(1, 1, n)
+                vals = torch.where(ok, blocks, 0.0).reshape(nc, nc, n)
+                dense.index_put_((ci, rows, cj, cols), vals, accumulate=True)
+        return dense.reshape(nc * n, nc * n)
 
 
 @dataclasses.dataclass

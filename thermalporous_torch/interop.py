@@ -31,9 +31,8 @@ from thermalporous_torch.solve.timeloop import TimeConfig
 #: the reference's configuration fields that the port lacks, at the
 #: reference's defaults (a dict may carry them only at these values)
 UNPORTED_DEFAULTS = {
-    GMGConfig: dict(use_pallas=False, transfer="constant", transfer_floor=0.75,
-                    replicate_below=4096, mesh=None),
-    CPRConfig: dict(stage2_pallas=False, bgmg_coarse_cells=256, bgmg_cycles=1),
+    GMGConfig: dict(use_pallas=False, replicate_below=4096, mesh=None),
+    CPRConfig: dict(stage2_pallas=False),
     NewtonConfig: {},
     TimeConfig: {},
 }
@@ -134,6 +133,19 @@ def problem_data_from_numpy(
     parts = [*tgeo, *tcond, phi, wi, pbh, tinj, has_tinj, qrate, qheat]
     stacked = np.stack([np.asarray(p, dtype=np.float64) for p in parts])
     return ProblemData(torch.as_tensor(stacked, dtype=dtype, device=device))
+
+
+def problem_data_to_numpy(data: ProblemData) -> dict:
+    """The fields of a :class:`ProblemData` (or of a gradient of one, such as
+    ``AdjointResult.grad_data``) as numpy arrays under the reference's
+    names: ``tgeo`` and ``tcond`` (tuples, one per axis), ``phi`` and the six
+    well fields (``wi``, ``pbh``, ``tinj``, ``has_tinj``, ``qrate``,
+    ``qheat``)."""
+    w = data.wells
+    a = lambda x: x.detach().cpu().numpy()
+    return dict(tgeo=tuple(a(x) for x in data.tgeo), tcond=tuple(a(x) for x in data.tcond),
+                phi=a(data.phi), wi=a(w.wi), pbh=a(w.pbh), tinj=a(w.tinj),
+                has_tinj=a(w.has_tinj), qrate=a(w.qrate), qheat=a(w.qheat))
 
 
 def state_from_numpy(u: np.ndarray, *, dtype: torch.dtype,

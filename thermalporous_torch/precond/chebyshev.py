@@ -33,9 +33,9 @@ from thermalporous_torch.core.stencil import (
 from thermalporous_torch.kernels import stencil as kst
 
 
-def gershgorin_lambda_max(st: ScalarStencil) -> torch.Tensor:
+def gershgorin_lambda_max(st) -> torch.Tensor:
     """Upper bound on the spectrum of D⁻¹A from Gershgorin rows (a 0-dim
-    tensor on the stencil's device)."""
+    tensor on the stencil's device), for a scalar or a wide stencil."""
     return torch.max(st.row_abs_sum() / torch.abs(st.diag))
 
 
@@ -51,12 +51,49 @@ def chebyshev(
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """``degree`` Chebyshev iterations on D⁻¹A x = D⁻¹b from ``x`` (None =
     zero start) over [lam_min_frac·λmax, λmax·safety].  With ``second``
-    ("residual" or "product") the result y comes with b − A·y or A·y from
-    the same kernel launch."""
+    ("residual" or "product") the result y comes with b − A·y or A·y: on a
+    :class:`ScalarStencil` from the same kernel launch; any other stencil
+    with ``matvec`` and ``diag`` (the wide multigrid levels of
+    ``precond/transfer.py``) takes the plain iteration and a matvec after
+    it, by its type."""
     if lam_max is None:
         lam_max = gershgorin_lambda_max(st)
-    return kst.chebyshev_smooth(st.packed, b, x, lam_max, degree, lam_min_frac,
-                                lam_max_safety, second=second)
+    if isinstance(st, ScalarStencil):
+        return kst.chebyshev_smooth(st.packed, b, x, lam_max, degree, lam_min_frac,
+                                    lam_max_safety, second=second)
+    y = chebyshev_plain(st, b, x, degree, lam_max, lam_min_frac, lam_max_safety)
+    if second is None:
+        return y
+    ay = st.matvec(y)
+    return y, (b - ay if second == "residual" else ay)
+
+
+def chebyshev_plain(st, b: torch.Tensor, x: torch.Tensor | None, degree: int,
+                    lam_max: torch.Tensor, lam_min_frac: float,
+                    lam_max_safety: float = 1.05) -> torch.Tensor:
+    """The reference's Chebyshev iteration for any stencil with ``matvec``
+    and ``diag``, in plain PyTorch (from zero the first matvec is skipped:
+    b − A·0 = b exactly)."""
+    lmax = lam_max * lam_max_safety
+    lmin = lam_max * lam_min_frac
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    inv_diag = 1.0 / st.diag
+    if x is None:
+        x = torch.zeros_like(b)
+        z = inv_diag * b
+    else:
+        z = inv_diag * (b - st.matvec(x))
+    d = z / theta
+    rho = 1.0 / sigma1
+    for _ in range(degree - 1):
+        x = x + d
+        z = inv_diag * (b - st.matvec(x))
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * z
+        rho = rho_new
+    return x + d
 
 
 def weighted_jacobi(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = None,

@@ -18,7 +18,10 @@
   block Jacobi (``jacobi2``), ``stage2_sweeps`` red-black block
   Gauss–Seidel sweeps (optionally with a sparsified coupling,
   ``stage2_axes``, and the premasked zero-start sweep, ``stage2_fused``)
-  or zebra block line Gauss–Seidel along ``stage2_axis``.  Its residual
+  or zebra block line Gauss–Seidel along ``stage2_axis``, or the coupled
+  block multigrid (``bgmg``, ``precond/block_gmg.py``: ``bgmg_cycles``
+  V-cycles of ``stage2_sweeps`` red-black block sweeps a level down to
+  ``bgmg_coarse_cells`` cells).  Its residual
   r − A·x₁ reads only the block columns x₁ lives on (``stage2_cols``).
   One full-coupling rbgs sweep is the whole stage 2 in one
   ``fused_stage2_rbgs`` launch: the residual, the sweep and the add of x₁;
@@ -30,11 +33,9 @@
   traversed together, each smooth and each fused subtree one launch for
   both.
 
-Not ported, and without a field: the ``bgmg`` stage 2 (``stage2="bgmg"``
-raises ``NotImplementedError``) with ``bgmg_coarse_cells`` and
-``bgmg_cycles``, ``stage2_pallas`` (the CUDA stage 2 already is the fused
-form) and the reference's TPU guards (among them its refusal of
-``batch_pt`` at 0.5M cells and more on its TPU backend).
+Not ported, and without a field: ``stage2_pallas`` (the CUDA stage 2
+already is the fused form) and the reference's TPU guards (among them its
+refusal of ``batch_pt`` at 0.5M cells and more on its TPU backend).
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ import torch
 
 from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil, apply_blocks
 from thermalporous_torch.kernels import stencil as kst
+from thermalporous_torch.precond.block_gmg import (
+    BlockGMGState,
+    block_gmg_apply,
+    block_gmg_setup,
+)
 from thermalporous_torch.precond.chebyshev import (
     block_rbgs_fused_zero,
     block_red_black_gauss_seidel,
@@ -66,7 +72,7 @@ from thermalporous_torch.precond.gmg import (
     stack_states,
 )
 
-STAGE2 = ("none", "block_jacobi", "jacobi2", "rbgs", "zebra")
+STAGE2 = ("none", "block_jacobi", "jacobi2", "rbgs", "zebra", "bgmg")
 PC_DTYPES = ("f32", "bf16", "bf16_gmg", "bf16_s2")
 
 
@@ -77,8 +83,9 @@ class CPRConfig:
     ``thermalporous_tpu/precond/cpr.py:CPRConfig`` for each option)."""
 
     variant: str = "cptr"            # "cpr" | "cptr"
-    stage2: str = "block_jacobi"     # "none" | "block_jacobi" | "jacobi2" | "rbgs" | "zebra"
-    stage2_sweeps: int = 1           # rbgs / zebra sweeps
+    stage2: str = "block_jacobi"     # "none" | "block_jacobi" | "jacobi2" | "rbgs" |
+                                     # "zebra" | "bgmg"
+    stage2_sweeps: int = 1           # rbgs / zebra sweeps; bgmg sweeps a smooth
     stage2_cols: bool = True         # stage-2 residual over x₁'s columns only
     # rbgs: the first sweep from premasked D⁻¹ halves (the same function as
     # the plain first sweep with the full coupling); further sweeps in the
@@ -88,6 +95,8 @@ class CPRConfig:
     stage2_axes: tuple[int, ...] | None = None   # rbgs coupling axes (not exact)
     stage2_axis: int = 1             # zebra line axis
     stage2_omega: float = 1.0        # zebra and jacobi2 relaxation
+    bgmg_coarse_cells: int = 256     # bgmg: coarsest-level size
+    bgmg_cycles: int = 1             # bgmg: V-cycles per apply
     triangular: bool = True          # CPTR stage 1: triangular vs block-diagonal
     # the p and T hierarchies stacked and traversed together (CPTR with
     # triangular=False and gmg_t=None; checked in cpr_setup, as the reference
@@ -109,8 +118,6 @@ class CPRConfig:
     gmg_t: GMGConfig | None = None   # T hierarchy (None = ``gmg``)
 
     def __post_init__(self):
-        if self.stage2 == "bgmg":
-            raise NotImplementedError("stage2 'bgmg' is not ported")
         checks = {"variant": ("cpr", "cptr"), "stage2": STAGE2,
                   "decoupling": ("qimpes", "timpes", "abf"),
                   "inner_method": ("fgmres", "richardson"),
@@ -140,6 +147,7 @@ class CPRState:
     a_st: ScalarStencil | None = None   # S-equation ← T coupling (s_stage)
     a_ss: ScalarStencil | None = None   # S-S transport operator (s_stage)
     zebra_fac: tuple | None = None      # block-Thomas factor (stage2="zebra")
+    bgmg: BlockGMGState | None = None   # coupled block hierarchy (stage2="bgmg")
     # premasked D⁻¹ halves (red·D⁻¹, black·D⁻¹) for stage2_fused with axes
     dinv_red: torch.Tensor | None = None
     dinv_black: torch.Tensor | None = None
@@ -227,6 +235,8 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
         a = cfg.stage2_axis % stencil.dim
         state.zebra_fac = block_tridiag_factor(a, stencil.lower[a], stencil.diag,
                                                stencil.upper[a])
+    if cfg.stage2 == "bgmg":
+        state.bgmg = block_gmg_setup(stencil, cfg.gmg, max_coarse_cells=cfg.bgmg_coarse_cells)
     if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
         red = kst.checkerboard(stencil.grid_shape, dinv.dtype, dinv.device)
         state.dinv_red, state.dinv_black = red * dinv, (1.0 - red) * dinv
@@ -237,22 +247,29 @@ def cast_coefficients(state: CPRState, pc_dtype: str) -> CPRState:
     """``state`` with its stored coefficients in bf16 as ``pc_dtype`` asks
     (the reference's groups, ``cpr.py:536-561``): "bf16" and "bf16_s2" the
     stage-2 stencil (a cast copy: the Newton operator's stencil is never
-    cast), D⁻¹ and its premasked halves; "bf16" and "bf16_gmg" the T←p
-    coupling and both hierarchies' level stencils — not their λ estimates
-    and not the dense coarsest inverses; "bf16" also W, the (p, T) stencil
-    and the saturation couplings.  The zebra factor, formed before, stays
-    in full precision.  "f32" returns ``state`` unchanged."""
+    cast), D⁻¹ and its premasked halves, and the ``bgmg`` hierarchy's level
+    stencils and diagonal inverses; "bf16" and "bf16_gmg" the T←p coupling
+    and both hierarchies' level stencils, the wide levels of weighted and
+    variational transfers too — not their λ estimates, transfer weights or
+    dense coarsest inverses (neither ``bgmg``'s); "bf16" also W, the (p, T)
+    stencil and the saturation couplings.  The zebra factor, formed before,
+    stays in full precision.  "f32" returns ``state`` unchanged."""
     if pc_dtype == "f32":
         return state
     bf = lambda t: None if t is None else t.to(torch.bfloat16)
     scalar = lambda s: None if s is None else ScalarStencil(bf(s.packed))
+    level = lambda s: scalar(s) if isinstance(s, ScalarStencil) else type(s)(bf(s.coef))
     levels = lambda g: None if g is None else dataclasses.replace(
-        g, stencils=tuple(scalar(s) for s in g.stencils))
+        g, stencils=tuple(level(s) for s in g.stencils))
     out = dataclasses.replace(state)
     if pc_dtype in ("bf16", "bf16_s2"):
         out.stencil = BlockStencil(bf(state.stencil.coef))
         out.dinv, out.dinv_red, out.dinv_black = (bf(state.dinv), bf(state.dinv_red),
                                                   bf(state.dinv_black))
+        if state.bgmg is not None:
+            out.bgmg = dataclasses.replace(
+                state.bgmg, stencils=tuple(BlockStencil(bf(s.coef)) for s in state.bgmg.stencils),
+                dinvs=tuple(bf(d) for d in state.bgmg.dinvs))
     if pc_dtype in ("bf16", "bf16_gmg"):
         out.a_tp = scalar(state.a_tp)
         out.gmg_p, out.gmg_t = levels(state.gmg_p), levels(state.gmg_t)
@@ -349,6 +366,9 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
     elif cfg.stage2 == "zebra":
         x2 = block_zebra_line_gs(st, r2, axis=cfg.stage2_axis, sweeps=cfg.stage2_sweeps,
                                  omega=cfg.stage2_omega, factor=state.zebra_fac)
+    elif cfg.stage2 == "bgmg":
+        x2 = block_gmg_apply(state.bgmg, r2, cfg.gmg, sweeps=cfg.stage2_sweeps,
+                             cycles=cfg.bgmg_cycles)
     elif rbgs_kernel:
         # with the full coupling stage2_fused is the same function as the
         # kernels' zero-start sweep

@@ -12,13 +12,19 @@ combined by a flexible-CG(2) update; its dot products stay on the device);
 
 Ported: geometric full coarsening (optionally never along the last axis of
 a 3D grid, ``semicoarsen_z``) and the adaptive schedule (a baked
-``level_factors`` from :func:`plan_coarsening`), constant transfer, every
-smoother, and the fused coarse subtree (``fuse_below``: the whole
-correction below a small enough level in one launch of the
-``deep_correction`` kernel, Chebyshev smoothing only).  The weighted and
-variational transfers and the TPU and multi-device options
-(``use_pallas``, ``replicate_below``, ``mesh``) are not ported and have no
-field.
+``level_factors`` from :func:`plan_coarsening`), every smoother, the fused
+coarse subtree (``fuse_below``: the whole correction below a small enough
+level in one launch of the ``deep_correction`` kernel, Chebyshev smoothing
+and constant transfer only), and the three transfers: "constant"
+(injection P, summation R), "weighted" (operator-weighted P with the
+summation R; coarse levels :class:`~thermalporous_torch.precond.transfer.WideStencil`)
+and "variational" (the same P with R = Pᵀ; coarse levels
+:class:`~thermalporous_torch.precond.transfer.BoxStencil`, their λ estimated
+by power iteration).  The wide levels are routed by type to the plain
+Chebyshev or Jacobi smoother and their own plain matvec: no kernel takes
+them; the finest level stays a :class:`ScalarStencil` on the kernels.  The
+TPU and multi-device options (``use_pallas``, ``replicate_below``,
+``mesh``) are not ported and have no field.
 
 A :class:`GMGState` may hold a batch of congruent hierarchies stacked along
 a leading axis of every leaf (:func:`stack_states`; ``CPRConfig.batch_pt``'s
@@ -27,7 +33,8 @@ the reference's ``jax.vmap`` written out.  The Chebyshev smooth and the
 fused subtree run every member in one launch; the transfers are batched
 tensor operations; the dot products, the dense coarsest solve and the
 other smoothers run member by member, so that each member computes what it
-computes alone.
+computes alone.  A batch whose hierarchies have weighted or variational
+transfers is applied member by member throughout.
 """
 
 from __future__ import annotations
@@ -47,6 +54,16 @@ from thermalporous_torch.precond.chebyshev import (
     weighted_jacobi,
     zebra_line_gs,
 )
+from thermalporous_torch.precond.transfer import (
+    AxisWeights,
+    galerkin_variational,
+    galerkin_wide,
+    is_wide,
+    prolong_weighted,
+    restrict_weighted,
+    transfer_weights,
+)
+from thermalporous_torch.utils import power_iteration
 
 #: Hopper eligibility of the fused coarse subtree: the bytes it touches
 #: (:func:`kernels.deep_cycle.subtree_bytes`, at the apply dtype) must fit
@@ -56,14 +73,18 @@ from thermalporous_torch.precond.chebyshev import (
 FUSE_L2_BUDGET_BYTES = 32 * 2**20
 
 SMOOTHERS = ("chebyshev", "jacobi", "rbgs", "line", "zebra")
+TRANSFERS = ("constant", "weighted", "variational")
+#: power iteration on a variational level: iterations, and the margin on
+#: its estimate of D⁻¹A's largest |λ| (the reference's, gmg.py:363-378)
+VARIATIONAL_POWER_ITERS = 12
+VARIATIONAL_LAM_MARGIN = 1.15
 
 
 @dataclasses.dataclass(frozen=True)
 class GMGConfig:
-    """Static multigrid configuration: the reference's fields for geometric
-    coarsening and constant transfer (see
-    ``thermalporous_tpu/precond/gmg.py:GMGConfig``).  Its transfer and
-    TPU/multi-device options are not ported and have no field here."""
+    """Static multigrid configuration: the reference's fields (see
+    ``thermalporous_tpu/precond/gmg.py:GMGConfig``) but its TPU and
+    multi-device options, which are not ported and have no field here."""
 
     smoother: str = "chebyshev"       # "chebyshev" | "jacobi" | "rbgs" |
                                       # "line" (line Jacobi) | "zebra"
@@ -88,6 +109,12 @@ class GMGConfig:
     # cpr.resolve_adaptive_coarsening) to bake ``level_factors`` from the
     # operator before the first step
     coarsen: str = "geometric"
+    # grid transfer: "constant" (injection P, summation R), "weighted"
+    # (operator-weighted P, summation R; wide 9/27-point coarse levels) or
+    # "variational" (the same P, R = Pᵀ, exact PᵀAP on per-axis-width boxes);
+    # wide levels smooth with Chebyshev unless the smoother is "jacobi"
+    transfer: str = "constant"
+    transfer_floor: float = 0.75      # parent-weight floor of weighted P
 
     def __post_init__(self):
         if self.cycle_type not in ("v", "w", "k"):
@@ -98,44 +125,75 @@ class GMGConfig:
             raise ValueError(f"cycles {self.cycles} < 1")
         if self.coarsen not in ("geometric", "adaptive"):
             raise ValueError(f"unknown coarsen {self.coarsen!r}")
+        if self.transfer not in TRANSFERS:
+            raise ValueError(f"unknown transfer {self.transfer!r}; one of {TRANSFERS}")
+
+
+def _coef(st) -> torch.Tensor:
+    """A level's one coefficient tensor (``packed`` of a scalar level,
+    ``coef`` of a wide one)."""
+    return st.packed if isinstance(st, ScalarStencil) else st.coef
 
 
 @dataclasses.dataclass
 class GMGState:
     """Per-Newton-iteration multigrid hierarchy, or with ``batch`` > 0 that
     many congruent hierarchies stacked along a leading axis of every leaf
-    (each stencil's ``packed`` (batch, 2·dim+1, *grid), each λ estimate
-    (batch,), the inverse (batch, m, m))."""
+    (each stencil's coefficients (batch, …, *grid), each λ estimate
+    (batch,), the inverse (batch, m, m), each transfer weight (batch,
+    *shape)).  ``transfers`` holds, per level above the coarsest, the
+    per-axis :class:`AxisWeights` (None on factor-1 axes) of a weighted or
+    variational hierarchy, and is empty for constant transfer."""
 
-    stencils: tuple[ScalarStencil, ...]
+    stencils: tuple          # ScalarStencil level 0; Wide/BoxStencil below if weighted
     lam_max: tuple[torch.Tensor, ...]   # 0-dim device tensors, one per smoothed level
     coarse_inv: torch.Tensor            # dense inverse of the coarsest operator
     batch: int = 0
+    transfers: tuple = ()
 
     def shape(self, level: int) -> tuple[int, ...]:
         """The grid of ``level`` (without the batch axis)."""
-        return tuple(self.stencils[level].packed.shape[2 if self.batch else 1:])
+        st = self.stencils[level]
+        b = 1 if self.batch else 0
+        t = _coef(st)
+        # a scalar level has one leading channel axis, a wide one dim axes
+        k = 1 if isinstance(st, ScalarStencil) else (t.dim() - b) // 2
+        return tuple(t.shape[b + k:])
 
     def member(self, m: int) -> "GMGState":
         """Member ``m`` of a batch as a hierarchy of its own (views)."""
-        return GMGState(tuple(ScalarStencil(s.packed[m]) for s in self.stencils),
-                        tuple(lam[m] for lam in self.lam_max), self.coarse_inv[m])
+        pick = lambda w: None if w is None else AxisWeights(w.w_self[m], w.w_out[m])
+        return GMGState(tuple(type(s)(_coef(s)[m]) for s in self.stencils),
+                        tuple(lam[m] for lam in self.lam_max), self.coarse_inv[m],
+                        transfers=tuple(tuple(pick(w) for w in ws) for ws in self.transfers))
 
 
 def stack_states(states) -> GMGState:
     """Congruent hierarchies stacked member by member into one batched
-    state (the reference's ``jax.tree.map(jnp.stack, ...)``)."""
+    state (the reference's ``jax.tree.map(jnp.stack, ...)``), their
+    transfer weights too."""
     first = states[0]
     if any(len(s.stencils) != len(first.stencils)
-           or any(a.packed.shape != b.packed.shape
-                  for a, b in zip(s.stencils, first.stencils)) for s in states):
+           or any(type(a) is not type(b) or _coef(a).shape != _coef(b).shape
+                  for a, b in zip(s.stencils, first.stencils))
+           or [[w is None for w in ws] for ws in s.transfers]
+           != [[w is None for w in ws] for ws in first.transfers] for s in states):
         raise ValueError("stack_states: the hierarchies are not congruent")
+
+    def weights(l, a):
+        if first.transfers[l][a] is None:
+            return None
+        return AxisWeights(torch.stack([s.transfers[l][a].w_self for s in states]),
+                           torch.stack([s.transfers[l][a].w_out for s in states]))
+
     return GMGState(
-        tuple(ScalarStencil(torch.stack([s.stencils[l].packed for s in states]))
-              for l in range(len(first.stencils))),
+        tuple(type(st)(torch.stack([_coef(s.stencils[l]) for s in states]))
+              for l, st in enumerate(first.stencils)),
         tuple(torch.stack([s.lam_max[l] for s in states])
               for l in range(len(first.lam_max))),
-        torch.stack([s.coarse_inv for s in states]), batch=len(states))
+        torch.stack([s.coarse_inv for s in states]), batch=len(states),
+        transfers=tuple(tuple(weights(l, a) for a in range(len(ws)))
+                        for l, ws in enumerate(first.transfers)))
 
 
 def _blocksum(x: torch.Tensor, fine_shape: tuple[int, ...],
@@ -253,25 +311,50 @@ def dense_inv(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(a.to(torch.float64))[0].to(a.dtype).contiguous()
 
 
+def _lam(s, cfg: GMGConfig) -> torch.Tensor:
+    """λ estimate of D⁻¹A on a smoothed level: Gershgorin, but on a
+    variational box level, where Gershgorin overestimates it many times,
+    power iteration from the reference's start with a 15% margin."""
+    if cfg.transfer == "variational" and is_wide(s):
+        dinv = 1.0 / s.diag
+        lam = power_iteration(lambda v: dinv * s.matvec(v), s.grid_shape,
+                              dtype=s.diag.dtype, iters=VARIATIONAL_POWER_ITERS,
+                              device=s.diag.device)
+        return VARIATIONAL_LAM_MARGIN * lam
+    return gershgorin_lambda_max(s)
+
+
 def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig()) -> GMGState:
     """Build the multigrid hierarchy of one stencil (per Newton iteration)."""
     stencils = [st]
+    transfers = []
     while (math.prod(stencils[-1].grid_shape) > cfg.max_coarse_cells
            and len(stencils) < cfg.max_levels
            and any(n > 1 for n in stencils[-1].grid_shape)):
         level = stencils[-1]
         factors = _level_factors(level.grid_shape, cfg, level=len(stencils) - 1)
-        stencils.append(galerkin_coarsen(level, factors))
-    lam_max = tuple(gershgorin_lambda_max(s) for s in stencils[:-1])
+        if cfg.transfer == "constant":
+            stencils.append(galerkin_coarsen(level, factors))
+            continue
+        w = transfer_weights(level, factors, floor=cfg.transfer_floor)
+        coarse = tuple(-(-n // 2) if f == 2 else n
+                       for n, f in zip(level.grid_shape, factors))
+        transfers.append(w)
+        galerkin = galerkin_variational if cfg.transfer == "variational" else galerkin_wide
+        stencils.append(galerkin(level, w, coarse))
+    lam_max = tuple(_lam(s, cfg) for s in stencils[:-1])
     return GMGState(stencils=tuple(stencils), lam_max=lam_max,
-                    coarse_inv=dense_inv(stencils[-1].to_dense()))
+                    coarse_inv=dense_inv(stencils[-1].to_dense()),
+                    transfers=tuple(transfers))
 
 
-def _smooth(st: ScalarStencil, lam, b, x, cfg: GMGConfig, second: str | None = None):
+def _smooth(st, lam, b, x, cfg: GMGConfig, second: str | None = None):
     """One smooth; with ``second`` also b − A·y ("residual") or A·y
-    ("product") of its result y: for Chebyshev from the smooth's own
-    launch, for the other smoothers a matvec after it."""
-    if cfg.smoother == "chebyshev":
+    ("product") of its result y: for Chebyshev on a scalar level from the
+    smooth's own launch, otherwise a matvec after it.  A wide level takes
+    Chebyshev unless the smoother is Jacobi (the colourings and line solves
+    assume axis-aligned couplings), both plain."""
+    if cfg.smoother == "chebyshev" or (is_wide(st) and cfg.smoother != "jacobi"):
         return chebyshev(st, b, x, degree=cfg.degree, lam_max=lam,
                          lam_min_frac=cfg.lam_min_frac, second=second)
     if cfg.smoother == "rbgs":
@@ -325,8 +408,10 @@ def _fusable(state: GMGState, level: int, cfg: GMGConfig,
     ``fuse_below`` cells and the subtree of every member, its stencils
     sized at their stored dtype and its vectors at the apply dtype
     ``dtype``, fits FUSE_L2_BUDGET_BYTES; the kernel smooths with
-    Chebyshev only."""
-    if cfg.fuse_below <= 0 or cfg.smoother != "chebyshev":
+    Chebyshev only, on scalar levels with constant transfer."""
+    if cfg.fuse_below <= 0 or cfg.smoother != "chebyshev" or state.transfers:
+        return False
+    if any(is_wide(s) for s in state.stencils[level:]):
         return False
     if math.prod(state.shape(level)) > cfg.fuse_below:
         return False
@@ -401,9 +486,15 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     coarse = state.shape(level + 1)
     factors = tuple(2 if c < f else 1 for f, c in zip(fine, coarse))
     x, r = _smooth_level(state, level, b, None, cfg, second="residual")
-    rc = _blocksum(r, fine, factors, lead)
+    if state.transfers and cfg.transfer == "variational":
+        rc = restrict_weighted(r, state.transfers[level])
+    else:
+        rc = _blocksum(r, fine, factors, lead)
     ec = _coarse_correction(state, level + 1, rc, cfg)
-    x = x + _prolong(ec, fine, factors, lead)
+    if state.transfers:
+        x = x + prolong_weighted(ec, fine, state.transfers[level])
+    else:
+        x = x + _prolong(ec, fine, factors, lead)
     return _smooth_level(state, level, b, x, cfg, second=second)
 
 
@@ -411,7 +502,10 @@ def gmg_apply(state: GMGState, b: torch.Tensor,
               cfg: GMGConfig = GMGConfig()) -> torch.Tensor:
     """Approximate A⁻¹b with ``cfg.cycles`` cycles, each after the first on
     the residual of the sum so far (of every member of a batched
-    ``state``, ``b`` then (batch, *grid))."""
+    ``state``, ``b`` then (batch, *grid); with transfers member by
+    member)."""
+    if state.batch and state.transfers:
+        return _each(state, lambda s, bb: gmg_apply(s, bb, cfg), b)
     x = _v_cycle(state, 0, b, cfg)
     for _ in range(cfg.cycles - 1):
         if state.batch:

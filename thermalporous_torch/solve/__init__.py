@@ -1,3 +1,8 @@
+from thermalporous_torch.solve.adjoint import (
+    AdjointResult,
+    adjoint_gradients,
+    record_trajectory,
+)
 from thermalporous_torch.solve.fgmres import FGMRESResult, fgmres
 from thermalporous_torch.solve.newton import NewtonConfig, NewtonStats, newton_solve
 from thermalporous_torch.solve.oracle import dense_newton_step, oracle_run
@@ -11,6 +16,7 @@ from thermalporous_torch.solve.timeloop import (
     make_step_fn,
 )
 
-__all__ = ["FGMRESResult", "fgmres", "NewtonConfig", "NewtonStats",
+__all__ = ["AdjointResult", "adjoint_gradients", "record_trajectory",
+           "FGMRESResult", "fgmres", "NewtonConfig", "NewtonStats",
            "newton_solve", "dense_newton_step", "oracle_run", "SimResult", "Simulator",
            "StepRecord", "TimeConfig", "BlockStats", "make_block_step_fn", "make_step_fn"]

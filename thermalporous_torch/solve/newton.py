@@ -19,8 +19,11 @@ dtype-aware floor, ``norm_from``, the ``chop`` hook, every ``ksp_orth`` and
 ``ksp_restart``, ``pc_lag`` ``"every"`` and ``"step"`` (the preconditioner
 set up once, at the step's first iterate) and every ``krylov_op``:
 ``"stencil_pallas"`` is ``"stencil"`` here, whose matvec already is the
-hand-written block-matvec kernel.  Krylov recycling (``ksp_recycle``)
-raises ``NotImplementedError``.
+hand-written block-matvec kernel, and Krylov recycling (``ksp_recycle``
+= k > 0: a k-column recycle space carried across the Newton iterations of
+one solve, each linear solve deflated by the slowest modes harvested from
+the one before, ``solve/deflate.py``; it takes "cgs1" or, for every other
+``ksp_orth``, classic CGS2, and refuses ``ksp_restart``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from thermalporous_torch._device import reduce_dtype
+from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
 from thermalporous_torch.solve.fgmres import _NP, fgmres
 
 
@@ -79,11 +83,6 @@ class NewtonConfig:
                 raise ValueError(f"unknown {field} {v!r}; one of {allowed}")
 
 
-def _check_ported(cfg: NewtonConfig) -> None:
-    if cfg.ksp_recycle:
-        raise NotImplementedError("Krylov recycling is not ported")
-
-
 @dataclasses.dataclass
 class NewtonStats:
     iters: int          # Newton iterations performed
@@ -115,7 +114,9 @@ def newton_solve(
     when ``u0`` is a predicted guess (the tolerance anchors there, and a
     guess worse than it is discarded), ``chop(u, dx) -> dx`` a limiter of
     the Newton direction applied before the line search."""
-    _check_ported(cfg)
+    recycle = int(cfg.ksp_recycle)
+    if recycle > 0 and cfg.ksp_restart is not None:
+        raise ValueError("ksp_recycle is incompatible with ksp_restart")
     if cfg.krylov_op == "jvp" and jvp_at is None:
         raise ValueError('krylov_op="jvp" needs jvp_at')
     dtype = u0.dtype
@@ -155,6 +156,8 @@ def newton_solve(
                 orth_gram={"cgs2g": 3, "cgs2g2": 2}.get(cfg.ksp_orth, 0))
 
     u, f, nrm, k, ksp, failed = u0, f0, nrm_start, 0, 0, False
+    if recycle > 0:
+        U, umask = empty_recycle(u0.shape, recycle, dtype, u0.device)
     while nrm > tol and k < cfg.max_iters and not failed:
         if cfg.krylov_op == "jvp":
             op = jvp_at(u)
@@ -174,12 +177,20 @@ def newton_solve(
         else:
             matvec, rhs = op, -f
             krylov_pc = lambda r: pc_apply(pcs, r)
-        result = fgmres(
-            matvec, rhs, precond=krylov_pc,
-            rtol=eta if cfg.ksp_ew else cfg.ksp_rtol, atol=cfg.ksp_atol,
-            maxiter=cfg.ksp_maxiter, restart=cfg.ksp_restart, basis_dtype=basis,
-            **orth,
-        )
+        rtol_k = eta if cfg.ksp_ew else cfg.ksp_rtol
+        if recycle > 0:
+            # the deflated solver runs classic CGS2 (or one pass): the
+            # selective and Gram-matrix variants take CGS2, as in the reference
+            result, U, umask = fgmres_dr(
+                matvec, rhs, precond=krylov_pc, U=U, u_mask=umask, rtol=rtol_k,
+                atol=cfg.ksp_atol, maxiter=cfg.ksp_maxiter, basis_dtype=basis,
+                orth_passes=orth["orth_passes"])
+        else:
+            result = fgmres(
+                matvec, rhs, precond=krylov_pc, rtol=rtol_k, atol=cfg.ksp_atol,
+                maxiter=cfg.ksp_maxiter, restart=cfg.ksp_restart, basis_dtype=basis,
+                **orth,
+            )
         dx = result.x
         if chop is not None:
             dx = chop(u, dx)

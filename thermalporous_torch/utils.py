@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import time
 
@@ -105,18 +106,57 @@ class Timer:
         self.seconds = time.perf_counter() - self.t0
 
 
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x1, x2)`` under the
+    key ``(k1, k2)``: 32-bit words held in uint64 arrays."""
+    rotl = lambda x, r: ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & _M32
+    ks = [np.uint64(k1), np.uint64(k2), np.uint64(k1 ^ k2 ^ 0x1BD11BDA)]
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + np.uint64(i + 1)) & _M32
+    return x
+
+
+def normal_start(shape, dtype: torch.dtype, seed: int = 0,
+                 device: torch.device | str = "cuda") -> torch.Tensor:
+    """The reference's start vector ``jax.random.normal(PRNGKey(seed),
+    shape, dtype)``: the same Threefry counter bits (its partitionable
+    form) and the same map to (−1, 1), then √2·erfinv, the one step that
+    may differ from it in the last bits (torch's erfinv against XLA's).
+    f32 and f64 only."""
+    device = require_cuda(device)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"normal_start: dtype {dtype}")
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    idx = np.arange(math.prod(shape), dtype=np.uint64)
+    b1, b2 = _threefry2x32(seed >> 32, seed & 0xFFFFFFFF, idx >> np.uint64(32), idx & _M32)
+    if npt is np.float64:
+        bits = (((b1 << np.uint64(32)) | b2) >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
+    else:
+        bits = (((b1 ^ b2) >> np.uint64(9)) | np.uint64(0x3F800000)).astype(np.uint32)
+    unit = bits.view(npt) - npt(1.0)
+    lo = np.nextafter(npt(-1.0), npt(0.0))
+    u = np.maximum(lo, unit * (npt(1.0) - lo) + lo).astype(npt)
+    z = torch.erfinv(torch.as_tensor(u, device=device))
+    return (torch.tensor(math.sqrt(2.0), dtype=dtype, device=device) * z).reshape(shape)
+
+
 def power_iteration(matvec, shape, dtype: torch.dtype = torch.float64,
                     iters: int = 20, seed: int = 0,
                     device: torch.device | str = "cuda") -> torch.Tensor:
     """Estimate the dominant eigenvalue magnitude of a linear operator (a
-    0-dim tensor); the start vector is normal from a ``torch.Generator``
-    seeded with ``seed`` on ``device``."""
-    device = require_cuda(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    v = torch.randn(shape, dtype=dtype, device=device, generator=gen)
+    0-dim tensor) from the reference's start vector (:func:`normal_start`),
+    so that a level's estimate after a few iterations is the reference's."""
+    v = normal_start(shape, dtype, seed, device)
     v = v / torch.linalg.vector_norm(v)
-    lam = torch.zeros((), dtype=dtype, device=device)
+    lam = torch.zeros((), dtype=dtype, device=v.device)
     for _ in range(iters):
         w = matvec(v)
         lam = torch.linalg.vector_norm(w)
