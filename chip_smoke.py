@@ -160,7 +160,25 @@ Phases (each prints one line with its wall time):
      with the launches its path must show; (f) python -m
      thermalporous_torch.adjoint_study --ascent 1 on the card in a
      subprocess beside the rest of the phase: its FD line's relative error
-     below 1e-4.
+     below 1e-4;
+ 14  the ensemble axis and the example drivers: (a) tp_spe10_full at
+     60x220x85, f32, a well-control ensemble of 3 members (the preset, the
+     injector's BHP x1.05 and x0.95) with the coarsening planned from member
+     0, one 600 s step of every member through make_ensemble_step_fn: each
+     member's state and counts bitwise its solo step, its launches those of
+     its solo run, every flagship kernel launched; the wall of each member,
+     cell-updates/s over the ensemble, peak memory; (b) the ensemble adjoint
+     at 12x22x9, f64, the same members, Δt 600 and 1200 s, a terminal and a
+     running objective, on the card and on the CPU (a worker process): equal
+     per-member forward and backward counts and lockstep count, gradients
+     within 1e-12, each member bitwise its solo sweep on the card; (c) python
+     -m thermalporous_torch.iteration_study --steps 1 and (d) python -m
+     thermalporous_torch.custom_case --days 0.05, each in a subprocess on
+     the card and with --device cpu, started after (a) so that nothing else
+     runs on the host while (a) is timed, beside (b): every line
+     of the study's table equal, the custom case's lines equal, and its
+     records equal and well rates within 1e-12 in process (the CPU in a
+     worker).
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -169,7 +187,7 @@ half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
 kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
 phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
 and batched instantiations, phase 13's bgmg run by level and its full-size
-adjoint), and as the last line
+adjoint, phase 14(a)'s ensemble step), and as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
 --phases only the named phases run (after 0 and 1), and neither the
@@ -3092,6 +3110,318 @@ def adjoint_cli_finish(proc) -> dict:
     return {"stdout": out, "fd_rel": rel}
 
 
+# ------------------------------ phase 14: the ensemble axis and the examples
+
+ENS_BHP = (1.0, 1.05, 0.95)     # phase 14: the injector BHP factor of each member
+ENS_DT = 600.0                  # phase 14(a): the members' one step
+ENS_ADJ_DTS = (600.0, 1200.0)   # phase 14(b): the fixed schedule at FLAGSHIP_SMALL
+ENS_GRAD_TOL = 1e-12            # phase 14(b): card against CPU, per member
+STUDY_STEPS = 1                 # phase 14(c): iteration_study --steps
+CUSTOM_DAYS = 0.05              # phase 14(d): custom_case --days
+# phase 14: torch threads of each CPU worker and subprocess, which run beside
+# the card's work on the host's 8 cores
+P14_THREADS = 2
+
+
+def ensemble_members(case) -> list:
+    """Phase 14: the well-control ensemble of a flagship case: the preset,
+    then the injector's BHP scaled by each further ENS_BHP factor (through
+    ProblemData.with_wells)."""
+    data = case.data
+    inj = torch.as_tensor(case.well_masks["INJ"], device=data.fields.device)
+    w = data.wells
+    return [data if f == 1.0 else data.with_wells(dataclasses.replace(
+        w, pbh=torch.where(inj, w.pbh * f, w.pbh))) for f in ENS_BHP]
+
+
+@contextlib.contextmanager
+def per_member_launches(out: list):
+    """Phase 14(a): each call of the ensemble step's ``advance`` appends its
+    launches and its synchronized wall to ``out`` (the counters are read
+    around the call, not reset)."""
+    import thermalporous_torch.dist.ensemble as ens
+    from thermalporous_torch.kernels import launch_counts
+
+    make = ens.make_step_fn
+
+    def counting_make(*a, **k):
+        advance = make(*a, **k)
+
+        def counted(*args):
+            torch.cuda.synchronize()
+            before, t = launch_counts(), time.perf_counter()
+            res = advance(*args)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            out.append({"launches": {n: after[n] - before[n] for n in after},
+                        "wall_s": time.perf_counter() - t})
+            return res
+
+        return counted
+
+    ens.make_step_fn = counting_make
+    try:
+        yield
+    finally:
+        ens.make_step_fn = make
+
+
+def ensemble_full(dev) -> dict:
+    """Phase 14(a): tp_spe10_full at full size, f32, fuse_below=150000, the
+    ENS_BHP well-control ensemble, level_factors planned from member 0 (the
+    Simulator's baking), one ENS_DT step of every member through
+    make_ensemble_step_fn: each member's state and counts bitwise its solo
+    ``advance``, its launches those of its solo run; every flagship kernel
+    launched in the ensemble's run."""
+    from thermalporous_torch.dist import make_ensemble_step_fn, stack_ensemble
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import make_step_fn
+
+    case = get_case("tp_spe10_full", device=dev)
+    pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
+    model, newton = case.model, case.newton_cfg
+    datas = ensemble_members(case)
+    solo_step = make_step_fn(model, "cptr", newton, pc, device=dev)
+    solos = []
+    for d in datas:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        u, st = solo_step(model.initial_state(d), ENS_DT, d)
+        torch.cuda.synchronize()
+        solos.append((u, st, launch_counts(), time.perf_counter() - t))
+    data_e = stack_ensemble(datas)
+    u0_e = torch.stack([model.initial_state(d) for d in datas])
+    dt_e = torch.full((len(datas),), ENS_DT, dtype=u0_e.dtype)
+    calls: list = []
+    with per_member_launches(calls):
+        step_e = make_ensemble_step_fn(model, "cptr", newton, pc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    u_e, st_e = step_e(u0_e, dt_e, data_e)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ncells = math.prod(model.grid.shape)
+    cu_s = ncells * int(st_e.iters.sum()) / wall
+    out = {"members": [], "wall_s": wall, "cell_updates_per_s": cu_s, "peak_gib": peak,
+           "launches": launches}
+    for i, ((u, st, solo_l, solo_wall), call) in enumerate(zip(solos, calls)):
+        gap = float((u_e[i].double() - u.double()).abs().max())
+        counts = (int(st_e.iters[i]), int(st_e.ksp_iters[i]), float(st_e.norm[i]))
+        print(f"  member {i} (injector BHP x{ENS_BHP[i]}): (newton, fgmres) "
+              f"({counts[0]}, {counts[1]}), norm {counts[2]:.6e}, converged "
+              f"{bool(st_e.converged[i])}; wall {call['wall_s']:.3f} s in the ensemble, "
+              f"{solo_wall:.3f} s solo; largest gap to the solo state {gap:.3e}; launches "
+              f"{call['launches']}", flush=True)
+        if not (torch.equal(u_e[i], u) and counts == (st.iters, st.ksp_iters, st.norm)):
+            raise SystemExit(f"ensemble member {i}: not bitwise its solo step (state gap "
+                             f"{gap:.3e}, counts {counts} against "
+                             f"{(st.iters, st.ksp_iters, st.norm)})")
+        if call["launches"] != solo_l:
+            raise SystemExit(f"ensemble member {i}: launches {call['launches']} != solo {solo_l}")
+        check_physical(u_e[i], SPE10_FULL, f"ensemble member {i}")
+        out["members"].append({"bhp_factor": ENS_BHP[i], "newton": counts[0],
+                               "fgmres": counts[1], "norm": counts[2],
+                               "converged": bool(st_e.converged[i]),
+                               "wall_s": call["wall_s"], "solo_wall_s": solo_wall,
+                               "launches": call["launches"]})
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"ensemble step launched no {missing}")
+    if not bool(st_e.converged.all()):
+        raise SystemExit(f"ensemble step: members {st_e.converged.tolist()} converged")
+    return out
+
+
+def _ensemble_adjoint_task(task) -> dict:
+    """Phase 14(b) on one device (a worker process for the CPU): the flagship
+    configuration at FLAGSHIP_SMALL, f64, ADJ_NEWTON, the ENS_BHP members,
+    level_factors planned from member 0; the ensemble trajectory over
+    ENS_ADJ_DTS (per-member forward counts), the ensemble sweep with a
+    terminal and a running objective, and each member's solo sweep on its
+    recorded states (per-member counts; on the card its bits must be the
+    ensemble's).  Returns plain values."""
+    from thermalporous_torch.dist import make_ensemble_step_fn, stack_ensemble
+    from thermalporous_torch.interop import problem_data_to_numpy
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import (
+        adjoint_gradients,
+        ensemble_adjoint_gradients,
+        record_ensemble_trajectory,
+    )
+
+    device = task
+    if device == "cpu":
+        torch.set_num_threads(P14_THREADS)
+    terminal, running = adj_objectives()
+    t0 = time.perf_counter()
+    case = get_case("tp_spe10_full", device=device, dtype=torch.float64, shape=FLAGSHIP_SMALL)
+    newton = dataclasses.replace(case.newton_cfg, **ADJ_NEWTON)
+    pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, **SMALL_GMG), newton_cfg=newton).pc_cfg
+    model = case.model
+    datas = ensemble_members(case)
+    data_e = stack_ensemble(datas)
+    step = make_ensemble_step_fn(model, "cptr", newton, pc, device=device)
+    forward = []
+
+    def logged(u, dt_e, d):
+        u2, st = step(u, dt_e, d)
+        forward.append(list(zip(st.iters.tolist(), st.ksp_iters.tolist())))
+        return u2, st
+
+    u0_e = torch.stack([model.initial_state(d) for d in datas])
+    states = record_ensemble_trajectory(logged, u0_e, list(ENS_ADJ_DTS), data_e)
+    reset_launch_counts()
+    kw = dict(terminal=terminal, running=running, pc_cfg=pc, rtol=ADJ_RTOL_SMALL,
+              maxiter=ADJ_MAXITER)
+    res = ensemble_adjoint_gradients(model, data_e, states, list(ENS_ADJ_DTS), **kw)
+    launches = launch_counts() if device == "cuda" else None
+    members, bitwise = [], True
+    for i in range(len(datas)):
+        solo = adjoint_gradients(model, data_e.member(i), [s[i] for s in states],
+                                 list(ENS_ADJ_DTS), **kw)
+        bitwise = bitwise and (torch.equal(solo.grad_data.fields, res.grad_data.fields[i])
+                               and torch.equal(solo.grad_u0, res.grad_u0[i])
+                               and torch.equal(solo.value, res.value[i]))
+        members.append({"value": float(res.value[i]), "step_iters": solo.step_iters,
+                        "converged": solo.converged,
+                        "grad": problem_data_to_numpy(res.grad_data.member(i)),
+                        "grad_u0": res.grad_u0[i].cpu().numpy()})
+    return {"forward": forward, "ksp_iters": res.ksp_iters, "step_iters": res.step_iters,
+            "converged": res.converged, "members": members, "bitwise": bitwise,
+            "launches": launches, "s": time.perf_counter() - t0}
+
+
+def ensemble_adjoint(pending) -> dict:
+    """Phase 14(b): the card's run against the CPU's (``pending``, from
+    :func:`examples_start`'s pool): the
+    per-member forward and backward counts and the lockstep count equal,
+    every member's J, gradient leaves and grad_u0 within ENS_GRAD_TOL; on
+    the card each member bitwise its solo sweep and every CPTR kernel
+    launched."""
+    gpu = _ensemble_adjoint_task("cuda")
+    cpu = pending.get(timeout=1200)
+    gaps = []
+    for g, c in zip(gpu["members"], cpu["members"]):
+        gaps.append(max(_grad_gap(g["grad"], c["grad"]),
+                        float(np.abs(g["grad_u0"] - c["grad_u0"]).max()
+                              / np.abs(c["grad_u0"]).max()),
+                        abs(g["value"] - c["value"]) / abs(c["value"])))
+    per_member = lambda r: [m["step_iters"] for m in r["members"]]
+    print(f"  {'x'.join(map(str, FLAGSHIP_SMALL))} f64, {len(ENS_BHP)} members, dts "
+          f"{list(ENS_ADJ_DTS)}: forward (newton, fgmres) per step and member cpu "
+          f"{cpu['forward']} cuda {gpu['forward']}; backward FGMRES per member cpu "
+          f"{per_member(cpu)} cuda {per_member(gpu)}; lockstep cpu {cpu['ksp_iters']} "
+          f"{cpu['step_iters']} cuda {gpu['ksp_iters']} {gpu['step_iters']}; gaps per member "
+          f"{['%.2e' % x for x in gaps]}; each member bitwise its solo sweep on the card "
+          f"{gpu['bitwise']}; {cpu['s']:.1f} s on the CPU, {gpu['s']:.1f} s on the card; "
+          f"card launches {gpu['launches']}", flush=True)
+    if not (gpu["converged"] and cpu["converged"]):
+        raise SystemExit("ensemble adjoint: not converged")
+    if (cpu["forward"], per_member(cpu), cpu["ksp_iters"], cpu["step_iters"]) != \
+            (gpu["forward"], per_member(gpu), gpu["ksp_iters"], gpu["step_iters"]):
+        raise SystemExit("ensemble adjoint: the counts differ between the card and the CPU")
+    if max(gaps) > ENS_GRAD_TOL:
+        raise SystemExit(f"ensemble adjoint: GPU against CPU {max(gaps):.2e}")
+    if not gpu["bitwise"]:
+        raise SystemExit("ensemble adjoint: a member differs from its solo sweep on the card")
+    for k in ("chebyshev_smooth", "matvec", "deep_correction", "fused_stage2_rbgs"):
+        if gpu["launches"][k] <= 0:
+            raise SystemExit(f"ensemble adjoint: no {k} launched")
+    return {"forward": gpu["forward"], "backward_per_member": per_member(gpu),
+            "ksp_iters": gpu["ksp_iters"], "step_iters": gpu["step_iters"], "gaps": gaps,
+            "cpu_s": cpu["s"], "cuda_s": gpu["s"], "launches": gpu["launches"]}
+
+
+def _custom_case_task(device: str) -> dict:
+    """Phase 14(d) in process (a worker for the CPU): the custom case for
+    CUSTOM_DAYS, its records and unrounded well rates."""
+    from thermalporous_torch import custom_case
+    from thermalporous_torch.physics import per_well_masks, well_rates
+
+    if device == "cpu":
+        torch.set_num_threads(P14_THREADS)
+    model, data, wells, heaters, sim = custom_case.build(device)
+    res = sim.run(t_end=CUSTOM_DAYS * 86400.0)
+    return {"records": [(r.t, r.dt, r.newton_iters, r.ksp_iters, r.retries)
+                        for r in res.records],
+            "rates": well_rates(model, res.u, data, per_well_masks(model.grid, wells, heaters))}
+
+
+def examples_start() -> dict:
+    """Phase 14(c) and (d): ``python -m thermalporous_torch.iteration_study``
+    and ``.custom_case`` on the card and with ``--device cpu``, four
+    subprocesses started after (a), whose walls they would disturb, to run
+    beside (b); and the CPU's in-process custom case and ensemble adjoint in
+    a pool of two workers."""
+    import multiprocessing
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS=str(P14_THREADS))
+    procs = {}
+    for name, args in (("iteration_study", ["--steps", str(STUDY_STEPS)]),
+                       ("custom_case", ["--days", str(CUSTOM_DAYS)])):
+        for dev in ("cuda", "cpu"):
+            procs[(name, dev)] = subprocess.Popen(
+                [sys.executable, "-m", f"thermalporous_torch.{name}", *args, "--device", dev],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    return {"procs": procs, "pool": pool,
+            "adjoint": pool.apply_async(_ensemble_adjoint_task, ("cpu",)),
+            "custom": pool.apply_async(_custom_case_task, ("cpu",))}
+
+
+def examples_stop(started: dict) -> None:
+    """Phase 14: end whatever :func:`examples_start` started that still runs
+    (after a failure)."""
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    started["pool"].terminate()
+    started["pool"].join()
+
+
+def examples_finish(started: dict) -> dict:
+    """Phase 14(c) and (d): every line of the study's table equal on the card
+    and the CPU; the custom case's CLI lines equal, and its in-process
+    records equal and well rates within 1e-12 relative, card against CPU."""
+    out = {}
+    for (name, dev), proc in started["procs"].items():
+        stdout, err = proc.communicate(timeout=1200)
+        if proc.returncode != 0:
+            raise SystemExit(f"{name} --device {dev} exited {proc.returncode}: {err[-2000:]}")
+        out[(name, dev)] = stdout.splitlines()
+    study = out[("iteration_study", "cuda")]
+    print("\n".join("  | " + line for line in study), flush=True)
+    if study != out[("iteration_study", "cpu")] or len(study) != 6:
+        raise SystemExit(f"iteration_study: cuda {study} != cpu "
+                         f"{out[('iteration_study', 'cpu')]}")
+    cli = out[("custom_case", "cuda")]
+    print("\n".join("  | " + line for line in cli), flush=True)
+    if cli != out[("custom_case", "cpu")]:
+        raise SystemExit(f"custom_case CLI: cuda {cli} != cpu {out[('custom_case', 'cpu')]}")
+    cpu = started["custom"].get(timeout=1200)
+    started["pool"].close()
+    started["pool"].join()
+    gpu = _custom_case_task("cuda")
+    gap = max(abs(gpu["rates"][w][k] - v) / abs(v) if v else abs(gpu["rates"][w][k])
+              for w, rec in cpu["rates"].items() for k, v in rec.items())
+    print(f"  custom_case {CUSTOM_DAYS} days in process: (dt, newton, fgmres) cpu "
+          f"{[r[1:4] for r in cpu['records']]} == cuda {[r[1:4] for r in gpu['records']]}; "
+          f"well rates' largest relative gap {gap:.2e}", flush=True)
+    if cpu["records"] != gpu["records"] or gap > ENS_GRAD_TOL:
+        raise SystemExit("custom_case: card against CPU differs")
+    return {"study": study, "custom_case_cli": cli, "custom_records": gpu["records"],
+            "custom_rate_gap": gap}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the full record to this path")
@@ -3467,6 +3797,33 @@ def main() -> int:
               f"FD {adj_small['fd_rel']:.1e}; full size {adj_full['wall_per_step_s']:.2f} s a "
               f"backward step; {len(opts13)} options GPU == CPU; CLI FD {cli_adj['fd_rel']:.1e}")
 
+    # (14) the ensemble axis, the ensemble adjoint and the example drivers
+    if want(14):
+        t0 = time.perf_counter()
+        print("  (a) tp_spe10_full, a well-control ensemble of "
+              f"{len(ENS_BHP)} members, one {ENS_DT:.0f} s step", flush=True)
+        ens14 = ensemble_full(dev)
+        t_a = time.perf_counter() - t0
+        print(f"  ensemble {ens14['wall_s']:.3f} s, {ens14['cell_updates_per_s']:.1f} "
+              f"cell-updates/s over the members' Newton, peak {ens14['peak_gib']:.2f} "
+              f"GiB; launches {ens14['launches']}", flush=True)
+        ex14 = examples_start()
+        try:
+            print("  (b) the ensemble adjoint", flush=True)
+            adj14 = ensemble_adjoint(ex14["adjoint"])
+            t_b = time.perf_counter() - t0 - t_a
+            print("  (c) iteration_study and (d) custom_case, GPU against CPU", flush=True)
+            cli14 = examples_finish(ex14)
+        finally:
+            examples_stop(ex14)
+        p14 = {"ensemble": ens14, "ensemble_adjoint": adj14, "examples": cli14,
+               "a_s": t_a, "b_s": t_b}
+        phase("14 ensemble and examples", t0, f"ensemble of {len(ENS_BHP)} at 60x220x85 "
+              f"f32 bitwise its solo steps, {ens14['cell_updates_per_s']:.1f} cell-updates/s; "
+              f"ensemble adjoint {'x'.join(map(str, FLAGSHIP_SMALL))} GPU == CPU (gaps "
+              f"{max(adj14['gaps']):.1e}), lockstep {adj14['ksp_iters']}; iteration_study and "
+              f"custom_case GPU == CPU ((a) {t_a:.1f} s, (b) {t_b:.1f} s)")
+
     if phases is not None:
         if args.json:
             part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
@@ -3475,6 +3832,8 @@ def main() -> int:
                 part.update(pc_dtype_batch_pt=pc12)
             if want(13):
                 part.update(transfers_bgmg_recycle_adjoint=p13)
+            if want(14):
+                part.update(ensemble_examples=p14)
             if want(2):
                 part.update(fuse_apply_ms=fuse_times, barrier_latencies=barriers)
             if want(10):
@@ -3571,6 +3930,10 @@ def main() -> int:
     for k in ("chebyshev_smooth", "matvec", "deep_correction", "fused_stage2_rbgs"):
         inner.append((f"{k} (adjoint, transposed hierarchy)", k, krec[k],
                       adj_full["launches"][k]))
+    # phase 14: the flagship's kernels on the ensemble's path (phase 2's
+    # flagship records; launches in phase 14(a)'s ensemble step)
+    for k in FLAGSHIP_KERNELS:
+        inner.append((f"{k} (ensemble of {len(ENS_BHP)})", k, krec[k], ens14["launches"][k]))
     kernels += [{"name": label, "route": "cuda", "source": KERNEL_SOURCES[k][0],
                  "replaces": KERNEL_SOURCES[k][1], "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3606,7 +3969,7 @@ def main() -> int:
                        "inner_cell_updates_per_s": icu_s, "inner_peak_gib": ipeak,
                        "solver_options": opts, "cli": cli, "blocked": blocked,
                        "schedule": sched, "pc_dtype_batch_pt": pc12,
-                       "transfers_bgmg_recycle_adjoint": p13,
+                       "transfers_bgmg_recycle_adjoint": p13, "ensemble_examples": p14,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

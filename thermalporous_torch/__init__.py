@@ -12,6 +12,10 @@ NVIDIA H100 (``csrc/``, wrapped in ``kernels/``); on CPU tensors every
 kernel wrapper runs its plain PyTorch version.
 """
 
-from thermalporous_torch._device import reduce_dtype, require_cuda
+__version__ = "0.1.0"
 
-__all__ = ["reduce_dtype", "require_cuda"]
+from thermalporous_torch._device import reduce_dtype, require_cuda
+from thermalporous_torch.core.grid import Grid
+from thermalporous_torch.physics.props import PhysicalParams
+
+__all__ = ["Grid", "PhysicalParams", "__version__", "reduce_dtype", "require_cuda"]

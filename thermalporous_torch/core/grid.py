@@ -82,6 +82,12 @@ class Grid:
         z = self.depth_top + (torch.arange(nz, dtype=dtype, device=device) + 0.5) * dz
         return z.expand(self.shape)
 
+    def cell_centers(self, dtype: torch.dtype = torch.float64,
+                     device: torch.device | str = "cuda") -> tuple[torch.Tensor, ...]:
+        """Per-axis cell-centre coordinates [m], one 1D tensor per axis."""
+        return tuple((torch.arange(n, dtype=dtype, device=device) + 0.5) * d
+                     for n, d in zip(self.shape, self.spacing))
+
 
 def _narrow(x: torch.Tensor, axis: int, start: int, stop: int) -> torch.Tensor:
     return x.narrow(axis, start, stop - start)

@@ -148,6 +148,21 @@ def problem_data_to_numpy(data: ProblemData) -> dict:
                 has_tinj=a(w.has_tinj), qrate=a(w.qrate), qheat=a(w.qheat))
 
 
+def ensemble_data_to_numpy(data_e) -> dict:
+    """The stacked fields of an ``EnsembleData`` (or of its gradient, such as
+    ``ensemble_adjoint_gradients``'s ``grad_data``) as numpy arrays under the
+    reference's names, each with the leading member axis, as the reference's
+    ``stack_ensemble`` stacks its leaves."""
+    parts = [problem_data_to_numpy(data_e.member(i)) for i in range(len(data_e))]
+    out = {}
+    for name, leaf in parts[0].items():
+        if isinstance(leaf, tuple):
+            out[name] = tuple(np.stack([p[name][a] for p in parts]) for a in range(len(leaf)))
+        else:
+            out[name] = np.stack([p[name] for p in parts])
+    return out
+
+
 def state_from_numpy(u: np.ndarray, *, dtype: torch.dtype,
                      device: torch.device | str) -> torch.Tensor:
     """A state (nc, *grid) as a contiguous tensor."""

@@ -21,9 +21,11 @@ hierarchy.  The cotangents with respect to ``ProblemData`` come back as a
 the well fields as its views): the VJP takes the one ``fields`` tensor as
 its primal, nothing detached.
 
-Not ported yet: ``ensemble_adjoint_gradients`` and
-``record_ensemble_trajectory``, which need the ensemble axis of
-``dist/ensemble.py``.
+The ensemble forms (:func:`ensemble_adjoint_gradients`,
+:func:`record_ensemble_trajectory`) run the same sweep member by member over
+the stacked members of ``solve/ensemble_data.py``, and report the reference's
+lockstep FGMRES count: in each backward step the batched solve of the
+reference iterates until its slowest member has converged.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ from torch.func import vjp
 from thermalporous_torch.models.base import ProblemData
 from thermalporous_torch.precond.cpr import CPRConfig, make_preconditioner
 from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
+from thermalporous_torch.solve.ensemble_data import (
+    EnsembleData,
+    members,
+    refuse_adaptive,
+    restack,
+)
 from thermalporous_torch.solve.fgmres import fgmres
 
 
@@ -128,6 +136,73 @@ def adjoint_gradients(
         step_iters.append(res.iters)
     return AdjointResult(value=value, grad_data=ProblemData(grad), grad_u0=lam,
                          ksp_iters=total, converged=all_conv, step_iters=step_iters)
+
+
+def ensemble_adjoint_gradients(
+    model,
+    data_e,
+    states_e: Sequence,
+    dts: Sequence[float],
+    terminal: Callable | None = None,
+    running: Callable | None = None,
+    precond: str = "cptr",
+    pc_cfg: CPRConfig | None = None,
+    rtol: float = 1e-10,
+    maxiter: int = 200,
+) -> AdjointResult:
+    """The backward sweep of E members at once: the ensemble form of
+    :func:`adjoint_gradients` (plain FGMRES with its defaults).
+
+    ``data_e`` is an :class:`~thermalporous_torch.solve.ensemble_data.EnsembleData`,
+    ``states_e`` the recorded [u_0, …, u_N], each (E, nc, *grid) (or its
+    ``Blocks``; :func:`record_ensemble_trajectory`), ``dts`` the N step sizes
+    shared by the members; ``terminal`` and ``running`` see one member's state
+    and ``ProblemData``.  Each member's sweep is its solo sweep.  The result
+    carries the member axis: ``value`` (E,), ``grad_u0`` in the layout of
+    ``states_e[0]``, ``grad_data`` an ``EnsembleData``; ``step_iters`` holds
+    the largest member count of each backward step (newest first) and
+    ``ksp_iters`` their sum, the reference's lockstep count; ``converged``
+    holds when every member's every solve converged.  An adaptive coarsening
+    schedule must be planned first, as for ``make_ensemble_step_fn``."""
+    if terminal is None and running is None:
+        raise ValueError("need at least one of terminal/running objective")
+    refuse_adaptive(pc_cfg, "adjoints")
+    n = len(dts)
+    if len(states_e) != n + 1:
+        raise ValueError(f"states ({len(states_e)}) must be dts+1 ({n + 1})")
+    per_step = [members(s) for s in states_e]
+    results = [
+        adjoint_gradients(model, data_e.member(i), [s[i].clone() for s in per_step], dts,
+                          terminal=terminal, running=running, precond=precond,
+                          pc_cfg=pc_cfg, rtol=rtol, maxiter=maxiter)
+        for i in range(len(data_e))]
+    step_iters = [max(r.step_iters[s] for r in results) for s in range(n)]
+    return AdjointResult(
+        value=torch.stack([r.value.to(results[0].value.device) for r in results]),
+        grad_data=EnsembleData(restack(data_e.fields, [r.grad_data.fields for r in results])),
+        grad_u0=restack(states_e[0], [r.grad_u0 for r in results]),
+        ksp_iters=sum(step_iters), converged=all(r.converged for r in results),
+        step_iters=step_iters)
+
+
+def record_ensemble_trajectory(step_e, u0_e, dts: Sequence[float], data_e) -> list:
+    """[u_0, …, u_N] of an ensemble over a fixed Δt schedule shared by the
+    members: ``step_e`` from
+    :func:`~thermalporous_torch.dist.ensemble.make_ensemble_step_fn`, Δt in the
+    state's dtype.  Raises ``RuntimeError`` naming the members that did not
+    converge."""
+    dtype = members(u0_e)[0].dtype
+    states = [u0_e]
+    for dt in dts:
+        dt_e = torch.full((len(data_e),), float(dt), dtype=dtype)
+        u, stats = step_e(states[-1], dt_e, data_e)
+        if not bool(stats.converged.all()):
+            raise RuntimeError(
+                f"ensemble forward step dt={dt}: members "
+                f"{[int(i) for i in torch.nonzero(~stats.converged).flatten()]} "
+                f"did not converge")
+        states.append(u)
+    return states
 
 
 def record_trajectory(sim, u0: torch.Tensor, dts: Sequence[float]) -> list[torch.Tensor]:
