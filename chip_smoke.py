@@ -58,7 +58,7 @@ Phases (each prints one line with its wall time):
      4 controller steps from dt_init = 600 s; per-step counts and walls,
      cell-updates/s, peak memory, S and T bounds, and the launch count of
      every kernel in that run (each must be > 0);
-  7  flagship layers: the phase-6 run again with synchronized timers
+  7  flagship layers: phase 6's first 2 steps again with synchronized timers
      around each layer (assembly, CPTR setup, FGMRES, CPTR apply, residual),
      the smooths, second outputs, scalar matvecs and subtree visits by
      level, the block matvecs and stage 2s by block columns (no block
@@ -162,8 +162,8 @@ Phases (each prints one line with its wall time):
      subprocess beside the rest of the phase: its FD line's relative error
      below 1e-4;
  14  the ensemble axis and the example drivers: (a) tp_spe10_full at
-     60x220x85, f32, a well-control ensemble of 3 members (the preset, the
-     injector's BHP x1.05 and x0.95) with the coarsening planned from member
+     60x220x85, f32, a well-control ensemble of 2 members (the preset, the
+     injector's BHP x1.05) with the coarsening planned from member
      0, one 600 s step of every member through make_ensemble_step_fn: each
      member's state and counts bitwise its solo step, its launches those of
      its solo run, every flagship kernel launched; the wall of each member,
@@ -178,7 +178,28 @@ Phases (each prints one line with its wall time):
      runs on the host while (a) is timed, beside (b): every line
      of the study's table equal, the custom case's lines equal, and its
      records equal and well rates within 1e-12 in process (the CPU in a
-     worker).
+     worker);
+ 15  the grid decomposition: (a) the block matvec, scalar matvec, smooth
+     (degree 4, second output), stage 2 and half-sweep on a block of the
+     flagship grid whose extended origin has an odd index sum, bitwise the
+     whole grid's on the owned cells, the red-black kernels with the
+     block's colour offset (and not without it); then tp_spe10_full at
+     60x220x85, f32, fuse_below=150000, its first 600 s step on a one-rank
+     NCCL mesh: bitwise the undecomposed step, with the same launches per
+     kernel; (b) four gloo ranks sharing cuda:0 (one process each, the
+     ghost slices and reduction partials staged through the host), the
+     flagship split 2x2, the same step: every rank's (Newton, FGMRES)
+     equal to (a)'s, the block matvec, scalar matvec, smooth, residual and
+     stage 2 launched on every rank and the fused subtree on none, the
+     state gathered, finite and physical, passing the undecomposed Newton
+     test (its scaled residual norm on the whole grid under the step's
+     tolerance and equal to the ranks' own final norm), its largest gap
+     per component to (a)'s printed; exchanges, all-reduces and
+     all-gathers per Newton, the ms of a host-staged exchange and each
+     rank's wall; (c)
+     dryrun_multichip(4, device="cuda", backend="gloo") in f64, both
+     scenarios, in a subprocess started with the phase.  The kernels are
+     built once (phase 1) before any rank starts.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -187,7 +208,8 @@ half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
 kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
 phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
 and batched instantiations, phase 13's bgmg run by level and its full-size
-adjoint, phase 14(a)'s ensemble step), and as the last line
+adjoint, phase 14(a)'s ensemble step, rank 0's step in phase 15(b)), and
+as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
 --phases only the named phases run (after 0 and 1), and neither the
@@ -198,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -247,6 +270,9 @@ SPE10_FULL = (60, 220, 85)     # the flagship's grid
 # below 300 cells is fused
 SMALL_GMG = dict(max_coarse_cells=16, kcycle_min_cells=256, fuse_below=300)
 FLAGSHIP_STEPS = 4
+# phase 7: the controller steps of the per-layer split (the first two of
+# phase 6's four: the first step and one easy one, 14 Newton)
+LAYER_STEPS = 2
 # fuse_below candidates on the flagship hierarchies: the ~145k-cell, the
 # ~36k-cell and the ~5k-cell levels of the adaptive pressure hierarchy are
 # the entries
@@ -276,6 +302,11 @@ BARRIER_PROBES = ((0, 8, 256), (0, 36, 1024), (0, 132, 256), (0, 132, 512),
                   (1, 16, 1024))
 SP_GEO_STEPS = 6       # phase-8 controller steps of sp_geothermal_3d
 JVP_STEPS = 2          # phase-9 controller steps of the full-size jvp runs
+
+# the plain versions' timing in phase 2's rows: fewer calls than the
+# kernels' (the plain J(u)v takes 100-180 ms a call; 23 calls of every
+# plain version were ~85 s of the script)
+PLAIN_REPS = 5
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and FP32 outside the
 # tensor cores; the bound of a call is the larger of bytes/peak and ops/peak
@@ -381,9 +412,10 @@ def time_cold_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of ``fn()`` on the card (CUDA events, warmed up)."""
-    for _ in range(3):
+def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median milliseconds of ``fn()`` on the card (CUDA events, after
+    ``warm`` calls)."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -1218,7 +1250,8 @@ def run_cases(tname, cases, st, rec, dtype, record: bool) -> None:
         if kname in ("chebyshev_smooth", "matvec", "fused_stage2_rbgs", "block_rbgs_half_sweep"):
             ok = ok and same(got, ref)
             note += ", bitwise equal to plain"
-        ms, plain_ms, device_ms = time_ms(kern), time_ms(plain), time_device_ms(kern)
+        ms, device_ms = time_ms(kern), time_device_ms(kern)
+        plain_ms = time_ms(plain, reps=PLAIN_REPS, warm=1)
         # the coarse subtree is latency-bound: also time it on a cold L2
         cold_ms = time_cold_ms(kern) if kname == "deep_correction" else None
         bnd, by = bound_ms(*cost)
@@ -1577,7 +1610,7 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
 
 
 def flagship_layers(dev) -> dict:
-    """Phase 7: the phase-6 run again with a
+    """Phase 7: phase 6's first LAYER_STEPS steps again with a
     ``torch.cuda.synchronize()`` before and after each layer's call, so that
     host timers give each layer's wall; then one more step of the same Δt
     from the last state, timed plainly and under the profiler, whose CUDA
@@ -1645,7 +1678,7 @@ def flagship_layers(dev) -> dict:
         with count_by_columns(by_k):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            res = sim.run(case.t_end, max_steps=FLAGSHIP_STEPS)
+            res = sim.run(case.t_end, max_steps=LAYER_STEPS)
             total = time.perf_counter() - t
     finally:
         ttimeloop.newton_solve, tnewton.fgmres = real_solve, real_fgmres
@@ -3112,7 +3145,7 @@ def adjoint_cli_finish(proc) -> dict:
 
 # ------------------------------ phase 14: the ensemble axis and the examples
 
-ENS_BHP = (1.0, 1.05, 0.95)     # phase 14: the injector BHP factor of each member
+ENS_BHP = (1.0, 1.05)           # phase 14: the injector BHP factor of each member
 ENS_DT = 600.0                  # phase 14(a): the members' one step
 ENS_ADJ_DTS = (600.0, 1200.0)   # phase 14(b): the fixed schedule at FLAGSHIP_SMALL
 ENS_GRAD_TOL = 1e-12            # phase 14(b): card against CPU, per member
@@ -3420,6 +3453,316 @@ def examples_finish(started: dict) -> dict:
         raise SystemExit("custom_case: card against CPU differs")
     return {"study": study, "custom_case_cli": cli, "custom_records": gpu["records"],
             "custom_rate_gap": gap}
+
+
+# phase 15: the grid decomposition.  The card holds one GPU and NCCL
+# refuses two ranks on one device, so (a) runs a one-rank NCCL mesh, (b)
+# four gloo ranks sharing cuda:0 (their ghost slices and reduction
+# partials staged through the host: a correctness path, not a speed
+# claim), (c) the dry run over four such ranks, in a subprocess started
+# first, beside (a) and (b).
+DECOMP_RANKS = 4
+DECOMP_DT = 600.0
+# (b): the 2x2 step differs from the one-rank step only in the rounding of
+# the global reductions, and the flagship's f32 first step amplifies such a
+# difference chaotically (decomp_sensitivity.py: a one-ulp change of one
+# cell's initial pressure moves it by up to 1.3e5 Pa), so its state is held
+# to the undecomposed Newton test, not to a band on the gap; (c) holds the
+# dry run's f64 states to the reference's bands
+# the whole-grid Newton norm of the gathered state against the ranks' own
+# final norm (the same cells' residuals, summed in another order)
+DECOMP_NORM_RTOL = 1e-6
+# the kernels every rank of (b) must launch, and the one it must not
+DECOMP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual",
+                  "fused_stage2_rbgs")
+DECOMP_REFUSED = ("deep_correction",)
+# the blocks of the kernel check: the flagship grid cut at odd boundaries
+# (ext origin x 29: an odd index sum), as a 2x2 mesh's rank (1, 0) holds it
+DECOMP_BLOCK = ((31, 60), (0, 112))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def decomp_kernel_blocks(dev) -> dict:
+    """Phase 15 (a'): the kernels of the decomposed path on a block of the
+    flagship grid whose extended origin has an odd index sum, against the
+    same kernels on the whole grid: bitwise on the owned cells, the stage
+    2 and the half-sweep with the block's parity (and not without it)."""
+    from thermalporous_torch.kernels import residual as kres
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.chebyshev import gershgorin_lambda_max
+    from thermalporous_torch.presets import get_case
+
+    case = get_case("tp_spe10_full", device=dev)
+    u0 = case.model.initial_state(case.data)
+    st = case.model.assemble_stencil(u0, u0, DECOMP_DT, case.data)
+    dinv = st.diag_inverse()
+    g = torch.Generator(device=dev).manual_seed(15)
+    rnd = lambda *s: torch.randn(s, generator=g, dtype=u0.dtype, device=dev)
+    r, x1 = rnd(3, *SPE10_FULL), rnd(2, *SPE10_FULL)
+    ps = st.scalar(0, 0)
+    lam = gershgorin_lambda_max(ps)
+    b, x = rnd(*SPE10_FULL), rnd(*SPE10_FULL)
+    (ox0, ox1), (oy0, oy1) = DECOMP_BLOCK
+    out = {}
+
+    def check(label, w, fn, whole, coefs, vecs, parity_arg=False):
+        ex0, ex1 = max(ox0 - w, 0), min(ox1 + w, SPE10_FULL[0])
+        ey0, ey1 = max(oy0 - w, 0), min(oy1 + w, SPE10_FULL[1])
+        par = (ex0 + ey0) % 2
+        cut = lambda t, lead: t[(slice(None),) * lead + (slice(ex0, ex1), slice(ey0, ey1))
+                                ].contiguous()
+        own = lambda t, lead, x0=ex0, y0=ey0: t[(slice(None),) * lead + (
+            slice(ox0 - x0, ox1 - x0), slice(oy0 - y0, oy1 - y0))]
+        args = [cut(c, c.dim() - 3) for c in coefs] + [cut(v, v.dim() - 3) for v in vecs]
+        got = fn(*args, par) if parity_arg else fn(*args)
+        got, whole = (got, whole) if isinstance(got, tuple) else ((got,), (whole,))
+        ok = all(torch.equal(own(gv, gv.dim() - 3), own(wv, wv.dim() - 3, 0, 0))
+                 for gv, wv in zip(got, whole))
+        if not ok:
+            raise SystemExit(f"phase 15: {label} on the odd block differs from the whole grid")
+        if parity_arg:
+            wrong = fn(*args, 1 - par)
+            wrong = wrong if isinstance(wrong, tuple) else (wrong,)
+            if torch.equal(own(wrong[0], wrong[0].dim() - 3), own(whole[0], whole[0].dim() - 3,
+                                                                  0, 0)):
+                raise SystemExit(f"phase 15: {label} with the local colouring matches")
+        out[label] = {"parity": par, "bitwise": True}
+        print(f"  {label}: block x {ox0}:{ox1} y {oy0}:{oy1} (+{w} ghosts, origin parity "
+              f"{par}) bitwise the whole grid's", flush=True)
+
+    from thermalporous_torch.models.base import ProblemData
+
+    u = u0 + 1e4 * rnd(3, *SPE10_FULL) * torch.tensor([1.0, 1e-4, 1e-6], dtype=u0.dtype,
+                                                       device=dev).reshape(3, 1, 1, 1)
+
+    def residual_on(fields, uu, uo):
+        # the model on the block's grid: the extended shape, the same spacing
+        block = copy.copy(case.model)
+        block.grid = dataclasses.replace(case.model.grid, shape=tuple(uu.shape[1:]))
+        return kres.fused_residual(block, uu, uo, DECOMP_DT, ProblemData(fields))
+
+    check("fused_residual", 1, residual_on,
+          kres.fused_residual(case.model, u, u0, DECOMP_DT, case.data),
+          [case.data.fields], [u, u0])
+    check("block_matvec k=3", 1, lambda c, v: kst.block_matvec(c, v, 3),
+          kst.block_matvec(st.coef, r, 3), [st.coef], [r])
+    check("matvec", 1, kst.matvec, kst.matvec(ps.packed, b), [ps.packed], [b])
+    check("chebyshev_smooth deg=4 second=residual", 5,
+          lambda c, bb, xx: kst.chebyshev_smooth(c, bb, xx, lam, 4, 0.3, second="residual"),
+          kst.chebyshev_smooth(ps.packed, b, x, lam, 4, 0.3, second="residual"),
+          [ps.packed], [b, x])
+    check("fused_stage2_rbgs k=2", 2,
+          lambda c, d, rr, xx, par: kst.fused_stage2_rbgs(c, d, rr, xx, parity=par),
+          kst.fused_stage2_rbgs(st.coef, dinv, r, x1), [st.coef, dinv], [r, x1],
+          parity_arg=True)
+    for colour in (0, 1):
+        check(f"block_rbgs_half_sweep colour {colour}", 1,
+              lambda c, d, rr, xx, par: kst.block_rbgs_half_sweep(c, d, rr, xx, colour,
+                                                                  parity=par),
+              kst.block_rbgs_half_sweep(st.coef, dinv, r, u0, colour), [st.coef, dinv],
+              [r, u0], parity_arg=True)
+    return out
+
+
+def _flagship_step(dev, dtype):
+    """The undecomposed flagship's first step (fuse_below=150000): (case,
+    planned CPRConfig, u0, state, stats, launches, wall)."""
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import make_step_fn
+
+    case = get_case("tp_spe10_full", device=dev, dtype=dtype)
+    pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
+    u0 = case.model.initial_state(case.data)
+    step = make_step_fn(case.model, "cptr", case.newton_cfg, pc, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    u, st = step(u0, DECOMP_DT, case.data)
+    torch.cuda.synchronize()
+    return case, pc, u0, u, st, launch_counts(), time.perf_counter() - t
+
+
+def decomp_one_rank(dev, dtype=torch.float32) -> dict:
+    """Phase 15 (a): the flagship's first step on a one-rank NCCL mesh,
+    bitwise the undecomposed step with the same GMGConfig apart from
+    ``mesh``, with the same launches per kernel."""
+    import torch.distributed as tdist
+
+    from thermalporous_torch.dist.sharding import (
+        gather_state,
+        init_process_group,
+        make_grid_mesh,
+        shard_problem_data,
+        shard_state,
+    )
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.solve import Simulator
+
+    case, pc, u0, u_ref, st_ref, l_ref, wall_ref = _flagship_step(dev, dtype)
+    init_process_group("nccl", 0, 1, f"tcp://localhost:{_free_port()}")
+    try:
+        mesh = make_grid_mesh(1, backend="nccl", device=dev)
+        pc_m = option_config(pc, {}, dict(mesh=mesh))
+        sim = Simulator(case.model, shard_problem_data(case.data, mesh), pc_cfg=pc_m,
+                        newton_cfg=case.newton_cfg, time_cfg=case.time_cfg, device=dev)
+        us = shard_state(u0, mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        u1, st1 = sim.step(us, DECOMP_DT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        l_one = launch_counts()
+        u1 = gather_state(u1, mesh)
+    finally:
+        tdist.destroy_process_group()
+    counts = (st1.iters, st1.ksp_iters)
+    tag = str(dtype).removeprefix("torch.")
+    print(f"  undecomposed {tag}: (newton, fgmres) ({st_ref.iters}, {st_ref.ksp_iters}), wall "
+          f"{wall_ref:.3f} s, launches {l_ref}", flush=True)
+    print(f"  one-rank NCCL mesh {tag}: (newton, fgmres) {counts}, wall {wall:.3f} s, "
+          f"launches {l_one}", flush=True)
+    if not torch.equal(u1, u_ref) or counts != (st_ref.iters, st_ref.ksp_iters):
+        gap = float((u1.double() - u_ref.double()).abs().max())
+        raise SystemExit(f"phase 15(a): the one-rank step is not the undecomposed step "
+                         f"(gap {gap:.3e}, counts {counts})")
+    if l_one != l_ref:
+        raise SystemExit(f"phase 15(a): launches {l_one} != undecomposed {l_ref}")
+    check_physical(u1, SPE10_FULL, "phase 15(a)")
+    return {"dtype": tag, "newton": counts[0], "fgmres": counts[1], "norm": st1.norm,
+            "norm0": st1.norm0, "wall_s": wall, "wall_ref_s": wall_ref, "launches": l_one,
+            "level_factors": (pc.gmg.level_factors, pc.gmg_t.level_factors),
+            "u": u1.cpu().numpy(), "case": case, "u0": u0}
+
+
+def _gaps(a: np.ndarray, b: np.ndarray) -> list:
+    return [float(np.abs(a[c].astype(np.float64) - b[c].astype(np.float64)).max())
+            for c in range(3)]
+
+
+def _decomp_rank(mesh, level_factors, dtype_name: str) -> dict:
+    """Phase 15 (b), one rank: the flagship's first step on the 2x2 mesh."""
+    from thermalporous_torch.dist.sharding import gather_state, shard_problem_data, shard_state
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.presets import get_case
+    from thermalporous_torch.solve import Simulator
+
+    dev = mesh.device
+    case = get_case("tp_spe10_full", device=dev, dtype=getattr(torch, dtype_name))
+    pc = with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)
+    pc = dataclasses.replace(
+        pc, gmg=dataclasses.replace(pc.gmg, mesh=mesh, level_factors=level_factors[0]),
+        gmg_t=dataclasses.replace(pc.gmg_t, mesh=mesh, level_factors=level_factors[1]))
+    data = shard_problem_data(case.data, mesh)
+    sim = Simulator(case.model, data, pc_cfg=pc, newton_cfg=case.newton_cfg,
+                    time_cfg=case.time_cfg, device=dev)
+    u0 = shard_state(case.model.initial_state(case.data), mesh)
+    del case
+    mesh.barrier()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mesh.reset_stats()
+    t = time.perf_counter()
+    u, st = sim.step(u0, DECOMP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    stats = dict(mesh.stats)
+    whole = gather_state(u, mesh)
+    return {"rank": mesh.rank, "block": data.block.owned_shape, "newton": st.iters,
+            "fgmres": st.ksp_iters, "converged": st.converged, "norm": st.norm, "wall_s": wall,
+            "launches": launches, "stats": stats,
+            "u": whole.cpu().numpy() if mesh.rank == 0 else None}
+
+
+def _newton_norm(case, u: torch.Tensor, u0: torch.Tensor) -> float:
+    """The Newton test's scaled RMS norm of the undecomposed residual at
+    ``u`` (the step from ``u0``), accumulated in f64 as Newton does."""
+    from thermalporous_torch.kernels.residual import fused_residual
+
+    f = fused_residual(case.model, u, u0, DECOMP_DT, case.data)
+    q = (f / case.model.residual_scales(u0, DECOMP_DT, case.data)).reshape(-1).double()
+    return float(torch.sqrt(torch.dot(q, q) / q.numel()))
+
+
+def decomp_four_ranks(one: dict) -> dict:
+    """Phase 15 (b): four gloo ranks sharing cuda:0, the 2x2 flagship's
+    first step against the one-rank step of (a): its counts, kernels and
+    the undecomposed Newton test on the gathered state; the largest gap
+    per component printed."""
+    from thermalporous_torch.dist.launch import run_ranks
+
+    outs, _ = run_ranks(_decomp_rank, DECOMP_RANKS, one["level_factors"], one["dtype"],
+                        backend="gloo", device="cuda:0")
+    for o in outs:
+        n = max(o["newton"], 1)
+        print(f"  rank {o['rank']} block {o['block']}: (newton, fgmres) "
+              f"({o['newton']}, {o['fgmres']}), wall {o['wall_s']:.3f} s; per Newton "
+              f"{o['stats']['exchanges'] / n:.1f} exchanges, "
+              f"{o['stats']['allreduces'] / n:.1f} all-reduces, "
+              f"{o['stats']['gathers'] / n:.1f} all-gathers; host-staged exchange "
+              f"{1e3 * o['stats']['exchange_s'] / max(o['stats']['exchanges'], 1):.3f} ms "
+              f"each; launches {o['launches']}", flush=True)
+        if (o["newton"], o["fgmres"]) != (one["newton"], one["fgmres"]) or not o["converged"]:
+            raise SystemExit(f"phase 15(b): rank {o['rank']} (newton, fgmres) "
+                             f"({o['newton']}, {o['fgmres']}) != one rank's "
+                             f"({one['newton']}, {one['fgmres']})")
+        missing = [k for k in DECOMP_KERNELS if o["launches"][k] <= 0]
+        extra = [k for k in DECOMP_REFUSED if o["launches"][k] != 0]
+        if missing or extra:
+            raise SystemExit(f"phase 15(b): rank {o['rank']} launched no {missing}, "
+                             f"launched {extra}")
+    case, u0 = one["case"], one["u0"]
+    u = torch.as_tensor(outs[0]["u"], device=u0.device)
+    check_physical(u, SPE10_FULL, "phase 15(b)")
+    newton = case.newton_cfg
+    norm0 = _newton_norm(case, u0, u0)
+    tol = max(newton.rtol * norm0, newton.atol, 50.0 * float(torch.finfo(u0.dtype).eps))
+    norm = _newton_norm(case, u, u0)
+    norm_one = _newton_norm(case, torch.as_tensor(one["u"], device=u0.device), u0)
+    print(f"  the undecomposed Newton test at the gathered state: {norm:.6e} (tol {tol:.3e}; "
+          f"the ranks' final norm {outs[0]['norm']:.6e}; the one-rank state {norm_one:.6e})",
+          flush=True)
+    if not (norm <= tol and abs(norm - outs[0]["norm"]) <= DECOMP_NORM_RTOL * norm):
+        raise SystemExit(f"phase 15(b): the gathered state's Newton norm {norm} (tol {tol}, "
+                         f"the ranks' {outs[0]['norm']})")
+    gaps = _gaps(outs[0]["u"], one["u"])
+    print(f"  largest gap to the one-rank step: p {gaps[0]:.6e} Pa, T {gaps[1]:.6e} K, "
+          f"S {gaps[2]:.6e}", flush=True)
+    return {"ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs], "gaps": gaps,
+            "newton_norm": norm, "newton_tol": tol, "newton_norm_one_rank": norm_one}
+
+
+def decomp_dryrun_start():
+    """Phase 15 (c), started: ``python -m thermalporous_torch.dist.dryrun``
+    over four gloo ranks on the card (f64), in a subprocess."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "thermalporous_torch.dist.dryrun", "--ranks", str(DECOMP_RANKS),
+         "--backend", "gloo", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(pathlib.Path(__file__).resolve().parent))
+
+
+def decomp_dryrun_finish(proc) -> dict:
+    """Phase 15 (c): the dry run's output and summary; it must exit 0."""
+    t = time.perf_counter()
+    out = proc.communicate(timeout=600)[0]
+    for line in out.splitlines():
+        if line.startswith("dryrun_multichip"):
+            print("  " + line, flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 15(c): the dry run exited {proc.returncode}:\n{out[-3000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    summary["waited_s"] = time.perf_counter() - t
+    return summary
 
 
 def main() -> int:
@@ -3824,6 +4167,44 @@ def main() -> int:
               f"{max(adj14['gaps']):.1e}), lockstep {adj14['ksp_iters']}; iteration_study and "
               f"custom_case GPU == CPU ((a) {t_a:.1f} s, (b) {t_b:.1f} s)")
 
+    # (15) the grid decomposition
+    if want(15):
+        t0 = time.perf_counter()
+        dry_proc = decomp_dryrun_start()
+        try:
+            print("  (a) the decomposed path's kernels on an odd-origin block", flush=True)
+            blk15 = decomp_kernel_blocks(dev)
+            print("  (a) the flagship's first step on a one-rank NCCL mesh", flush=True)
+            one15 = decomp_one_rank(dev)
+            torch.cuda.empty_cache()
+            t_a = time.perf_counter() - t0
+            print(f"  (b) {DECOMP_RANKS} gloo ranks sharing cuda:0, the flagship split 2x2",
+                  flush=True)
+            four15 = decomp_four_ranks(one15)
+            torch.cuda.empty_cache()
+            t_b = time.perf_counter() - t0 - t_a
+            print(f"  (c) dryrun_multichip({DECOMP_RANKS}, device=\"cuda\", backend=\"gloo\"), "
+                  f"f64, started with the phase", flush=True)
+            dry15 = decomp_dryrun_finish(dry_proc)
+        finally:
+            if dry_proc.poll() is None:
+                dry_proc.kill()
+                dry_proc.wait()
+        t_c = time.perf_counter() - t0 - t_a - t_b
+        p15 = {"kernel_blocks": blk15,
+               "one_rank": {k: v for k, v in one15.items() if k not in ("u", "case", "u0")},
+               "four_ranks": four15, "dryrun": dry15, "a_s": t_a, "b_s": t_b, "c_s": t_c}
+        r0 = four15["ranks"][0]
+        phase("15 grid decomposition", t0,
+              f"one-rank NCCL mesh bitwise the undecomposed flagship step "
+              f"({one15['newton']}, {one15['fgmres']}); 2x2 over {DECOMP_RANKS} gloo ranks on "
+              f"one card ({r0['newton']}, {r0['fgmres']}), its Newton test "
+              f"{four15['newton_norm']:.3e} <= {four15['newton_tol']:.1e}, gaps p/T/S "
+              f"{'/'.join(f'{g:.3e}' for g in four15['gaps'])}; rank 0 wall "
+              f"{r0['wall_s']:.3f} s; dry run {dry15['run']['steps']} steps, newton "
+              f"{dry15['run']['newton']}, ksp {dry15['run']['ksp']} == undecomposed, resume "
+              f"bitwise ((a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s more)")
+
     if phases is not None:
         if args.json:
             part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
@@ -3834,6 +4215,8 @@ def main() -> int:
                 part.update(transfers_bgmg_recycle_adjoint=p13)
             if want(14):
                 part.update(ensemble_examples=p14)
+            if want(15):
+                part.update(decomposition=p15)
             if want(2):
                 part.update(fuse_apply_ms=fuse_times, barrier_latencies=barriers)
             if want(10):
@@ -3934,6 +4317,11 @@ def main() -> int:
     # flagship records; launches in phase 14(a)'s ensemble step)
     for k in FLAGSHIP_KERNELS:
         inner.append((f"{k} (ensemble of {len(ENS_BHP)})", k, krec[k], ens14["launches"][k]))
+    # phase 15: the flagship's kernels on the 2x2 decomposed path (phase 2's
+    # flagship records; launches on rank 0 in phase 15(b)'s step)
+    for k in DECOMP_KERNELS:
+        inner.append((f"{k} (2x2 decomposition, rank 0)", k, krec[k],
+                      p15["four_ranks"]["ranks"][0]["launches"][k]))
     kernels += [{"name": label, "route": "cuda", "source": KERNEL_SOURCES[k][0],
                  "replaces": KERNEL_SOURCES[k][1], "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3970,6 +4358,7 @@ def main() -> int:
                        "solver_options": opts, "cli": cli, "blocked": blocked,
                        "schedule": sched, "pc_dtype_batch_pt": pc12,
                        "transfers_bgmg_recycle_adjoint": p13, "ensemble_examples": p14,
+                       "decomposition": p15,
                        "total_s": time.perf_counter() - t_all}, fh, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

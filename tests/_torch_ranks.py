@@ -1,0 +1,161 @@
+"""Rank functions of the grid-decomposition tests (not collected).
+
+Spawned ranks import this module by name, so it imports the port only:
+the JAX references are computed in the test process and handed over as
+arrays.  Each function runs on one rank of a
+:class:`~thermalporous_torch.dist.sharding.GridMesh` and asserts on its
+own block, or returns what the test compares across ranks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from thermalporous_torch.dist.halo import make_halo_residual
+from thermalporous_torch.dist.sharding import (
+    Block,
+    block_model,
+    gather_state,
+    replicated,
+    shard_problem_data,
+    shard_state,
+)
+from thermalporous_torch.kernels import stencil as kst
+from thermalporous_torch.physics.wells import well_rates
+from thermalporous_torch.precond.cpr import CPRConfig, cpr_setup
+from thermalporous_torch.precond.gmg import GMGConfig
+from thermalporous_torch.solve.timeloop import Simulator
+from thermalporous_torch.utils import all_finite
+
+
+def _close(got: torch.Tensor, ref: torch.Tensor, scale: float) -> None:
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12, atol=1e-12 * scale)
+
+
+def halo_rank(mesh, cases) -> None:
+    """The explicit halo residual and the residual of the extended block
+    against the reference's whole residual, on this rank's owned cells."""
+    for model, data, u, u_old, dt, ref in cases:
+        data_s = shard_problem_data(data, mesh)
+        blk = data_s.block
+        u_s, uo_s = shard_state(u, mesh), shard_state(u_old, mesh)
+        ref = torch.as_tensor(ref)
+        scale = float(ref.abs().max())
+        want = blk.cut(ref, lead=1, ghosts=False)
+        halo = make_halo_residual(model, mesh, data_s)(u_s, uo_s, dt, data_s)
+        _close(halo, want, scale)
+        res = block_model(model, blk).residual(u_s, uo_s, dt, data_s)
+        _close(blk.owned(res, lead=1), want, scale)
+
+
+#: the kernels' block test: a 3D grid cut at odd boundaries, so that two
+#: of the four extended blocks have an origin of odd index sum
+KERNEL_SHAPE = (15, 21, 5)
+KERNEL_BOUNDS = ((0, 7, 15), (0, 10, 21))
+KERNEL_DEGREE = 3
+
+
+def kernels_rank(mesh, g: dict) -> int:
+    """B1, B2, B3 (both second outputs), B5 and the half-sweep on this
+    rank's block, its vectors extended by exchange, against the plain
+    versions on the whole grid: bitwise on the owned cells.  Returns the
+    stage-2 block's parity."""
+    g = {k: torch.as_tensor(v) for k, v in g.items()}
+    blk = lambda w: Block(mesh, KERNEL_SHAPE, KERNEL_BOUNDS, w)
+
+    def on_block(w, whole_out, fn, vecs, coefs, lead=1):
+        b = blk(w)
+        ext = [b.extend(b.cut(v, lead=lead, ghosts=False), lead=lead) for v in vecs]
+        outs = fn(*[b.cut(c, lead=c.dim() - len(KERNEL_SHAPE)) for c in coefs], *ext)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        whole_out = whole_out if isinstance(whole_out, tuple) else (whole_out,)
+        for got, ref in zip(outs, whole_out):
+            assert torch.equal(b.owned(got, lead=got.dim() - len(KERNEL_SHAPE)),
+                               b.cut(ref, lead=ref.dim() - len(KERNEL_SHAPE), ghosts=False))
+
+    coef, v, x1, packed, b, x, r = (g[k] for k in ("coef", "v", "x1", "packed", "b", "x", "r"))
+    on_block(1, kst.block_matvec_plain(coef, v), lambda c, vv: kst.block_matvec(c, vv, 3),
+             [v], [coef])
+    on_block(1, kst.block_matvec_plain(coef, x1), lambda c, vv: kst.block_matvec(c, vv, 2),
+             [x1], [coef])
+    on_block(1, kst.matvec_plain(packed, b), kst.matvec, [b], [packed], lead=0)
+    lam = g["lam"]
+    for second in ("residual", "product"):
+        ref = kst.chebyshev_smooth_plain(packed, b, x, lam, KERNEL_DEGREE, 0.3, second=second)
+        on_block(KERNEL_DEGREE + 1, ref,
+                 lambda c, bb, xx: kst.chebyshev_smooth(c, bb, xx, lam, KERNEL_DEGREE, 0.3,
+                                                        second=second),
+                 [b, x], [packed], lead=0)
+    ref = kst.chebyshev_smooth_plain(packed, b, None, lam, KERNEL_DEGREE, 0.3)
+    on_block(KERNEL_DEGREE, ref,
+             lambda c, bb: kst.chebyshev_smooth(c, bb, None, lam, KERNEL_DEGREE, 0.3),
+             [b], [packed], lead=0)
+    dinv = g["dinv"]
+    b2 = blk(2)
+    ref = kst.fused_stage2_rbgs_plain(coef, dinv, r, x1)
+    on_block(2, ref, lambda c, d, rr, xx: kst.fused_stage2_rbgs(c, d, rr, xx,
+                                                               parity=b2.parity),
+             [r, x1], [coef, dinv])
+    # the local colouring (no parity) sweeps the colours the wrong way
+    # round where the block's origin has an odd index sum (the exchange is
+    # collective: every rank takes part)
+    ext = [b2.extend(b2.cut(t, ghosts=False)) for t in (r, x1)]
+    wrong = kst.fused_stage2_rbgs(b2.cut(coef, lead=3), b2.cut(dinv, lead=2), *ext)
+    assert torch.equal(b2.owned(wrong), b2.cut(ref, ghosts=False)) == (b2.parity == 0)
+    for colour in (0, 1):
+        ref = kst.block_rbgs_half_sweep_plain(coef, dinv, r, v, colour)
+        on_block(1, ref, lambda c, d, rr, vv: kst.block_rbgs_half_sweep(
+            c, d, rr, vv, colour, parity=blk(1).parity), [r, v], [coef, dinv])
+    return b2.parity
+
+
+def halo_and_kernels_rank(mesh, arrays: dict, cases) -> int:
+    """:func:`kernels_rank` then :func:`halo_rank`, in one spawn; and
+    ``replicated`` gives every rank rank 0's tensor."""
+    parity = kernels_rank(mesh, arrays)
+    halo_rank(mesh, cases)
+    assert torch.equal(replicated(torch.arange(3.0) + mesh.rank, mesh), torch.arange(3.0))
+    return parity
+
+
+def step_rank(mesh, model, data, newton_cfg, pc_cfg, dt: float, coarsest: bool = False):
+    """One decomposed ``Simulator.step`` from the initial state: (Newton,
+    FGMRES, converged, the gathered state, the corner wells' rates[, the
+    pressure hierarchy's decomposed level count and coarsest diagonal])."""
+    if callable(pc_cfg):
+        pc_cfg = pc_cfg(mesh)
+    data_s = shard_problem_data(data, mesh)
+    sim = Simulator(model, data_s, precond="cptr", pc_cfg=pc_cfg, newton_cfg=newton_cfg,
+                    device="cpu")
+    u0 = shard_state(model.initial_state(data), mesh)
+    u, st = sim.step(u0, dt)
+    assert all_finite(u, mesh)
+    out = (st.iters, st.ksp_iters, st.converged, gather_state(u, mesh).numpy(),
+           well_rates(sim.model, u, data_s, corner_masks(data_s.block.shape)))
+    if coarsest:
+        blk = data_s.block
+        stencil = block_model(model, blk).assemble_stencil(u0, u0, dt, data_s)
+        state = cpr_setup(stencil, dataclasses.replace(pc_cfg or CPRConfig(),
+                                                       variant="cptr"), block=blk)
+        out += (len(state.gmg_p.blocks), state.gmg_p.stencils[-1].diag.numpy())
+    return out
+
+
+def corner_masks(shape) -> dict:
+    """Well masks of the ``_case`` wells: the first and the last cell."""
+    first, last = np.zeros(shape, dtype=bool), np.zeros(shape, dtype=bool)
+    first[(0,) * len(shape)] = last[tuple(n - 1 for n in shape)] = True
+    return {"INJ": first, "PROD": last}
+
+
+def replicated_pc(mesh) -> CPRConfig:
+    """The pressure hierarchy of the replicated-coarse-level case."""
+    return CPRConfig(gmg=GMGConfig(mesh=mesh, replicate_below=256))
+
+
+def steps_rank(mesh, jobs) -> list:
+    """:func:`step_rank` of each job (its keyword arguments)."""
+    return [step_rank(mesh, **job) for job in jobs]

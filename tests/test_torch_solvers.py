@@ -123,17 +123,18 @@ def test_cpr_unported_options_raise():
     Pallas stage-2 switch and the TPU/multi-device GMG options have no
     field; unknown names are refused (bf16 coefficient storage and the
     batched p/T traversal are ported: tests/test_torch_pc_dtype.py,
-    tests/test_torch_batch_pt.py)."""
+    tests/test_torch_batch_pt.py; the grid decomposition's
+    ``replicate_below`` and ``mesh``: tests/test_torch_sharding.py)."""
     assert tcpr.CPRConfig(stage2="bgmg", bgmg_cycles=2, bgmg_coarse_cells=64).bgmg_cycles == 2
     for transfer in ("constant", "weighted", "variational"):
         assert tgmg.GMGConfig(transfer=transfer, transfer_floor=0.5).transfer == transfer
     with pytest.raises(ValueError, match="transfer"):
         tgmg.GMGConfig(transfer="linear")
     for cls, kw in ((tcpr.CPRConfig, dict(stage2_pallas=True)),
-                    (tgmg.GMGConfig, dict(use_pallas=True)),
-                    (tgmg.GMGConfig, dict(replicate_below=16))):
+                    (tgmg.GMGConfig, dict(use_pallas=True))):
         with pytest.raises(TypeError):
             cls(**kw)
+    assert tgmg.GMGConfig(replicate_below=16).replicate_below == 16
     for kw in (dict(stage2="ilu"), dict(decoupling="x"), dict(variant="cprs"),
                dict(inner_method="cg"), dict(s_stage="ilu"), dict(pc_dtype="f16")):
         with pytest.raises(ValueError):

@@ -87,6 +87,7 @@ struct Stage2Plan {
   int ty, tz, lx;
   int tiles_y, tiles_z;
   int own;
+  int par;  // the colour offset: a cell is red when its index sum plus par is even
 };
 
 // The 2*DIM+1 blocks of a cell in the packed order [diag, up_0, lo_0, up_1,
@@ -302,10 +303,10 @@ __global__ void __launch_bounds__(kStage2MaxThreads, 1)
     bool ok;
     if (own) {
       yy = y;
-      zz = za + ((x + y) & 1);
+      zz = za + ((x + y + p.par) & 1);
       ok = mine && zz < p.e2;
     } else {
-      const int i = ((x + ys + zs) & 1) + 2 * j;
+      const int i = ((x + ys + zs + p.par) & 1) + 2 * j;
       yy = s < 2 ? ys + i : ys;
       zz = s < 2 ? zs : zs + i;
       ok = ringt && i < len && yy >= 0 && yy < p.e1 && zz >= 0 && zz < p.e2;
@@ -341,7 +342,7 @@ __global__ void __launch_bounds__(kStage2MaxThreads, 1)
       if (own) write_out<T, NC, K>(out, x1, cell(x_begin, yy, zz), n, hold);
     }
     if (own && x_begin > 0)
-      red_at(x_begin - 1, min(y, p.e1 - 1), min(za + ((x_begin + y + 1) & 1), p.e2 - 1), lo);
+      red_at(x_begin - 1, min(y, p.e1 - 1), min(za + ((x_begin + y + p.par + 1) & 1), p.e2 - 1), lo);
   }
   __syncthreads();
 
@@ -353,7 +354,7 @@ __global__ void __launch_bounds__(kStage2MaxThreads, 1)
       // the red cell of plane x + 1 above this thread's black cell of
       // plane x, then the black cell: one round of loads for both
       red_at(x + 1, ry, rz, up);
-      const int zb = za + ((x + y + 1) & 1);
+      const int zb = za + ((x + y + p.par + 1) & 1);
       const bool black_ok = mine && zb < p.e2;
       // clamped into the grid and the tile: the slots read below stay in the buffer
       const int yc = min(y, min(y0 + p.ty, p.e1) - 1), zc = min(zb, p.e2 - 1);
@@ -458,13 +459,13 @@ template <typename T, typename C, int NC>
 __global__ void __launch_bounds__(kThreads)
     rbgs_half_kernel(const C* __restrict__ coef, const C* __restrict__ dinv,
                      const T* __restrict__ b, const T* __restrict__ x, T* __restrict__ out,
-                     int colour, Dims d) {
+                     int colour, int par, Dims d) {
   const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= d.n) return;
   int idx[3];
   d.coords(c, idx);
   const long n = d.n;
-  if (((idx[0] + idx[1] + idx[2]) & 1) != colour) {
+  if (((idx[0] + idx[1] + idx[2] + par) & 1) != colour) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) out[(long)i * n + c] = x[(long)i * n + c];
     return;
@@ -505,7 +506,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename C>
 int half_typed(const void* coef, const void* dinv, const void* b, const void* x, void* out,
-               int colour, int nc, const Dims& d, cudaStream_t st) {
+               int colour, int par, int nc, const Dims& d, cudaStream_t st) {
   auto c_ = static_cast<const C*>(coef);
   auto d_ = static_cast<const C*>(dinv);
   auto b_ = static_cast<const T*>(b);
@@ -515,10 +516,10 @@ int half_typed(const void* coef, const void* dinv, const void* b, const void* x,
   switch (nc) {
     case 1:
       if constexpr (std::is_same_v<C, bf16>) return (int)cudaErrorInvalidValue;
-      else rbgs_half_kernel<T, C, 1><<<g, kThreads, 0, st>>>(c_, d_, b_, x_, o_, colour, d);
+      else rbgs_half_kernel<T, C, 1><<<g, kThreads, 0, st>>>(c_, d_, b_, x_, o_, colour, par, d);
       break;
-    case 2: rbgs_half_kernel<T, C, 2><<<g, kThreads, 0, st>>>(c_, d_, b_, x_, o_, colour, d); break;
-    case 3: rbgs_half_kernel<T, C, 3><<<g, kThreads, 0, st>>>(c_, d_, b_, x_, o_, colour, d); break;
+    case 2: rbgs_half_kernel<T, C, 2><<<g, kThreads, 0, st>>>(c_, d_, b_, x_, o_, colour, par, d); break;
+    case 3: rbgs_half_kernel<T, C, 3><<<g, kThreads, 0, st>>>(c_, d_, b_, x_, o_, colour, par, d); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

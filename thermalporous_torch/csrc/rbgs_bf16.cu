@@ -13,8 +13,8 @@ template int stage2_typed<double, bf16>(int, const void*, const void*, const voi
                                         const void*, void*, int, int, const Stage2Plan&,
                                         int, int, cudaStream_t);
 template int half_typed<float, bf16>(const void*, const void*, const void*, const void*,
-                                     void*, int, int, const Dims&, cudaStream_t);
+                                     void*, int, int, int, const Dims&, cudaStream_t);
 template int half_typed<double, bf16>(const void*, const void*, const void*, const void*,
-                                      void*, int, int, const Dims&, cudaStream_t);
+                                      void*, int, int, int, const Dims&, cudaStream_t);
 
 }  // namespace tp

@@ -35,6 +35,7 @@ from typing import Sequence
 import torch
 
 from thermalporous_torch._device import require_cuda
+from thermalporous_torch.dist.sharding import GridMesh, NotDecomposedError, refuse_decomposed
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.precond.cpr import CPRConfig
 from thermalporous_torch.solve.ensemble_data import (
@@ -49,7 +50,11 @@ from thermalporous_torch.solve.timeloop import make_step_fn
 
 
 def stack_ensemble(datas: Sequence[ProblemData]) -> EnsembleData:
-    """Stack per-member problem data along a new leading ensemble axis."""
+    """Stack per-member problem data along a new leading ensemble axis
+    (whole grids: a member decomposed over ranks raises
+    ``NotDecomposedError``)."""
+    for d in datas:
+        refuse_decomposed(d, "stack_ensemble of a decomposed member")
     return EnsembleData(torch.stack([d.fields for d in datas]))
 
 
@@ -98,6 +103,9 @@ def shard_ensemble(tree, devices: Sequence[torch.device | str]):
     an :class:`EnsembleData`, or a list, tuple or dict of them) on
     ``devices``: E/len(devices) whole members per device, in order, as
     :class:`Blocks`.  E must be a multiple of the number of devices."""
+    if isinstance(devices, GridMesh):
+        raise NotDecomposedError("shard_ensemble over the ranks of a grid mesh: not "
+                                 "decomposed over ranks")
     devs = [require_cuda(d) for d in devices]
     if not devs:
         raise ValueError("shard_ensemble needs at least one device")

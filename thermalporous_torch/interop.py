@@ -31,7 +31,7 @@ from thermalporous_torch.solve.timeloop import TimeConfig
 #: the reference's configuration fields that the port lacks, at the
 #: reference's defaults (a dict may carry them only at these values)
 UNPORTED_DEFAULTS = {
-    GMGConfig: dict(use_pallas=False, replicate_below=4096, mesh=None),
+    GMGConfig: dict(use_pallas=False),
     CPRConfig: dict(stage2_pallas=False),
     NewtonConfig: {},
     TimeConfig: {},

@@ -52,6 +52,9 @@ class BalanceAuditor:
         """Rebind the problem data (``Simulator.run_schedule`` calls this at
         every control-segment boundary, so that the sources are the active
         segment's)."""
+        from thermalporous_torch.dist.sharding import refuse_decomposed
+
+        refuse_decomposed(data, "BalanceAuditor")
         self._data = data
 
     def _totals(self, u) -> tuple[np.ndarray, np.ndarray]:

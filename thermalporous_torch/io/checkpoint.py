@@ -6,6 +6,12 @@ The state of a run is one array and the controller's clock: ``{u, t, dt,
 step}`` and ``meta`` (JSON, with the failure-memory Δt cap when one is
 active) round-trip exactly through one ``.npz``, so a killed run resumes
 bit for bit.
+
+A run decomposed over ranks checkpoints the whole state: every rank calls
+``dist.sharding.gather_state`` (a collective), rank 0 writes it, and on
+resume every rank reads the file and cuts its block with ``shard_state``
+(``dist/dryrun.py``'s second scenario), so that the file is the same as an
+undecomposed run's.
 """
 
 from __future__ import annotations

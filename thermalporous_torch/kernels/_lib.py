@@ -72,10 +72,10 @@ _SIGNATURES = {
     "tp_twophase_jvp": _MODEL_ARGS,
     "tp_singlephase_jvp": _MODEL_ARGS,
     # coef, dinv, r, x1 (nullable when k = 0), out, nc, k, dim, n0, n1, n2,
-    # ty, tz, lx, stream
-    "tp_stage2_rbgs": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # coef, dinv, b, x, out, colour, nc, dim, n0, n1, n2, stream
-    "tp_block_rbgs_half": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ty, tz, lx, par, stream
+    "tp_stage2_rbgs": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # coef, dinv, b, x, out, colour, par, nc, dim, n0, n1, n2, stream
+    "tp_block_rbgs_half": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # desc (host int64*, DEEP_DESC_PER_LEVEL per level), n_levels, inv,
     # partials, barriers (nullable), degree, lam_min_frac, safety, blocks,
     # threads, batch, stream

@@ -413,29 +413,33 @@ second_outputs = {"residual": 0, "product": 0}
 # ----------------------------------------- red-black block Gauss–Seidel
 
 def checkerboard(shape: tuple[int, ...], dtype: torch.dtype,
-                 device: torch.device | str) -> torch.Tensor:
-    """Parity mask: 1.0 on 'red' cells (even index sum), 0.0 on black."""
-    parity = torch.zeros((), dtype=torch.int64, device=device)
+                 device: torch.device | str, parity: int = 0) -> torch.Tensor:
+    """Parity mask: 1.0 on 'red' cells (even index sum plus ``parity``),
+    0.0 on black.  ``parity`` is the index sum of the grid's origin in a
+    larger grid, mod 2: a block of a decomposed grid then keeps the whole
+    grid's colours."""
+    idx = torch.full((), parity, dtype=torch.int64, device=device)
     for a, m in enumerate(shape):
         view = [1] * len(shape)
         view[a] = m
-        parity = parity + torch.arange(m, device=device).reshape(view)
-    return (parity % 2 == 0).to(dtype)
+        idx = idx + torch.arange(m, device=device).reshape(view)
+    return (idx % 2 == 0).to(dtype)
 
 
 def fused_block_rbgs_plain(coef: torch.Tensor, dinv: torch.Tensor,
-                          b: torch.Tensor) -> torch.Tensor:
+                          b: torch.Tensor, parity: int = 0) -> torch.Tensor:
     """One red-black block Gauss–Seidel sweep from x = 0:
     x_r = red⊙D⁻¹b, out = x_r + black⊙D⁻¹(b − A·x_r) (the looped form's
-    first half-sweep, b − A·0 = b exactly)."""
-    red = checkerboard(tuple(b.shape[1:]), b.dtype, b.device)
+    first half-sweep, b − A·0 = b exactly); colours by
+    :func:`checkerboard` with ``parity``."""
+    red = checkerboard(tuple(b.shape[1:]), b.dtype, b.device, parity)
     black = 1.0 - red
     xr = red * apply_block_cols(dinv, b)
     return xr + black * apply_block_cols(dinv, b - block_matvec_plain(coef, xr))
 
 
 def fused_stage2_rbgs_plain(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor,
-                            x1_cols: torch.Tensor) -> torch.Tensor:
+                            x1_cols: torch.Tensor, parity: int = 0) -> torch.Tensor:
     """The CPTR stage 2 after stage 1, composed as the apply composed it:
     r2 = r − A·[x1_cols; 0] (:func:`block_matvec_plain` over k =
     ``x1_cols.shape[0]`` columns; k = 0: r2 = r), one zero-start sweep on r2
@@ -443,7 +447,7 @@ def fused_stage2_rbgs_plain(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Ten
     components."""
     k = x1_cols.shape[0]
     r2 = r - block_matvec_plain(coef, x1_cols) if k else r
-    x2 = fused_block_rbgs_plain(coef, dinv, r2)
+    x2 = fused_block_rbgs_plain(coef, dinv, r2, parity)
     x2[0:k] += x1_cols
     return x2
 
@@ -561,29 +565,33 @@ def _check_rbgs(name: str, coef: torch.Tensor, dinv: torch.Tensor,
 
 
 def fused_stage2_rbgs(coef: torch.Tensor, dinv: torch.Tensor, r: torch.Tensor,
-                      x1_cols: torch.Tensor) -> torch.Tensor:
+                      x1_cols: torch.Tensor, parity: int = 0) -> torch.Tensor:
     """The whole red-black stage 2 of the CPTR apply after stage 1 (see the
     plain version): x1 = [x1_cols; 0] with k = ``x1_cols.shape[0]`` (0 ≤ k ≤
     nc), r2 = r − A·x1 over block columns 0:k, one zero-start red-black block
     Gauss–Seidel sweep on r2, plus x1.  ``coef`` (2·dim+1, nc, nc, *grid) is
     the block stencil, ``dinv`` (nc, nc, *grid) its per-cell inverse
-    diagonal blocks, ``r`` (nc, *grid).  On the card one launch
-    (:func:`stage2_plan`)."""
+    diagonal blocks, ``r`` (nc, *grid).  ``parity`` offsets the colours (see
+    :func:`checkerboard`): a block of a decomposed grid passes its origin's
+    index sum mod 2.  On the card one launch (:func:`stage2_plan`)."""
     dev = _check("fused_stage2_rbgs", r, x1_cols, coefs=(coef, dinv))
     nc, grid = _check_rbgs("fused_stage2_rbgs", coef, dinv, r)
     k = x1_cols.shape[0]
     if not 0 <= k <= nc or tuple(x1_cols.shape) != (k,) + grid:
         raise ValueError(f"fused_stage2_rbgs: x1_cols {tuple(x1_cols.shape)} for "
                          f"nc={nc}, grid {grid}")
+    if parity not in (0, 1):
+        raise ValueError(f"fused_stage2_rbgs: parity {parity} not in (0, 1)")
     if dev.type == "cpu":
-        return fused_stage2_rbgs_plain(coef, dinv, r, x1_cols)
+        return fused_stage2_rbgs_plain(coef, dinv, r, x1_cols, parity)
     if nc > 3:
         raise NotImplementedError("fused_stage2_rbgs kernel: nc <= 3")
     plan = stage2_plan(grid, _lib.limits_of(r)[0])
     out = torch.empty_like(r)
     _lib.launch("tp_stage2_rbgs", _lib.dtype_code(r, coef), coef.data_ptr(), dinv.data_ptr(),
                 r.data_ptr(), x1_cols.data_ptr() if k else None, out.data_ptr(), nc, k,
-                len(grid), *_lib.dims3(grid), plan.ty, plan.tz, plan.lx, _lib.stream_of(r))
+                len(grid), *_lib.dims3(grid), plan.ty, plan.tz, plan.lx, int(parity),
+                _lib.stream_of(r))
     fused_stage2_rbgs.launches += 1
     count_variant("fused_stage2_rbgs", coef)
     return out
@@ -593,34 +601,36 @@ fused_stage2_rbgs.launches = 0
 
 
 def fused_block_rbgs(coef: torch.Tensor, dinv: torch.Tensor,
-                     b: torch.Tensor) -> torch.Tensor:
+                     b: torch.Tensor, parity: int = 0) -> torch.Tensor:
     """One zero-start red-black block Gauss–Seidel sweep on ``b`` (see
     :func:`fused_block_rbgs_plain`): the stage-2 kernel with k = 0, counted
     as a ``fused_stage2_rbgs`` launch."""
-    return fused_stage2_rbgs(coef, dinv, b, b[:0])
+    return fused_stage2_rbgs(coef, dinv, b, b[:0], parity)
 
 
 def block_rbgs_half_sweep_plain(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
-                                x: torch.Tensor, colour: int) -> torch.Tensor:
-    """x + colour⊙D⁻¹(b − A·x) for one colour (0 red, 1 black): a
-    half-sweep of the looped red-black block Gauss–Seidel."""
-    mask = checkerboard(tuple(b.shape[1:]), b.dtype, b.device)
+                                x: torch.Tensor, colour: int, parity: int = 0) -> torch.Tensor:
+    """x + colour⊙D⁻¹(b − A·x) for one colour (0 red, 1 black; colours by
+    :func:`checkerboard` with ``parity``): a half-sweep of the looped
+    red-black block Gauss–Seidel."""
+    mask = checkerboard(tuple(b.shape[1:]), b.dtype, b.device, parity)
     if colour:
         mask = 1.0 - mask
     return x + mask * apply_block_cols(dinv, b - block_matvec_plain(coef, x))
 
 
 def block_rbgs_half_sweep(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor,
-                          x: torch.Tensor, colour: int) -> torch.Tensor:
+                          x: torch.Tensor, colour: int, parity: int = 0) -> torch.Tensor:
     """One red-black half-sweep (see the plain version) from ``x``: the
     cells of ``colour`` (0 red, 1 black) take their block solve against the
     other colour's values.  On the card one launch, a thread a cell."""
     dev = _check("block_rbgs_half_sweep", b, x, coefs=(coef, dinv))
     nc, grid = _check_rbgs("block_rbgs_half_sweep", coef, dinv, b, x)
-    if colour not in (0, 1):
-        raise ValueError(f"block_rbgs_half_sweep: colour {colour} not in (0, 1)")
+    if colour not in (0, 1) or parity not in (0, 1):
+        raise ValueError(f"block_rbgs_half_sweep: colour {colour}, parity {parity} "
+                         f"not in (0, 1)")
     if dev.type == "cpu":
-        return block_rbgs_half_sweep_plain(coef, dinv, b, x, colour)
+        return block_rbgs_half_sweep_plain(coef, dinv, b, x, colour, parity)
     if nc > 3:
         raise NotImplementedError("block_rbgs_half_sweep kernel: nc <= 3")
     n = math.prod(grid)
@@ -628,7 +638,8 @@ def block_rbgs_half_sweep(coef: torch.Tensor, dinv: torch.Tensor, b: torch.Tenso
         raise ValueError(f"block_rbgs_half_sweep kernel: {n} cells (needs n < 2**31)")
     out = torch.empty_like(x)
     _lib.launch("tp_block_rbgs_half", _lib.dtype_code(x, coef), coef.data_ptr(), dinv.data_ptr(),
-                b.data_ptr(), x.data_ptr(), out.data_ptr(), colour, nc, len(grid),
+                b.data_ptr(), x.data_ptr(), out.data_ptr(), colour, int(parity), nc,
+                len(grid),
                 *_lib.dims3(grid), _lib.stream_of(x))
     block_rbgs_half_sweep.launches += 1
     count_variant("block_rbgs_half_sweep", coef)

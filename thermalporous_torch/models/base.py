@@ -165,9 +165,15 @@ class ThermalModelBase:
 
     def source_totals(self, u, data: ProblemData) -> torch.Tensor:
         """Net well/heater source per equation row at state ``u``, (nc,),
-        summed in f64 when the state is f32."""
+        summed in f64 when the state is f32; over a grid decomposition
+        (``data.block``) the owned cells' partials summed over the ranks."""
         q = self.well_sources(u, data.wells)
-        return q.reshape(self.nc, -1).sum(dim=1, dtype=reduce_dtype(u.dtype))
+        block = getattr(data, "block", None)
+        if block is None:
+            return q.reshape(self.nc, -1).sum(dim=1, dtype=reduce_dtype(u.dtype))
+        q = block.owned(q, lead=1)
+        return block.mesh.allreduce_sum(
+            q.reshape(self.nc, -1).sum(dim=1, dtype=reduce_dtype(u.dtype)))
 
     # -- residual -----------------------------------------------------------
     def residual(self, u: torch.Tensor, u_old: torch.Tensor, dt,

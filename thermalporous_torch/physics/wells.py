@@ -138,18 +138,29 @@ def per_well_masks(grid: Grid, wells: Sequence[Well] = (),
 def well_rates(model, u: torch.Tensor, data, masks: dict[str, np.ndarray]) -> dict[str, dict]:
     """Per-well report: mass [kg/s] and energy [W] rates at state ``u``,
     positive into the reservoir (injectors +, producers −), summed over each
-    well's cells from the model's source fields."""
-    q = model.well_sources(u, data.wells).detach().cpu().numpy()
+    well's cells from the model's source fields.  Over a grid decomposition
+    (``data.block``; ``u`` the rank's block, ``masks`` whole-grid) each
+    well's owned cells are summed and the sums added over the ranks, the
+    same report on every rank."""
+    q = model.well_sources(u, data.wells).detach()
+    block = getattr(data, "block", None)
+    if block is None:
+        qn = q.cpu().numpy()
+        tots = [[qn[c][mask].sum() for c in range(model.nc)] for mask in masks.values()]
+    else:
+        q = block.owned(q, lead=1)
+        sl = tuple(slice(*block.owned_range(a)) for a in range(len(block.shape)))
+        part = torch.stack([torch.stack([q[c][torch.as_tensor(m[sl], device=q.device)].sum()
+                                         for c in range(model.nc)])
+                            for m in masks.values()]) if masks else q.new_zeros((0, model.nc))
+        tots = block.mesh.allreduce_sum(part).cpu().numpy()
     out: dict[str, dict] = {}
-    for name, mask in masks.items():
+    for name, t in zip(masks, tots):
         if model.nc == 2:
-            rec = {"mass_kg_s": float(q[0][mask].sum()),
-                   "energy_W": float(q[1][mask].sum())}
+            out[name] = {"mass_kg_s": float(t[0]), "energy_W": float(t[1])}
         else:
-            rec = {"water_kg_s": float(q[0][mask].sum()),
-                   "oil_kg_s": float(q[2][mask].sum()),
-                   "energy_W": float(q[1][mask].sum())}
-        out[name] = rec
+            out[name] = {"water_kg_s": float(t[0]), "oil_kg_s": float(t[2]),
+                         "energy_W": float(t[1])}
     return out
 
 

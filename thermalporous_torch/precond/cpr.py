@@ -36,6 +36,16 @@
 Not ported, and without a field: ``stage2_pallas`` (the CUDA stage 2
 already is the fused form) and the reference's TPU guards (among them its
 refusal of ``batch_pt`` at 0.5M cells and more on its TPU backend).
+
+Over a grid decomposition (``cpr_setup(..., block=...)``: the Jacobian held
+on the rank's extended block, ``STATE_HALO`` deep) the apply takes and
+returns owned blocks: W and the decoupled stage 1 on the owned cells, the
+hierarchies decomposed as ``precond/gmg.py`` says, the T←p coupling a
+:class:`~thermalporous_torch.dist.halo.HaloStencil`, and the rbgs stage 2
+one launch on the extended block with r and x₁ exchanged together and the
+colours of the whole grid (the block's parity).  Block Jacobi and "none"
+are pointwise.  Every other option raises ``NotDecomposedError``
+(:func:`check_decomposable`).
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from thermalporous_torch.precond.chebyshev import (
     weighted_jacobi,
     zebra_line_gs,
 )
+from thermalporous_torch.precond.gmg import check_decomposable as check_gmg
 from thermalporous_torch.precond.gmg import (
     GMGConfig,
     GMGState,
@@ -153,6 +164,15 @@ class CPRState:
     dinv_black: torch.Tensor | None = None
 
 
+@dataclasses.dataclass
+class BlockCPRState(CPRState):
+    """The state of a decomposed apply: ``stencil``, ``dinv`` (the rbgs
+    stage 2's) held on ``block``'s extended block, ``w`` (and block
+    Jacobi's ``dinv``) on its owned cells, ``a_tp`` a HaloStencil."""
+
+    block: object = None
+
+
 def _impes_weights(d: torch.Tensor) -> torch.Tensor:
     """W eliminating the last-unknown column from all other equations, from
     per-cell blocks ``d`` (nc, nc, *grid)."""
@@ -184,12 +204,16 @@ def _decoupling_weights(stencil: BlockStencil, cfg: CPRConfig,
 
 
 def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
-                                theta: float = 0.25) -> CPRConfig:
+                                theta: float = 0.25, gather=None) -> CPRConfig:
     """Bake the matrix-dependent coarsening schedules into ``cfg`` (once,
     before the first step): for each hierarchy with ``coarsen="adaptive"``
     and no ``level_factors`` yet, :func:`plan_coarsening` of its decoupled
     block of ``stencil`` (pressure for ``gmg``, temperature for ``gmg_t``).
-    Returns ``cfg`` unchanged otherwise."""
+    Returns ``cfg`` unchanged otherwise.  Over a grid decomposition
+    ``stencil`` is the owned block and ``gather`` puts a scalar stencil
+    together whole on every rank, so that every rank plans what the
+    undecomposed run plans."""
+    gather = gather or (lambda s: s)
     gmg_todo = cfg.gmg.coarsen == "adaptive" and cfg.gmg.level_factors is None
     gmg_t_todo = (cfg.gmg_t is not None and cfg.gmg_t.coarsen == "adaptive"
                   and cfg.gmg_t.level_factors is None)
@@ -197,17 +221,46 @@ def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
         return cfg
     dec = stencil.scale_rows(_decoupling_weights(stencil, cfg))
     if gmg_todo:
-        schedule = plan_coarsening(dec.scalar(0, 0), cfg.gmg, theta=theta)
+        schedule = plan_coarsening(gather(dec.scalar(0, 0)), cfg.gmg, theta=theta)
         cfg = dataclasses.replace(
             cfg, gmg=dataclasses.replace(cfg.gmg, level_factors=schedule))
     if gmg_t_todo:
-        schedule_t = plan_coarsening(dec.scalar(1, 1), cfg.gmg_t, theta=theta)
+        schedule_t = plan_coarsening(gather(dec.scalar(1, 1)), cfg.gmg_t, theta=theta)
         cfg = dataclasses.replace(
             cfg, gmg_t=dataclasses.replace(cfg.gmg_t, level_factors=schedule_t))
     return cfg
 
 
-def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
+def check_decomposable(cfg: CPRConfig) -> None:
+    """Raise ``NotDecomposedError`` for a preconditioner option the grid
+    decomposition does not run over ranks (ROADMAP A5b)."""
+    from thermalporous_torch.dist.sharding import NotDecomposedError
+
+    refused = (
+        (cfg.stage2 not in ("none", "block_jacobi", "rbgs"), f"stage2={cfg.stage2!r}"),
+        (cfg.stage2 == "rbgs" and cfg.stage2_sweeps > 1,
+         f"stage2_sweeps={cfg.stage2_sweeps} (the half-sweep)"),
+        (cfg.stage2_axes is not None or cfg.stage2_fused, "stage2_axes / stage2_fused"),
+        (cfg.inner_iters > 0, f"inner_iters={cfg.inner_iters}"),
+        (cfg.s_stage != "none", f"s_stage={cfg.s_stage!r}"),
+        (cfg.batch_pt, "batch_pt"),
+        (cfg.pc_dtype != "f32", f"pc_dtype={cfg.pc_dtype!r}"),
+    )
+    for bad, what in refused:
+        if bad:
+            raise NotDecomposedError(f"CPRConfig.{what}: not decomposed over ranks")
+    check_gmg(cfg.gmg)
+    if cfg.variant == "cptr" and cfg.gmg_t is not None:
+        check_gmg(cfg.gmg_t)
+
+
+def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig(),
+              block=None) -> CPRState:
+    """Build the preconditioner from the Jacobian stencil (per Newton
+    iteration); with ``block`` the decomposed form (see the module's
+    docstring)."""
+    if block is not None:
+        return _cpr_setup_blocks(stencil, cfg, block)
     dinv = stencil.diag_inverse()
     w = _decoupling_weights(stencil, cfg, dinv=dinv)
     dec = stencil.scale_rows(w)                     # W·A
@@ -241,6 +294,47 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig()) -> CPRState:
         red = kst.checkerboard(stencil.grid_shape, dinv.dtype, dinv.device)
         state.dinv_red, state.dinv_black = red * dinv, (1.0 - red) * dinv
     return cast_coefficients(state, cfg.pc_dtype)
+
+
+def _cpr_setup_blocks(stencil: BlockStencil, cfg: CPRConfig, block) -> BlockCPRState:
+    """:func:`cpr_setup` of a Jacobian held on ``block``'s extended block:
+    D⁻¹, W and W·A pointwise there (right one cell into the ring, as far as
+    the stage 2 reads them), the hierarchies from the owned rows."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    check_decomposable(cfg)
+    dinv = stencil.diag_inverse()
+    w = _decoupling_weights(stencil, cfg, dinv=dinv)
+    dec = stencil.scale_rows(w)
+    if cfg.stage2 != "rbgs":
+        dinv = block.owned(dinv, lead=2)
+    state = BlockCPRState(stencil=stencil, dinv=dinv, w=block.owned(w, lead=2),
+                          gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg, block=block),
+                          gmg_t=None, a_tp=None, block=block)
+    if cfg.variant == "cptr":
+        state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg, block=block)
+        state.a_tp = HaloStencil(dec.scalar(1, 0), block)
+    return state
+
+
+def _stage2_blocks(state: BlockCPRState, r: torch.Tensor, x1: torch.Tensor, k: int,
+                   cfg: CPRConfig) -> torch.Tensor:
+    """The stage 2 of a decomposed apply (``r`` and ``x1`` owned blocks)."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    blk, st = state.block, state.stencil
+    if cfg.stage2 == "rbgs":
+        # r and x₁ through one exchange, the sweep on the extended block in
+        # the whole grid's colours
+        ext = blk.extend(torch.cat([r, x1]), lead=1)
+        out = kst.fused_stage2_rbgs(st.coef, state.dinv, ext[:st.nc].contiguous(),
+                                    ext[st.nc:].contiguous(), parity=blk.parity)
+        return blk.owned(out, lead=1)
+    op = HaloStencil(st, blk)
+    r2 = r - (op.matvec_cols(x1, k) if k < st.nc else op.matvec(x1))
+    x2 = apply_blocks(state.dinv, r2)
+    x2[0:k] += x1
+    return x2
 
 
 def cast_coefficients(state: CPRState, pc_dtype: str) -> CPRState:
@@ -342,7 +436,8 @@ def _stage1(state: CPRState, w: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
 
 def cpr_apply(state: CPRState, r: torch.Tensor,
               cfg: CPRConfig = CPRConfig()) -> torch.Tensor:
-    """Apply M⁻¹ to a state-shaped residual r (nc, *grid)."""
+    """Apply M⁻¹ to a state-shaped residual r (nc, *grid), or to this
+    rank's owned block of it with a decomposed state."""
     w = apply_blocks(state.w, r)                    # decoupled residual W·r
     x1 = _stage1(state, w, cfg)                     # x₁ = [x1; 0]
     st = state.stencil
@@ -354,6 +449,8 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
         k = st.nc
     if cfg.stage2 == "none":
         return x1
+    if isinstance(state, BlockCPRState):
+        return _stage2_blocks(state, r, x1, k, cfg)
     rbgs_kernel = cfg.stage2 == "rbgs" and cfg.stage2_axes is None
     if rbgs_kernel and cfg.stage2_sweeps == 1:
         return kst.fused_stage2_rbgs(st.coef, state.dinv, r, x1)

@@ -23,8 +23,27 @@ and "variational" (the same P with R = Pᵀ; coarse levels
 by power iteration).  The wide levels are routed by type to the plain
 Chebyshev or Jacobi smoother and their own plain matvec: no kernel takes
 them; the finest level stays a :class:`ScalarStencil` on the kernels.  The
-TPU and multi-device options (``use_pallas``, ``replicate_below``,
-``mesh``) are not ported and have no field.
+TPU-only option ``use_pallas`` is not ported and has no field.
+
+Over a grid decomposition (``gmg_setup(..., block=...)``, the rank's
+:class:`~thermalporous_torch.dist.sharding.Block` of the stencil; ``mesh``
+names its :class:`~thermalporous_torch.dist.sharding.GridMesh`) the
+hierarchy's leading levels are **decomposed**: each rank holds its block of
+the level's stencil with a ghost ring ``degree + 1`` deep, one exchange
+before each smooth, and restricts and prolongs its own cells.  A level stays
+decomposed while it has more than ``replicate_below`` cells, every rank's
+block is at least as deep as the ring and (unless it is the coarsest, which
+is always replicated) its block boundaries are even along the axes it
+coarsens, so that no coarsening pair straddles two blocks.  From the first
+level that fails, down to the coarsest, every level is **replicated**: each
+rank holds the whole level, the restricted residual is all-gathered onto it
+(where the reference's ``_replicated`` constraint sits) and each rank cuts
+its own part back out of the correction.  The Gershgorin bounds and the
+K-cycle's dots of decomposed levels go through the mesh's all-reduce; those
+of replicated levels are local.  Decomposed hierarchies take the Chebyshev
+smoother, constant transfer, one cycle per apply and no batch, and never the
+fused subtree over more than one rank (the reference's refusal under a
+mesh): any other option raises ``NotDecomposedError``.
 
 A :class:`GMGState` may hold a batch of congruent hierarchies stacked along
 a leading axis of every leaf (:func:`stack_states`; ``CPRConfig.batch_pt``'s
@@ -83,8 +102,8 @@ VARIATIONAL_LAM_MARGIN = 1.15
 @dataclasses.dataclass(frozen=True)
 class GMGConfig:
     """Static multigrid configuration: the reference's fields (see
-    ``thermalporous_tpu/precond/gmg.py:GMGConfig``) but its TPU and
-    multi-device options, which are not ported and have no field here."""
+    ``thermalporous_tpu/precond/gmg.py:GMGConfig``) but its TPU-only
+    ``use_pallas``, which has no field here."""
 
     smoother: str = "chebyshev"       # "chebyshev" | "jacobi" | "rbgs" |
                                       # "line" (line Jacobi) | "zebra"
@@ -115,6 +134,12 @@ class GMGConfig:
     # wide levels smooth with Chebyshev unless the smoother is "jacobi"
     transfer: str = "constant"
     transfer_floor: float = 0.75      # parent-weight floor of weighted P
+    # grid decomposition: levels at or below this many cells are replicated
+    # on every rank (one all-gather at the restriction that crosses it)
+    replicate_below: int = 4096
+    # the GridMesh of a decomposed hierarchy (None: the data's, if any); the
+    # fused subtree is refused when it has more than one rank
+    mesh: object | None = None
 
     def __post_init__(self):
         if self.cycle_type not in ("v", "w", "k"):
@@ -150,15 +175,25 @@ class GMGState:
     coarse_inv: torch.Tensor            # dense inverse of the coarsest operator
     batch: int = 0
     transfers: tuple = ()
+    # grid decomposition: the Block (at the smoothing ring) of each leading
+    # decomposed level, whose stencil is held on the extended block; the
+    # Block of gmg_apply's vectors (owned blocks of level 0), or None
+    blocks: tuple = ()
+    top: object | None = None
 
     def shape(self, level: int) -> tuple[int, ...]:
-        """The grid of ``level`` (without the batch axis)."""
+        """The grid of ``level`` as held (without the batch axis): a
+        decomposed level's extended block."""
         st = self.stencils[level]
         b = 1 if self.batch else 0
         t = _coef(st)
         # a scalar level has one leading channel axis, a wide one dim axes
         k = 1 if isinstance(st, ScalarStencil) else (t.dim() - b) // 2
         return tuple(t.shape[b + k:])
+
+    def gshape(self, level: int) -> tuple[int, ...]:
+        """The whole grid of ``level``."""
+        return self.blocks[level].shape if level < len(self.blocks) else self.shape(level)
 
     def member(self, m: int) -> "GMGState":
         """Member ``m`` of a batch as a hierarchy of its own (views)."""
@@ -324,8 +359,14 @@ def _lam(s, cfg: GMGConfig) -> torch.Tensor:
     return gershgorin_lambda_max(s)
 
 
-def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig()) -> GMGState:
-    """Build the multigrid hierarchy of one stencil (per Newton iteration)."""
+def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig(),
+              block=None) -> GMGState:
+    """Build the multigrid hierarchy of one stencil (per Newton iteration).
+    With ``block`` (a decomposed grid: ``st`` held on its extended block,
+    right in the owned rows) the hierarchy of the decomposition (see the
+    module's docstring)."""
+    if block is not None:
+        return _setup_blocks(st, cfg, block)
     stencils = [st]
     transfers = []
     while (math.prod(stencils[-1].grid_shape) > cfg.max_coarse_cells
@@ -392,6 +433,64 @@ def _smooth_level(state: GMGState, level: int, b, x, cfg: GMGConfig,
     return _smooth(state.stencils[level], state.lam_max[level], b, x, cfg, second=second)
 
 
+def check_decomposable(cfg: GMGConfig) -> None:
+    """Raise ``NotDecomposedError`` for an option a decomposed hierarchy
+    does not run (ROADMAP A5b)."""
+    from thermalporous_torch.dist.sharding import NotDecomposedError
+
+    for bad, what in ((cfg.smoother != "chebyshev", f"smoother={cfg.smoother!r}"),
+                      (cfg.transfer != "constant", f"transfer={cfg.transfer!r}"),
+                      (cfg.cycles != 1, f"cycles={cfg.cycles}")):
+        if bad:
+            raise NotDecomposedError(f"GMGConfig.{what}: not decomposed over ranks")
+
+
+def _setup_blocks(st: ScalarStencil, cfg: GMGConfig, block) -> GMGState:
+    """The hierarchy of a decomposed stencil: the levels' whole shapes and
+    factors as :func:`gmg_setup` walks them, the leading levels decomposed
+    while they may be, the rest replicated."""
+    check_decomposable(cfg)
+    mesh = block.mesh
+    if cfg.mesh is not None and cfg.mesh is not mesh:
+        raise ValueError("GMGConfig.mesh is not the mesh the data is decomposed over")
+    shapes, factors = [block.shape], []
+    while (math.prod(shapes[-1]) > cfg.max_coarse_cells and len(shapes) < cfg.max_levels
+           and any(n > 1 for n in shapes[-1])):
+        f = _level_factors(shapes[-1], cfg, level=len(shapes) - 1)
+        factors.append(f)
+        shapes.append(tuple(-(-n // 2) if k == 2 else n for n, k in zip(shapes[-1], f)))
+    blocks = []
+    b = block.with_width(cfg.degree + 1)
+    for level in range(len(shapes) - 1):
+        if (math.prod(shapes[level]) <= cfg.replicate_below or not b.fits()
+                or not b.aligned(factors[level])):
+            break
+        blocks.append(b)
+        b = b.coarsen(factors[level])
+    cur = ScalarStencil(block.owned(st.packed, lead=1))
+    if not blocks:
+        cur = ScalarStencil(block.gather(cur.packed, lead=1))
+    stencils, lam_max = [], []
+    for level in range(len(shapes)):
+        last = level == len(shapes) - 1
+        if level < len(blocks):
+            blk = blocks[level]
+            stencils.append(ScalarStencil(blk.extend(cur.packed, lead=1)))
+            lam_max.append(mesh.allreduce_max(gershgorin_lambda_max(cur)))
+            nxt = galerkin_coarsen(cur, factors[level])
+            if level + 1 == len(blocks):
+                nxt = ScalarStencil(blk.coarsen(factors[level]).gather(nxt.packed, lead=1))
+        else:
+            stencils.append(cur)
+            if not last:
+                lam_max.append(gershgorin_lambda_max(cur))
+            nxt = None if last else galerkin_coarsen(cur, factors[level])
+        cur = nxt
+    return GMGState(stencils=tuple(stencils), lam_max=tuple(lam_max),
+                    coarse_inv=dense_inv(stencils[-1].to_dense()),
+                    blocks=tuple(blocks), top=block.with_width(0))
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor, batch: int = 0) -> torch.Tensor:
     """⟨a, b⟩; with ``batch`` one per member, shaped to scale (batch, *grid)
     vectors member by member."""
@@ -411,9 +510,12 @@ def _fusable(state: GMGState, level: int, cfg: GMGConfig,
     Chebyshev only, on scalar levels with constant transfer."""
     if cfg.fuse_below <= 0 or cfg.smoother != "chebyshev" or state.transfers:
         return False
+    if ((cfg.mesh is not None and cfg.mesh.size > 1)
+            or (state.top is not None and state.top.mesh.size > 1)):
+        return False
     if any(is_wide(s) for s in state.stencils[level:]):
         return False
-    if math.prod(state.shape(level)) > cfg.fuse_below:
+    if math.prod(state.gshape(level)) > cfg.fuse_below:
         return False
     shapes = [state.shape(l) for l in range(level, len(state.stencils))]
     inv_numel = state.coarse_inv.numel() // max(state.batch, 1)
@@ -441,7 +543,7 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
     if _fusable(state, level, cfg, rc.dtype):
         return _fused_correction(state, level, rc, cfg)
     if (cfg.cycle_type == "v" or level == len(state.stencils) - 1
-            or math.prod(state.shape(level)) < cfg.kcycle_min_cells):
+            or math.prod(state.gshape(level)) < cfg.kcycle_min_cells):
         return _v_cycle(state, level, rc, cfg)
     if cfg.cycle_type == "w":
         # r1 = rc − A·e1 comes out of e1's post-smooth, which ran against rc
@@ -450,8 +552,12 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
     # K-cycle: flexible CG(2) on A_level preconditioned by one cycle; each
     # product A·e comes out of the cycle's post-smooth.  A batch's scalars
     # are per member (the guards selects per member, as the reference's
-    # vmapped jnp.where)
-    dot = lambda a, b: _vdot(a, b, state.batch)
+    # vmapped jnp.where); a decomposed level's dots go through the mesh
+    if level < len(state.blocks):
+        mesh = state.blocks[level].mesh
+        dot = lambda a, b: mesh.allreduce_sum(_vdot(a, b))
+    else:
+        dot = lambda a, b: _vdot(a, b, state.batch)
     e1, v1 = _v_cycle(state, level, rc, cfg, second="product")
     rho1 = dot(v1, e1)
     alpha1 = dot(rc, e1)
@@ -481,6 +587,8 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     A_level·e ("product") from its post-smooth."""
     if level == len(state.stencils) - 1:
         return _coarsest_solve(state, b)
+    if level < len(state.blocks):
+        return _v_cycle_block(state, level, b, cfg, second)
     lead = 1 if state.batch else 0
     fine = state.shape(level)
     coarse = state.shape(level + 1)
@@ -498,12 +606,55 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     return _smooth_level(state, level, b, x, cfg, second=second)
 
 
+def _smooth_block(state: GMGState, level: int, b_ext, x, cfg: GMGConfig,
+                  second: str | None = None):
+    """:func:`_smooth` of decomposed ``level`` on the extended block: ``b``
+    already extended, ``x`` (owned or None) extended here; the owned rows
+    of its output(s)."""
+    blk = state.blocks[level]
+    x_ext = None if x is None else blk.extend(x, lead=0)
+    out = _smooth(state.stencils[level], state.lam_max[level], b_ext, x_ext, cfg,
+                  second=second)
+    if second is None:
+        return blk.owned(out, lead=0)
+    return blk.owned(out[0], lead=0), blk.owned(out[1], lead=0)
+
+
+def _v_cycle_block(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
+                   second: str | None = None):
+    """:func:`_v_cycle` from decomposed ``level``, on owned vectors: the
+    restriction and prolongation block by block, the restricted residual
+    all-gathered onto a replicated next level and the rank's part cut back
+    out of its correction."""
+    blk = state.blocks[level]
+    fine = blk.owned_shape
+    factors = tuple(2 if c < f else 1 for f, c in zip(state.gshape(level),
+                                                      state.gshape(level + 1)))
+    b_ext = blk.extend(b, lead=0)
+    x, r = _smooth_block(state, level, b_ext, None, cfg, second="residual")
+    rc = _blocksum(r, fine, factors)
+    replicate = level + 1 == len(state.blocks)
+    coarse = blk.coarsen(factors)
+    if replicate:
+        rc = coarse.gather(rc, lead=0)
+    ec = _coarse_correction(state, level + 1, rc, cfg)
+    if replicate:
+        ec = coarse.cut(ec, lead=0, ghosts=False)
+    x = x + _prolong(ec, fine, factors)
+    return _smooth_block(state, level, b_ext, x, cfg, second=second)
+
+
 def gmg_apply(state: GMGState, b: torch.Tensor,
               cfg: GMGConfig = GMGConfig()) -> torch.Tensor:
     """Approximate A⁻¹b with ``cfg.cycles`` cycles, each after the first on
     the residual of the sum so far (of every member of a batched
     ``state``, ``b`` then (batch, *grid); with transfers member by
-    member)."""
+    member).  A decomposed hierarchy takes and returns owned blocks; one
+    replicated from level 0 gathers ``b`` and cuts the rank's part out."""
+    if state.top is not None and not state.blocks:
+        whole = dataclasses.replace(state, top=None)
+        return state.top.cut(gmg_apply(whole, state.top.gather(b, lead=0), cfg),
+                             lead=0, ghosts=False)
     if state.batch and state.transfers:
         return _each(state, lambda s, bb: gmg_apply(s, bb, cfg), b)
     x = _v_cycle(state, 0, b, cfg)

@@ -91,6 +91,9 @@ def adjoint_gradients(
     (:func:`~thermalporous_torch.solve.deflate.fgmres_dr`, classic CGS2);
     ``orth`` the Gram–Schmidt form otherwise ("cgs2", "cgs1", "cgs2g",
     "cgs2g2")."""
+    from thermalporous_torch.dist.sharding import refuse_decomposed
+
+    refuse_decomposed(data, "adjoint_gradients")
     if terminal is None and running is None:
         raise ValueError("need at least one of terminal/running objective")
     n = len(dts)
@@ -164,6 +167,9 @@ def ensemble_adjoint_gradients(
     ``ksp_iters`` their sum, the reference's lockstep count; ``converged``
     holds when every member's every solve converged.  An adaptive coarsening
     schedule must be planned first, as for ``make_ensemble_step_fn``."""
+    from thermalporous_torch.dist.sharding import refuse_decomposed
+
+    refuse_decomposed(data_e, "ensemble_adjoint_gradients")
     if terminal is None and running is None:
         raise ValueError("need at least one of terminal/running objective")
     refuse_adaptive(pc_cfg, "adjoints")

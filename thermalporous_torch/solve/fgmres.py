@@ -22,6 +22,11 @@ decided on the host).  ``orth_gram=3`` and ``2`` are the low-synchronization
 CGS2 of the reference's ``cgs2g`` and ``cgs2g2``: the second projection
 from the carried Gram matrix of the stored basis, whose new column comes
 from real dots (3) or algebraically (2).
+
+Over a grid decomposition (``mesh``) the vectors are owned blocks and
+every dot product, norm and projection is the rank's partial summed by
+``mesh.allreduce_sum``: every rank then holds the same Hessenberg column
+and stops at the same iteration.
 """
 
 from __future__ import annotations
@@ -46,16 +51,21 @@ class FGMRESResult:
     breakdown: bool           # Arnoldi breakdown before convergence
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _allsum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``mesh`` (``t`` itself without)."""
+    return t if mesh is None else mesh.allreduce_sum(t)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """Global dot product (f64 accumulation for f32), in a's dtype."""
     rd = reduce_dtype(a.dtype)
-    return torch.dot(a.reshape(-1).to(rd), b.reshape(-1).to(rd)).to(a.dtype)
+    return _allsum(mesh, torch.dot(a.reshape(-1).to(rd), b.reshape(-1).to(rd))).to(a.dtype)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
+def _norm(a: torch.Tensor, mesh=None) -> torch.Tensor:
     rd = reduce_dtype(a.dtype)
     q = a.reshape(-1).to(rd)
-    return torch.sqrt(torch.dot(q, q)).to(a.dtype)
+    return torch.sqrt(_allsum(mesh, torch.dot(q, q))).to(a.dtype)
 
 
 def fgmres(
@@ -72,6 +82,7 @@ def fgmres(
     orth_passes: int = 2,
     orth_selective: bool = False,
     orth_gram: int = 0,
+    mesh=None,
 ) -> FGMRESResult:
     """Solve A x = b from ``x0`` (None = zero, and no matvec); stop when the
     Givens residual estimate is ≤ max(rtol·‖b‖, atol) or after ``maxiter``
@@ -83,7 +94,7 @@ def fgmres(
     if precond is None:
         precond = lambda r: r
     orth = dict(basis_dtype=basis_dtype, orth_passes=orth_passes,
-                orth_selective=orth_selective, orth_gram=orth_gram)
+                orth_selective=orth_selective, orth_gram=orth_gram, mesh=mesh)
     if restart is not None and int(restart) < int(maxiter):
         if iter_cap is not None:
             raise ValueError("iter_cap cannot be combined with restart")
@@ -100,10 +111,11 @@ def fgmres(
     if x0 is None:
         # cold start: r0 = b, no matvec
         r0 = b
-        beta = b_norm = npt(_norm(b).item())
+        beta = b_norm = npt(_norm(b, mesh).item())
     else:
         r0 = b - matvec(x0)
-        beta, b_norm = (npt(v) for v in torch.stack([_norm(r0), _norm(b)]).cpu().numpy())
+        beta, b_norm = (npt(v) for v in
+                        torch.stack([_norm(r0, mesh), _norm(b, mesh)]).cpu().numpy())
     tol = np.maximum(npt(rtol) * b_norm, npt(atol))
     jmax = m if iter_cap is None else min(m, int(iter_cap))
 
@@ -119,11 +131,11 @@ def fgmres(
     if orth_gram:
         G = torch.zeros((m + 1, m + 1), dtype=rd, device=dev)
         v0 = V[0].to(dtype)
-        G[0, 0] = _dot(v0, v0).to(rd)
+        G[0, 0] = _dot(v0, v0, mesh).to(rd)
 
     def proj(Vs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """One read of the active basis: the dots <V_i, x>."""
-        return torch.mv(Vs.to(dtype), x)
+        return _allsum(mesh, torch.mv(Vs.to(dtype), x))
 
     def recon(Vs: torch.Tensor, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """One read of the active basis: x − Σ_i h_i V_i."""
@@ -142,20 +154,20 @@ def fgmres(
             hr = c1r + (c1r - G[: j + 1, : j + 1] @ c1r)
             h = hr.to(dtype)
             w = recon(Vs, h, w)
-            h_next = _norm(w)
+            h_next = _norm(w, mesh)
         else:
             h = proj(Vs, w)
             w = recon(Vs, h, w)
             if orth_passes >= 2 and orth_selective:
                 # reorthogonalize only when the first pass cancelled more
                 # than 1 − 1/√2 of w: ‖w_pre‖² = ‖h‖² + ‖w₁‖²
-                h1n = _norm(w)
+                h1n = _norm(w, mesh)
                 hh = torch.sum((h * h).to(rd)).to(dtype)
                 if bool(h1n * h1n < 0.5 * (hh + h1n * h1n)):
                     h2 = proj(Vs, w)
                     w = recon(Vs, h2, w)
                     h = h + h2
-                    h_next = _norm(w)
+                    h_next = _norm(w, mesh)
                 else:
                     h_next = h1n
             else:
@@ -163,7 +175,7 @@ def fgmres(
                     h2 = proj(Vs, w)
                     w = recon(Vs, h2, w)
                     h = h + h2
-                h_next = _norm(w)
+                h_next = _norm(w, mesh)
         brk = h_next <= tiny
         V[j + 1] = torch.where(brk, 0.0, w / torch.where(brk, 1.0, h_next)).to(bd)
         if orth_gram == 3:

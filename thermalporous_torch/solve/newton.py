@@ -24,6 +24,11 @@ hand-written block-matvec kernel, and Krylov recycling (``ksp_recycle``
 one solve, each linear solve deflated by the slowest modes harvested from
 the one before, ``solve/deflate.py``; it takes "cgs1" or, for every other
 ``ksp_orth``, classic CGS2, and refuses ``ksp_restart``).
+
+Over a grid decomposition (``mesh``) the iterates are owned blocks and
+every norm is the ranks' partials summed by ``mesh.allreduce_sum`` (the RMS
+form divides by the whole grid's count), so that every rank takes the same
+branch of every test.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 
 from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
-from thermalporous_torch.solve.fgmres import _NP, fgmres
+from thermalporous_torch.solve.fgmres import _NP, _allsum, fgmres
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +109,7 @@ def newton_solve(
     norm_from: torch.Tensor | None = None,
     chop: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     jvp_at: Callable[[torch.Tensor], Callable[[torch.Tensor], torch.Tensor]] | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, NewtonStats]:
     """Solve residual(u) = 0 from ``u0``.
 
@@ -122,15 +128,19 @@ def newton_solve(
     dtype = u0.dtype
     npt = _NP[dtype]
     rd = reduce_dtype(dtype)
+    allsum = lambda t: _allsum(mesh, t)
     if scale is None:
         def norm(f):
             q = f.reshape(-1).to(rd)
-            return npt(torch.sqrt(torch.dot(q, q)).to(dtype).item())
+            return npt(torch.sqrt(allsum(torch.dot(q, q))).to(dtype).item())
         atol = cfg.atol
     else:
+        count = u0.numel() if mesh is None else int(
+            mesh.allreduce_sum(torch.tensor(u0.numel(), dtype=torch.int64)))
+
         def norm(f):
             q = (f / scale).reshape(-1).to(rd)
-            return npt(torch.sqrt(torch.dot(q, q) / q.numel()).to(dtype).item())
+            return npt(torch.sqrt(allsum(torch.dot(q, q)) / count).to(dtype).item())
         atol = max(cfg.atol, 50.0 * float(torch.finfo(dtype).eps))
 
     f0 = residual(u0)
@@ -189,7 +199,7 @@ def newton_solve(
             result = fgmres(
                 matvec, rhs, precond=krylov_pc, rtol=rtol_k, atol=cfg.ksp_atol,
                 maxiter=cfg.ksp_maxiter, restart=cfg.ksp_restart, basis_dtype=basis,
-                **orth,
+                mesh=mesh, **orth,
             )
         dx = result.x
         if chop is not None:

@@ -22,6 +22,17 @@ Blocked stepping (``TimeConfig.block_steps > 1``, :func:`make_block_step_fn`)
 advances several controller steps per call with the reference's in-block
 controller and records, and :meth:`Simulator.run_schedule` runs
 piecewise-constant well and heater controls.
+
+Over a grid decomposition the data is
+:func:`~thermalporous_torch.dist.sharding.shard_problem_data`'s and the
+states :func:`~thermalporous_torch.dist.sharding.shard_state`'s (this
+rank's extended blocks): the step extends each Newton iterate by one
+exchange, evaluates the residual and assembles the Jacobian on the extended
+block, keeps the owned rows, and runs Newton and FGMRES on owned blocks
+with every reduction through the mesh, so that the Δt controller, its
+retries and its failure-memory cap take the same values on every rank.
+Options the decomposition does not run raise ``NotDecomposedError``
+(:func:`check_decomposable`).
 """
 
 from __future__ import annotations
@@ -33,13 +44,17 @@ from typing import Callable
 import torch
 
 from thermalporous_torch._device import require_cuda
+from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil
 from thermalporous_torch.kernels.residual import fused_jvp, fused_residual
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.precond.cpr import (
     CPRConfig,
+    cpr_apply,
+    cpr_setup,
     make_preconditioner,
     resolve_adaptive_coarsening,
 )
+from thermalporous_torch.precond.cpr import check_decomposable as check_cpr
 from thermalporous_torch.solve.newton import NewtonConfig, NewtonStats, newton_solve
 
 
@@ -54,6 +69,8 @@ def make_step_fn(
     for tensors on ``device`` (``dt`` a Python float in seconds)."""
     device = require_cuda(device)
     pc_setup, pc_apply = make_preconditioner(precond, pc_cfg)
+    cfg = dataclasses.replace(pc_cfg or CPRConfig(), variant=precond.lower()) \
+        if precond.lower() in ("cpr", "cptr") else None
 
     chop = None
     if newton_cfg.ds_max is not None and model.nc >= 3:
@@ -72,6 +89,9 @@ def make_step_fn(
             if t.device.type != device.type:
                 raise ValueError(f"make_step_fn({device}): tensor on {t.device}")
         dt = float(dt)
+        if getattr(data, "block", None) is not None:
+            check_decomposable(precond, newton_cfg, pc_cfg)
+            return _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess)
         return newton_solve(
             residual=lambda u: fused_residual(model, u, u_old, dt, data),
             jvp_at=lambda u: (lambda v: fused_jvp(model, u, v, u_old, dt, data)),
@@ -86,6 +106,57 @@ def make_step_fn(
         )
 
     return advance
+
+
+def check_decomposable(precond: str, newton_cfg: NewtonConfig,
+                       pc_cfg: CPRConfig | None) -> None:
+    """Raise ``NotDecomposedError`` for a step option the grid
+    decomposition does not run over ranks (ROADMAP A5b)."""
+    from thermalporous_torch.dist.sharding import NotDecomposedError
+
+    if precond.lower() not in ("cpr", "cptr"):
+        raise NotDecomposedError(f"precond={precond!r}: not decomposed over ranks")
+    refused = ((newton_cfg.krylov_op == "jvp", 'krylov_op="jvp"'),
+               (newton_cfg.ksp_recycle > 0, f"ksp_recycle={newton_cfg.ksp_recycle}"),
+               (newton_cfg.ksp_orth in ("cgs1", "cgs2s"), f"ksp_orth={newton_cfg.ksp_orth!r}"))
+    for bad, what in refused:
+        if bad:
+            raise NotDecomposedError(f"NewtonConfig.{what}: not decomposed over ranks")
+    check_cpr(pc_cfg or CPRConfig())
+
+
+def _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess):
+    """One step over a grid decomposition (see the module's docstring):
+    ``u_old``, ``u_guess`` and the result are extended blocks, Newton's
+    iterates owned blocks."""
+    from thermalporous_torch.dist.halo import HaloStencil
+    from thermalporous_torch.dist.sharding import block_model
+
+    blk = data.block
+    model = block_model(model, blk)
+    last = {}
+
+    def ext(u):
+        # the extended iterate, exchanged once: the residual of an accepted
+        # line-search trial and the next assembly share it
+        if last.get("u") is not u:
+            last.update(u=u, ext=blk.extend(u, lead=1))
+        return last["ext"]
+
+    u_own = blk.owned(u_old, lead=1)
+    u, stats = newton_solve(
+        residual=lambda u: blk.owned(fused_residual(model, ext(u), u_old, dt, data), lead=1),
+        assemble=lambda u: HaloStencil(model.assemble_stencil(ext(u), u_old, dt, data), blk),
+        pc_setup=lambda op: cpr_setup(op.st, cfg, block=blk),
+        pc_apply=lambda state, r: cpr_apply(state, r, cfg),
+        u0=u_own if u_guess is None else blk.owned(u_guess, lead=1),
+        cfg=newton_cfg,
+        scale=blk.owned(model.residual_scales(u_old, dt, data), lead=1),
+        norm_from=None if u_guess is None else u_own,
+        chop=chop,
+        mesh=blk.mesh,
+    )
+    return ext(u), stats
 
 
 @dataclasses.dataclass
@@ -265,15 +336,26 @@ class Simulator:
         self.data = data
         self.newton_cfg = newton_cfg
         self.time_cfg = time_cfg
+        blk = getattr(data, "block", None)
+        if blk is not None:
+            from thermalporous_torch.dist.sharding import block_model
+
+            check_decomposable(precond, newton_cfg, pc_cfg)
+            self.model = model = block_model(model, blk)
         if pc_cfg is not None and (
             pc_cfg.gmg.coarsen == "adaptive"
             or (pc_cfg.gmg_t is not None and pc_cfg.gmg_t.coarsen == "adaptive")
         ):
             # bake the matrix-dependent coarsening schedule once, from the
-            # initial state's Jacobian at dt_init
+            # initial state's Jacobian at dt_init (decomposed: the owned
+            # rows, each decoupled block gathered whole on every rank)
             u0 = model.initial_state(data)
             st = model.assemble_stencil(u0, u0, float(time_cfg.dt_init), data)
-            pc_cfg = resolve_adaptive_coarsening(st, pc_cfg)
+            gather = None
+            if blk is not None:
+                st = BlockStencil(blk.owned(st.coef, lead=3))
+                gather = lambda s: ScalarStencil(blk.gather(s.packed, lead=1))
+            pc_cfg = resolve_adaptive_coarsening(st, pc_cfg, gather=gather)
         self.pc_cfg = pc_cfg
         self._precond_name = precond
         self._advance = make_step_fn(model, precond, newton_cfg, pc_cfg,

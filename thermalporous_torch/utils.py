@@ -35,11 +35,15 @@ def _leaves(tree):
     return [tree]
 
 
-def all_finite(tree) -> bool:
+def all_finite(tree, mesh=None) -> bool:
     """True iff every tensor leaf is free of NaN/Inf (one device-to-host
-    read per leaf)."""
-    return all(bool(torch.isfinite(leaf).all()) for leaf in _leaves(tree)
-               if isinstance(leaf, torch.Tensor))
+    read per leaf); over a grid decomposition (``mesh``, leaves the ranks'
+    blocks) iff every rank's are, the same answer on every rank."""
+    ok = all(bool(torch.isfinite(leaf).all()) for leaf in _leaves(tree)
+             if isinstance(leaf, torch.Tensor))
+    if mesh is None:
+        return ok
+    return not bool(mesh.allreduce_max(torch.tensor(0 if ok else 1)))
 
 
 def assert_all_finite(tree, name: str = "array") -> None:

@@ -58,7 +58,7 @@ def build(name, max_threads, min_blocks, carveout):
             print(f"  {name} ptxas {row}", flush=True)
     lib = ctypes.CDLL(str(out_dir / "lib.so"))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tp_stage2_rbgs.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.tp_stage2_rbgs.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     return lib
 
 
@@ -87,7 +87,7 @@ def main() -> int:
                         err = lib.tp_stage2_rbgs(
                             _lib.dtype_code(r), st.coef.data_ptr(), dinv.data_ptr(),
                             r.data_ptr(), x1.data_ptr(), out.data_ptr(), 3, 2, len(shape),
-                            *_lib.dims3(shape), plan.ty, plan.tz, plan.lx, _lib.stream_of(r))
+                            *_lib.dims3(shape), plan.ty, plan.tz, plan.lx, 0, _lib.stream_of(r))
                         if err:
                             raise SystemExit(f"{name}: CUDA error {err}")
                         return out
