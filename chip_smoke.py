@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py [--json PATH] [--phases 2,5]
 
-Phases (each prints one line with its wall time):
+Phases (each prints one line with its wall time; every CPU run that a
+GPU-against-CPU check of phases 5 and 8-15 needs is a task of one pool of
+3 worker processes started before phase 5, those of phases 10-15
+submitted at phase 10, in the order the phases need them, so that no
+phase waits for its CPU run):
   0  device: CUDA device name, and name/power limit from nvidia-smi;
   1  build: compile csrc/*.cu with nvcc (one process per source, all
      started together) into thermalporous_torch/_build/; prints ptxas's
@@ -91,26 +95,27 @@ Phases (each prints one line with its wall time):
      (block matvec at nc = 3 and at nc = 2, stage 2 at k = 3), beside phase
      6's counts; (c) every solver option of the parity tests on the
      flagship configuration at 12x22x9, f64, 1 controller step on the GPU
-     and on the CPU (tasks of a pool of worker processes): the counts must
+     (tasks of a pool of worker processes) and on the CPU: the counts must
      agree, and the stage-2 route each took on the card is printed;
  11  the run_case path: (a) thermalporous_torch.run_case.main in this
-     process on tp_spe10_full at 60x220x85, f32, for 3 steps with a
+     process on tp_spe10_full at 60x220x85, f32, for 2 steps with a
      checkpoint and a VTK frame every step, JSONL metrics and the balance
-     audit: per-step counts and walls, cell-updates/s over steps 2-3, the
+     audit: per-step counts and walls, cell-updates/s over step 2, the
      ms of each checkpoint, frame (about 13.5 MB each; the native VTI
      writer must write every frame) and audit call, the balance rows
      (complete, finite), every flagship kernel launched; then --resume from
-     the step-2 checkpoint, whose step-3 checkpoint must equal the
+     the step-1 checkpoint, whose step-2 checkpoint must equal the
      uninterrupted run's bit for bit; then python -m
-     thermalporous_torch.run_case on tp_thermal_2d in a subprocess; (b) the
-     flagship configuration at 12x22x9, f64, in blocks of 3 for 6 steps on
+     thermalporous_torch.run_case on tp_thermal_2d in a subprocess beside
+     (b) and (c); (b) the
+     flagship configuration at 12x22x9, f64, in blocks of 2 for 4 steps on
      the GPU and the CPU (dt, counts and the state-consistent pattern must
      agree) and the host loop on the GPU (the same records, final state and
      balance audit); (c) tp_thermal_2d at 60x60, f64, under two control
      segments (the producer shut in halfway) on the GPU and the CPU: counts
      must agree, a step must land on the boundary, the balance audit must
-     close below 1e-9; the CPU runs of (b) and (c) and the card's host-loop
-     run in three worker processes at the same time as the rest;
+     close below 1e-9; the card's host-loop run in a worker process at the
+     same time as the rest;
  12  bf16 coefficients and the batched p/T traversal: (a) every kernel that
      reads preconditioner coefficients (block matvec at nc = 3, k = 2 and 3
      and on the (p, T) stencil, the scalar matvec, the smooth from x0 and
@@ -121,14 +126,15 @@ Phases (each prints one line with its wall time):
      cases on f32 coefficients (phases 2 and 10(b)'s rows when they ran);
      (b) the flagship's first step (600 s) in each storage mode (phase 6
      has the f32 one), tp_spe10_full at 60x220x85, f32, with
-     pc_dtype="bf16" for 2 controller steps (every step converges; counts
+     pc_dtype="bf16" for one controller step from 300 s (its 600 s attempt
+     fails: the first step above; it converges; counts
      beside the f32 run's), one CPTR apply in each storage mode in turns,
      peak memory, every bf16 kernel of the path launched; (c) bench.py's
      step with pc_dtype="bf16" (the 600 s step and one doubling); (d) the
      flagship with batch_pt: one apply bitwise equal to the sequential
      block-diagonal one with half its smooth and subtree launches, the
      batched smooth and subtree beside their two sequential launches
-     (bitwise), then 2 controller steps; (e) the storage modes and batch_pt
+     (bitwise), then one controller step; (e) the storage modes and batch_pt
      among phase 10(c)'s options, GPU against CPU (run here when phase 10
      is not);
  13  transfers, bgmg, recycling and the adjoint: (a) the GMG set-up and one
@@ -137,19 +143,22 @@ Phases (each prints one line with its wall time):
      apply ms, each level's class and widths, the launches of an apply: the
      smooth on the finest level, no fused subtree under a weighted or
      variational transfer), the CPTR set-up and apply with each, then the
-     flagship's first step (600 s) with "variational" on both hierarchies;
+     flagship's first step with "variational" on both hierarchies, at the
+     300 s its controller falls back to (its 600 s attempt fails, as the
+     reference's does);
      (b) the bgmg hierarchy of the flagship Jacobian (levels, set-up, one
      bgmg stage 2 beside the rbgs stage 2 and the CPTR apply with each),
-     then tp_spe10_full with stage2="bgmg" for 2 controller steps: counts
+     then tp_spe10_full with stage2="bgmg" for one controller step from
+     300 s (its 600 s attempt fails, as the reference's does): counts
      beside phase 6's, walls, cell-updates/s, peak memory, the red-black
      kernels' launches by level (each > 0); (c) the flagship with
-     ksp_recycle=4 for 2 steps: counts beside phase 6's, the ms of each
+     ksp_recycle=4 for one step: counts beside phase 6's, the ms of each
      prepare_recycle and harvest, peak memory; (d) the adjoint: the
      flagship configuration at 12x22x9, f64, 3 recorded steps, a terminal
-     and a running objective, on the CPU (a worker process) and the GPU:
+     and a running objective, on the CPU and the GPU:
      equal FGMRES counts per backward step, gradients within 1e-8, and a
      central-difference probe on tgeo[0] on the card within 1e-5; then the
-     flagship (60x220x85, f32) over its first 2 accepted steps with rtol
+     flagship (60x220x85, f32) over its first accepted step with rtol
      1e-5: converged, FGMRES per backward step, the wall per step split into
      assembly, the CPTR set-up on the transpose and FGMRES with the VJP's
      ms per transposed product, peak memory, every CPTR kernel launched on
@@ -167,18 +176,19 @@ Phases (each prints one line with its wall time):
      0, one 600 s step of every member through make_ensemble_step_fn: each
      member's state and counts bitwise its solo step, its launches those of
      its solo run, every flagship kernel launched; the wall of each member,
-     cell-updates/s over the ensemble, peak memory; (b) the ensemble adjoint
+     cell-updates/s over the ensemble, peak memory (the solo steps run after
+     the ensemble's, beside (c) and (d)'s card processes); (b) the ensemble adjoint
      at 12x22x9, f64, the same members, Δt 600 and 1200 s, a terminal and a
-     running objective, on the card and on the CPU (a worker process): equal
+     running objective, on the card and on the CPU: equal
      per-member forward and backward counts and lockstep count, gradients
      within 1e-12, each member bitwise its solo sweep on the card; (c) python
      -m thermalporous_torch.iteration_study --steps 1 and (d) python -m
      thermalporous_torch.custom_case --days 0.05, each in a subprocess on
-     the card and with --device cpu, started after (a) so that nothing else
-     runs on the host while (a) is timed, beside (b): every line
+     the card, started after (a)'s ensemble step so that no other process
+     holds the card while it is timed, beside (a)'s solo steps and (b), and
+     with --device cpu: every line
      of the study's table equal, the custom case's lines equal, and its
-     records equal and well rates within 1e-12 in process (the CPU in a
-     worker);
+     records equal and well rates within 1e-12 in process;
  15  the grid decomposition: (a) the block matvec, scalar matvec, smooth
      (degree 4, second output), stage 2 and half-sweep on a block of the
      flagship grid whose extended origin has an odd index sum, bitwise the
@@ -198,8 +208,31 @@ Phases (each prints one line with its wall time):
      all-gathers per Newton, the ms of a host-staged exchange and each
      rank's wall; (c)
      dryrun_multichip(4, device="cuda", backend="gloo") in f64, both
-     scenarios, in a subprocess started with the phase.  The kernels are
-     built once (phase 1) before any rank starts.
+     scenarios, in a subprocess started with the phase; (d) tp_spe10_inner
+     (60x220x85, f32, fuse_below=150000) split 2x2 over the same four gloo
+     ranks after (b), its first 600 s step: every rank's (Newton, FGMRES) equal to
+     the undecomposed card step's (phase 10(b)'s first step when phase 10
+     ran, else run here), the block matvec (at nc = 3 and the inner
+     operator's nc = 2), scalar matvec, smooth, residual and stage 2 at
+     k = 3 launched on every rank and the fused subtree on none, the
+     gathered state under the undecomposed Newton test, exchanges,
+     all-reduces and all-gathers per Newton and each rank's wall; (e) the
+     options the stage-2 and Krylov slice lifted (jacobi2 with "cgs1",
+     two rbgs sweeps, bgmg with its finest level decomposed, zebra along z
+     with "cgs2s", the saturation leg, two inner iterations of each
+     method, ksp_recycle=4) over the same ranks after (d), in f64 at
+     12x22x9 (phase 10(c)'s configuration, levels above 1000 cells
+     decomposed), one 600 s step each against the CPU's undecomposed step:
+     equal (Newton, FGMRES, converged) on every rank, the gathered state
+     within the reference tests' bands (p 10 Pa, S 1e-8) — ksp_recycle=4
+     under the flagship's loose tolerances, whose CPU step moves further
+     under a one-ulp change of its input (decomp_sensitivity.py
+     --recycle), to the undecomposed Newton test instead, and again under
+     the reference check's tolerances to the bands — bgmg's zero-start
+     sweep (the stage 2 at k = 0) and half-sweeps launched on every rank.
+     (b), (d) and (e) are one spawn, so that no other ranks share the card
+     with them.  The kernels are built once (phase 1) before any rank
+     starts.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -208,7 +241,8 @@ half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
 kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
 phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
 and batched instantiations, phase 13's bgmg run by level and its full-size
-adjoint, phase 14(a)'s ensemble step, rank 0's step in phase 15(b)), and
+adjoint, phase 14(a)'s ensemble step, rank 0's steps in phase 15(b) and
+(d), rank 0's bgmg and two-sweep runs in phase 15(e)), and
 as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
@@ -306,7 +340,7 @@ JVP_STEPS = 2          # phase-9 controller steps of the full-size jvp runs
 # the plain versions' timing in phase 2's rows: fewer calls than the
 # kernels' (the plain J(u)v takes 100-180 ms a call; 23 calls of every
 # plain version were ~85 s of the script)
-PLAIN_REPS = 5
+PLAIN_REPS = 2
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and FP32 outside the
 # tensor cores; the bound of a call is the larger of bytes/peak and ops/peak
@@ -376,6 +410,12 @@ def ptxas_summary(log: str) -> list:
                 cut = nm.rfind(">(") + 1 if ">(" in nm else nm.find("(")
                 r[0] = (nm[:cut] if cut > 0 else nm).replace("void ", "").replace("tp::", "")
     return [tuple(r) for r in rows]
+
+
+def over_steps(n: int) -> str:
+    """How a rate over a run of ``n`` controller steps is taken: over the
+    steps after the first, or over the one step, set-up included."""
+    return f"over steps 2-{n}" if n > 1 else "over its one step"
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -1498,54 +1538,80 @@ def with_krylov_op(case, krylov_op: str):
     return dataclasses.replace(case.newton_cfg, krylov_op=krylov_op)
 
 
-def gpu_cpu_counts(name: str, kernels: tuple, steps: int = 3, krylov_op: str = "stencil",
-                   pc_overrides: dict | None = None, stage2_sweeps: int | None = None,
-                   **case_kw) -> dict:
-    """Preset ``name`` (keywords ``case_kw``; with ``stage2_sweeps``, that
-    many stage-2 sweeps) in f64 through the Simulator on each device for
-    ``steps`` controller steps; the (dt, Newton, FGMRES, retries) records per
-    device, and the card's launches under "launches".  On the card each of
-    ``kernels`` must launch."""
+# phases 5, 8 and 9: the GPU-against-CPU count checks by name: (preset,
+# controller steps, Krylov operator, GMG overrides, stage-2 sweeps, the
+# preset's size keywords), each in f64
+COUNT_CASES = {
+    "flagship": ("tp_spe10_full", SMALL_STEPS, "stencil", SMALL_GMG, None,
+                 dict(shape=FLAGSHIP_SMALL)),
+    "flagship sweeps=2": ("tp_spe10_full", SMALL_STEPS, "stencil", SMALL_GMG, 2,
+                          dict(shape=FLAGSHIP_SMALL)),
+    "sp_hot_injection_2d": ("sp_hot_injection_2d", 3, "stencil", None, None, {}),
+    "flagship jvp": ("tp_spe10_full", SMALL_STEPS, "jvp", SMALL_GMG, None,
+                     dict(shape=FLAGSHIP_SMALL)),
+}
+
+
+def counts_run(key: str, device: str) -> tuple:
+    """COUNT_CASES entry ``key`` through the Simulator on ``device``: the
+    (dt, Newton, FGMRES, retries) records and, on the card, the launches."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
 
-    out = {}
-    for d in ("cpu", "cuda"):
-        case = get_case(name, device=d, dtype=torch.float64, **case_kw)
-        pc = case.pc_cfg if pc_overrides is None else with_fuse(case.pc_cfg, **pc_overrides)
-        if stage2_sweeps is not None:
-            pc = dataclasses.replace(pc, stage2_sweeps=stage2_sweeps)
-        sim = case.simulator(newton_cfg=with_krylov_op(case, krylov_op), pc_cfg=pc)
-        reset_launch_counts()
-        res = sim.run(case.t_end, max_steps=steps)
-        out[d] = [(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records]
-        if d == "cuda":
-            out["launches"] = launch_counts()
-            print(f"  cuda launches {out['launches']}")
-            missing = [k for k in kernels if out["launches"][k] <= 0]
-            if missing:
-                raise SystemExit(f"{name} {krylov_op}: launched no {missing}")
+    name, steps, krylov_op, pc_overrides, stage2_sweeps, case_kw = COUNT_CASES[key]
+    case = get_case(name, device=device, dtype=torch.float64, **case_kw)
+    pc = case.pc_cfg if pc_overrides is None else with_fuse(case.pc_cfg, **pc_overrides)
+    if stage2_sweeps is not None:
+        pc = dataclasses.replace(pc, stage2_sweeps=stage2_sweeps)
+    sim = case.simulator(newton_cfg=with_krylov_op(case, krylov_op), pc_cfg=pc)
+    reset_launch_counts()
+    res = sim.run(case.t_end, max_steps=steps)
+    return ([(r.dt, r.newton_iters, r.ksp_iters, r.retries) for r in res.records],
+            launch_counts() if device == "cuda" else None)
+
+
+def _counts_cpu_task(key: str) -> list:
+    """The CPU's records of COUNT_CASES entry ``key`` (a task of the
+    references' pool)."""
+    torch.set_num_threads(1)
+    return counts_run(key, "cpu")[0]
+
+
+def gpu_cpu_counts(key: str, kernels: tuple, refs: dict | None) -> dict:
+    """COUNT_CASES entry ``key`` on the card and on the CPU (from the
+    references' pool ``refs``, else run here): the records per device, and
+    the card's launches under "launches".  On the card each of ``kernels``
+    must launch, and the records must agree."""
+    cuda, launches = counts_run(key, "cuda")
+    out = {"cpu": (refs[("counts", key)].get(timeout=1200) if refs is not None
+                   else counts_run(key, "cpu")[0]), "cuda": cuda, "launches": launches}
+    print(f"  cuda launches {out['launches']}")
+    missing = [k for k in kernels if out["launches"][k] <= 0]
+    if missing:
+        raise SystemExit(f"{key}: launched no {missing}")
     if out["cpu"] != out["cuda"]:
-        raise SystemExit(f"{name} {krylov_op}: cpu {out['cpu']} != cuda {out['cuda']}")
+        raise SystemExit(f"{key}: cpu {out['cpu']} != cuda {out['cuda']}")
     return out
 
 
-def flagship_parity(krylov_op: str = "stencil", stage2_sweeps: int | None = None) -> dict:
+def flagship_parity(refs: dict | None, krylov_op: str = "stencil",
+                    stage2_sweeps: int | None = None) -> dict:
     """Phase 5 (and 9): the flagship configuration at FLAGSHIP_SMALL, f64,
     through the Simulator on each device (with ``stage2_sweeps`` stage-2
     sweeps: the half-sweep kernel's path)."""
     kernels = (SWEEPS_KERNELS if stage2_sweeps else ("deep_correction", "fused_stage2_rbgs")
                ) + (("fused_jvp",) if krylov_op == "jvp" else ())
-    return gpu_cpu_counts("tp_spe10_full", kernels, steps=SMALL_STEPS, krylov_op=krylov_op,
-                          pc_overrides=SMALL_GMG, stage2_sweeps=stage2_sweeps,
-                          shape=FLAGSHIP_SMALL)
+    key = ("flagship jvp" if krylov_op == "jvp" else
+           "flagship sweeps=2" if stage2_sweeps else "flagship")
+    return gpu_cpu_counts(key, kernels, refs)
 
 
 def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
                  name: str = "tp_spe10_full", by_cols: dict | None = None,
                  pc_overrides: dict | None = None, variants: dict | None = None,
                  kernels: tuple = FLAGSHIP_KERNELS, gmg_overrides: dict | None = None,
-                 newton_overrides: dict | None = None, counting=None):
+                 newton_overrides: dict | None = None, counting=None,
+                 dt_init: float | None = None):
     """Phase 6 (and 9, 10, 12, 13): preset ``name`` (the flagship or its
     inner-iteration form) at full size, f32, with the CPRConfig
     ``pc_overrides``, the GMG overrides ``gmg_overrides`` (both
@@ -1563,7 +1629,9 @@ def flagship_run(dev, steps: int = FLAGSHIP_STEPS, krylov_op: str = "stencil",
     pc = dataclasses.replace(with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW), **(pc_overrides or {}))
     pc = option_config(pc, {}, gmg_overrides or {})
     newton = dataclasses.replace(with_krylov_op(case, krylov_op), **(newton_overrides or {}))
-    sim = case.simulator(pc_cfg=pc, newton_cfg=newton)
+    time_cfg = case.time_cfg if dt_init is None else dataclasses.replace(case.time_cfg,
+                                                                         dt_init=dt_init)
+    sim = case.simulator(pc_cfg=pc, newton_cfg=newton, time_cfg=time_cfg)
     for hname, g in (("p", sim.pc_cfg.gmg), ("T", sim.pc_cfg.gmg_t or sim.pc_cfg.gmg)):
         print(f"  schedule {hname}: {g.level_factors}")
     attempts = {"newton": 0, "attempts": 0}
@@ -2039,10 +2107,10 @@ def count_by_columns(by: dict):
         by[key] = by.get(key, 0) + 1
         return real[0](coef, v, k)
 
-    def s2(coef, dinv, r, x1):
+    def s2(coef, dinv, r, x1, *args, **kw):
         key = f"fused_stage2_rbgs k={x1.shape[0]}"
         by[key] = by.get(key, 0) + 1
-        return real[1](coef, dinv, r, x1)
+        return real[1](coef, dinv, r, x1, *args, **kw)
 
     # a wrapper counts its launches on the name it is called by: the
     # forwarder's, added to the wrapper's own counter afterwards
@@ -2084,21 +2152,23 @@ def _option_task(task):
             "stage2": sim.pc_cfg.stage2, "s": time.perf_counter() - t}
 
 
-def option_runs(workers: int = OPTION_WORKERS, labels: tuple | None = None) -> dict:
+def option_runs(refs: dict, workers: int = OPTION_WORKERS, labels: tuple | None = None) -> dict:
     """Phase 10(c): every SOLVER_OPTIONS entry through the Simulator on the
-    GPU and on the CPU, OPTION_STEPS controller steps, f64, as tasks of a
-    pool of ``workers`` processes (each run is bound by the host's
-    assembly, so they overlap on the host's cores; every worker loads the
-    library phase 1 built).  The counts must agree; prints the stage-2 route
-    each took on the card, by the wrappers' counters."""
+    GPU and on the CPU, OPTION_STEPS controller steps, f64: the card's runs
+    as tasks of a pool of ``workers`` processes (each run is bound by the
+    host's launches, so they overlap on the host's cores; every worker
+    loads the library phase 1 built), the CPU's from the references' pool
+    ``refs``.  The counts must agree; prints the stage-2 route each took on
+    the card, by the wrappers' counters."""
     import multiprocessing
 
     chosen = [i for i, o in enumerate(SOLVER_OPTIONS) if labels is None or o[0] in labels]
-    tasks = [(i, d) for d in ("cuda", "cpu") for i in chosen]
+    tasks = [(i, "cuda") for i in chosen]
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
         done = dict(zip(tasks, pool.map(_option_task, tasks, chunksize=1)))
         pool.close()
         pool.join()
+    done.update({(i, "cpu"): refs[("option", i)].get(timeout=1200) for i in chosen})
     out = {}
     for i in chosen:
         label, pc_kw, gmg_kw, newton_kw, precond, other = SOLVER_OPTIONS[i]
@@ -2133,9 +2203,9 @@ def option_runs(workers: int = OPTION_WORKERS, labels: tuple | None = None) -> d
 
 
 # phase 11: the run_case path
-CLI_STEPS = 3          # controller steps of the flagship CLI run
-BLOCK_STEPS = 3        # phase 11(b): steps per block
-BLOCK_RUN_STEPS = 6    # phase 11(b): controller steps
+CLI_STEPS = 2          # controller steps of the flagship CLI run
+BLOCK_STEPS = 2        # phase 11(b): steps per block
+BLOCK_RUN_STEPS = 4    # phase 11(b): controller steps
 SCHED_T_END = 6 * 3600.0   # phase 11(c): the producer is shut in at half of it
 SCHED_NEWTON = dict(rtol=1e-10, max_iters=20)   # tests/test_schedule.py's tolerance
 CLOSURE_TOL = 1e-9     # the audit's relative closure at that tolerance (f64)
@@ -2147,9 +2217,8 @@ def cli_flagship(out_dir) -> dict:
     every step, JSONL metrics and the balance audit; the writes timed (the
     checkpoint's save, the frame's device-to-host copy and write, the
     audit's call), the native VTI writer required; every flagship kernel launched; then a
-    resume from the step-2 checkpoint, whose step-3 checkpoint must equal
-    the uninterrupted run's bit for bit; then the module entry point in a
-    subprocess."""
+    resume from the checkpoint of the step before the last, whose last
+    checkpoint must equal the uninterrupted run's bit for bit."""
     from unittest import mock
 
     import thermalporous_torch.io as tio
@@ -2245,8 +2314,9 @@ def cli_flagship(out_dir) -> dict:
     final = np.load(ck / f"ckpt_{CLI_STEPS:07d}.npz")
     check_physical(torch.as_tensor(final["u"]), SPE10_FULL, "cli")
 
-    print("  resumed from the step-2 checkpoint:", flush=True)
-    run_case.main(flags + ["--resume", str(ck / "ckpt_0000002.npz"), "--ckpt-dir", str(ck2),
+    print(f"  resumed from the step-{CLI_STEPS - 1} checkpoint:", flush=True)
+    run_case.main(flags + ["--resume", str(ck / f"ckpt_{CLI_STEPS - 1:07d}.npz"),
+                           "--ckpt-dir", str(ck2),
                            "--ckpt-every", "1", "--metrics", str(metrics2)])
     again = np.load(ck2 / f"ckpt_{CLI_STEPS:07d}.npz")
     same = {k: bool(np.array_equal(final[k], again[k])) for k in ("u", "t", "dt", "step")}
@@ -2257,17 +2327,28 @@ def cli_flagship(out_dir) -> dict:
     if not all(same.values()) or [key(r) for r in rec2] != [key(recs[-1])]:
         raise SystemExit("cli: the resumed run is not the uninterrupted run's bits")
 
-    sub = subprocess.run([sys.executable, "-m", "thermalporous_torch.run_case", "--case",
-                          "tp_thermal_2d", "--f32", "--t-end-days", "0.05", "--quiet"],
-                         cwd=REPO, capture_output=True, text=True, timeout=600)
-    done = [line for line in sub.stdout.splitlines() if line.startswith("# done:")]
-    print(f"  python -m thermalporous_torch.run_case: rc {sub.returncode}; {done}")
-    if sub.returncode != 0 or not done:
-        raise SystemExit(f"cli module entry point failed:\n{sub.stdout}\n{sub.stderr}")
     shutil.rmtree(out_dir, ignore_errors=True)
     return {"steps": recs, "cell_updates_per_s": cu_s, "launches": launches,
             "write_ms": times, "frame_bytes": frame_bytes, "checkpoint_bytes": ckpt_bytes,
             "balance": rep, "resumed_bitwise": same}
+
+
+def cli_entry_start():
+    """Phase 11(a): ``python -m thermalporous_torch.run_case`` on
+    tp_thermal_2d (f32, on the card), started in a subprocess that runs
+    beside (b) and (c)."""
+    return subprocess.Popen([sys.executable, "-m", "thermalporous_torch.run_case", "--case",
+                             "tp_thermal_2d", "--f32", "--t-end-days", "0.05", "--quiet"],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_entry_finish(proc) -> None:
+    """Phase 11(a): the module entry point must exit 0 with its done line."""
+    out, err = proc.communicate(timeout=600)
+    done = [line for line in out.splitlines() if line.startswith("# done:")]
+    print(f"  (a) python -m thermalporous_torch.run_case: rc {proc.returncode}; {done}")
+    if proc.returncode != 0 or not done:
+        raise SystemExit(f"cli module entry point failed:\n{out}\n{err}")
 
 
 def blocked_run(device: str, block_steps: int):
@@ -2339,10 +2420,10 @@ def _phase11_task(kind: str, threads: int) -> dict:
     return out
 
 
-def phase11_parity() -> tuple[dict, dict]:
+def phase11_parity(refs: dict) -> tuple[dict, dict]:
     """Phase 11(b) and (c): the card's blocked run and schedule here, the
-    CPU's runs and the card's host-loop run in three worker processes at the
-    same time.  (b): (dt, Newton, FGMRES, retries, state-consistent) per
+    card's host-loop run in a worker process at the same time, the CPU's
+    runs from the references' pool ``refs``.  (b): (dt, Newton, FGMRES, retries, state-consistent) per
     record equal on the GPU and the CPU, and the blocked run's records, final
     state and audit equal to the host loop's on the card (the audit's
     closure at the flagship's Newton tolerance printed).  (c): (dt, Newton,
@@ -2350,10 +2431,10 @@ def phase11_parity() -> tuple[dict, dict]:
     CLOSURE_TOL on each device."""
     import multiprocessing
 
-    kinds = ("blocked cpu", "host cuda", "schedule cpu")
-    with multiprocessing.get_context("spawn").Pool(len(kinds)) as pool:
-        pending = {k: pool.apply_async(_phase11_task, (k, torch.get_num_threads()))
-                   for k in kinds}
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pending = {"host cuda": pool.apply_async(_phase11_task,
+                                                 ("host cuda", torch.get_num_threads()))}
+        pending.update({k: refs[k] for k in ("blocked cpu", "schedule cpu")})
         t = time.perf_counter()
         recs, rel, aud, u, launches = blocked_run("cuda", BLOCK_STEPS)
         blocked_s = time.perf_counter() - t
@@ -2404,8 +2485,8 @@ def phase11_parity() -> tuple[dict, dict]:
 
 #: the CPTR apply's coefficient storage modes, timed in turns in phase 12(b)
 PC_DTYPE_MODES = ("f32", "bf16", "bf16_gmg", "bf16_s2")
-BF16_STEPS = 2          # phase 12(b): controller steps of the bf16 flagship
-BATCH_STEPS = 2         # phase 12(d): controller steps with batch_pt
+BF16_STEPS = 1          # phase 12(b): controller steps of the bf16 flagship
+BATCH_STEPS = 1         # phase 12(d): controller steps with batch_pt
 # phase 12(d): the flagship configuration with the batched traversal and the
 # sequential form it is held to (the T hierarchy takes the pressure
 # configuration and schedule: the two must be congruent)
@@ -2668,12 +2749,18 @@ def batch_pt_apply(dev) -> tuple:
 # ------------------------------ phase 13: transfers, bgmg, recycling, adjoint
 
 TRANSFERS = ("constant", "weighted", "variational")
-BGMG_STEPS = 2          # phase 13(b): controller steps with stage2="bgmg"
+# phases 12(b) and 13(a), (b): the flagship's first controller step under
+# bf16 coefficients, the variational transfer and bgmg runs at the 300 s its
+# controller falls back to: their 600 s attempt fails (the first step per
+# storage mode at 600 s is in phase 12(b); the failures at 600 s under
+# "variational" and bgmg are PR 10's finding, as the reference's run)
+RETRY_DT = 300.0
+BGMG_STEPS = 1          # phase 13(b): controller steps with stage2="bgmg"
 BGMG_COARSE = 256       # phase 13(b): bgmg_coarse_cells (the reference's default)
-RECYCLE_STEPS = 2       # phase 13(c): controller steps with ksp_recycle
+RECYCLE_STEPS = 1       # phase 13(c): controller steps with ksp_recycle
 RECYCLE_K = 4
 ADJ_SMALL_STEPS = 3     # phase 13(d): recorded steps at FLAGSHIP_SMALL
-ADJ_FULL_STEPS = 2      # phase 13(d): recorded steps at full size
+ADJ_FULL_STEPS = 1      # phase 13(d): recorded steps at full size
 ADJ_RTOL_FULL = 1e-5
 ADJ_MAXITER = 200
 # phase 13(d) at FLAGSHIP_SMALL, f64: the recorded trajectory's Newton (no
@@ -2968,15 +3055,6 @@ def _adjoint_small_task(task) -> dict:
     return out
 
 
-def adjoint_small_start():
-    """Phase 13(d), small: the CPU's run in a worker process, started
-    beside the rest of the phase; returns (pool, async result)."""
-    import multiprocessing
-
-    pool = multiprocessing.get_context("spawn").Pool(1)
-    return pool, pool.apply_async(_adjoint_small_task, (("cpu", None, False),))
-
-
 def _grad_gap(a: dict, b: dict) -> float:
     """Largest relative difference of two gradients as
     ``problem_data_to_numpy`` gives them, leaf by leaf against the leaf's
@@ -2991,16 +3069,13 @@ def _grad_gap(a: dict, b: dict) -> float:
     return worst
 
 
-def adjoint_small(started) -> dict:
-    """Phase 13(d), small: the CPU's run (``started``, from
-    :func:`adjoint_small_start`) and the card's on the CPU's Δt schedule:
+def adjoint_small(pending) -> dict:
+    """Phase 13(d), small: the CPU's run (``pending``, from the references'
+    pool) and the card's on the CPU's Δt schedule:
     the FGMRES counts per backward step must be equal, J, every gradient
     leaf and grad_u0 within ADJ_GRAD_TOL; the card's central-difference
     probe within ADJ_FD_TOL."""
-    pool, pending = started
     cpu = pending.get(timeout=1200)
-    pool.close()
-    pool.join()
     gpu = _adjoint_small_task(("cuda", cpu["dts"], True))
     gap = _grad_gap(gpu["grad"], cpu["grad"])
     u0_gap = float(np.abs(gpu["grad_u0"] - cpu["grad_u0"]).max() / np.abs(cpu["grad_u0"]).max())
@@ -3199,12 +3274,13 @@ def per_member_launches(out: list):
         ens.make_step_fn = make
 
 
-def ensemble_full(dev) -> dict:
+def ensemble_full(dev, after_ensemble=None) -> dict:
     """Phase 14(a): tp_spe10_full at full size, f32, fuse_below=150000, the
     ENS_BHP well-control ensemble, level_factors planned from member 0 (the
     Simulator's baking), one ENS_DT step of every member through
-    make_ensemble_step_fn: each member's state and counts bitwise its solo
-    ``advance``, its launches those of its solo run; every flagship kernel
+    make_ensemble_step_fn, then ``after_ensemble()`` (when given) and each
+    member's solo ``advance``: each member's state and counts bitwise its
+    solo step, its launches those of its solo run; every flagship kernel
     launched in the ensemble's run."""
     from thermalporous_torch.dist import make_ensemble_step_fn, stack_ensemble
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
@@ -3215,15 +3291,6 @@ def ensemble_full(dev) -> dict:
     pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
     model, newton = case.model, case.newton_cfg
     datas = ensemble_members(case)
-    solo_step = make_step_fn(model, "cptr", newton, pc, device=dev)
-    solos = []
-    for d in datas:
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t = time.perf_counter()
-        u, st = solo_step(model.initial_state(d), ENS_DT, d)
-        torch.cuda.synchronize()
-        solos.append((u, st, launch_counts(), time.perf_counter() - t))
     data_e = stack_ensemble(datas)
     u0_e = torch.stack([model.initial_state(d) for d in datas])
     dt_e = torch.full((len(datas),), ENS_DT, dtype=u0_e.dtype)
@@ -3241,6 +3308,17 @@ def ensemble_full(dev) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     ncells = math.prod(model.grid.shape)
     cu_s = ncells * int(st_e.iters.sum()) / wall
+    if after_ensemble is not None:
+        after_ensemble()
+    solo_step = make_step_fn(model, "cptr", newton, pc, device=dev)
+    solos = []
+    for d in datas:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        u, st = solo_step(model.initial_state(d), ENS_DT, d)
+        torch.cuda.synchronize()
+        solos.append((u, st, launch_counts(), time.perf_counter() - t))
     out = {"members": [], "wall_s": wall, "cell_updates_per_s": cu_s, "peak_gib": peak,
            "launches": launches}
     for i, ((u, st, solo_l, solo_wall), call) in enumerate(zip(solos, calls)):
@@ -3332,8 +3410,8 @@ def _ensemble_adjoint_task(task) -> dict:
 
 
 def ensemble_adjoint(pending) -> dict:
-    """Phase 14(b): the card's run against the CPU's (``pending``, from
-    :func:`examples_start`'s pool): the
+    """Phase 14(b): the card's run against the CPU's (``pending``, from the
+    references' pool): the
     per-member forward and backward counts and the lockstep count equal,
     every member's J, gradient leaves and grad_u0 within ENS_GRAD_TOL; on
     the card each member bitwise its solo sweep and every CPTR kernel
@@ -3389,48 +3467,43 @@ def _custom_case_task(device: str) -> dict:
 
 def examples_start() -> dict:
     """Phase 14(c) and (d): ``python -m thermalporous_torch.iteration_study``
-    and ``.custom_case`` on the card and with ``--device cpu``, four
-    subprocesses started after (a), whose walls they would disturb, to run
-    beside (b); and the CPU's in-process custom case and ensemble adjoint in
-    a pool of two workers."""
-    import multiprocessing
+    and ``.custom_case`` on the card, two subprocesses started after (a)'s
+    ensemble step, whose walls they would disturb, to run beside (a)'s solo
+    steps and (b) (their ``--device cpu`` runs are the references'
+    pool's)."""
     import os
 
     env = dict(os.environ, OMP_NUM_THREADS=str(P14_THREADS))
-    procs = {}
-    for name, args in (("iteration_study", ["--steps", str(STUDY_STEPS)]),
-                       ("custom_case", ["--days", str(CUSTOM_DAYS)])):
-        for dev in ("cuda", "cpu"):
-            procs[(name, dev)] = subprocess.Popen(
-                [sys.executable, "-m", f"thermalporous_torch.{name}", *args, "--device", dev],
-                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    pool = multiprocessing.get_context("spawn").Pool(2)
-    return {"procs": procs, "pool": pool,
-            "adjoint": pool.apply_async(_ensemble_adjoint_task, ("cpu",)),
-            "custom": pool.apply_async(_custom_case_task, ("cpu",))}
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", f"thermalporous_torch.{name}", *args, "--device", "cuda"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for name, args in EXAMPLE_CLIS}
 
 
-def examples_stop(started: dict) -> None:
+def examples_stop(procs: dict) -> None:
     """Phase 14: end whatever :func:`examples_start` started that still runs
     (after a failure)."""
-    for proc in started["procs"].values():
+    for proc in procs.values():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    started["pool"].terminate()
-    started["pool"].join()
 
 
-def examples_finish(started: dict) -> dict:
+def examples_finish(procs: dict, refs: dict) -> dict:
     """Phase 14(c) and (d): every line of the study's table equal on the card
-    and the CPU; the custom case's CLI lines equal, and its in-process
-    records equal and well rates within 1e-12 relative, card against CPU."""
+    and the CPU; the custom case's lines equal, and its in-process
+    records equal and well rates within 1e-12 relative, card against CPU
+    (the CPU's runs from the references' pool ``refs``)."""
     out = {}
-    for (name, dev), proc in started["procs"].items():
+    for name, proc in procs.items():
         stdout, err = proc.communicate(timeout=1200)
         if proc.returncode != 0:
-            raise SystemExit(f"{name} --device {dev} exited {proc.returncode}: {err[-2000:]}")
-        out[(name, dev)] = stdout.splitlines()
+            raise SystemExit(f"{name} --device cuda exited {proc.returncode}: {err[-2000:]}")
+        out[(name, "cuda")] = stdout.splitlines()
+        rc, stdout, err = refs[("example", name)].get(timeout=1200)
+        if rc != 0:
+            raise SystemExit(f"{name} --device cpu exited {rc}: {err[-2000:]}")
+        out[(name, "cpu")] = stdout.splitlines()
     study = out[("iteration_study", "cuda")]
     print("\n".join("  | " + line for line in study), flush=True)
     if study != out[("iteration_study", "cpu")] or len(study) != 6:
@@ -3440,9 +3513,7 @@ def examples_finish(started: dict) -> dict:
     print("\n".join("  | " + line for line in cli), flush=True)
     if cli != out[("custom_case", "cpu")]:
         raise SystemExit(f"custom_case CLI: cuda {cli} != cpu {out[('custom_case', 'cpu')]}")
-    cpu = started["custom"].get(timeout=1200)
-    started["pool"].close()
-    started["pool"].join()
+    cpu = refs["custom"].get(timeout=1200)
     gpu = _custom_case_task("cuda")
     gap = max(abs(gpu["rates"][w][k] - v) / abs(v) if v else abs(gpu["rates"][w][k])
               for w, rec in cpu["rates"].items() for k, v in rec.items())
@@ -3476,6 +3547,48 @@ DECOMP_NORM_RTOL = 1e-6
 DECOMP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual",
                   "fused_stage2_rbgs")
 DECOMP_REFUSED = ("deep_correction",)
+# (d): the launches by block columns every rank of the 2x2 tp_spe10_inner
+# step must show beside DECOMP_KERNELS: the inner operator's B1 at nc = 2
+# and the stage 2 over all three columns
+DECOMP_INNER_COLUMNS = ("block_matvec nc=2 k=2", "fused_stage2_rbgs k=3")
+# (e): the options the stage-2 and Krylov slice lifted over the
+# decomposition, each over the 2x2 ranks on the card in f64 at
+# FLAGSHIP_SMALL (phase 10(c)'s configuration), one 600 s step against the
+# CPU's undecomposed step: (label, CPRConfig overrides, overrides of both
+# GMG configurations, NewtonConfig overrides, gate).  The gate "bands"
+# holds the gathered state to DECOMP_OPTION_P_PA and DECOMP_OPTION_S of the
+# CPU's; "newton" holds it to the undecomposed Newton test, as (b) does,
+# for a configuration whose converged state moves further than the bands
+# under a one-ulp change of its input (decomp_sensitivity.py --recycle:
+# recycling's harvest under the flagship's loose Krylov tolerance, EW
+# forcing and bf16 basis), and the same option under the reference check's
+# tolerances (tests/test_sharding.py::test_sharded_ksp_recycle_match)
+# takes the bands.  The options share runs where they act on different
+# parts of the apply: the orthogonalisations (FGMRES's reductions), the
+# stage-1 options (the saturation leg, the inner iterations) and the
+# stage-2 ones.
+DECOMP_OPTIONS = (
+    ("stage2=jacobi2 ksp_orth=cgs1", dict(stage2="jacobi2"), {}, dict(ksp_orth="cgs1"),
+     "bands"),
+    ("stage2=rbgs sweeps=2 s_stage=rbgs", dict(stage2_sweeps=2, s_stage="rbgs"), {}, {},
+     "bands"),
+    ("stage2=bgmg inner richardson",
+     dict(stage2="bgmg", inner_iters=2, inner_method="richardson"), {}, {}, "bands"),
+    ("stage2=zebra axis=2 ksp_orth=cgs2s inner fgmres",
+     dict(stage2="zebra", stage2_axis=2, inner_iters=2), {}, dict(ksp_orth="cgs2s"), "bands"),
+    ("ksp_recycle=4", {}, {}, dict(ksp_recycle=4), "newton"),
+    ("ksp_recycle=4 tight", {}, {},
+     dict(ksp_recycle=4, rtol=1e-8, atol=0.0, ksp_rtol=1e-6, ksp_maxiter=80, ksp_ew=False,
+          ksp_basis="same"), "bands"),
+)
+# (e): levels above this many cells stay decomposed at FLAGSHIP_SMALL
+# (2,376 cells, blocks 6x12 and 6x10): the finest level of the p and T
+# hierarchies and of bgmg's coupled one
+DECOMP_OPTIONS_REPLICATE = 1000
+# (e): the reference tests' bands on the gathered f64 state against the
+# CPU's (p in Pa, S): rounding differences of the reductions only
+DECOMP_OPTION_P_PA = 10.0
+DECOMP_OPTION_S = 1e-8
 # the blocks of the kernel check: the flagship grid cut at odd boundaries
 # (ext origin x 29: an odd index sum), as a 2x2 mesh's rank (1, 0) holds it
 DECOMP_BLOCK = ((31, 60), (0, 112))
@@ -3571,14 +3684,15 @@ def decomp_kernel_blocks(dev) -> dict:
     return out
 
 
-def _flagship_step(dev, dtype):
-    """The undecomposed flagship's first step (fuse_below=150000): (case,
-    planned CPRConfig, u0, state, stats, launches, wall)."""
+def _flagship_step(dev, dtype, name: str = "tp_spe10_full"):
+    """The undecomposed first step of preset ``name`` (the flagship or its
+    inner-iteration form; fuse_below=150000): (case, planned CPRConfig, u0,
+    state, stats, launches, wall)."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import make_step_fn
 
-    case = get_case("tp_spe10_full", device=dev, dtype=dtype)
+    case = get_case(name, device=dev, dtype=dtype)
     pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
     u0 = case.model.initial_state(case.data)
     step = make_step_fn(case.model, "cptr", case.newton_cfg, pc, device=dev)
@@ -3648,19 +3762,24 @@ def _gaps(a: np.ndarray, b: np.ndarray) -> list:
             for c in range(3)]
 
 
-def _decomp_rank(mesh, level_factors, dtype_name: str) -> dict:
-    """Phase 15 (b), one rank: the flagship's first step on the 2x2 mesh."""
+def _decomp_rank(mesh, level_factors, dtype_name: str, name: str = "tp_spe10_full") -> dict:
+    """Phase 15 (b) and (d), one rank: the first step of preset ``name``
+    (the flagship or its inner-iteration form) on the 2x2 mesh, with the
+    undecomposed run's coarsening schedules ``level_factors`` (p, T; T None
+    when the preset's T hierarchy takes the pressure configuration)."""
     from thermalporous_torch.dist.sharding import gather_state, shard_problem_data, shard_state
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import Simulator
 
     dev = mesh.device
-    case = get_case("tp_spe10_full", device=dev, dtype=getattr(torch, dtype_name))
+    case = get_case(name, device=dev, dtype=getattr(torch, dtype_name))
     pc = with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)
+    gmg_t = None if pc.gmg_t is None else dataclasses.replace(
+        pc.gmg_t, mesh=mesh, level_factors=level_factors[1])
     pc = dataclasses.replace(
         pc, gmg=dataclasses.replace(pc.gmg, mesh=mesh, level_factors=level_factors[0]),
-        gmg_t=dataclasses.replace(pc.gmg_t, mesh=mesh, level_factors=level_factors[1]))
+        gmg_t=gmg_t)
     data = shard_problem_data(case.data, mesh)
     sim = Simulator(case.model, data, pc_cfg=pc, newton_cfg=case.newton_cfg,
                     time_cfg=case.time_cfg, device=dev)
@@ -3670,16 +3789,18 @@ def _decomp_rank(mesh, level_factors, dtype_name: str) -> dict:
     torch.cuda.synchronize()
     reset_launch_counts()
     mesh.reset_stats()
+    by_cols: dict = {}
     t = time.perf_counter()
-    u, st = sim.step(u0, DECOMP_DT)
-    torch.cuda.synchronize()
+    with count_by_columns(by_cols):
+        u, st = sim.step(u0, DECOMP_DT)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = launch_counts()
     stats = dict(mesh.stats)
     whole = gather_state(u, mesh)
     return {"rank": mesh.rank, "block": data.block.owned_shape, "newton": st.iters,
             "fgmres": st.ksp_iters, "converged": st.converged, "norm": st.norm, "wall_s": wall,
-            "launches": launches, "stats": stats,
+            "launches": launches, "by_columns": by_cols, "stats": stats,
             "u": whole.cpu().numpy() if mesh.rank == 0 else None}
 
 
@@ -3693,15 +3814,12 @@ def _newton_norm(case, u: torch.Tensor, u0: torch.Tensor) -> float:
     return float(torch.sqrt(torch.dot(q, q) / q.numel()))
 
 
-def decomp_four_ranks(one: dict) -> dict:
-    """Phase 15 (b): four gloo ranks sharing cuda:0, the 2x2 flagship's
-    first step against the one-rank step of (a): its counts, kernels and
-    the undecomposed Newton test on the gathered state; the largest gap
-    per component printed."""
-    from thermalporous_torch.dist.launch import run_ranks
-
-    outs, _ = run_ranks(_decomp_rank, DECOMP_RANKS, one["level_factors"], one["dtype"],
-                        backend="gloo", device="cuda:0")
+def _ranks_report(tag: str, outs: list, counts: tuple, kernels: tuple,
+                  columns: tuple = ()) -> None:
+    """Each rank's counts, wall, collectives per Newton and launches
+    printed; every rank must take ``counts`` (Newton, FGMRES) and converge,
+    launch each of ``kernels`` (and each key of ``columns`` in its launches
+    by block columns) and none of DECOMP_REFUSED."""
     for o in outs:
         n = max(o["newton"], 1)
         print(f"  rank {o['rank']} block {o['block']}: (newton, fgmres) "
@@ -3710,35 +3828,232 @@ def decomp_four_ranks(one: dict) -> dict:
               f"{o['stats']['allreduces'] / n:.1f} all-reduces, "
               f"{o['stats']['gathers'] / n:.1f} all-gathers; host-staged exchange "
               f"{1e3 * o['stats']['exchange_s'] / max(o['stats']['exchanges'], 1):.3f} ms "
-              f"each; launches {o['launches']}", flush=True)
-        if (o["newton"], o["fgmres"]) != (one["newton"], one["fgmres"]) or not o["converged"]:
-            raise SystemExit(f"phase 15(b): rank {o['rank']} (newton, fgmres) "
-                             f"({o['newton']}, {o['fgmres']}) != one rank's "
-                             f"({one['newton']}, {one['fgmres']})")
-        missing = [k for k in DECOMP_KERNELS if o["launches"][k] <= 0]
+              f"each; launches {o['launches']}; by columns {o['by_columns']}", flush=True)
+        if (o["newton"], o["fgmres"]) != counts or not o["converged"]:
+            raise SystemExit(f"phase 15{tag}: rank {o['rank']} (newton, fgmres) "
+                             f"({o['newton']}, {o['fgmres']}) != the reference's {counts}")
+        missing = ([k for k in kernels if o["launches"][k] <= 0]
+                   + [k for k in columns if o["by_columns"].get(k, 0) <= 0])
         extra = [k for k in DECOMP_REFUSED if o["launches"][k] != 0]
         if missing or extra:
-            raise SystemExit(f"phase 15(b): rank {o['rank']} launched no {missing}, "
+            raise SystemExit(f"phase 15{tag}: rank {o['rank']} launched no {missing}, "
                              f"launched {extra}")
-    case, u0 = one["case"], one["u0"]
+
+
+def _gathered_newton_test(tag: str, case, u0: torch.Tensor, outs: list) -> dict:
+    """The gathered state (rank 0's) finite and physical, and under the
+    undecomposed Newton test: its scaled residual norm on the whole grid
+    under the step's tolerance and equal to the ranks' own final norm."""
     u = torch.as_tensor(outs[0]["u"], device=u0.device)
-    check_physical(u, SPE10_FULL, "phase 15(b)")
+    check_physical(u, SPE10_FULL, f"phase 15{tag}")
     newton = case.newton_cfg
     norm0 = _newton_norm(case, u0, u0)
     tol = max(newton.rtol * norm0, newton.atol, 50.0 * float(torch.finfo(u0.dtype).eps))
     norm = _newton_norm(case, u, u0)
-    norm_one = _newton_norm(case, torch.as_tensor(one["u"], device=u0.device), u0)
     print(f"  the undecomposed Newton test at the gathered state: {norm:.6e} (tol {tol:.3e}; "
-          f"the ranks' final norm {outs[0]['norm']:.6e}; the one-rank state {norm_one:.6e})",
-          flush=True)
+          f"the ranks' final norm {outs[0]['norm']:.6e})", flush=True)
     if not (norm <= tol and abs(norm - outs[0]["norm"]) <= DECOMP_NORM_RTOL * norm):
-        raise SystemExit(f"phase 15(b): the gathered state's Newton norm {norm} (tol {tol}, "
+        raise SystemExit(f"phase 15{tag}: the gathered state's Newton norm {norm} (tol {tol}, "
                          f"the ranks' {outs[0]['norm']})")
-    gaps = _gaps(outs[0]["u"], one["u"])
-    print(f"  largest gap to the one-rank step: p {gaps[0]:.6e} Pa, T {gaps[1]:.6e} K, "
-          f"S {gaps[2]:.6e}", flush=True)
-    return {"ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs], "gaps": gaps,
-            "newton_norm": norm, "newton_tol": tol, "newton_norm_one_rank": norm_one}
+    return {"newton_norm": norm, "newton_tol": tol}
+
+
+def _decomp_ranks(mesh, factors_b, factors_d, factors_e) -> tuple:
+    """Phase 15 (b), (d) and (e), one rank, in one spawn: the flagship's
+    first step and tp_spe10_inner's on the 2x2 mesh, then every
+    DECOMP_OPTIONS entry's."""
+    b = _decomp_rank(mesh, factors_b, "float32")
+    torch.cuda.empty_cache()
+    d = _decomp_rank(mesh, factors_d, "float32", "tp_spe10_inner")
+    torch.cuda.empty_cache()
+    return b, d, _decomp_option_rank(mesh, [o[0] for o in DECOMP_OPTIONS], factors_e)
+
+
+def decomp_four_ranks(dev, one: dict, refs: dict, first_inner=None) -> tuple:
+    """Phase 15 (b), (d) and (e) over four gloo ranks sharing cuda:0 (one
+    spawn: each rank takes (b)'s step, (d)'s, then (e)'s; no other
+    process holds the card meanwhile but (c)'s).
+
+    (b): the 2x2 flagship's first step against the one-rank step of (a):
+    its counts, kernels and the undecomposed Newton test on the gathered
+    state; the largest gap per component printed.
+
+    (d): tp_spe10_inner's first 600 s step at full size (f32,
+    fuse_below=150000) against the undecomposed card step
+    (``first_inner``, phase 10(b)'s first record, when that step ran at
+    600 s with no retry; else run here): every rank's (Newton, FGMRES)
+    equal to it, B1 (at nc = 3 and the inner operator's nc = 2), B2, B3,
+    B4 and B5 at k = 3 launched on every rank and B6 on none, the gathered
+    state under the undecomposed Newton test.
+
+    (e): :func:`decomp_options_check` against the CPU's steps in ``refs``."""
+    from thermalporous_torch.dist.launch import run_ranks
+    from thermalporous_torch.presets import get_case
+
+    if first_inner is not None and first_inner.dt == DECOMP_DT and first_inner.retries == 0:
+        counts, src = ((first_inner.newton_iters, first_inner.ksp_iters),
+                       "phase 10(b)'s first step")
+        case = get_case("tp_spe10_inner", device=dev)
+        pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
+        u0 = case.model.initial_state(case.data)
+        wall_ref = None
+    else:
+        case, pc, u0, _, st, _, wall_ref = _flagship_step(dev, torch.float32, "tp_spe10_inner")
+        counts, src = (st.iters, st.ksp_iters), "the undecomposed step run here"
+    inner_factors = (pc.gmg.level_factors,
+                     None if pc.gmg_t is None else pc.gmg_t.level_factors)
+    outs, _ = run_ranks(_decomp_ranks, DECOMP_RANKS, one["level_factors"], inner_factors,
+                        decomp_option_factors(), backend="gloo", device="cuda:0")
+    print("  (b) the flagship split 2x2", flush=True)
+    outs_b = [o[0] for o in outs]
+    _ranks_report("(b)", outs_b, (one["newton"], one["fgmres"]), DECOMP_KERNELS)
+    gate = _gathered_newton_test("(b)", one["case"], one["u0"], outs_b)
+    norm_one = _newton_norm(one["case"], torch.as_tensor(one["u"], device=one["u0"].device),
+                            one["u0"])
+    gaps = _gaps(outs_b[0]["u"], one["u"])
+    print(f"  the one-rank state's Newton norm {norm_one:.6e}; largest gap to the one-rank "
+          f"step: p {gaps[0]:.6e} Pa, T {gaps[1]:.6e} K, S {gaps[2]:.6e}", flush=True)
+    four = {"ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs_b], "gaps": gaps,
+            "newton_norm_one_rank": norm_one, **gate}
+    print(f"  (d) tp_spe10_inner split 2x2; reference: {src}, (newton, fgmres) {counts}"
+          + ("" if wall_ref is None else f", wall {wall_ref:.3f} s"), flush=True)
+    outs_d = [o[1] for o in outs]
+    _ranks_report("(d)", outs_d, counts, DECOMP_KERNELS, DECOMP_INNER_COLUMNS)
+    gate = _gathered_newton_test("(d)", case, u0, outs_d)
+    inner = {"reference": src, "counts": counts, "wall_ref_s": wall_ref,
+             "ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs_d], **gate}
+    print(f"  (e) the lifted options over 2x2 ranks, {'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
+          f"against the CPU", flush=True)
+    return four, inner, decomp_options_check([o[2] for o in outs], refs)
+
+
+def _decomp_option_case(label: str, device, mesh=None, factors=None):
+    """The (case, CPRConfig, NewtonConfig) of DECOMP_OPTIONS entry ``label``
+    at FLAGSHIP_SMALL in f64 on ``device`` (the GMG configurations naming
+    ``mesh``, with the coarsening schedules ``factors`` (p, T) when
+    given)."""
+    from thermalporous_torch.presets import get_case
+
+    _, pc_kw, gmg_kw, newton_kw, _ = next(o for o in DECOMP_OPTIONS if o[0] == label)
+    case = get_case("tp_spe10_full", device=device, dtype=torch.float64, shape=FLAGSHIP_SMALL)
+    pc = option_config(with_fuse(case.pc_cfg, **SMALL_GMG), pc_kw,
+                       dict(gmg_kw, mesh=mesh, replicate_below=DECOMP_OPTIONS_REPLICATE))
+    if factors is not None:
+        pc = dataclasses.replace(
+            pc, gmg=dataclasses.replace(pc.gmg, level_factors=factors[0]),
+            gmg_t=dataclasses.replace(pc.gmg_t, level_factors=factors[1]))
+    return case, pc, dataclasses.replace(case.newton_cfg, **newton_kw)
+
+
+def decomp_option_factors() -> tuple:
+    """Phase 15 (e): the coarsening schedules (p, T) every option runs
+    with, planned once on the CPU (no option changes them)."""
+    case, pc, newton = _decomp_option_case(DECOMP_OPTIONS[0][0], "cpu")
+    pc = case.simulator(pc_cfg=pc, newton_cfg=newton).pc_cfg
+    return pc.gmg.level_factors, pc.gmg_t.level_factors
+
+
+def _decomp_option_rank(mesh, labels, factors) -> list:
+    """Phase 15 (e), one rank: each option's first step on the 2x2 mesh,
+    its counts, launches (by block columns too), collectives and wall, the
+    coupled hierarchy's decomposed level count under bgmg, and (rank 0)
+    the gathered state."""
+    from thermalporous_torch.dist.sharding import gather_state, shard_problem_data, shard_state
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.precond.cpr import cpr_setup
+    from thermalporous_torch.solve import Simulator
+
+    out = []
+    for label in labels:
+        case, pc, newton = _decomp_option_case(label, mesh.device, mesh, factors)
+        data = shard_problem_data(case.data, mesh)
+        sim = Simulator(case.model, data, pc_cfg=pc, newton_cfg=newton,
+                        time_cfg=case.time_cfg, device=mesh.device)
+        u0 = shard_state(case.model.initial_state(case.data), mesh)
+        mesh.barrier()
+        reset_launch_counts()
+        mesh.reset_stats()
+        by_cols: dict = {}
+        t = time.perf_counter()
+        with count_by_columns(by_cols):
+            u, st = sim.step(u0, DECOMP_DT)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rec = {"rank": mesh.rank, "newton": st.iters, "fgmres": st.ksp_iters,
+               "converged": st.converged, "norm": st.norm, "wall_s": wall,
+               "launches": launch_counts(),
+               "by_columns": by_cols, "stats": dict(mesh.stats), "bgmg_levels": None}
+        if sim.pc_cfg.stage2 == "bgmg":
+            stencil = sim.model.assemble_stencil(u0, u0, DECOMP_DT, data)
+            rec["bgmg_levels"] = len(cpr_setup(stencil, sim.pc_cfg, block=data.block).bgmg.blocks)
+        whole = gather_state(u, mesh)
+        rec["u"] = whole.cpu().numpy() if mesh.rank == 0 else None
+        out.append(rec)
+    return out
+
+
+def _decomp_option_cpu(label: str) -> dict:
+    """Phase 15 (e), a task of the references' pool: the undecomposed CPU
+    step of DECOMP_OPTIONS entry ``label``."""
+    torch.set_num_threads(2)
+    case, pc, newton = _decomp_option_case(label, "cpu", factors=decomp_option_factors())
+    u, st = case.simulator(pc_cfg=pc, newton_cfg=newton).step(
+        case.model.initial_state(case.data), DECOMP_DT)
+    return {"newton": st.iters, "fgmres": st.ksp_iters, "converged": st.converged,
+            "u": u.numpy()}
+
+
+def decomp_options_check(outs: list, refs: dict) -> dict:
+    """Phase 15 (e): every DECOMP_OPTIONS entry's run on the four ranks
+    (``outs``, per rank a list in DECOMP_OPTIONS' order) against the CPU's
+    undecomposed step (from ``refs``): each rank's (Newton, FGMRES,
+    converged) equal to the CPU's, the gathered state within
+    DECOMP_OPTION_P_PA and DECOMP_OPTION_S of it (or, gate "newton", under
+    the undecomposed Newton test), bgmg with its finest level decomposed
+    and B5 at k = 0 and the half-sweep launched on every rank.  Prints a
+    line per option; fails after the last if any failed."""
+    summary, bad = {}, []
+    for i, (label, *_, gate) in enumerate(DECOMP_OPTIONS):
+        ranks, ref = [o[i] for o in outs], refs[("decomp", label)].get(timeout=1200)
+        gaps = _gaps(ranks[0]["u"], ref["u"])
+        want_counts = (ref["newton"], ref["fgmres"], ref["converged"])
+        fails = [f"rank {r['rank']} {(r['newton'], r['fgmres'], r['converged'])}"
+                 for r in ranks if (r["newton"], r["fgmres"], r["converged"]) != want_counts]
+        extra = ""
+        if gate == "bands" and not (gaps[0] <= DECOMP_OPTION_P_PA and gaps[2] <= DECOMP_OPTION_S):
+            fails.append(f"gaps {gaps}")
+        if gate == "newton":
+            case, _, ncfg = _decomp_option_case(label, "cpu")
+            u0 = case.model.initial_state(case.data)
+            norm0 = _newton_norm(case, u0, u0)
+            tol = max(ncfg.rtol * norm0, ncfg.atol, 50.0 * float(torch.finfo(u0.dtype).eps))
+            norm = _newton_norm(case, torch.as_tensor(ranks[0]["u"]), u0)
+            extra = (f"; the undecomposed Newton test at the gathered state {norm:.6e} (tol "
+                     f"{tol:.3e}, the ranks' final norm {ranks[0]['norm']:.6e})")
+            if not (norm <= tol and abs(norm - ranks[0]["norm"]) <= DECOMP_NORM_RTOL * norm):
+                fails.append(f"Newton test {norm} (tol {tol}, the ranks' {ranks[0]['norm']})")
+        if label.startswith("stage2=bgmg"):
+            fails += [f"rank {r['rank']} bgmg levels {r['bgmg_levels']}, B5 k=0 "
+                      f"{r['by_columns'].get('fused_stage2_rbgs k=0', 0)}, half-sweep "
+                      f"{r['launches']['block_rbgs_half_sweep']}"
+                      for r in ranks if not (r["bgmg_levels"] >= 1
+                                             and r["by_columns"].get("fused_stage2_rbgs k=0", 0) > 0
+                                             and r["launches"]["block_rbgs_half_sweep"] > 0)]
+        r0, n = ranks[0], max(ranks[0]["newton"], 1)
+        print(f"  (e) {label}: cpu (newton, fgmres, converged) {want_counts}, 2x2 "
+              f"{'==' if not fails else '!='} on every rank; gaps p {gaps[0]:.3e} Pa, "
+              f"T {gaps[1]:.3e} K, S {gaps[2]:.3e}; rank 0 per Newton "
+              f"{r0['stats']['exchanges'] / n:.1f} exchanges, "
+              f"{r0['stats']['allreduces'] / n:.1f} all-reduces, wall {r0['wall_s']:.2f} s; "
+              f"launches {r0['launches']}; by columns {r0['by_columns']}"
+              + (f"; bgmg decomposed levels {r0['bgmg_levels']}" if r0["bgmg_levels"] is not None
+                 else "") + extra + (f"; FAILED: {fails}" if fails else ""), flush=True)
+        bad += [label] * bool(fails)
+        summary[label] = {"cpu": want_counts, "gaps": gaps, "gate": gate,
+                          "ranks": [{k: v for k, v in r.items() if k != "u"} for r in ranks]}
+    if bad:
+        raise SystemExit(f"phase 15(e): {bad} differ from the CPU")
+    return {"options": summary}
 
 
 def decomp_dryrun_start():
@@ -3763,6 +4078,76 @@ def decomp_dryrun_finish(proc) -> dict:
     summary = json.loads(out.strip().splitlines()[-1])
     summary["waited_s"] = time.perf_counter() - t
     return summary
+
+
+# ------------------------------ the CPU's references of phases 5 and 8-15
+
+# the CPU's side of every GPU-against-CPU check of phases 5 and 8-15,
+# computed in a pool of REF_WORKERS processes started before phase 5 (each
+# task sets its own threads; those of phases 10-15 are submitted at phase
+# 10, so that phases 6-9 are timed beside an idle pool): no phase waits for
+# its CPU run, and the host keeps cores for the card's processes
+REF_WORKERS = 3
+# phase 14(c), (d): the example drivers' arguments
+EXAMPLE_CLIS = (("iteration_study", ("--steps", str(STUDY_STEPS))),
+                ("custom_case", ("--days", str(CUSTOM_DAYS))))
+
+
+def _example_cpu_task(name: str) -> tuple:
+    """Phase 14(c) or (d), a task of the references' pool: ``python -m
+    thermalporous_torch.<name>`` with EXAMPLE_CLIS' arguments and
+    ``--device cpu``: (exit code, stdout, stderr)."""
+    import os
+
+    args = dict(EXAMPLE_CLIS)[name]
+    sub = subprocess.run([sys.executable, "-m", f"thermalporous_torch.{name}", *args,
+                          "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+                         timeout=1200, env=dict(os.environ, OMP_NUM_THREADS=str(P14_THREADS)))
+    return sub.returncode, sub.stdout, sub.stderr
+
+
+def cpu_refs_start(want) -> dict:
+    """The references' pool, started, with the CPU runs of the count
+    checks of phases 5, 8 and 9 that ``want`` takes.  Returns {"pool":
+    pool, key: async result}."""
+    import multiprocessing
+
+    refs = {"pool": multiprocessing.get_context("spawn").Pool(REF_WORKERS)}
+    for phase_k, keys in ((5, ("flagship", "flagship sweeps=2")), (8, ("sp_hot_injection_2d",)),
+                          (9, ("flagship jvp",))):
+        for key in keys if want(phase_k) else ():
+            refs[("counts", key)] = refs["pool"].apply_async(_counts_cpu_task, (key,))
+    return refs
+
+
+def cpu_refs_later(refs: dict, want) -> None:
+    """Every CPU run of the phases ``want`` takes among 10-15, submitted to
+    the references' pool ``refs`` in the order the phases need them: phase
+    10(c)'s options (or those phases 12 and 13 run themselves when 10 does
+    not), 11(b) and (c)'s runs, 13(d)'s small adjoint, 14(b)'s ensemble
+    adjoint, (c)'s and (d)'s drivers and the custom case, 15(e)'s
+    options."""
+    def put(key, fn, *args):
+        refs[key] = refs["pool"].apply_async(fn, args)
+
+    labels = ({o[0] for o in SOLVER_OPTIONS} if want(10)
+              else set(PC12_OPTIONS if want(12) else ()) | set(P13_OPTIONS if want(13) else ()))
+    for i, o in enumerate(SOLVER_OPTIONS):
+        if o[0] in labels:
+            put(("option", i), _option_task, (i, "cpu"))
+    if want(11):
+        for kind in ("blocked cpu", "schedule cpu"):
+            put(kind, _phase11_task, kind, 1)
+    if want(13):
+        put("adjoint small", _adjoint_small_task, ("cpu", None, False))
+    if want(14):
+        put("ensemble adjoint", _ensemble_adjoint_task, "cpu")
+        put("custom", _custom_case_task, "cpu")
+        for name, _ in EXAMPLE_CLIS:
+            put(("example", name), _example_cpu_task, name)
+    if want(15):
+        for o in DECOMP_OPTIONS:
+            put(("decomp", o[0]), _decomp_option_cpu, o[0])
 
 
 def main() -> int:
@@ -3860,12 +4245,15 @@ def main() -> int:
         del model, data, u, step
         torch.cuda.empty_cache()
 
+    # the CPU's references of phases 5 and 8-15, computed from here on
+    refs = cpu_refs_start(want) if any(want(k) for k in (5, *range(8, 16))) else None
+
     # (5) flagship parity, GPU against CPU
     if want(5):
         t0 = time.perf_counter()
-        small = flagship_parity()
+        small = flagship_parity(refs)
         print(f"  stage2_sweeps=2:", flush=True)
-        small2 = flagship_parity(stage2_sweeps=2)
+        small2 = flagship_parity(refs, stage2_sweeps=2)
         phase("5 flagship parity", t0, f"{'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
               f"(dt, newton, fgmres, retries) per step: cpu {small['cpu']} == cuda "
               f"{small['cuda']}; with stage2_sweeps=2 cpu {small2['cpu']} == cuda "
@@ -3887,7 +4275,7 @@ def main() -> int:
     # (8) the single-phase family
     if want(8):
         t0 = time.perf_counter()
-        sp_small = gpu_cpu_counts("sp_hot_injection_2d", SP_KERNELS)
+        sp_small = gpu_cpu_counts("sp_hot_injection_2d", SP_KERNELS, refs)
         print(f"  sp_hot_injection_2d 40x40 f64 (dt, newton, fgmres, retries) per step: "
               f"cpu {sp_small['cpu']} == cuda {sp_small['cuda']}")
         sp_recs, sp_launches, sp_cu_s, sp_rates = sp_geothermal_run(dev, SP_GEO_STEPS)
@@ -3897,7 +4285,7 @@ def main() -> int:
     # (9) the matrix-free Krylov operator
     if want(9):
         t0 = time.perf_counter()
-        small_jvp = flagship_parity("jvp")
+        small_jvp = flagship_parity(refs, "jvp")
         print(f"  flagship {'x'.join(map(str, FLAGSHIP_SMALL))} f64 jvp (dt, newton, fgmres, "
               f"retries) per step: cpu {small_jvp['cpu']} == cuda {small_jvp['cuda']}")
         # both operators' flagship steps in turns, within this one process
@@ -3923,9 +4311,13 @@ def main() -> int:
                   + ("" if (rj.dt, rj.newton_iters, rj.ksp_iters)
                      == (rs.dt, rs.newton_iters, rs.ksp_iters) else "  differ"))
         sj_recs, sj_launches, _, _ = sp_geothermal_run(dev, JVP_STEPS, "jvp")
-        phase("9 jvp operator", t0, f"flagship jvp {jcu_s:.1f} cell-updates/s over steps "
-              f"2-{len(jrecs)}; fused_jvp {jlaunches['fused_jvp']} and fused_jvp_sp "
+        phase("9 jvp operator", t0, f"flagship jvp {jcu_s:.1f} cell-updates/s "
+              f"{over_steps(len(jrecs))}; fused_jvp {jlaunches['fused_jvp']} and fused_jvp_sp "
               f"{sj_launches['fused_jvp_sp']} launches")
+
+    # the CPU's references of phases 10-15, computed from here on
+    if refs is not None and any(want(k) for k in range(10, 16)):
+        cpu_refs_later(refs, want)
 
     # (10) the solver options: the W-cycle kernel, tp_spe10_inner, every option
     if want(10):
@@ -3963,9 +4355,9 @@ def main() -> int:
                       f"{ri.newton_iters}, fgmres {ri.ksp_iters}) | tp_spe10_full phase 6 "
                       f"(dt {rf.dt:.1f}, newton {rf.newton_iters}, fgmres {rf.ksp_iters})")
         print("  (c) every solver option, GPU against CPU", flush=True)
-        opts = option_runs()
+        opts = option_runs(refs)
         phase("10 solver options", t0, f"tp_spe10_inner 60x220x85 f32: {icu_s:.1f} "
-              f"cell-updates/s over steps 2-{len(irecs)}, peak mem {ipeak:.2f} GiB; "
+              f"cell-updates/s {over_steps(len(irecs))}, peak mem {ipeak:.2f} GiB; "
               f"{len(opts)} options GPU == CPU")
 
     # (11) the run_case path: the CLI, blocked stepping, a control schedule
@@ -3976,14 +4368,21 @@ def main() -> int:
         t_a = time.perf_counter() - t0
         print(f"  (a) {t_a:.1f} s; (b) blocked stepping and (c) a control schedule",
               flush=True)
-        blocked, sched = phase11_parity()
+        entry = cli_entry_start()
+        try:
+            blocked, sched = phase11_parity(refs)
+            cli_entry_finish(entry)
+        finally:
+            if entry.poll() is None:
+                entry.kill()
+                entry.wait()
         print(f"  (b) {'x'.join(map(str, FLAGSHIP_SMALL))} f64 in blocks of {BLOCK_STEPS} "
               f"(dt, newton, fgmres, retries, consistent): cpu {blocked['cpu']} == cuda "
               f"{blocked['cuda']} == cuda host loop {blocked['host cuda']}")
         print(f"  (c) tp_thermal_2d 60x60 f64 (dt, newton, fgmres, retries): cpu "
               f"{sched['cpu']['records']} == cuda {sched['cuda']['records']}")
         phase("11 run_case path", t0, f"run_case tp_spe10_full f32: {cli['cell_updates_per_s']:.1f} "
-              f"cell-updates/s over steps 2-{CLI_STEPS}, checkpoint "
+              f"cell-updates/s {over_steps(CLI_STEPS)}, checkpoint "
               f"{statistics.median(cli['write_ms']['checkpoint_ms']):.3f} ms, VTK frame "
               f"{statistics.median(cli['write_ms']['vtk_write_ms']):.3f} ms (median), resume "
               f"bitwise; blocked and schedule GPU == CPU")
@@ -4010,7 +4409,8 @@ def main() -> int:
         first12 = first_step_modes(dev, PC_DTYPE_MODES[1:] if want(6) else PC_DTYPE_MODES)
         bvar: dict = {}
         brecs, blaunches, _, bcu_s, bpeak = flagship_run(
-            dev, BF16_STEPS, pc_overrides=dict(pc_dtype="bf16"), variants=bvar)
+            dev, BF16_STEPS, pc_overrides=dict(pc_dtype="bf16"), variants=bvar,
+            dt_init=RETRY_DT)
         print(f"  bf16 launches {bvar}; (newton, fgmres, retries) "
               f"{[(r.newton_iters, r.ksp_iters, r.retries) for r in brecs]}"
               + (f" (f32, phase 6: {[(r.newton_iters, r.ksp_iters, r.retries) for r in frecs]})"
@@ -4038,7 +4438,7 @@ def main() -> int:
                 raise SystemExit(f"flagship, batch_pt: no batched {k} launched")
         print("  (e) the storage modes and batch_pt, GPU against CPU", flush=True)
         opts12 = ({k: opts[k] for k in PC12_OPTIONS} if want(10)
-                  else option_runs(labels=PC12_OPTIONS))
+                  else option_runs(refs, labels=PC12_OPTIONS))
         for label, need in (("pc_dtype=bf16 stage2=jacobi2", "block_matvec bf16"),
                             ("pc_dtype=bf16_s2 sweeps=2", "block_rbgs_half_sweep bf16"),
                             ("batch_pt pc_dtype=bf16 inner", "block_matvec bf16"),
@@ -4054,22 +4454,22 @@ def main() -> int:
                 "flagship_batch_launches": dlaunches, "flagship_batch_variants": dvar,
                 "flagship_batch_cell_updates_per_s": dcu_s, "flagship_batch_peak_gib": dpeak,
                 "options": opts12}
-        phase("12 pc_dtype and batch_pt", t0, f"flagship bf16 {bcu_s:.1f} cell-updates/s over "
-              f"steps 2-{len(brecs)}, peak {bpeak:.2f} GiB; batch_pt {dcu_s:.1f} over step 2; "
+        phase("12 pc_dtype and batch_pt", t0, f"flagship bf16 {bcu_s:.1f} cell-updates/s "
+              f"{over_steps(len(brecs))}, peak {bpeak:.2f} GiB; batch_pt {dcu_s:.1f} "
+              f"{over_steps(len(drecs))}; "
               f"{len(opts12)} options GPU == CPU")
 
     # (13) transfers, bgmg, recycling, the adjoint
     if want(13):
         t0 = time.perf_counter()
         cli13 = adjoint_cli_start()
-        small_started = adjoint_small_start()
         print("  (a) weighted and variational transfers on the flagship's pressure stencil",
               flush=True)
         flag13 = preset_state("tp_spe10_full", torch.float32, dev,
                               dict(fuse_below=FLAGSHIP_FUSE_BELOW))
         tr13 = transfer_cases(dev, flag13)
         var_recs, var_launches, _, var_cu_s, var_peak = flagship_run(
-            dev, 1, gmg_overrides=dict(transfer="variational"),
+            dev, 1, gmg_overrides=dict(transfer="variational"), dt_init=RETRY_DT,
             kernels=tuple(k for k in FLAGSHIP_KERNELS if k != "deep_correction"))
         if var_launches["deep_correction"] != 0:
             raise SystemExit("flagship, transfer=variational: deep_correction launched")
@@ -4085,6 +4485,7 @@ def main() -> int:
         by_level: dict = {}
         g_recs, g_launches, g_attempts, g_cu_s, g_peak = flagship_run(
             dev, BGMG_STEPS, pc_overrides=dict(stage2="bgmg", bgmg_coarse_cells=BGMG_COARSE),
+            dt_init=RETRY_DT,
             kernels=FLAGSHIP_KERNELS + ("block_rbgs_half_sweep",),
             counting=count_by_level(by_level))
         print(f"  bgmg launches by level: {by_level}", flush=True)
@@ -4105,7 +4506,7 @@ def main() -> int:
               f"{len(rec_t['harvest_ms'])}); {c_cu_s:.1f} cell-updates/s, peak {c_peak:.2f} GiB",
               flush=True)
         print("  (d) the adjoint", flush=True)
-        adj_small = adjoint_small(small_started)
+        adj_small = adjoint_small(refs["adjoint small"])
         adj_dts = ([r.dt for r in frecs[:ADJ_FULL_STEPS]] if want(6) else
                    [r.dt for r in flagship_run(dev, ADJ_FULL_STEPS)[0]])
         adj_full = adjoint_full(dev, adj_dts)
@@ -4115,7 +4516,7 @@ def main() -> int:
                   f"({adj_full['vjp_ms_per_product'] / krec['fused_jvp']['ms']:.0f}x)", flush=True)
         print("  (e) the new options, GPU against CPU", flush=True)
         opts13 = ({k: opts[k] for k in P13_OPTIONS} if want(10)
-                  else option_runs(labels=P13_OPTIONS))
+                  else option_runs(refs, labels=P13_OPTIONS))
         for label, needs in P13_CHECKS.items():
             for key, kind in needs:
                 n_l = ((opts13[label]["variants"] or {}).get(key, 0) if kind == "variant"
@@ -4135,7 +4536,8 @@ def main() -> int:
                "adjoint_small": adj_small, "adjoint_full": adj_full, "options": opts13,
                "adjoint_study": cli_adj}
         phase("13 transfers, bgmg, recycling, adjoint", t0,
-              f"bgmg {g_cu_s:.1f} cell-updates/s over step 2, recycle {c_cu_s:.1f}; adjoint "
+              f"bgmg {g_cu_s:.1f} cell-updates/s {over_steps(len(g_recs))}, recycle "
+              f"{c_cu_s:.1f}; adjoint "
               f"{'x'.join(map(str, FLAGSHIP_SMALL))} GPU == CPU (gaps {adj_small['grad_gap']:.1e}), "
               f"FD {adj_small['fd_rel']:.1e}; full size {adj_full['wall_per_step_s']:.2f} s a "
               f"backward step; {len(opts13)} options GPU == CPU; CLI FD {cli_adj['fd_rel']:.1e}")
@@ -4145,18 +4547,18 @@ def main() -> int:
         t0 = time.perf_counter()
         print("  (a) tp_spe10_full, a well-control ensemble of "
               f"{len(ENS_BHP)} members, one {ENS_DT:.0f} s step", flush=True)
-        ens14 = ensemble_full(dev)
-        t_a = time.perf_counter() - t0
-        print(f"  ensemble {ens14['wall_s']:.3f} s, {ens14['cell_updates_per_s']:.1f} "
-              f"cell-updates/s over the members' Newton, peak {ens14['peak_gib']:.2f} "
-              f"GiB; launches {ens14['launches']}", flush=True)
-        ex14 = examples_start()
+        ex14: dict = {}
         try:
+            ens14 = ensemble_full(dev, after_ensemble=lambda: ex14.update(examples_start()))
+            t_a = time.perf_counter() - t0
+            print(f"  ensemble {ens14['wall_s']:.3f} s, {ens14['cell_updates_per_s']:.1f} "
+                  f"cell-updates/s over the members' Newton, peak {ens14['peak_gib']:.2f} "
+                  f"GiB; launches {ens14['launches']}", flush=True)
             print("  (b) the ensemble adjoint", flush=True)
-            adj14 = ensemble_adjoint(ex14["adjoint"])
+            adj14 = ensemble_adjoint(refs["ensemble adjoint"])
             t_b = time.perf_counter() - t0 - t_a
             print("  (c) iteration_study and (d) custom_case, GPU against CPU", flush=True)
-            cli14 = examples_finish(ex14)
+            cli14 = examples_finish(ex14, refs)
         finally:
             examples_stop(ex14)
         p14 = {"ensemble": ens14, "ensemble_adjoint": adj14, "examples": cli14,
@@ -4178,11 +4580,13 @@ def main() -> int:
             one15 = decomp_one_rank(dev)
             torch.cuda.empty_cache()
             t_a = time.perf_counter() - t0
-            print(f"  (b) {DECOMP_RANKS} gloo ranks sharing cuda:0, the flagship split 2x2",
-                  flush=True)
-            four15 = decomp_four_ranks(one15)
+            print(f"  (b), (d) and (e) over {DECOMP_RANKS} gloo ranks sharing cuda:0, one spawn: "
+                  f"the flagship, tp_spe10_inner, then the lifted options, split 2x2", flush=True)
+            four15, inner15, opt15 = decomp_four_ranks(dev, one15, refs,
+                                                       irecs[0] if want(10) else None)
+            del one15["case"], one15["u0"]
             torch.cuda.empty_cache()
-            t_b = time.perf_counter() - t0 - t_a
+            t_bd = time.perf_counter() - t0 - t_a
             print(f"  (c) dryrun_multichip({DECOMP_RANKS}, device=\"cuda\", backend=\"gloo\"), "
                   f"f64, started with the phase", flush=True)
             dry15 = decomp_dryrun_finish(dry_proc)
@@ -4190,21 +4594,30 @@ def main() -> int:
             if dry_proc.poll() is None:
                 dry_proc.kill()
                 dry_proc.wait()
-        t_c = time.perf_counter() - t0 - t_a - t_b
+        t_c = time.perf_counter() - t0 - t_a - t_bd
         p15 = {"kernel_blocks": blk15,
-               "one_rank": {k: v for k, v in one15.items() if k not in ("u", "case", "u0")},
-               "four_ranks": four15, "dryrun": dry15, "a_s": t_a, "b_s": t_b, "c_s": t_c}
+               "one_rank": {k: v for k, v in one15.items() if k != "u"},
+               "four_ranks": four15, "inner": inner15, "dryrun": dry15, "options": opt15,
+               "a_s": t_a, "b_d_e_s": t_bd, "c_s": t_c}
         r0 = four15["ranks"][0]
+        d0 = inner15["ranks"][0]
         phase("15 grid decomposition", t0,
               f"one-rank NCCL mesh bitwise the undecomposed flagship step "
               f"({one15['newton']}, {one15['fgmres']}); 2x2 over {DECOMP_RANKS} gloo ranks on "
               f"one card ({r0['newton']}, {r0['fgmres']}), its Newton test "
               f"{four15['newton_norm']:.3e} <= {four15['newton_tol']:.1e}, gaps p/T/S "
               f"{'/'.join(f'{g:.3e}' for g in four15['gaps'])}; rank 0 wall "
-              f"{r0['wall_s']:.3f} s; dry run {dry15['run']['steps']} steps, newton "
-              f"{dry15['run']['newton']}, ksp {dry15['run']['ksp']} == undecomposed, resume "
-              f"bitwise ((a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s more)")
+              f"{r0['wall_s']:.3f} s; tp_spe10_inner 2x2 ({d0['newton']}, {d0['fgmres']}) == "
+              f"undecomposed, Newton test {inner15['newton_norm']:.3e} <= "
+              f"{inner15['newton_tol']:.1e}, rank 0 wall {d0['wall_s']:.3f} s; dry run "
+              f"{dry15['run']['steps']} steps, newton {dry15['run']['newton']}, ksp "
+              f"{dry15['run']['ksp']} == undecomposed, resume bitwise; the lifted options in "
+              f"{len(opt15['options'])} runs 2x2 f64 == CPU ((a) {t_a:.1f} s, (b), (d) and (e) {t_bd:.1f} s, "
+              f"(c) {t_c:.1f} s more)")
 
+    if refs is not None:
+        refs["pool"].close()
+        refs["pool"].join()
     if phases is not None:
         if args.json:
             part = {"device": smi, "kernel_rows": ROWS, "ptxas": ptxas,
@@ -4322,6 +4735,32 @@ def main() -> int:
     for k in DECOMP_KERNELS:
         inner.append((f"{k} (2x2 decomposition, rank 0)", k, krec[k],
                       p15["four_ranks"]["ranks"][0]["launches"][k]))
+    # phase 15(d): tp_spe10_inner's kernels on the 2x2 path (phase 2's and
+    # phase 10(b)'s records at the flagship's shapes; launches on rank 0 in
+    # (d)'s step); (e): the red-black kernels the lifted options add there
+    # (phase 2's flagship records of the stage 2 at k = 0 and the
+    # half-sweep; launches on rank 0 of (e)'s bgmg and two-sweep runs at
+    # 12x22x9 in f64)
+    d0 = p15["inner"]["ranks"][0]
+    cols, dl = d0["by_columns"], d0["launches"]
+    inner += [("block_matvec nc=3 (2x2 tp_spe10_inner, rank 0)", "block_matvec",
+               krec["block_matvec"], cols.get("block_matvec nc=3 k=3", 0)),
+              ("block_matvec nc=2 (2x2 tp_spe10_inner, rank 0)", "block_matvec",
+               irec_pt["block_matvec"], cols.get("block_matvec nc=2 k=2", 0)),
+              ("fused_stage2_rbgs k=3 (2x2 tp_spe10_inner, rank 0)", "fused_stage2_rbgs",
+               irec["fused_stage2_rbgs"], cols.get("fused_stage2_rbgs k=3", 0))]
+    for k in ("matvec", "chebyshev_smooth", "fused_residual"):
+        inner.append((f"{k} (2x2 tp_spe10_inner, rank 0)", k, krec[k], dl[k]))
+    e_bgmg = p15["options"]["options"]["stage2=bgmg inner richardson"]["ranks"][0]
+    e_sweeps = p15["options"]["options"]["stage2=rbgs sweeps=2 s_stage=rbgs"]["ranks"][0]
+    k0_row = row_of(f"fused_stage2_rbgs k=0 no x1 {gs}")
+    half_row = row_of(f"block_rbgs_half_sweep red flagship {gs}")
+    inner += [("fused_stage2_rbgs k=0 (2x2 bgmg levels, rank 0)", "fused_stage2_rbgs",
+               k0_row, e_bgmg["by_columns"].get("fused_stage2_rbgs k=0", 0)),
+              ("block_rbgs_half_sweep (2x2 bgmg levels, rank 0)", "block_rbgs_half_sweep",
+               half_row, e_bgmg["launches"]["block_rbgs_half_sweep"]),
+              ("block_rbgs_half_sweep (2x2 stage2_sweeps=2, rank 0)", "block_rbgs_half_sweep",
+               half_row, e_sweeps["launches"]["block_rbgs_half_sweep"])]
     kernels += [{"name": label, "route": "cuda", "source": KERNEL_SOURCES[k][0],
                  "replaces": KERNEL_SOURCES[k][1], "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

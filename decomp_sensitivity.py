@@ -1,6 +1,7 @@
 """How far rounding alone moves the flagship's first step, on one NVIDIA GPU.
 
     python3 decomp_sensitivity.py [--json PATH]
+    python3 decomp_sensitivity.py --recycle
 
 The decomposed run (``chip_smoke.py`` phase 15) changes only the rounding
 of the global reductions.  This script measures what such a change does to
@@ -12,6 +13,13 @@ four gloo ranks sharing the card (the flagship split 2x2) against the
 undecomposed f64 step.  Prints (Newton, FGMRES) and the largest gap per
 component (p [Pa], T [K], S_w) of each run to the unperturbed step.
 About 3 minutes; exits nonzero without CUDA.
+
+With ``--recycle`` (on the CPU, about 15 s): the same probe on the
+undecomposed step of ``chip_smoke.py`` phase 15(e)'s "ksp_recycle=4"
+option (the flagship configuration at 12x22x9, f64, under the flagship's
+loose Krylov tolerances), from the initial state and with RECYCLE_CELL's
+pressure one ulp higher: why (e) holds that option to the Newton test and
+not to the reference's bands.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import chip_smoke as cs
 
 #: the perturbed cells: (component, x, y, z), the injector's column
 NUDGES = ((0, 30, 110, 40), (0, 30, 110, 42))
+#: the perturbed cell of --recycle: (component, x, y, z)
+RECYCLE_CELL = (0, 6, 11, 4)
 
 
 def step(dev, dtype, nudge=None):
@@ -50,10 +60,38 @@ def step(dev, dtype, nudge=None):
             (pc.gmg.level_factors, pc.gmg_t.level_factors), time.perf_counter() - t)
 
 
+def recycle_ulp() -> dict:
+    """--recycle: the "ksp_recycle=4" option's CPU step from the initial
+    state and from it with RECYCLE_CELL one ulp up: both (Newton, FGMRES)
+    and the largest gap per component."""
+    torch.set_num_threads(2)
+    label = "ksp_recycle=4"
+    case, pc, newton = cs._decomp_option_case(label, "cpu", factors=cs.decomp_option_factors())
+    u0 = case.model.initial_state(case.data)
+    nudged = u0.clone()
+    nudged[RECYCLE_CELL] = torch.nextafter(nudged[RECYCLE_CELL], nudged.new_tensor(float("inf")))
+    runs = [case.simulator(pc_cfg=pc, newton_cfg=newton).step(u, cs.DECOMP_DT)
+            for u in (u0, nudged)]
+    gaps = cs._gaps(runs[1][0].numpy(), runs[0][0].numpy())
+    counts = [(st.iters, st.ksp_iters) for _, st in runs]
+    print(f"{label} 12x22x9 f64 on the CPU: (newton, fgmres) {counts[0]}; p{list(RECYCLE_CELL[1:])} "
+          f"one ulp up: {counts[1]}, gaps p {gaps[0]:.6e} Pa, T {gaps[1]:.6e} K, "
+          f"S {gaps[2]:.6e}", flush=True)
+    return {"counts": counts, "cell": RECYCLE_CELL, "gaps": gaps}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the record to this path")
+    ap.add_argument("--recycle", action="store_true",
+                    help="the ksp_recycle=4 probe on the CPU alone")
     args = ap.parse_args()
+    if args.recycle:
+        rec = recycle_ulp()
+        if args.json:
+            with open(args.json, "w") as fh:
+                json.dump(rec, fh, indent=1)
+        return 0
     if not torch.cuda.is_available():
         print("decomp_sensitivity: torch.cuda.is_available() is False", file=sys.stderr)
         return 2

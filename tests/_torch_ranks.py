@@ -25,7 +25,7 @@ from thermalporous_torch.dist.sharding import (
 )
 from thermalporous_torch.kernels import stencil as kst
 from thermalporous_torch.physics.wells import well_rates
-from thermalporous_torch.precond.cpr import CPRConfig, cpr_setup
+from thermalporous_torch.precond.cpr import CPRConfig, cpr_apply, cpr_setup
 from thermalporous_torch.precond.gmg import GMGConfig
 from thermalporous_torch.solve.timeloop import Simulator
 from thermalporous_torch.utils import all_finite
@@ -124,7 +124,8 @@ def halo_and_kernels_rank(mesh, arrays: dict, cases) -> int:
 def step_rank(mesh, model, data, newton_cfg, pc_cfg, dt: float, coarsest: bool = False):
     """One decomposed ``Simulator.step`` from the initial state: (Newton,
     FGMRES, converged, the gathered state, the corner wells' rates[, the
-    pressure hierarchy's decomposed level count and coarsest diagonal])."""
+    decomposed level count and the coarsest diagonal of the pressure
+    hierarchy, or of the coupled one under ``stage2="bgmg"``])."""
     if callable(pc_cfg):
         pc_cfg = pc_cfg(mesh)
     data_s = shard_problem_data(data, mesh)
@@ -140,14 +141,17 @@ def step_rank(mesh, model, data, newton_cfg, pc_cfg, dt: float, coarsest: bool =
         stencil = block_model(model, blk).assemble_stencil(u0, u0, dt, data_s)
         state = cpr_setup(stencil, dataclasses.replace(pc_cfg or CPRConfig(),
                                                        variant="cptr"), block=blk)
-        out += (len(state.gmg_p.blocks), state.gmg_p.stencils[-1].diag.numpy())
+        hier = state.bgmg if state.bgmg is not None else state.gmg_p
+        out += (len(hier.blocks), hier.stencils[-1].diag.numpy())
     return out
 
 
 def corner_masks(shape) -> dict:
-    """Well masks of the ``_case`` wells: the first and the last cell."""
+    """Well masks of the ``_case`` wells, the first and the last cell, and
+    of the 3D cases' wells, the columns through the first and the last
+    (x, y) corner."""
     first, last = np.zeros(shape, dtype=bool), np.zeros(shape, dtype=bool)
-    first[(0,) * len(shape)] = last[tuple(n - 1 for n in shape)] = True
+    first[0, 0] = last[shape[0] - 1, shape[1] - 1] = True
     return {"INJ": first, "PROD": last}
 
 
@@ -159,3 +163,29 @@ def replicated_pc(mesh) -> CPRConfig:
 def steps_rank(mesh, jobs) -> list:
     """:func:`step_rank` of each job (its keyword arguments)."""
     return [step_rank(mesh, **job) for job in jobs]
+
+
+def apply_rank(mesh, model, data, u, dt: float, r, pc_cfg) -> np.ndarray:
+    """The decomposed CPTR apply of ``pc_cfg`` to the whole residual ``r``
+    (this rank's owned block of it), set up from the Jacobian at the state
+    ``u`` (the step from ``u``), gathered whole."""
+    data_s = shard_problem_data(data, mesh)
+    blk = data_s.block
+    u_s = shard_state(torch.as_tensor(u), mesh)
+    stencil = block_model(model, blk).assemble_stencil(u_s, u_s, dt, data_s)
+    state = cpr_setup(stencil, pc_cfg, block=blk)
+    y = cpr_apply(state, blk.cut(torch.as_tensor(r), lead=1, ghosts=False), pc_cfg)
+    return blk.gather(y, lead=1).numpy()
+
+
+def options_rank(mesh, jobs, applies=()) -> dict:
+    """:func:`step_rank` of each job with this rank's collective counts of
+    its step appended (exchanges, all-reduces, all-gathers), and
+    :func:`apply_rank` of each of ``applies`` (its keyword arguments)."""
+    steps = []
+    for job in jobs:
+        mesh.reset_stats()
+        got = step_rank(mesh, **job)
+        steps.append(got + ((mesh.stats["exchanges"], mesh.stats["allreduces"],
+                             mesh.stats["gathers"]),))
+    return {"steps": steps, "applies": [apply_rank(mesh, **a) for a in applies]}

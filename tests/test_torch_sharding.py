@@ -16,7 +16,10 @@ the CPU (a 2×2 mesh).
   records those of the gathered state.  One spawn runs the ranks' steps
   while this process computes the references.
 - Every option the decomposition does not run raises
-  ``NotDecomposedError`` under a mesh.
+  ``NotDecomposedError`` under a mesh (a line solve along a decomposed
+  axis naming it); every option it runs since the stage-2 and Krylov
+  options were lifted is, on a one-rank mesh, the undecomposed step bit
+  for bit (their 2×2 checks are ``test_torch_sharding_options.py``).
 """
 
 import dataclasses
@@ -169,11 +172,8 @@ def test_decomposed_steps_match_the_references():
 
 
 _REFUSED = [
-    ("newton", dict(ksp_orth="cgs1")), ("newton", dict(ksp_orth="cgs2s")),
-    ("newton", dict(krylov_op="jvp")), ("newton", dict(ksp_recycle=2)),
-    ("pc", dict(s_stage="rbgs")), ("pc", dict(inner_iters=2)),
-    ("pc", dict(stage2="zebra")), ("pc", dict(stage2="bgmg")),
-    ("pc", dict(stage2="rbgs", stage2_sweeps=2)), ("pc", dict(stage2="jacobi2")),
+    ("newton", dict(krylov_op="jvp")),
+    ("pc", dict(stage2="zebra")), ("pc", dict(s_stage="line")),
     ("pc", dict(stage2="rbgs", stage2_axes=(0,))),
     ("pc", dict(batch_pt=True, triangular=False)), ("pc", dict(pc_dtype="bf16")),
     ("gmg", dict(transfer="weighted")), ("gmg", dict(transfer="variational")),
@@ -206,6 +206,48 @@ def test_refused_options_raise_under_a_mesh(one_rank_case, kind, option):
     with pytest.raises(NotDecomposedError):
         TSimulator(model, data_s, **kw)
     TSimulator(model, data, **kw)     # undecomposed, the option runs
+
+
+#: a line solve along x or y (every axis of a 2D grid) is refused by name
+_LINE_ALONG_XY = [dict(stage2="zebra"), dict(stage2="zebra", stage2_axis=0),
+                  dict(s_stage="line"), dict(s_stage="zebra", s_axis=1)]
+
+
+@pytest.mark.parametrize("option", _LINE_ALONG_XY, ids=[str(o) for o in _LINE_ALONG_XY])
+def test_line_solves_along_a_decomposed_axis_are_refused_by_name(one_rank_case, option):
+    model, data, mesh, data_s = one_rank_case
+    with pytest.raises(NotDecomposedError, match=r"along axis [01] \(x or y: decomposed"):
+        TSimulator(model, data_s, pc_cfg=CPRConfig(**option), device="cpu")
+
+
+#: the options the stage-2 and Krylov slice lifted (the refused list's ids
+#: before it)
+_LIFTED = [
+    ("newton", dict(ksp_orth="cgs1")), ("newton", dict(ksp_orth="cgs2s")),
+    ("newton", dict(ksp_recycle=2)), ("pc", dict(s_stage="rbgs")),
+    ("pc", dict(inner_iters=2)), ("pc", dict(stage2="bgmg")),
+    ("pc", dict(stage2="rbgs", stage2_sweeps=2)), ("pc", dict(stage2="jacobi2")),
+]
+
+
+@pytest.mark.parametrize("kind,option", _LIFTED, ids=[f"{k}-{o}" for k, o in _LIFTED])
+def test_lifted_options_one_rank_mesh_is_undecomposed(one_rank_case, kind, option):
+    """Each lifted option on the one-rank fixture's mesh: the undecomposed
+    step's bits and counts (bgmg with a two-level coupled hierarchy whose
+    finest level is decomposed)."""
+    model, data, mesh, data_s = one_rank_case
+    kw = dict(device="cpu")
+    if kind == "newton":
+        kw["newton_cfg"] = TNewtonConfig(**option)
+    else:
+        if option.get("stage2") == "bgmg":
+            option = dict(option, bgmg_coarse_cells=16, gmg=GMGConfig(replicate_below=32))
+        kw["pc_cfg"] = CPRConfig(**option)
+    u0 = model.initial_state(data)
+    ref, st_ref = TSimulator(model, data, **kw).step(u0, DT)
+    got, st = TSimulator(model, data_s, **kw).step(shard_state(u0, mesh), DT)
+    assert st.converged and (st.iters, st.ksp_iters) == (st_ref.iters, st_ref.ksp_iters)
+    assert torch.equal(gather_state(got, mesh), ref)
 
 
 def test_refused_paths_raise_under_a_mesh(one_rank_case):

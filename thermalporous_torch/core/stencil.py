@@ -40,6 +40,10 @@ class BlockStencil:
     """Block 7-point (5-point in 2D) stencil operator."""
 
     coef: torch.Tensor  # (2·dim+1, nc, nc, *grid), contiguous
+    #: index sum of the grid's origin in the whole grid, mod 2: the colour
+    #: offset of the red-black and zebra smoothers (a whole grid's is 0; a
+    #: decomposed block's view, ``dist.halo.HaloStencil``, has its own)
+    parity = 0
 
     @classmethod
     def from_parts(cls, diag, upper, lower) -> "BlockStencil":
@@ -163,6 +167,7 @@ class ScalarStencil:
     """Scalar 7-point stencil (one equation, one unknown per cell)."""
 
     packed: torch.Tensor  # (2·dim+1, *grid), contiguous
+    parity = 0            # as BlockStencil.parity
 
     @classmethod
     def from_parts(cls, diag, upper, lower) -> "ScalarStencil":

@@ -130,9 +130,18 @@ class HaloStencil:
     """A block or scalar stencil ``st`` held on ``block``'s extended block
     (its rows right to the ring's first cells), applied to owned vectors:
     each product extends its vector by one exchange and keeps the owned
-    rows.  The decomposed Newton operator and the T←p coupling."""
+    rows.  The decomposed Newton operator, the T←p and S←(p, T) couplings,
+    the inner iterations' (p, T) operator and the stage 2's residuals.
+
+    It also reads as a stencil of the owned block (``grid_shape``, ``diag``,
+    ``upper``, ``lower``: the owned rows; ``parity``: the block's colour
+    offset), so that the pointwise and red-black smoothers and the
+    line solves along the local z run on it unchanged, in the whole grid's
+    colours."""
 
     def __init__(self, st, block: Block):
+        if block.width % 2:
+            raise ValueError(f"HaloStencil: a ring {block.width} deep is not even")
         self.st = st
         self.block = block
         self.dim = len(block.shape)
@@ -140,6 +149,31 @@ class HaloStencil:
     def _apply(self, fn, v: torch.Tensor) -> torch.Tensor:
         lead = v.dim() - self.dim
         return self.block.owned(fn(self.block.extend(v, lead=lead)), lead=lead)
+
+    def _own(self, t: torch.Tensor) -> torch.Tensor:
+        return self.block.owned(t, lead=t.dim() - self.dim)
+
+    @property
+    def grid_shape(self) -> tuple[int, ...]:
+        return self.block.owned_shape
+
+    @property
+    def parity(self) -> int:
+        # the ring is even, so the owned origin's index sum has the
+        # extended origin's parity
+        return self.block.parity
+
+    @property
+    def diag(self) -> torch.Tensor:
+        return self._own(self.st.diag)
+
+    @property
+    def upper(self) -> tuple[torch.Tensor, ...]:
+        return tuple(self._own(t) for t in self.st.upper)
+
+    @property
+    def lower(self) -> tuple[torch.Tensor, ...]:
+        return tuple(self._own(t) for t in self.st.lower)
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         return self._apply(self.st.matvec, v)

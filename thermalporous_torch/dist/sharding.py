@@ -23,8 +23,10 @@ Owned ranges (:func:`split_ranges`) may be uneven, as in PETSc's DMDA: each
 interior block boundary is the multiple of 2^k nearest the even split, for
 the largest k ≤ 6 that keeps every boundary within n/(8m) cells of it.
 Boundaries divisible by 2^k let k coarsenings of an axis restrict block by
-block, without a coarsening pair straddling two blocks; the multigrid keeps
-a level decomposed only while that holds (``precond/gmg.py``).
+block, without a coarsening pair straddling two blocks; the scalar
+multigrid (``precond/gmg.py``) and bgmg's coupled block hierarchy
+(``precond/block_gmg.py``) keep a level decomposed only while that holds
+(:meth:`Block.level_blocks`).
 
 Tensors of a decomposed run are held on the **extended block**: the owned
 cells plus a ghost ring ``width`` cells deep on each side that has a
@@ -327,6 +329,37 @@ class Block:
         bounds = tuple(tuple(-(-x // 2) for x in self.bounds[a]) if factors[a] == 2
                        else self.bounds[a] for a in (0, 1))
         return dataclasses.replace(self, shape=shape, bounds=bounds)
+
+    def level_blocks(self, shapes, factors, replicate_below: int) -> tuple["Block", ...]:
+        """The blocks of a hierarchy's leading levels that stay decomposed,
+        from this block down (the levels' whole ``shapes``, the ``factors``
+        between them): a level stays while it has more than
+        ``replicate_below`` cells, every range holds the ring and no
+        coarsening pair straddles two blocks; the levels below are
+        replicated."""
+        blocks, b = [], self
+        for shape, f in zip(shapes, factors):
+            if math.prod(shape) <= replicate_below or not b.fits() or not b.aligned(f):
+                break
+            blocks.append(b)
+            b = b.coarsen(f)
+        return tuple(blocks)
+
+    def through_coarse(self, factors, rc: torch.Tensor, solve, replicate: bool,
+                       lead: int = 1) -> torch.Tensor:
+        """The next level's correction ``solve(rc)`` of this rank's restricted
+        residual ``rc``; when that level is replicated (``replicate``),
+        ``rc`` all-gathered onto it first and the rank's part cut out of the
+        correction."""
+        if not replicate:
+            return solve(rc)
+        coarse = self.coarsen(factors)
+        return coarse.cut(solve(coarse.gather(rc, lead=lead)), lead=lead, ghosts=False)
+
+    def on_whole(self, fn, x: torch.Tensor, lead: int = 1) -> torch.Tensor:
+        """``fn`` of the whole tensor put together from every rank's owned
+        block ``x``, and this rank's owned part of its result."""
+        return self.cut(fn(self.gather(x, lead=lead)), lead=lead, ghosts=False)
 
     # ------------------------------------------------------------- slicing
     def _slices(self, ranges, lead: int, origin=None) -> tuple:

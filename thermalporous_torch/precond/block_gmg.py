@@ -16,6 +16,23 @@ kernel with no x₁) and every further sweep, the post-smooth from x
 included, two ``block_rbgs_half_sweep`` launches; each level's residual is
 one ``block_matvec`` launch.  The Galerkin coarsening, the block inverses
 and the dense coarsest solve are plain PyTorch, as the reference's are jnp.
+
+Over a grid decomposition (``block_gmg_setup(..., block=...)``) the
+hierarchy takes the scalar multigrid's treatment (``precond/gmg.py``): the
+leading levels are **decomposed** while they have more than
+``GMGConfig.replicate_below`` cells, every rank's block is at least as deep
+as the ring (the Jacobian's, :data:`~thermalporous_torch.dist.sharding.STATE_HALO`
+cells) and the block boundaries are even along the axes the level
+coarsens.  A decomposed level's stencil and diagonal inverses are held on
+the extended block (the finest is the Jacobian as held; a coarser one is
+coarsened from the owned rows, whose off-diagonals carry the couplings
+across a block boundary, and its ring filled by one exchange), its smooths
+run on the kernels there in the whole grid's colours (the level's own
+parity), and its residual is a halo matvec.  Below, every level is
+**replicated**: the restricted residual is all-gathered onto it, the dense
+coupled coarsest inverse is the same on every rank, and each rank cuts its
+own part out of the correction (the reference's ``_replicated`` rule,
+``block_gmg.py:145-152, 194-196``).
 """
 
 from __future__ import annotations
@@ -37,6 +54,17 @@ class BlockGMGState:
     stencils: tuple[BlockStencil, ...]   # per level
     dinvs: tuple[torch.Tensor, ...]      # per smoothed level, (nc, nc, *grid)
     coarse_inv: torch.Tensor             # dense inverse of the coarsest system
+    # grid decomposition: the Block of each leading decomposed level (its
+    # stencil and D⁻¹ held on the extended block), and the Block of
+    # block_gmg_apply's vectors (owned blocks of level 0), or None
+    blocks: tuple = ()
+    top: object | None = None
+
+    def gshape(self, level: int) -> tuple[int, ...]:
+        """The whole grid of ``level``."""
+        if level < len(self.blocks):
+            return self.blocks[level].shape
+        return self.stencils[level].grid_shape
 
 
 def _bsum(x: torch.Tensor, dim: int, factors: tuple[int, ...]) -> torch.Tensor:
@@ -69,6 +97,11 @@ def _bprolong(e: torch.Tensor, dim: int, fine_shape: tuple[int, ...],
     return e.contiguous()
 
 
+def _full_factors(shape: tuple[int, ...]) -> tuple[int, ...]:
+    """Factor-2 coarsening on every axis that is not exhausted."""
+    return tuple(2 if n > 1 else 1 for n in shape)
+
+
 def block_galerkin_coarsen(st: BlockStencil,
                            factors: tuple[int, ...] | None = None) -> BlockStencil:
     """A_c = R·A·P with summation R and injection P, lifted to blocks: the
@@ -78,7 +111,7 @@ def block_galerkin_coarsen(st: BlockStencil,
     shape = st.grid_shape
     dim = len(shape)
     if factors is None:
-        factors = tuple(2 if n > 1 else 1 for n in shape)
+        factors = _full_factors(shape)
 
     def axis_mask(axis: int, even: bool) -> torch.Tensor:
         idx = torch.arange(shape[axis], device=st.coef.device)
@@ -105,12 +138,16 @@ def block_galerkin_coarsen(st: BlockStencil,
 
 
 def block_gmg_setup(st: BlockStencil, gmg_cfg: GMGConfig, max_coarse_cells: int = 256,
-                    max_levels: int = 12) -> BlockGMGState:
+                    max_levels: int = 12, block=None) -> BlockGMGState:
     """Build the coupled hierarchy (per preconditioner set-up): full
     factor-2 coarsening on every axis that is not exhausted until a level
     has at most ``max_coarse_cells`` cells.  ``gmg_cfg`` carries no option
     this hierarchy uses on one device (the reference reads its multi-device
-    fields only)."""
+    fields only: ``replicate_below`` and ``mesh``).  With ``block`` (``st``
+    held on its extended block) the decomposed hierarchy of the module's
+    docstring."""
+    if block is not None:
+        return _setup_blocks(st, gmg_cfg, max_coarse_cells, max_levels, block)
     stencils = [st]
     while (math.prod(stencils[-1].grid_shape) > max_coarse_cells
            and len(stencils) < max_levels
@@ -119,6 +156,68 @@ def block_gmg_setup(st: BlockStencil, gmg_cfg: GMGConfig, max_coarse_cells: int 
     return BlockGMGState(stencils=tuple(stencils),
                          dinvs=tuple(invert_blocks(s.diag) for s in stencils[:-1]),
                          coarse_inv=dense_inv(stencils[-1].to_dense()))
+
+
+def _setup_blocks(st: BlockStencil, gmg_cfg: GMGConfig, max_coarse_cells: int,
+                  max_levels: int, block) -> BlockGMGState:
+    """The coupled hierarchy of a decomposed Jacobian: the levels' whole
+    shapes as :func:`block_gmg_setup` walks them, the leading levels
+    decomposed while they may be, the rest replicated."""
+    if gmg_cfg.mesh is not None and gmg_cfg.mesh is not block.mesh:
+        raise ValueError("GMGConfig.mesh is not the mesh the data is decomposed over")
+    shapes = [block.shape]
+    while (math.prod(shapes[-1]) > max_coarse_cells and len(shapes) < max_levels
+           and any(n > 1 for n in shapes[-1])):
+        shapes.append(tuple(-(-n // 2) if n > 1 else n for n in shapes[-1]))
+    factors = [_full_factors(shape) for shape in shapes[:-1]]
+    blocks = block.level_blocks(shapes, factors, gmg_cfg.replicate_below)
+    cur = BlockStencil(block.owned(st.coef, lead=3))
+    if not blocks:
+        cur = BlockStencil(block.gather(cur.coef, lead=3))
+    stencils, dinvs = [], []
+    for level in range(len(shapes)):
+        last = level == len(shapes) - 1
+        nxt = None
+        if level < len(blocks):
+            blk = blocks[level]
+            held = st if level == 0 else BlockStencil(blk.extend(cur.coef, lead=3))
+            stencils.append(held)
+            dinvs.append(invert_blocks(held.diag))
+            nxt = block_galerkin_coarsen(cur, factors[level])
+            if level + 1 == len(blocks):
+                nxt = BlockStencil(blk.coarsen(factors[level]).gather(nxt.coef, lead=3))
+        else:
+            stencils.append(cur)
+            if not last:
+                dinvs.append(invert_blocks(cur.diag))
+                nxt = block_galerkin_coarsen(cur)
+        cur = nxt
+    return BlockGMGState(stencils=tuple(stencils), dinvs=tuple(dinvs),
+                         coarse_inv=dense_inv(stencils[-1].to_dense()),
+                         blocks=tuple(blocks), top=block.with_width(0))
+
+
+def _cycle_block(state: BlockGMGState, level: int, b: torch.Tensor, gmg_cfg: GMGConfig,
+                 sweeps: int) -> torch.Tensor:
+    """:func:`_cycle` from decomposed ``level`` on owned vectors: ``b``
+    exchanged once for both smooths, the residual a halo matvec, the
+    restriction and the prolongation block by block, the restricted
+    residual all-gathered onto a replicated next level and the rank's part
+    cut back out of its correction."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    blk = state.blocks[level]
+    st, dinv = state.stencils[level], state.dinvs[level]
+    fine = blk.owned_shape
+    factors = tuple(2 if c < f else 1 for f, c in zip(blk.shape, state.gshape(level + 1)))
+    dim = len(fine)
+    b_ext = blk.extend(b, lead=1)
+    x = block_red_black_gauss_seidel(st, dinv, b_ext, sweeps=sweeps, block=blk)
+    ec = blk.through_coarse(factors, _bsum(b - HaloStencil(st, blk).matvec(x), dim, factors),
+                            lambda rc: _cycle(state, level + 1, rc, gmg_cfg, sweeps),
+                            replicate=level + 1 == len(state.blocks))
+    x = x + _bprolong(ec, dim, fine, factors)
+    return block_red_black_gauss_seidel(st, dinv, b_ext, x=x, sweeps=sweeps, block=blk)
 
 
 def _cycle(state: BlockGMGState, level: int, b: torch.Tensor, gmg_cfg: GMGConfig,
@@ -130,6 +229,8 @@ def _cycle(state: BlockGMGState, level: int, b: torch.Tensor, gmg_cfg: GMGConfig
     st = state.stencils[level]
     if level == len(state.stencils) - 1:
         return torch.mv(state.coarse_inv, b.reshape(-1)).reshape(b.shape)
+    if level < len(state.blocks):
+        return _cycle_block(state, level, b, gmg_cfg, sweeps)
     dinv = state.dinvs[level]
     fine = st.grid_shape
     coarse = state.stencils[level + 1].grid_shape
@@ -145,8 +246,20 @@ def _cycle(state: BlockGMGState, level: int, b: torch.Tensor, gmg_cfg: GMGConfig
 def block_gmg_apply(state: BlockGMGState, b: torch.Tensor, gmg_cfg: GMGConfig,
                     sweeps: int = 1, cycles: int = 1) -> torch.Tensor:
     """``cycles`` coupled V-cycles approximating A⁻¹b on the full system,
-    each after the first on the residual of the sum so far."""
+    each after the first on the residual of the sum so far.  A decomposed
+    hierarchy takes and returns owned blocks (each later cycle's residual a
+    halo matvec); one replicated from level 0 gathers ``b`` and cuts the
+    rank's part out."""
+    if state.top is not None and not state.blocks:
+        whole = dataclasses.replace(state, top=None)
+        return state.top.on_whole(lambda bb: block_gmg_apply(whole, bb, gmg_cfg, sweeps=sweeps,
+                                                             cycles=cycles), b)
+    matvec = state.stencils[0].matvec
+    if state.blocks:
+        from thermalporous_torch.dist.halo import HaloStencil
+
+        matvec = HaloStencil(state.stencils[0], state.blocks[0]).matvec
     x = _cycle(state, 0, b, gmg_cfg, sweeps)
     for _ in range(cycles - 1):
-        x = x + _cycle(state, 0, b - state.stencils[0].matvec(x), gmg_cfg, sweeps)
+        x = x + _cycle(state, 0, b - matvec(x), gmg_cfg, sweeps)
     return x

@@ -118,8 +118,9 @@ def red_black_gauss_seidel(st: ScalarStencil, b: torch.Tensor,
                            x: torch.Tensor | None = None, sweeps: int = 1) -> torch.Tensor:
     """Red-black Gauss–Seidel sweeps: each colour's update is a masked
     Jacobi step against the other colour's fresh values (the looped form
-    from zero as well, as the reference runs it)."""
-    red = kst.checkerboard(st.grid_shape, b.dtype, b.device)
+    from zero as well, as the reference runs it), in the colours of the
+    whole grid (``st.parity``)."""
+    red = kst.checkerboard(st.grid_shape, b.dtype, b.device, st.parity)
     black = 1.0 - red
     inv_diag = 1.0 / st.diag
     if x is None:
@@ -164,10 +165,11 @@ def tridiag_solve_along(axis: int, lower: torch.Tensor, diag: torch.Tensor,
 
 
 def _line_mask(shape: Sequence[int], line_axis: int, color: int, dtype: torch.dtype,
-               device: torch.device | str) -> torch.Tensor:
+               device: torch.device | str, offset: int = 0) -> torch.Tensor:
     """Checkerboard over the axes other than ``line_axis``: each line along
-    it is one colour (the zebra 2-colouring)."""
-    parity = torch.zeros((), dtype=torch.int64, device=device)
+    it is one colour (the zebra 2-colouring); ``offset`` is the index sum of
+    the grid's origin over those axes in a whole grid, mod 2."""
+    parity = torch.full((), offset, dtype=torch.int64, device=device)
     for a, m in enumerate(shape):
         if a == line_axis % len(shape):
             continue
@@ -203,7 +205,7 @@ def zebra_line_gs(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = N
     values."""
     a = axis % st.dim
     lo, up = st.lower[a], st.upper[a]
-    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device)
+    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device, st.parity)
     black = 1.0 - red
     if x is None:
         x = torch.zeros_like(b)
@@ -220,6 +222,7 @@ def block_red_black_gauss_seidel(
     x: torch.Tensor | None = None,
     sweeps: int = 1,
     axes: Sequence[int] | None = None,
+    block=None,
 ) -> torch.Tensor:
     """``sweeps`` red-black block Gauss–Seidel sweeps on a block stencil from
     ``x`` (None = zero): each colour's cells get exact per-cell block solves
@@ -236,14 +239,27 @@ def block_red_black_gauss_seidel(
     sparsified operator, not exact.  That route is chosen by configuration
     and is plain PyTorch on either device — the reference's own Pallas
     sweep takes no axes either — in the reference's looped form, from zero
-    included."""
+    included.
+
+    With ``block`` (a :class:`~thermalporous_torch.dist.sharding.Block` at
+    least two cells deep, the full coupling) ``st``, ``dinv`` and ``b`` are
+    held on its extended block, right at least one cell into the ring, and
+    ``x`` and the result are owned blocks: the kernels run on the extended
+    block in the whole grid's colours (``block.parity``), ``x`` exchanged
+    once before each sweep that starts from it (the red cells of the ring's
+    first layer then see their outer neighbours, so the black owned cells
+    see fresh red values)."""
     if axes is None:
+        p, own, ext = 0, (lambda t: t), (lambda t: t)
+        if block is not None:
+            p = block.parity
+            own, ext = (lambda t: block.owned(t, lead=1)), (lambda t: block.extend(t, lead=1))
         if x is None:
-            x = kst.fused_block_rbgs(st.coef, dinv, b)
+            x = own(kst.fused_block_rbgs(st.coef, dinv, b, parity=p))
             sweeps -= 1
         for _ in range(sweeps):
-            x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 0)
-            x = kst.block_rbgs_half_sweep(st.coef, dinv, b, x, 1)
+            xe = kst.block_rbgs_half_sweep(st.coef, dinv, b, ext(x), 0, parity=p)
+            x = own(kst.block_rbgs_half_sweep(st.coef, dinv, b, xe, 1, parity=p))
         return x
     red = kst.checkerboard(st.grid_shape, b.dtype, b.device)
     black = 1.0 - red
@@ -334,7 +350,7 @@ def block_zebra_line_gs(
     a = axis % st.dim
     if factor is None:
         factor = block_tridiag_factor(a, st.lower[a], st.diag, st.upper[a])
-    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device)
+    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device, st.parity)
     black = 1.0 - red
     for _ in range(sweeps):
         x = x + omega * red * block_tridiag_solve_factored(a, factor, b - st.matvec(x))

@@ -40,12 +40,21 @@ refusal of ``batch_pt`` at 0.5M cells and more on its TPU backend).
 Over a grid decomposition (``cpr_setup(..., block=...)``: the Jacobian held
 on the rank's extended block, ``STATE_HALO`` deep) the apply takes and
 returns owned blocks: W and the decoupled stage 1 on the owned cells, the
-hierarchies decomposed as ``precond/gmg.py`` says, the T←p coupling a
-:class:`~thermalporous_torch.dist.halo.HaloStencil`, and the rbgs stage 2
-one launch on the extended block with r and x₁ exchanged together and the
-colours of the whole grid (the block's parity).  Block Jacobi and "none"
-are pointwise.  Every other option raises ``NotDecomposedError``
-(:func:`check_decomposable`).
+hierarchies decomposed as ``precond/gmg.py`` says, the T←p, S←p and S←T
+couplings and the inner iterations' (p, T) operator
+:class:`~thermalporous_torch.dist.halo.HaloStencil` s (the inner FGMRES's
+dots through the mesh), the saturation leg's smoothers on the S-S
+HaloStencil in the whole grid's colours.  The rbgs stage 2 is one launch
+on the extended block with r and x₁ exchanged together and the colours of
+the whole grid (the block's parity); each further sweep two half-sweep
+launches there after one exchange of x.  Block Jacobi and "none" are
+pointwise, jacobi2 takes a halo matvec, zebra along the local z its line
+solves on the owned block (the factor formed there) with an exchange
+before each line colour, and bgmg the decomposed coupled hierarchy of
+``precond/block_gmg.py``.  Line solves along a decomposed axis (zebra or
+the saturation leg's zebra/line along x or y), ``stage2_axes``/
+``stage2_fused``, ``batch_pt`` and bf16 storage raise
+``NotDecomposedError`` (:func:`check_decomposable`).
 """
 
 from __future__ import annotations
@@ -231,18 +240,21 @@ def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
     return cfg
 
 
-def check_decomposable(cfg: CPRConfig) -> None:
+def check_decomposable(cfg: CPRConfig, dim: int) -> None:
     """Raise ``NotDecomposedError`` for a preconditioner option the grid
-    decomposition does not run over ranks (ROADMAP A5b)."""
+    decomposition of a ``dim``-D grid does not run over ranks (ROADMAP):
+    a line solve along x or y, the decomposed axes, needs a distributed
+    tridiagonal solve."""
     from thermalporous_torch.dist.sharding import NotDecomposedError
 
+    line = lambda axis: (f"along axis {axis % dim} (x or y: decomposed; the distributed "
+                         f"line solve is not ported)")
     refused = (
-        (cfg.stage2 not in ("none", "block_jacobi", "rbgs"), f"stage2={cfg.stage2!r}"),
-        (cfg.stage2 == "rbgs" and cfg.stage2_sweeps > 1,
-         f"stage2_sweeps={cfg.stage2_sweeps} (the half-sweep)"),
+        (cfg.stage2 == "zebra" and cfg.stage2_axis % dim < 2,
+         f"stage2='zebra' {line(cfg.stage2_axis)}"),
+        (cfg.s_stage in ("zebra", "line") and cfg.s_axis % dim < 2,
+         f"s_stage={cfg.s_stage!r} {line(cfg.s_axis)}"),
         (cfg.stage2_axes is not None or cfg.stage2_fused, "stage2_axes / stage2_fused"),
-        (cfg.inner_iters > 0, f"inner_iters={cfg.inner_iters}"),
-        (cfg.s_stage != "none", f"s_stage={cfg.s_stage!r}"),
         (cfg.batch_pt, "batch_pt"),
         (cfg.pc_dtype != "f32", f"pc_dtype={cfg.pc_dtype!r}"),
     )
@@ -299,10 +311,11 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig(),
 def _cpr_setup_blocks(stencil: BlockStencil, cfg: CPRConfig, block) -> BlockCPRState:
     """:func:`cpr_setup` of a Jacobian held on ``block``'s extended block:
     D⁻¹, W and W·A pointwise there (right one cell into the ring, as far as
-    the stage 2 reads them), the hierarchies from the owned rows."""
+    the stage 2 reads them), the hierarchies and the zebra factor from the
+    owned rows, the couplings HaloStencils."""
     from thermalporous_torch.dist.halo import HaloStencil
 
-    check_decomposable(cfg)
+    check_decomposable(cfg, stencil.dim)
     dinv = stencil.diag_inverse()
     w = _decoupling_weights(stencil, cfg, dinv=dinv)
     dec = stencil.scale_rows(w)
@@ -314,6 +327,18 @@ def _cpr_setup_blocks(stencil: BlockStencil, cfg: CPRConfig, block) -> BlockCPRS
     if cfg.variant == "cptr":
         state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg, block=block)
         state.a_tp = HaloStencil(dec.scalar(1, 0), block)
+        if cfg.inner_iters > 0:
+            state.pt = HaloStencil(dec.block(slice(0, 2), slice(0, 2)), block)
+        if cfg.s_stage != "none" and stencil.nc >= 3:
+            state.a_sp, state.a_st, state.a_ss = (HaloStencil(dec.scalar(2, c), block)
+                                                  for c in range(3))
+    if cfg.stage2 == "zebra":
+        a = cfg.stage2_axis % stencil.dim
+        own = HaloStencil(stencil, block)
+        state.zebra_fac = block_tridiag_factor(a, own.lower[a], own.diag, own.upper[a])
+    if cfg.stage2 == "bgmg":
+        state.bgmg = block_gmg_setup(stencil, cfg.gmg, max_coarse_cells=cfg.bgmg_coarse_cells,
+                                     block=block)
     return state
 
 
@@ -324,17 +349,38 @@ def _stage2_blocks(state: BlockCPRState, r: torch.Tensor, x1: torch.Tensor, k: i
 
     blk, st = state.block, state.stencil
     if cfg.stage2 == "rbgs":
-        # r and x₁ through one exchange, the sweep on the extended block in
+        # r and x₁ through one exchange, the sweeps on the extended block in
         # the whole grid's colours
         ext = blk.extend(torch.cat([r, x1]), lead=1)
-        out = kst.fused_stage2_rbgs(st.coef, state.dinv, ext[:st.nc].contiguous(),
-                                    ext[st.nc:].contiguous(), parity=blk.parity)
-        return blk.owned(out, lead=1)
-    op = HaloStencil(st, blk)
-    r2 = r - (op.matvec_cols(x1, k) if k < st.nc else op.matvec(x1))
-    x2 = apply_blocks(state.dinv, r2)
+        r_ext, x1_ext = ext[:st.nc].contiguous(), ext[st.nc:].contiguous()
+        if cfg.stage2_sweeps == 1:
+            out = kst.fused_stage2_rbgs(st.coef, state.dinv, r_ext, x1_ext, parity=blk.parity)
+            return blk.owned(out, lead=1)
+        # r₂ right one cell into the ring, as far as the sweeps read it
+        r2 = r_ext - (st.matvec_cols(x1_ext, k) if k < st.nc else st.matvec(x1_ext))
+        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps,
+                                          block=blk)
+    else:
+        op = HaloStencil(st, blk)
+        r2 = r - (op.matvec_cols(x1, k) if k < st.nc else op.matvec(x1))
+        x2 = _stage2_on(op, state, r2, cfg)
     x2[0:k] += x1
     return x2
+
+
+def _stage2_on(st, state: CPRState, r2: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
+    """The block-Jacobi, jacobi2, zebra or bgmg stage 2 of ``r2`` on the
+    stencil ``st`` (a decomposed apply's: a HaloStencil, vectors owned)."""
+    if cfg.stage2 == "block_jacobi":
+        return apply_blocks(state.dinv, r2)
+    if cfg.stage2 == "jacobi2":
+        x2 = apply_blocks(state.dinv, r2)
+        return x2 + cfg.stage2_omega * apply_blocks(state.dinv, r2 - st.matvec(x2))
+    if cfg.stage2 == "zebra":
+        return block_zebra_line_gs(st, r2, axis=cfg.stage2_axis, sweeps=cfg.stage2_sweeps,
+                                   omega=cfg.stage2_omega, factor=state.zebra_fac)
+    return block_gmg_apply(state.bgmg, r2, cfg.gmg, sweeps=cfg.stage2_sweeps,
+                           cycles=cfg.bgmg_cycles)
 
 
 def cast_coefficients(state: CPRState, pc_dtype: str) -> CPRState:
@@ -420,9 +466,10 @@ def _stage1(state: CPRState, w: torch.Tensor, cfg: CPRConfig) -> torch.Tensor:
         # here: solve imports precond)
         from thermalporous_torch.solve.fgmres import fgmres
 
+        mesh = state.block.mesh if isinstance(state, BlockCPRState) else None
         e_pt = fgmres(state.pt.matvec, r_pt,
                       precond=lambda q: _stage1_pt(state, q, cfg),
-                      rtol=cfg.inner_rtol, maxiter=cfg.inner_iters).x
+                      rtol=cfg.inner_rtol, maxiter=cfg.inner_iters, mesh=mesh).x
     else:
         e_pt = _stage1_pt(state, r_pt, cfg)
     if state.a_ss is None:
@@ -455,17 +502,8 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
     if rbgs_kernel and cfg.stage2_sweeps == 1:
         return kst.fused_stage2_rbgs(st.coef, state.dinv, r, x1)
     r2 = r - (st.matvec_cols(x1, k) if k < st.nc else st.matvec(x1))
-    if cfg.stage2 == "block_jacobi":
-        x2 = apply_blocks(state.dinv, r2)
-    elif cfg.stage2 == "jacobi2":
-        x2 = apply_blocks(state.dinv, r2)
-        x2 = x2 + cfg.stage2_omega * apply_blocks(state.dinv, r2 - st.matvec(x2))
-    elif cfg.stage2 == "zebra":
-        x2 = block_zebra_line_gs(st, r2, axis=cfg.stage2_axis, sweeps=cfg.stage2_sweeps,
-                                 omega=cfg.stage2_omega, factor=state.zebra_fac)
-    elif cfg.stage2 == "bgmg":
-        x2 = block_gmg_apply(state.bgmg, r2, cfg.gmg, sweeps=cfg.stage2_sweeps,
-                             cycles=cfg.bgmg_cycles)
+    if cfg.stage2 != "rbgs":
+        x2 = _stage2_on(st, state, r2, cfg)
     elif rbgs_kernel:
         # with the full coupling stage2_fused is the same function as the
         # kernels' zero-start sweep

@@ -43,7 +43,9 @@ K-cycle's dots of decomposed levels go through the mesh's all-reduce; those
 of replicated levels are local.  Decomposed hierarchies take the Chebyshev
 smoother, constant transfer, one cycle per apply and no batch, and never the
 fused subtree over more than one rank (the reference's refusal under a
-mesh): any other option raises ``NotDecomposedError``.
+mesh): any other option raises ``NotDecomposedError``.  The coupled block
+hierarchy of ``stage2="bgmg"`` (``precond/block_gmg.py``) follows the same
+rule with the red-black block smoother.
 
 A :class:`GMGState` may hold a batch of congruent hierarchies stacked along
 a leading axis of every leaf (:func:`stack_states`; ``CPRConfig.batch_pt``'s
@@ -459,14 +461,8 @@ def _setup_blocks(st: ScalarStencil, cfg: GMGConfig, block) -> GMGState:
         f = _level_factors(shapes[-1], cfg, level=len(shapes) - 1)
         factors.append(f)
         shapes.append(tuple(-(-n // 2) if k == 2 else n for n, k in zip(shapes[-1], f)))
-    blocks = []
-    b = block.with_width(cfg.degree + 1)
-    for level in range(len(shapes) - 1):
-        if (math.prod(shapes[level]) <= cfg.replicate_below or not b.fits()
-                or not b.aligned(factors[level])):
-            break
-        blocks.append(b)
-        b = b.coarsen(factors[level])
+    blocks = block.with_width(cfg.degree + 1).level_blocks(shapes, factors,
+                                                           cfg.replicate_below)
     cur = ScalarStencil(block.owned(st.packed, lead=1))
     if not blocks:
         cur = ScalarStencil(block.gather(cur.packed, lead=1))
@@ -632,14 +628,9 @@ def _v_cycle_block(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
                                                       state.gshape(level + 1)))
     b_ext = blk.extend(b, lead=0)
     x, r = _smooth_block(state, level, b_ext, None, cfg, second="residual")
-    rc = _blocksum(r, fine, factors)
-    replicate = level + 1 == len(state.blocks)
-    coarse = blk.coarsen(factors)
-    if replicate:
-        rc = coarse.gather(rc, lead=0)
-    ec = _coarse_correction(state, level + 1, rc, cfg)
-    if replicate:
-        ec = coarse.cut(ec, lead=0, ghosts=False)
+    ec = blk.through_coarse(factors, _blocksum(r, fine, factors),
+                            lambda rc: _coarse_correction(state, level + 1, rc, cfg),
+                            replicate=level + 1 == len(state.blocks), lead=0)
     x = x + _prolong(ec, fine, factors)
     return _smooth_block(state, level, b_ext, x, cfg, second=second)
 
@@ -653,8 +644,7 @@ def gmg_apply(state: GMGState, b: torch.Tensor,
     replicated from level 0 gathers ``b`` and cuts the rank's part out."""
     if state.top is not None and not state.blocks:
         whole = dataclasses.replace(state, top=None)
-        return state.top.cut(gmg_apply(whole, state.top.gather(b, lead=0), cfg),
-                             lead=0, ghosts=False)
+        return state.top.on_whole(lambda bb: gmg_apply(whole, bb, cfg), b, lead=0)
     if state.batch and state.transfers:
         return _each(state, lambda s, bb: gmg_apply(s, bb, cfg), b)
     x = _v_cycle(state, 0, b, cfg)

@@ -26,6 +26,12 @@ produce norms accumulate in f64 for an f32 state, and the small algebra
 eigenvectors) runs on the host in the compute dtype; each Arnoldi step
 fetches its new columns once.  C is formed by the reference's classic
 CGS2 over the k columns, with its per-column dependence cut.
+
+Over a grid decomposition (``mesh``) U, C, V and Z are owned blocks and
+every dot, projection and norm is the ranks' partials summed by
+``mesh.allreduce_sum``: R, B and H̄ are then the same on every rank, so the
+host's triangular solve and ``eigh`` see the same input and give every
+rank the same recycle space.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from thermalporous_torch.solve.fgmres import _NP, FGMRESResult, _norm
+from thermalporous_torch.solve.fgmres import _NP, FGMRESResult, _allsum, _norm
 
 
 def empty_recycle(shape, k: int, dtype: torch.dtype,
@@ -48,10 +54,11 @@ def _flat(Vs: torch.Tensor) -> torch.Tensor:
     return Vs.reshape(Vs.shape[0], -1)
 
 
-def _batched_dot(Vs: torch.Tensor, w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _batched_dot(Vs: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """(k,) masked projections ⟨Vs_i, w⟩ in the compute dtype (one read of
-    Vs)."""
-    h = torch.mv(_flat(Vs), w.reshape(-1))
+    Vs; summed over the ranks of ``mesh``)."""
+    h = _allsum(mesh, torch.mv(_flat(Vs), w.reshape(-1)))
     return h * mask.to(device=h.device, dtype=h.dtype)
 
 
@@ -60,12 +67,14 @@ def _combine(coef: torch.Tensor, Vs: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(coef, Vs, dims=1)
 
 
-def prepare_recycle(matvec, U: torch.Tensor, mask: torch.Tensor):
+def prepare_recycle(matvec, U: torch.Tensor, mask: torch.Tensor, mesh=None):
     """C = QR(A·U) by CGS2 over the k columns: returns ``(U', C, mask')``
     with A·U' = C and CᵀC = I on the valid columns (invalid columns exactly
     zero).  A column whose image lies in the span of earlier ones (norm
     after CGS2 ≤ 100·eps of its norm before) is invalidated.  Only the
-    valid columns take a matvec (an invalid one is zero, and A·0·0 = 0)."""
+    valid columns take a matvec (an invalid one is zero, and A·0·0 = 0).
+    Every rank of ``mesh`` invalidates the same columns: the test reads
+    reduced norms."""
     k = U.shape[0]
     dtype, dev = U.dtype, U.device
     npt = _NP[dtype]
@@ -79,13 +88,13 @@ def prepare_recycle(matvec, U: torch.Tensor, mask: torch.Tensor):
     eps = float(torch.finfo(dtype).eps)
     for i in range(k):
         w = W[i]
-        w_in = _norm(w)
-        h = _batched_dot(C, w, cmask)
+        w_in = _norm(w, mesh)
+        h = _batched_dot(C, w, cmask, mesh)
         w = w - _combine(h, C)
-        h2 = _batched_dot(C, w, cmask)
+        h2 = _batched_dot(C, w, cmask, mesh)
         w = w - _combine(h2, C)
         h = h + h2
-        nrm = _norm(w)
+        nrm = _norm(w, mesh)
         vals = torch.cat([h, nrm.reshape(1), w_in.reshape(1)]).cpu().numpy()
         h_host, nrm_h, w_in_h = vals[:k], vals[k], vals[k + 1]
         ok = bool(mask[i]) and bool(nrm_h > npt(100.0 * eps) * w_in_h)
@@ -114,12 +123,14 @@ def fgmres_dr(
     maxiter: int = 60,
     basis_dtype: torch.dtype | None = None,
     orth_passes: int = 2,
+    mesh=None,
 ) -> tuple[FGMRESResult, torch.Tensor, torch.Tensor]:
     """Deflated FGMRES with recycling, from x = 0.  Returns ``(result,
     U_next, mask_next)``, the harvested recycle space for the next solve.
     The Arnoldi step is :func:`~thermalporous_torch.solve.fgmres.fgmres`'s
     (CGS2 or one pass, an optional bf16 basis) after the deflation of
-    range(C)."""
+    range(C).  Over ``mesh`` the vectors are owned blocks (see the module's
+    docstring)."""
     if precond is None:
         precond = lambda r: r
     if U is None or u_mask is None:
@@ -131,12 +142,13 @@ def fgmres_dr(
     n = b.numel()
     k = U.shape[0]
 
-    U, C, u_mask = prepare_recycle(matvec, U, u_mask)
+    U, C, u_mask = prepare_recycle(matvec, U, u_mask, mesh)
 
-    cu = _batched_dot(C, b, u_mask)
+    cu = _batched_dot(C, b, u_mask, mesh)
     x0 = _combine(cu, U)
     r0 = b - _combine(cu, C)
-    b_norm, beta = (npt(v) for v in torch.stack([_norm(b), _norm(r0)]).cpu().numpy())
+    b_norm, beta = (npt(v) for v in
+                    torch.stack([_norm(b, mesh), _norm(r0, mesh)]).cpu().numpy())
     tol = np.maximum(npt(rtol) * b_norm, npt(atol))
 
     V = torch.zeros((m + 1, n), dtype=bd, device=dev)
@@ -156,16 +168,16 @@ def fgmres_dr(
         w = matvec(z)
         Z[j] = z
         # deflate: remove the range(C) component (C orthonormal: one pass)
-        bcol = _batched_dot(C, w, u_mask)
+        bcol = _batched_dot(C, w, u_mask, mesh)
         w = (w - _combine(bcol, C)).reshape(-1)
         Vs = V[: j + 1].to(dtype)
-        h = torch.mv(Vs, w)
+        h = _allsum(mesh, torch.mv(Vs, w))
         w = w - torch.mv(Vs.T, h)
         if orth_passes >= 2:
-            h2 = torch.mv(Vs, w)
+            h2 = _allsum(mesh, torch.mv(Vs, w))
             w = w - torch.mv(Vs.T, h2)
             h = h + h2
-        h_next = _norm(w)
+        h_next = _norm(w, mesh)
         brk = h_next <= tiny
         V[j + 1] = torch.where(brk, 0.0, w / torch.where(brk, 1.0, h_next)).to(bd)
         col = torch.cat([bcol, h, h_next.reshape(1)]).cpu().numpy()

@@ -194,7 +194,7 @@ def newton_solve(
             result, U, umask = fgmres_dr(
                 matvec, rhs, precond=krylov_pc, U=U, u_mask=umask, rtol=rtol_k,
                 atol=cfg.ksp_atol, maxiter=cfg.ksp_maxiter, basis_dtype=basis,
-                orth_passes=orth["orth_passes"])
+                orth_passes=orth["orth_passes"], mesh=mesh)
         else:
             result = fgmres(
                 matvec, rhs, precond=krylov_pc, rtol=rtol_k, atol=cfg.ksp_atol,

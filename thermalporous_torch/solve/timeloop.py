@@ -30,9 +30,10 @@ rank's extended blocks): the step extends each Newton iterate by one
 exchange, evaluates the residual and assembles the Jacobian on the extended
 block, keeps the owned rows, and runs Newton and FGMRES on owned blocks
 with every reduction through the mesh, so that the Δt controller, its
-retries and its failure-memory cap take the same values on every rank.
-Options the decomposition does not run raise ``NotDecomposedError``
-(:func:`check_decomposable`).
+retries and its failure-memory cap take the same values on every rank
+(every ``ksp_orth``, and ``ksp_recycle`` with its recycle space's dots
+through the mesh too).  Options the decomposition does not run raise
+``NotDecomposedError`` (:func:`check_decomposable`).
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def make_step_fn(
                 raise ValueError(f"make_step_fn({device}): tensor on {t.device}")
         dt = float(dt)
         if getattr(data, "block", None) is not None:
-            check_decomposable(precond, newton_cfg, pc_cfg)
+            check_decomposable(precond, newton_cfg, pc_cfg, len(data.block.shape))
             return _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess)
         return newton_solve(
             residual=lambda u: fused_residual(model, u, u_old, dt, data),
@@ -109,20 +110,16 @@ def make_step_fn(
 
 
 def check_decomposable(precond: str, newton_cfg: NewtonConfig,
-                       pc_cfg: CPRConfig | None) -> None:
+                       pc_cfg: CPRConfig | None, dim: int) -> None:
     """Raise ``NotDecomposedError`` for a step option the grid
-    decomposition does not run over ranks (ROADMAP A5b)."""
+    decomposition of a ``dim``-D grid does not run over ranks (ROADMAP)."""
     from thermalporous_torch.dist.sharding import NotDecomposedError
 
     if precond.lower() not in ("cpr", "cptr"):
         raise NotDecomposedError(f"precond={precond!r}: not decomposed over ranks")
-    refused = ((newton_cfg.krylov_op == "jvp", 'krylov_op="jvp"'),
-               (newton_cfg.ksp_recycle > 0, f"ksp_recycle={newton_cfg.ksp_recycle}"),
-               (newton_cfg.ksp_orth in ("cgs1", "cgs2s"), f"ksp_orth={newton_cfg.ksp_orth!r}"))
-    for bad, what in refused:
-        if bad:
-            raise NotDecomposedError(f"NewtonConfig.{what}: not decomposed over ranks")
-    check_cpr(pc_cfg or CPRConfig())
+    if newton_cfg.krylov_op == "jvp":
+        raise NotDecomposedError('NewtonConfig.krylov_op="jvp": not decomposed over ranks')
+    check_cpr(pc_cfg or CPRConfig(), dim)
 
 
 def _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess):
@@ -340,7 +337,7 @@ class Simulator:
         if blk is not None:
             from thermalporous_torch.dist.sharding import block_model
 
-            check_decomposable(precond, newton_cfg, pc_cfg)
+            check_decomposable(precond, newton_cfg, pc_cfg, len(blk.shape))
             self.model = model = block_model(model, blk)
         if pc_cfg is not None and (
             pc_cfg.gmg.coarsen == "adaptive"
