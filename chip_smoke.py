@@ -95,8 +95,10 @@ phase waits for its CPU run):
      (block matvec at nc = 3 and at nc = 2, stage 2 at k = 3), beside phase
      6's counts; (c) every solver option of the parity tests on the
      flagship configuration at 12x22x9, f64, 1 controller step on the GPU
-     (tasks of a pool of worker processes) and on the CPU: the counts must
-     agree, and the stage-2 route each took on the card is printed;
+     (tasks of a pool of worker processes) and on the CPU, options that act
+     on different parts of the solver two to a run (OPTION_PAIRS): the
+     counts must agree, and the stage-2 route each took on the card is
+     printed;
  11  the run_case path: (a) thermalporous_torch.run_case.main in this
      process on tp_spe10_full at 60x220x85, f32, for 2 steps with a
      checkpoint and a VTK frame every step, JSONL metrics and the balance
@@ -124,11 +126,11 @@ phase waits for its CPU run):
      flagship's shapes with bf16 coefficients, f32 and f64 vectors, against
      its plain version (bitwise where the f32 form is), beside the same
      cases on f32 coefficients (phases 2 and 10(b)'s rows when they ran);
-     (b) the flagship's first step (600 s) in each storage mode (phase 6
-     has the f32 one), tp_spe10_full at 60x220x85, f32, with
+     (b) tp_spe10_full at 60x220x85, f32, with
      pc_dtype="bf16" for one controller step from 300 s (its 600 s attempt
-     fails: the first step above; it converges; counts
-     beside the f32 run's), one CPTR apply in each storage mode in turns,
+     fails; it converges; counts beside the f32 run's), one CPTR apply in
+     each storage mode in turns (each mode's first step runs at 12x22x9
+     among phase 10(c)'s options),
      peak memory, every bf16 kernel of the path launched; (c) bench.py's
      step with pc_dtype="bf16" (the 600 s step and one doubling); (d) the
      flagship with batch_pt: one apply bitwise equal to the sequential
@@ -142,18 +144,16 @@ phase waits for its CPU run):
      with transfer="constant", "weighted" and "variational" (set-up and
      apply ms, each level's class and widths, the launches of an apply: the
      smooth on the finest level, no fused subtree under a weighted or
-     variational transfer), the CPTR set-up and apply with each, then the
-     flagship's first step with "variational" on both hierarchies, at the
-     300 s its controller falls back to (its 600 s attempt fails, as the
-     reference's does);
+     variational transfer), the CPTR set-up and apply with each (the
+     flagship's first step with "variational" runs at 12x22x9 among (e)'s
+     options);
      (b) the bgmg hierarchy of the flagship Jacobian (levels, set-up, one
      bgmg stage 2 beside the rbgs stage 2 and the CPTR apply with each),
      then tp_spe10_full with stage2="bgmg" for one controller step from
      300 s (its 600 s attempt fails, as the reference's does): counts
      beside phase 6's, walls, cell-updates/s, peak memory, the red-black
-     kernels' launches by level (each > 0); (c) the flagship with
-     ksp_recycle=4 for one step: counts beside phase 6's, the ms of each
-     prepare_recycle and harvest, peak memory; (d) the adjoint: the
+     kernels' launches by level (each > 0); (c) ksp_recycle=4 runs at
+     12x22x9 among (e)'s options; (d) the adjoint: the
      flagship configuration at 12x22x9, f64, 3 recorded steps, a terminal
      and a running objective, on the CPU and the GPU:
      equal FGMRES counts per backward step, gradients within 1e-8, and a
@@ -171,14 +171,14 @@ phase waits for its CPU run):
      subprocess beside the rest of the phase: its FD line's relative error
      below 1e-4;
  14  the ensemble axis and the example drivers: (a) tp_spe10_full at
-     60x220x85, f32, a well-control ensemble of 2 members (the preset, the
+     12x22x9, f32, a well-control ensemble of 2 members (the preset, the
      injector's BHP x1.05) with the coarsening planned from member
      0, one 600 s step of every member through make_ensemble_step_fn: each
      member's state and counts bitwise its solo step, its launches those of
      its solo run, every flagship kernel launched; the wall of each member,
      cell-updates/s over the ensemble, peak memory (the solo steps run after
      the ensemble's, beside (c) and (d)'s card processes); (b) the ensemble adjoint
-     at 12x22x9, f64, the same members, Δt 600 and 1200 s, a terminal and a
+     at 12x22x9, f64, the same members, one 600 s step, a terminal and a
      running objective, on the card and on the CPU: equal
      per-member forward and backward counts and lockstep count, gradients
      within 1e-12, each member bitwise its solo sweep on the card; (c) python
@@ -193,7 +193,9 @@ phase waits for its CPU run):
      (degree 4, second output), stage 2 and half-sweep on a block of the
      flagship grid whose extended origin has an odd index sum, bitwise the
      whole grid's on the owned cells, the red-black kernels with the
-     block's colour offset (and not without it); then tp_spe10_full at
+     block's colour offset (and not without it), and J(u)v on the same
+     block's extended block (two cells deep) in f32 and f64 against its
+     plain version, within phase 2's tolerances; then tp_spe10_full at
      60x220x85, f32, fuse_below=150000, its first 600 s step on a one-rank
      NCCL mesh: bitwise the undecomposed step, with the same launches per
      kernel; (b) four gloo ranks sharing cuda:0 (one process each, the
@@ -208,19 +210,14 @@ phase waits for its CPU run):
      all-gathers per Newton, the ms of a host-staged exchange and each
      rank's wall; (c)
      dryrun_multichip(4, device="cuda", backend="gloo") in f64, both
-     scenarios, in a subprocess started with the phase; (d) tp_spe10_inner
-     (60x220x85, f32, fuse_below=150000) split 2x2 over the same four gloo
-     ranks after (b), its first 600 s step: every rank's (Newton, FGMRES) equal to
-     the undecomposed card step's (phase 10(b)'s first step when phase 10
-     ran, else run here), the block matvec (at nc = 3 and the inner
-     operator's nc = 2), scalar matvec, smooth, residual and stage 2 at
-     k = 3 launched on every rank and the fused subtree on none, the
-     gathered state under the undecomposed Newton test, exchanges,
-     all-reduces and all-gathers per Newton and each rank's wall; (e) the
+     scenarios, in a subprocess started with the phase; (d) no longer
+     runs: tp_spe10_inner's configuration is one of (e)'s runs; (e) the
      options the stage-2 and Krylov slice lifted (jacobi2 with "cgs1",
      two rbgs sweeps, bgmg with its finest level decomposed, zebra along z
      with "cgs2s", the saturation leg, two inner iterations of each
-     method, ksp_recycle=4) over the same ranks after (d), in f64 at
+     method, ksp_recycle=4) and tp_spe10_inner's configuration (the block
+     matvec at nc = 2 and the stage 2 at k = 3 launched on every rank)
+     over the same ranks after (b), in f64 at
      12x22x9 (phase 10(c)'s configuration, levels above 1000 cells
      decomposed), one 600 s step each against the CPU's undecomposed step:
      equal (Newton, FGMRES, converged) on every rank, the gathered state
@@ -229,10 +226,20 @@ phase waits for its CPU run):
      under a one-ulp change of its input (decomp_sensitivity.py
      --recycle), to the undecomposed Newton test instead, and again under
      the reference check's tolerances to the bands — bgmg's zero-start
-     sweep (the stage 2 at k = 0) and half-sweeps launched on every rank.
-     (b), (d) and (e) are one spawn, so that no other ranks share the card
-     with them.  The kernels are built once (phase 1) before any rank
-     starts.
+     sweep (the stage 2 at k = 0) and half-sweeps launched on every rank;
+     (f) after (e) on the same ranks and in the same configuration: a step
+     under transfer="weighted", one under "variational" (both hierarchies'
+     finest level decomposed) and one under krylov_op="jvp" (J(u)v launched
+     on every rank), each with the CPU's (Newton, FGMRES, converged) and
+     the gathered state under the undecomposed Newton test; the adjoint
+     over two recorded steps (phase 13(d)'s Newton and objectives) with
+     the CPU's FGMRES count per backward step and gradients within 1e-8;
+     an ensemble of the two members of phase 14 decomposed alike, one
+     step, member 0 bitwise the adjoint trajectory's first step and member 1
+     its solo decomposed step, and its ensemble adjoint with the CPU's
+     lockstep count and gradients within 1e-8.  (b), (e) and (f) are one
+     spawn, so that no other ranks share the card with them.  The kernels
+     are built once (phase 1) before any rank starts.
 
 Then the card's name and power limit, a JSON line with one record per
 kernel (its f32 case on its path's shapes, and its launches in its path's
@@ -241,8 +248,9 @@ half-sweep, phase 8 for the single-phase residual, phase 9 for the J(u)v
 kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
 phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
 and batched instantiations, phase 13's bgmg run by level and its full-size
-adjoint, phase 14(a)'s ensemble step, rank 0's steps in phase 15(b) and
-(d), rank 0's bgmg and two-sweep runs in phase 15(e)), and
+adjoint, phase 14(a)'s ensemble step, rank 0's step in phase 15(b),
+rank 0's tp_spe10_inner, bgmg and two-sweep runs in phase 15(e), and
+rank 0's J(u)v run and adjoint sweep in phase 15(f)), and
 as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
@@ -1869,7 +1877,7 @@ def sp_geothermal_run(dev, steps: int, krylov_op: str = "stencil"):
 # configuration at FLAGSHIP_SMALL (f64, GPU against CPU): (label, CPRConfig
 # overrides, overrides of both GMG configurations, NewtonConfig overrides,
 # preconditioner name, preset and its keywords where another case is run)
-SOLVER_OPTIONS = (
+_OPTIONS = (
     ("decoupling=timpes", dict(decoupling="timpes"), {}, {}, "cptr", None),
     ("decoupling=abf", dict(decoupling="abf"), {}, {}, "cptr", None),
     ("variant=cpr", dict(variant="cpr"), {}, {}, "cptr", None),
@@ -1936,6 +1944,39 @@ SOLVER_OPTIONS = (
      None),
     ("ksp_recycle=4", {}, {}, dict(ksp_recycle=4), "cptr", None),
 )
+#: phase 10(c): options that act on different parts of the solver share a
+#: run (the decoupling, the stage-1 variant or its saturation leg or inner
+#: iterations, the stage 2, the multigrid's smoother or cycle, the Krylov
+#: method), each pair one configuration on the card and the CPU; the options
+#: phases 12 and 13 report, "W fused" and the other presets run alone
+OPTION_PAIRS = (
+    ("decoupling=timpes", "smoother=jacobi"), ("decoupling=abf", "smoother=rbgs"),
+    ("variant=cpr", "ksp_orth=cgs1"), ("triangular=False", "smoother=line"),
+    ("inner fgmres", "ksp_orth=cgs2s"), ("inner richardson", "ksp_orth=cgs2g"),
+    ("s_stage=rbgs", "stage2=jacobi2"), ("s_stage=jacobi", "stage2=block_jacobi"),
+    ("s_stage=zebra", "cycles=2"), ("s_stage=line", "ksp_orth=cgs2g2"),
+    ("stage2=rbgs sweeps=2", "smoother=zebra"), ("stage2=zebra", "semicoarsen_z"),
+    ("stage2_fused", "ksp_restart=8"), ("stage2_fused axes=(2,) sweeps=2", "pc_lag=step"),
+    ("stage2_axes=(0, 2)", "W unfused"),
+)
+
+
+def _paired_options() -> tuple:
+    """SOLVER_OPTIONS: each OPTION_PAIRS pair merged into one entry (label
+    "a + b", the overrides of both), the other _OPTIONS entries alone."""
+    by = {o[0]: o for o in _OPTIONS}
+    paired = {label for pair in OPTION_PAIRS for label in pair}
+    out = []
+    for a, b in OPTION_PAIRS:
+        oa, ob = by[a], by[b]
+        if oa[4:] != ob[4:]:
+            raise AssertionError(f"options {a!r} and {b!r} run different cases")
+        out.append((f"{a} + {b}", dict(oa[1], **ob[1]), dict(oa[2], **ob[2]),
+                    dict(oa[3], **ob[3])) + oa[4:])
+    return tuple(out) + tuple(o for o in _OPTIONS if o[0] not in paired)
+
+
+SOLVER_OPTIONS = _paired_options()
 #: phase 12(e): the options of SOLVER_OPTIONS that phase 12 reports
 PC12_OPTIONS = ("pc_dtype=bf16", "pc_dtype=bf16 stage2=jacobi2", "pc_dtype=bf16_gmg",
                 "pc_dtype=bf16_s2 sweeps=2", "batch_pt", "batch_pt pc_dtype=bf16 inner")
@@ -2585,36 +2626,6 @@ def pc_dtype_apply_times(dev) -> dict:
     return times
 
 
-def first_step_modes(dev, modes=PC_DTYPE_MODES) -> dict:
-    """Phase 12(b): the flagship's first step (dt_init = 600 s from the
-    initial state, f32) in each storage mode, one Newton solve each, with
-    the stage 1 and the stage 2 cast apart (bf16_gmg, bf16_s2) to show
-    which group's rounding a change in the counts comes from."""
-    from thermalporous_torch.precond.cpr import resolve_adaptive_coarsening
-    from thermalporous_torch.presets import get_case
-    from thermalporous_torch.solve import make_step_fn
-
-    case = get_case("tp_spe10_full", device=dev)
-    model, data, dt = case.model, case.data, float(case.time_cfg.dt_init)
-    u0 = model.initial_state(data)
-    pc = resolve_adaptive_coarsening(model.assemble_stencil(u0, u0, dt, data),
-                                     with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW))
-    out = {}
-    for mode in modes:
-        step = make_step_fn(model, case.precond, case.newton_cfg,
-                            dataclasses.replace(pc, pc_dtype=mode), device=dev)
-        t = time.perf_counter()
-        _, st = step(u0, dt, data)
-        torch.cuda.synchronize()
-        out[mode] = {"newton": st.iters, "fgmres": st.ksp_iters, "converged": st.converged,
-                     "failed": st.failed, "norm0": st.norm0, "norm": st.norm,
-                     "wall_s": time.perf_counter() - t}
-        print(f"  first step at {dt:.0f} s, pc_dtype={mode}: newton {st.iters} fgmres "
-              f"{st.ksp_iters} converged {st.converged} norm {st.norm0:.3e} -> {st.norm:.3e}",
-              flush=True)
-    return out
-
-
 def bench_bf16_steps(dev) -> dict:
     """Phase 12(c): bench.py's step (1024x1024, f32, block-Jacobi stage 2:
     the stage-2 residual is a bf16 block matvec over x1's columns) with
@@ -2749,16 +2760,14 @@ def batch_pt_apply(dev) -> tuple:
 # ------------------------------ phase 13: transfers, bgmg, recycling, adjoint
 
 TRANSFERS = ("constant", "weighted", "variational")
-# phases 12(b) and 13(a), (b): the flagship's first controller step under
-# bf16 coefficients, the variational transfer and bgmg runs at the 300 s its
-# controller falls back to: their 600 s attempt fails (the first step per
-# storage mode at 600 s is in phase 12(b); the failures at 600 s under
-# "variational" and bgmg are PR 10's finding, as the reference's run)
+# phases 12(b) and 13(b): the flagship's first controller step under bf16
+# coefficients and the bgmg run at the 300 s its controller falls back to:
+# their 600 s attempt fails (the first step per storage mode at 600 s is in
+# phase 12(b); the failure at 600 s under bgmg is an earlier finding, as the
+# reference's run)
 RETRY_DT = 300.0
 BGMG_STEPS = 1          # phase 13(b): controller steps with stage2="bgmg"
 BGMG_COARSE = 256       # phase 13(b): bgmg_coarse_cells (the reference's default)
-RECYCLE_STEPS = 1       # phase 13(c): controller steps with ksp_recycle
-RECYCLE_K = 4
 ADJ_SMALL_STEPS = 3     # phase 13(d): recorded steps at FLAGSHIP_SMALL
 ADJ_FULL_STEPS = 1      # phase 13(d): recorded steps at full size
 ADJ_RTOL_FULL = 1e-5
@@ -2974,32 +2983,6 @@ def bgmg_apply_times(dev, flagship) -> dict:
     del bst, sb
     torch.cuda.empty_cache()
     return out
-
-
-@contextlib.contextmanager
-def recycle_timers(rec: dict):
-    """Time each prepare_recycle and harvest of the deflated solver (each
-    synchronized with the card) into ``rec`` while the block runs."""
-    from thermalporous_torch.solve import deflate
-
-    real = deflate.prepare_recycle, deflate.harvest
-
-    def timed(fn, key):
-        def wrapped(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            rec.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
-            return out
-        return wrapped
-
-    deflate.prepare_recycle = timed(real[0], "prepare_recycle_ms")
-    deflate.harvest = timed(real[1], "harvest_ms")
-    try:
-        yield rec
-    finally:
-        deflate.prepare_recycle, deflate.harvest = real
 
 
 def _adjoint_small_task(task) -> dict:
@@ -3222,7 +3205,7 @@ def adjoint_cli_finish(proc) -> dict:
 
 ENS_BHP = (1.0, 1.05)           # phase 14: the injector BHP factor of each member
 ENS_DT = 600.0                  # phase 14(a): the members' one step
-ENS_ADJ_DTS = (600.0, 1200.0)   # phase 14(b): the fixed schedule at FLAGSHIP_SMALL
+ENS_ADJ_DTS = (600.0,)          # phase 14(b): the fixed schedule at FLAGSHIP_SMALL
 ENS_GRAD_TOL = 1e-12            # phase 14(b): card against CPU, per member
 STUDY_STEPS = 1                 # phase 14(c): iteration_study --steps
 CUSTOM_DAYS = 0.05              # phase 14(d): custom_case --days
@@ -3274,21 +3257,21 @@ def per_member_launches(out: list):
         ens.make_step_fn = make
 
 
-def ensemble_full(dev, after_ensemble=None) -> dict:
-    """Phase 14(a): tp_spe10_full at full size, f32, fuse_below=150000, the
-    ENS_BHP well-control ensemble, level_factors planned from member 0 (the
-    Simulator's baking), one ENS_DT step of every member through
-    make_ensemble_step_fn, then ``after_ensemble()`` (when given) and each
-    member's solo ``advance``: each member's state and counts bitwise its
-    solo step, its launches those of its solo run; every flagship kernel
-    launched in the ensemble's run."""
+def ensemble_small(dev, after_ensemble=None) -> dict:
+    """Phase 14(a): tp_spe10_full at FLAGSHIP_SMALL, f32, phase 5's
+    multigrid (SMALL_GMG), the ENS_BHP well-control ensemble, level_factors
+    planned from member 0 (the Simulator's baking), one ENS_DT step of every
+    member through make_ensemble_step_fn, then ``after_ensemble()`` (when
+    given) and each member's solo ``advance``: each member's state and
+    counts bitwise its solo step, its launches those of its solo run; every
+    flagship kernel launched in the ensemble's run."""
     from thermalporous_torch.dist import make_ensemble_step_fn, stack_ensemble
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import make_step_fn
 
-    case = get_case("tp_spe10_full", device=dev)
-    pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
+    case = get_case("tp_spe10_full", device=dev, shape=FLAGSHIP_SMALL)
+    pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, **SMALL_GMG)).pc_cfg
     model, newton = case.model, case.newton_cfg
     datas = ensemble_members(case)
     data_e = stack_ensemble(datas)
@@ -3335,7 +3318,7 @@ def ensemble_full(dev, after_ensemble=None) -> dict:
                              f"{(st.iters, st.ksp_iters, st.norm)})")
         if call["launches"] != solo_l:
             raise SystemExit(f"ensemble member {i}: launches {call['launches']} != solo {solo_l}")
-        check_physical(u_e[i], SPE10_FULL, f"ensemble member {i}")
+        check_physical(u_e[i], FLAGSHIP_SMALL, f"ensemble member {i}")
         out["members"].append({"bhp_factor": ENS_BHP[i], "newton": counts[0],
                                "fgmres": counts[1], "norm": counts[2],
                                "converged": bool(st_e.converged[i]),
@@ -3547,9 +3530,9 @@ DECOMP_NORM_RTOL = 1e-6
 DECOMP_KERNELS = ("block_matvec", "matvec", "chebyshev_smooth", "fused_residual",
                   "fused_stage2_rbgs")
 DECOMP_REFUSED = ("deep_correction",)
-# (d): the launches by block columns every rank of the 2x2 tp_spe10_inner
-# step must show beside DECOMP_KERNELS: the inner operator's B1 at nc = 2
-# and the stage 2 over all three columns
+# (e): the launches by block columns every rank of the 2x2 run of
+# tp_spe10_inner's configuration must show: the inner operator's B1 at
+# nc = 2 and the stage 2 over all three columns
 DECOMP_INNER_COLUMNS = ("block_matvec nc=2 k=2", "fused_stage2_rbgs k=3")
 # (e): the options the stage-2 and Krylov slice lifted over the
 # decomposition, each over the 2x2 ranks on the card in f64 at
@@ -3580,7 +3563,34 @@ DECOMP_OPTIONS = (
     ("ksp_recycle=4 tight", {}, {},
      dict(ksp_recycle=4, rtol=1e-8, atol=0.0, ksp_rtol=1e-6, ksp_maxiter=80, ksp_ew=False,
           ksp_basis="same"), "bands"),
+    # tp_spe10_inner's configuration (two inner FGMRES iterations, the T
+    # hierarchy on the pressure configuration, the stage-2 residual over all
+    # columns): B1 at nc = 2 and B5 at k = 3 on the extended blocks
+    ("tp_spe10_inner", dict(inner_iters=2, gmg_t=None, stage2_cols=False), {}, {}, "bands"),
 )
+# (f): the options this slice lifted, over the same ranks after (e), as
+# (e)'s: the weighted and variational transfers (their finest level
+# decomposed, its coarse rows and weights from the block) and the J(u)v
+# operator (B7 on the extended block); each held to the undecomposed
+# Newton test, as the flagship's loose Krylov tolerances and bf16 basis
+# amplify the decomposition's rounding (the reference checks' bands hold
+# in tests/test_torch_sharding_adjoint.py); the launches each must show on
+# every rank: (counter, kind), kind "wrapper" (> 0) or "none" (== 0)
+DECOMP_FAMILY = (
+    ("transfer=weighted", {}, dict(transfer="weighted"), {}, "newton"),
+    ("transfer=variational", {}, dict(transfer="variational"), {}, "newton"),
+    ("krylov_op=jvp", {}, {}, dict(krylov_op="jvp"), "newton"),
+)
+DECOMP_FAMILY_CHECKS = {
+    "transfer=weighted": (("chebyshev_smooth", "wrapper"), ("deep_correction", "none")),
+    "transfer=variational": (("chebyshev_smooth", "wrapper"), ("deep_correction", "none")),
+    "krylov_op=jvp": (("fused_jvp", "wrapper"), ("fused_residual", "wrapper")),
+}
+# (f): the adjoint over two steps and the ensemble of decomposed members
+# (ENS_BHP) over one, at FLAGSHIP_SMALL, f64, with phase 13(d)'s Newton
+# (ADJ_NEWTON) and sweep tolerance, against the CPU's undecomposed sweeps
+DECOMP_ADJ_DTS = (600.0, 1200.0)
+DECOMP_ENS_DTS = (600.0,)
 # (e): levels above this many cells stay decomposed at FLAGSHIP_SMALL
 # (2,376 cells, blocks 6x12 and 6x10): the finest level of the p and T
 # hierarchies and of bgmg's coupled one
@@ -3681,18 +3691,68 @@ def decomp_kernel_blocks(dev) -> dict:
                                                                   parity=par),
               kst.block_rbgs_half_sweep(st.coef, dinv, r, u0, colour), [st.coef, dinv],
               [r, u0], parity_arg=True)
+    del st, dinv, r, x1, ps, b, x
+    torch.cuda.empty_cache()
+    out["fused_jvp"] = decomp_jvp_block(case, u0, u, dev)
     return out
 
 
-def _flagship_step(dev, dtype, name: str = "tp_spe10_full"):
-    """The undecomposed first step of preset ``name`` (the flagship or its
-    inner-iteration form; fuse_below=150000): (case, planned CPRConfig, u0,
-    state, stats, launches, wall)."""
+def decomp_jvp_block(case, u0, u, dev) -> dict:
+    """Phase 15 (a): B7 (J(u)v) on the extended block of DECOMP_BLOCK (the
+    decomposed step's ring, STATE_HALO deep: origin x 29, an odd index sum),
+    f32 and f64, against its plain version on the same block, within phase
+    2's tolerances for B7; its time beside phase 2's B7 row."""
+    from thermalporous_torch.dist.sharding import STATE_HALO
+    from thermalporous_torch.kernels import residual as kres
+    from thermalporous_torch.models.base import ProblemData
+    from thermalporous_torch.presets import get_case
+
+    (ox0, ox1), (oy0, oy1) = DECOMP_BLOCK
+    ex0, ex1 = max(ox0 - STATE_HALO, 0), min(ox1 + STATE_HALO, SPE10_FULL[0])
+    ey0, ey1 = max(oy0 - STATE_HALO, 0), min(oy1 + STATE_HALO, SPE10_FULL[1])
+    cut = lambda t: t[(slice(None),) * (t.dim() - 3) + (slice(ex0, ex1), slice(ey0, ey1))
+                      ].contiguous()
+    out = {}
+    for dtype, tol in ((torch.float32, TOL_F32_JVP), (torch.float64, TOL_F64)):
+        tname = "f32" if dtype == torch.float32 else "f64"
+        if dtype != u0.dtype:
+            case = get_case("tp_spe10_full", device=dev, dtype=dtype)
+            u0, u = u0.to(dtype), u.to(dtype)
+        block = copy.copy(case.model)
+        block.grid = dataclasses.replace(case.model.grid, shape=(ex1 - ex0, ey1 - ey0,
+                                                                  SPE10_FULL[2]))
+        g = torch.Generator(device=dev).manual_seed(16)
+        uu, uo, data = cut(u), cut(u0), ProblemData(cut(case.data.fields))
+        v = (state_amp(uu) * torch.randn(tuple(uu.shape), generator=g, dtype=dtype,
+                                         device=dev)).contiguous()
+        kern = lambda: kres.fused_jvp(block, uu, v, uo, DECOMP_DT, data)
+        plain = lambda: block.jvp(uu, uo, DECOMP_DT, data)(v)
+        got, ref = kern(), plain()
+        rel, abs_ = rel_err(got, ref, True)
+        ms, plain_ms = time_ms(kern), time_ms(plain, reps=PLAIN_REPS, warm=1)
+        bnd, by = bound_ms(*cost_jvp(block, uu, data))
+        ok = math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
+        out[tname] = {"max_rel_err": rel, "max_abs_err": abs_, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bnd, "bound_by": by, "origin_parity": (ex0 + ey0) % 2,
+                      "shape": tuple(uu.shape[1:])}
+        print(f"  {tname} fused_jvp on the block x {ex0}:{ex1} y {ey0}:{ey1} (origin parity "
+              f"{(ex0 + ey0) % 2}): max_rel_err {rel:.3e} (tol {tol:.0e}) max_abs_err "
+              f"{abs_:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bnd:.4f} ms "
+              f"({by})  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"phase 15(a): fused_jvp on the odd block, {tname}: {rel:.3e}")
+        del got, ref
+    return out
+
+
+def _flagship_step(dev, dtype):
+    """The flagship's undecomposed first step (fuse_below=150000): (case,
+    planned CPRConfig, u0, state, stats, launches, wall)."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import make_step_fn
 
-    case = get_case(name, device=dev, dtype=dtype)
+    case = get_case("tp_spe10_full", device=dev, dtype=dtype)
     pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
     u0 = case.model.initial_state(case.data)
     step = make_step_fn(case.model, "cptr", case.newton_cfg, pc, device=dev)
@@ -3762,18 +3822,17 @@ def _gaps(a: np.ndarray, b: np.ndarray) -> list:
             for c in range(3)]
 
 
-def _decomp_rank(mesh, level_factors, dtype_name: str, name: str = "tp_spe10_full") -> dict:
-    """Phase 15 (b) and (d), one rank: the first step of preset ``name``
-    (the flagship or its inner-iteration form) on the 2x2 mesh, with the
-    undecomposed run's coarsening schedules ``level_factors`` (p, T; T None
-    when the preset's T hierarchy takes the pressure configuration)."""
+def _decomp_rank(mesh, level_factors, dtype_name: str) -> dict:
+    """Phase 15 (b), one rank: the flagship's first step on the 2x2 mesh,
+    with the undecomposed run's coarsening schedules ``level_factors`` (p,
+    T)."""
     from thermalporous_torch.dist.sharding import gather_state, shard_problem_data, shard_state
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import Simulator
 
     dev = mesh.device
-    case = get_case(name, device=dev, dtype=getattr(torch, dtype_name))
+    case = get_case("tp_spe10_full", device=dev, dtype=getattr(torch, dtype_name))
     pc = with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)
     gmg_t = None if pc.gmg_t is None else dataclasses.replace(
         pc.gmg_t, mesh=mesh, level_factors=level_factors[1])
@@ -3858,51 +3917,30 @@ def _gathered_newton_test(tag: str, case, u0: torch.Tensor, outs: list) -> dict:
     return {"newton_norm": norm, "newton_tol": tol}
 
 
-def _decomp_ranks(mesh, factors_b, factors_d, factors_e) -> tuple:
-    """Phase 15 (b), (d) and (e), one rank, in one spawn: the flagship's
-    first step and tp_spe10_inner's on the 2x2 mesh, then every
-    DECOMP_OPTIONS entry's."""
+def _decomp_ranks(mesh, factors_b, factors_e) -> tuple:
+    """Phase 15 (b), (e) and (f), one rank, in one spawn: the flagship's
+    first step on the 2x2 mesh, every DECOMP_OPTIONS and DECOMP_FAMILY
+    entry's step, then (f)'s adjoint and ensemble."""
     b = _decomp_rank(mesh, factors_b, "float32")
     torch.cuda.empty_cache()
-    d = _decomp_rank(mesh, factors_d, "float32", "tp_spe10_inner")
-    torch.cuda.empty_cache()
-    return b, d, _decomp_option_rank(mesh, [o[0] for o in DECOMP_OPTIONS], factors_e)
+    e = _decomp_option_rank(mesh, [o[0] for o in DECOMP_OPTIONS + DECOMP_FAMILY], factors_e)
+    return b, e, _decomp_family_rank(mesh, factors_e)
 
 
-def decomp_four_ranks(dev, one: dict, refs: dict, first_inner=None) -> tuple:
-    """Phase 15 (b), (d) and (e) over four gloo ranks sharing cuda:0 (one
-    spawn: each rank takes (b)'s step, (d)'s, then (e)'s; no other
+def decomp_four_ranks(dev, one: dict, refs: dict) -> tuple:
+    """Phase 15 (b), (e) and (f) over four gloo ranks sharing cuda:0 (one
+    spawn: each rank takes (b)'s step, then (e)'s and (f)'s; no other
     process holds the card meanwhile but (c)'s).
 
     (b): the 2x2 flagship's first step against the one-rank step of (a):
     its counts, kernels and the undecomposed Newton test on the gathered
     state; the largest gap per component printed.
 
-    (d): tp_spe10_inner's first 600 s step at full size (f32,
-    fuse_below=150000) against the undecomposed card step
-    (``first_inner``, phase 10(b)'s first record, when that step ran at
-    600 s with no retry; else run here): every rank's (Newton, FGMRES)
-    equal to it, B1 (at nc = 3 and the inner operator's nc = 2), B2, B3,
-    B4 and B5 at k = 3 launched on every rank and B6 on none, the gathered
-    state under the undecomposed Newton test.
-
-    (e): :func:`decomp_options_check` against the CPU's steps in ``refs``."""
+    (e) and (f): :func:`decomp_options_check` and :func:`decomp_family_check`
+    against the CPU's runs in ``refs``."""
     from thermalporous_torch.dist.launch import run_ranks
-    from thermalporous_torch.presets import get_case
 
-    if first_inner is not None and first_inner.dt == DECOMP_DT and first_inner.retries == 0:
-        counts, src = ((first_inner.newton_iters, first_inner.ksp_iters),
-                       "phase 10(b)'s first step")
-        case = get_case("tp_spe10_inner", device=dev)
-        pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
-        u0 = case.model.initial_state(case.data)
-        wall_ref = None
-    else:
-        case, pc, u0, _, st, _, wall_ref = _flagship_step(dev, torch.float32, "tp_spe10_inner")
-        counts, src = (st.iters, st.ksp_iters), "the undecomposed step run here"
-    inner_factors = (pc.gmg.level_factors,
-                     None if pc.gmg_t is None else pc.gmg_t.level_factors)
-    outs, _ = run_ranks(_decomp_ranks, DECOMP_RANKS, one["level_factors"], inner_factors,
+    outs, _ = run_ranks(_decomp_ranks, DECOMP_RANKS, one["level_factors"],
                         decomp_option_factors(), backend="gloo", device="cuda:0")
     print("  (b) the flagship split 2x2", flush=True)
     outs_b = [o[0] for o in outs]
@@ -3915,34 +3953,41 @@ def decomp_four_ranks(dev, one: dict, refs: dict, first_inner=None) -> tuple:
           f"step: p {gaps[0]:.6e} Pa, T {gaps[1]:.6e} K, S {gaps[2]:.6e}", flush=True)
     four = {"ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs_b], "gaps": gaps,
             "newton_norm_one_rank": norm_one, **gate}
-    print(f"  (d) tp_spe10_inner split 2x2; reference: {src}, (newton, fgmres) {counts}"
-          + ("" if wall_ref is None else f", wall {wall_ref:.3f} s"), flush=True)
-    outs_d = [o[1] for o in outs]
-    _ranks_report("(d)", outs_d, counts, DECOMP_KERNELS, DECOMP_INNER_COLUMNS)
-    gate = _gathered_newton_test("(d)", case, u0, outs_d)
-    inner = {"reference": src, "counts": counts, "wall_ref_s": wall_ref,
-             "ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs_d], **gate}
-    print(f"  (e) the lifted options over 2x2 ranks, {'x'.join(map(str, FLAGSHIP_SMALL))} f64 "
-          f"against the CPU", flush=True)
-    return four, inner, decomp_options_check([o[2] for o in outs], refs)
+    n_e = len(DECOMP_OPTIONS)
+    print(f"  (e) the options the stage-2 and Krylov slice lifted and tp_spe10_inner's "
+          f"configuration over 2x2 ranks, {'x'.join(map(str, FLAGSHIP_SMALL))} f64 against "
+          f"the CPU", flush=True)
+    opt = decomp_options_check([o[1][:n_e] for o in outs], refs, DECOMP_OPTIONS, "(e)")
+    print(f"  (f) the weighted and variational transfers, krylov_op='jvp', the adjoint and "
+          f"the ensemble over 2x2 ranks, {'x'.join(map(str, FLAGSHIP_SMALL))} f64 against "
+          f"the CPU", flush=True)
+    fam = decomp_options_check([o[1][n_e:] for o in outs], refs, DECOMP_FAMILY, "(f)")
+    fam.update(decomp_family_check([o[2] for o in outs], refs["decomp family"]))
+    return four, opt, fam
 
 
-def _decomp_option_case(label: str, device, mesh=None, factors=None):
-    """The (case, CPRConfig, NewtonConfig) of DECOMP_OPTIONS entry ``label``
-    at FLAGSHIP_SMALL in f64 on ``device`` (the GMG configurations naming
+def _decomp_option_case(label: str | None, device, mesh=None, factors=None,
+                        newton_kw: dict | None = None):
+    """The (case, CPRConfig, NewtonConfig) of DECOMP_OPTIONS or DECOMP_FAMILY
+    entry ``label`` (None: the flagship's own, with ``newton_kw``) at
+    FLAGSHIP_SMALL in f64 on ``device`` (the GMG configurations naming
     ``mesh``, with the coarsening schedules ``factors`` (p, T) when
     given)."""
     from thermalporous_torch.presets import get_case
 
-    _, pc_kw, gmg_kw, newton_kw, _ = next(o for o in DECOMP_OPTIONS if o[0] == label)
+    pc_kw, gmg_kw = {}, {}
+    if label is not None:
+        _, pc_kw, gmg_kw, newton_kw, _ = next(o for o in DECOMP_OPTIONS + DECOMP_FAMILY
+                                              if o[0] == label)
     case = get_case("tp_spe10_full", device=device, dtype=torch.float64, shape=FLAGSHIP_SMALL)
     pc = option_config(with_fuse(case.pc_cfg, **SMALL_GMG), pc_kw,
                        dict(gmg_kw, mesh=mesh, replicate_below=DECOMP_OPTIONS_REPLICATE))
     if factors is not None:
         pc = dataclasses.replace(
             pc, gmg=dataclasses.replace(pc.gmg, level_factors=factors[0]),
-            gmg_t=dataclasses.replace(pc.gmg_t, level_factors=factors[1]))
-    return case, pc, dataclasses.replace(case.newton_cfg, **newton_kw)
+            gmg_t=None if pc.gmg_t is None else dataclasses.replace(pc.gmg_t,
+                                                                   level_factors=factors[1]))
+    return case, pc, dataclasses.replace(case.newton_cfg, **(newton_kw or {}))
 
 
 def decomp_option_factors() -> tuple:
@@ -3993,8 +4038,9 @@ def _decomp_option_rank(mesh, labels, factors) -> list:
 
 
 def _decomp_option_cpu(label: str) -> dict:
-    """Phase 15 (e), a task of the references' pool: the undecomposed CPU
-    step of DECOMP_OPTIONS entry ``label``."""
+    """Phase 15 (e) and (f), a task of the references' pool: the
+    undecomposed CPU step of DECOMP_OPTIONS or DECOMP_FAMILY entry
+    ``label``."""
     torch.set_num_threads(2)
     case, pc, newton = _decomp_option_case(label, "cpu", factors=decomp_option_factors())
     u, st = case.simulator(pc_cfg=pc, newton_cfg=newton).step(
@@ -4003,17 +4049,19 @@ def _decomp_option_cpu(label: str) -> dict:
             "u": u.numpy()}
 
 
-def decomp_options_check(outs: list, refs: dict) -> dict:
-    """Phase 15 (e): every DECOMP_OPTIONS entry's run on the four ranks
-    (``outs``, per rank a list in DECOMP_OPTIONS' order) against the CPU's
+def decomp_options_check(outs: list, refs: dict, options: tuple, tag: str) -> dict:
+    """Phase 15 (e) or (f): every entry of ``options`` run on the four ranks
+    (``outs``, per rank a list in the options' order) against the CPU's
     undecomposed step (from ``refs``): each rank's (Newton, FGMRES,
     converged) equal to the CPU's, the gathered state within
     DECOMP_OPTION_P_PA and DECOMP_OPTION_S of it (or, gate "newton", under
     the undecomposed Newton test), bgmg with its finest level decomposed
-    and B5 at k = 0 and the half-sweep launched on every rank.  Prints a
-    line per option; fails after the last if any failed."""
+    and B5 at k = 0 and the half-sweep launched on every rank,
+    tp_spe10_inner's B1 at nc = 2 and B5 at k = 3, DECOMP_FAMILY_CHECKS'
+    launches, the fused subtree on none.  Prints a line per option; fails
+    after the last if any failed."""
     summary, bad = {}, []
-    for i, (label, *_, gate) in enumerate(DECOMP_OPTIONS):
+    for i, (label, *_, gate) in enumerate(options):
         ranks, ref = [o[i] for o in outs], refs[("decomp", label)].get(timeout=1200)
         gaps = _gaps(ranks[0]["u"], ref["u"])
         want_counts = (ref["newton"], ref["fgmres"], ref["converged"])
@@ -4039,8 +4087,16 @@ def decomp_options_check(outs: list, refs: dict) -> dict:
                       for r in ranks if not (r["bgmg_levels"] >= 1
                                              and r["by_columns"].get("fused_stage2_rbgs k=0", 0) > 0
                                              and r["launches"]["block_rbgs_half_sweep"] > 0)]
+        if label == "tp_spe10_inner":
+            fails += [f"rank {r['rank']} launched no {k}" for r in ranks
+                      for k in DECOMP_INNER_COLUMNS if r["by_columns"].get(k, 0) <= 0]
+        for key, kind in DECOMP_FAMILY_CHECKS.get(label, ()):
+            fails += [f"rank {r['rank']} {key} {r['launches'][key]}" for r in ranks
+                      if (r["launches"][key] == 0) != (kind == "none")]
+        fails += [f"rank {r['rank']} launched {k}" for r in ranks for k in DECOMP_REFUSED
+                  if r["launches"][k] != 0]
         r0, n = ranks[0], max(ranks[0]["newton"], 1)
-        print(f"  (e) {label}: cpu (newton, fgmres, converged) {want_counts}, 2x2 "
+        print(f"  {tag} {label}: cpu (newton, fgmres, converged) {want_counts}, 2x2 "
               f"{'==' if not fails else '!='} on every rank; gaps p {gaps[0]:.3e} Pa, "
               f"T {gaps[1]:.3e} K, S {gaps[2]:.3e}; rank 0 per Newton "
               f"{r0['stats']['exchanges'] / n:.1f} exchanges, "
@@ -4052,8 +4108,173 @@ def decomp_options_check(outs: list, refs: dict) -> dict:
         summary[label] = {"cpu": want_counts, "gaps": gaps, "gate": gate,
                           "ranks": [{k: v for k, v in r.items() if k != "u"} for r in ranks]}
     if bad:
-        raise SystemExit(f"phase 15(e): {bad} differ from the CPU")
+        raise SystemExit(f"phase 15{tag}: {bad} differ from the CPU")
     return {"options": summary}
+
+
+def _decomp_family_rank(mesh, factors) -> dict:
+    """Phase 15 (f), one rank: the flagship configuration at FLAGSHIP_SMALL,
+    f64, with ADJ_NEWTON on the 2x2 mesh: the trajectory over
+    DECOMP_ADJ_DTS and its adjoint with phase 13(d)'s objectives (the
+    sweep's launches and collectives counted alone); then the ENS_BHP
+    ensemble of members decomposed alike, one DECOMP_ENS_DTS step (member 0
+    must give the trajectory's first state bit for bit, member 1 its solo
+    decomposed step's) and the ensemble adjoint over it.  Rank 0 keeps the
+    gathered gradients."""
+    from thermalporous_torch.dist import make_ensemble_step_fn, stack_ensemble
+    from thermalporous_torch.dist.sharding import gather_state, shard_problem_data, shard_state
+    from thermalporous_torch.interop import problem_data_to_numpy
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.models.base import ProblemData
+    from thermalporous_torch.solve import (
+        Simulator,
+        adjoint_gradients,
+        ensemble_adjoint_gradients,
+        make_step_fn,
+        record_ensemble_trajectory,
+        record_trajectory,
+    )
+
+    case, pc, newton = _decomp_option_case(None, mesh.device, mesh, factors, ADJ_NEWTON)
+    terminal, running = adj_objectives()
+    data = shard_problem_data(case.data, mesh)
+    blk = data.block
+    sim = Simulator(case.model, data, pc_cfg=pc, newton_cfg=newton, time_cfg=case.time_cfg,
+                    device=mesh.device)
+    sweep = dict(pc_cfg=sim.pc_cfg, rtol=ADJ_RTOL_SMALL, maxiter=ADJ_MAXITER)
+    whole = lambda f: problem_data_to_numpy(ProblemData(blk.gather(blk.owned(f, lead=1),
+                                                                   lead=1)))
+    mesh.barrier()
+    t = time.perf_counter()
+    states = record_trajectory(sim, shard_state(case.model.initial_state(case.data), mesh),
+                               list(DECOMP_ADJ_DTS))
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t
+    reset_launch_counts()
+    mesh.reset_stats()
+    t = time.perf_counter()
+    res = adjoint_gradients(case.model, data, states, list(DECOMP_ADJ_DTS), terminal=terminal,
+                            running=running, **sweep)
+    torch.cuda.synchronize()
+    adj = {"record_s": record_s, "wall_s": time.perf_counter() - t, "launches": launch_counts(),
+           "stats": dict(mesh.stats), "value": float(res.value), "step_iters": res.step_iters,
+           "converged": res.converged}
+    grad, grad_u0 = whole(res.grad_data.fields), gather_state(res.grad_u0, mesh)
+    if mesh.rank == 0:
+        adj.update(grad=grad, grad_u0=grad_u0.cpu().numpy())
+    members = [shard_problem_data(d, mesh) for d in ensemble_members(case)]
+    data_e = stack_ensemble(members)
+    step_e = make_ensemble_step_fn(case.model, "cptr", newton, sim.pc_cfg, device=mesh.device)
+    u0_e = torch.stack([shard_state(case.model.initial_state(case.data), mesh)
+                        for _ in members])
+    t = time.perf_counter()
+    states_e = record_ensemble_trajectory(step_e, u0_e, list(DECOMP_ENS_DTS), data_e)
+    solo, _ = make_step_fn(case.model, "cptr", newton, sim.pc_cfg, device=mesh.device)(
+        u0_e[1].clone(), DECOMP_ENS_DTS[0], members[1])
+    bitwise = [torch.equal(states_e[1][0], states[1]), torch.equal(states_e[1][1], solo)]
+    res_e = ensemble_adjoint_gradients(case.model, data_e, states_e, list(DECOMP_ENS_DTS),
+                                       terminal=terminal, running=running, **sweep)
+    torch.cuda.synchronize()
+    ens = {"wall_s": time.perf_counter() - t, "bitwise": bitwise,
+           "value": res_e.value.cpu().tolist(), "step_iters": res_e.step_iters,
+           "ksp_iters": res_e.ksp_iters, "converged": res_e.converged}
+    grads = [whole(f) for f in res_e.grad_data.fields]
+    if mesh.rank == 0:
+        ens["grads"] = grads
+    return {"rank": mesh.rank, "adjoint": adj, "ensemble": ens}
+
+
+def _decomp_family_cpu() -> dict:
+    """Phase 15 (f), a task of the references' pool: the undecomposed CPU
+    sweeps of :func:`_decomp_family_rank`'s adjoint and ensemble adjoint."""
+    from thermalporous_torch.dist import make_ensemble_step_fn, stack_ensemble
+    from thermalporous_torch.interop import problem_data_to_numpy
+    from thermalporous_torch.models.base import ProblemData
+    from thermalporous_torch.solve import (
+        adjoint_gradients,
+        ensemble_adjoint_gradients,
+        record_ensemble_trajectory,
+        record_trajectory,
+    )
+
+    torch.set_num_threads(2)
+    t = time.perf_counter()
+    case, pc, newton = _decomp_option_case(None, "cpu", factors=decomp_option_factors(),
+                                           newton_kw=ADJ_NEWTON)
+    terminal, running = adj_objectives()
+    sim = case.simulator(pc_cfg=pc, newton_cfg=newton)
+    sweep = dict(pc_cfg=sim.pc_cfg, rtol=ADJ_RTOL_SMALL, maxiter=ADJ_MAXITER)
+    states = record_trajectory(sim, case.model.initial_state(case.data), list(DECOMP_ADJ_DTS))
+    res = adjoint_gradients(case.model, case.data, states, list(DECOMP_ADJ_DTS),
+                            terminal=terminal, running=running, **sweep)
+    members = ensemble_members(case)
+    step_e = make_ensemble_step_fn(case.model, "cptr", newton, sim.pc_cfg, device="cpu")
+    data_e = stack_ensemble(members)
+    states_e = record_ensemble_trajectory(
+        step_e, torch.stack([case.model.initial_state(case.data) for _ in members]),
+        list(DECOMP_ENS_DTS), data_e)
+    res_e = ensemble_adjoint_gradients(case.model, data_e, states_e, list(DECOMP_ENS_DTS),
+                                       terminal=terminal, running=running, **sweep)
+    return {"value": float(res.value), "step_iters": res.step_iters, "converged": res.converged,
+            "grad": problem_data_to_numpy(res.grad_data), "grad_u0": res.grad_u0.numpy(),
+            "ens_value": res_e.value.tolist(), "ens_step_iters": res_e.step_iters,
+            "ens_ksp_iters": res_e.ksp_iters, "ens_converged": res_e.converged,
+            "ens_grads": [problem_data_to_numpy(ProblemData(f)) for f in res_e.grad_data.fields],
+            "s": time.perf_counter() - t}
+
+
+def decomp_family_check(outs: list, pending) -> dict:
+    """Phase 15 (f): the 2x2 adjoint and ensemble (``outs``, per rank)
+    against the CPU's undecomposed sweeps (``pending``): every rank's
+    FGMRES counts per backward step the CPU's and converged, J and every
+    gradient within ADJ_GRAD_TOL of the CPU's, the scalar matvec, smooth
+    and stage 2 launched on every rank in the sweep; ensemble member 0 bitwise the
+    solo trajectory's step and member 1 its solo decomposed step, the
+    lockstep count the CPU's, each member's gradients within
+    ADJ_GRAD_TOL."""
+    cpu = pending.get(timeout=1200)
+    a0, e0 = outs[0]["adjoint"], outs[0]["ensemble"]
+    fails = [f"rank {o['rank']} adjoint {o['adjoint']['step_iters']}"
+             for o in outs if o["adjoint"]["step_iters"] != cpu["step_iters"]
+             or not o["adjoint"]["converged"]]
+    gap = _grad_gap(a0["grad"], cpu["grad"])
+    u0_gap = float(np.abs(a0["grad_u0"] - cpu["grad_u0"]).max() / np.abs(cpu["grad_u0"]).max())
+    j_gap = abs(a0["value"] - cpu["value"]) / abs(cpu["value"])
+    if not cpu["converged"] or max(gap, u0_gap, j_gap) > ADJ_GRAD_TOL:
+        fails.append(f"adjoint gaps {gap:.2e} {u0_gap:.2e} {j_gap:.2e}")
+    # the CPTR kernels on the transposed decomposed hierarchy, on every rank
+    fails += [f"rank {o['rank']} adjoint launched no {k}" for o in outs
+              for k in ("matvec", "chebyshev_smooth", "fused_stage2_rbgs")
+              if o["adjoint"]["launches"][k] <= 0]
+    n = max(sum(a0["step_iters"]), 1)
+    print(f"  (f) the adjoint, dts {list(DECOMP_ADJ_DTS)}: J cpu {cpu['value']:.12e} 2x2 "
+          f"{a0['value']:.12e}; FGMRES per backward step cpu {cpu['step_iters']} 2x2 "
+          f"{a0['step_iters']}; gradient gaps: leaves {gap:.2e}, grad_u0 {u0_gap:.2e}, J "
+          f"{j_gap:.2e}; rank 0 sweep {a0['wall_s']:.2f} s (trajectory {a0['record_s']:.2f} s), "
+          f"per FGMRES iteration {a0['stats']['exchanges'] / n:.1f} exchanges, "
+          f"{a0['stats']['allreduces'] / n:.1f} all-reduces; the sweep's launches "
+          f"{a0['launches']}; the CPU's sweeps {cpu['s']:.1f} s", flush=True)
+    fails += [f"rank {o['rank']} ensemble bitwise {o['ensemble']['bitwise']}, lockstep "
+              f"{o['ensemble']['ksp_iters']}" for o in outs
+              if not all(o["ensemble"]["bitwise"]) or not o["ensemble"]["converged"]
+              or o["ensemble"]["ksp_iters"] != cpu["ens_ksp_iters"]]
+    egap = max(_grad_gap(g, c) for g, c in zip(e0["grads"], cpu["ens_grads"]))
+    ej = max(abs(a - b) / abs(b) for a, b in zip(e0["value"], cpu["ens_value"]))
+    if max(egap, ej) > ADJ_GRAD_TOL:
+        fails.append(f"ensemble adjoint gaps {egap:.2e} {ej:.2e}")
+    print(f"  (f) the ensemble of {len(ENS_BHP)} decomposed members, dts "
+          f"{list(DECOMP_ENS_DTS)}: member 0 bitwise the solo trajectory's step, member 1 "
+          f"its solo decomposed step: {e0['bitwise']}; the ensemble adjoint's lockstep FGMRES "
+          f"cpu {cpu['ens_ksp_iters']} 2x2 {e0['ksp_iters']}, gradient gaps {egap:.2e}, J "
+          f"{ej:.2e}; rank 0 {e0['wall_s']:.2f} s" + (f"; FAILED: {fails}" if fails else ""),
+          flush=True)
+    if fails:
+        raise SystemExit(f"phase 15(f): {fails}")
+    return {"adjoint": {k: v for k, v in a0.items() if k not in ("grad", "grad_u0")},
+            "adjoint_gaps": [gap, u0_gap, j_gap], "adjoint_cpu_iters": cpu["step_iters"],
+            "ensemble": {k: v for k, v in e0.items() if k != "grads"},
+            "ensemble_gaps": [egap, ej], "ensemble_cpu_ksp": cpu["ens_ksp_iters"],
+            "cpu_s": cpu["s"]}
 
 
 def decomp_dryrun_start():
@@ -4146,8 +4367,9 @@ def cpu_refs_later(refs: dict, want) -> None:
         for name, _ in EXAMPLE_CLIS:
             put(("example", name), _example_cpu_task, name)
     if want(15):
-        for o in DECOMP_OPTIONS:
+        for o in DECOMP_OPTIONS + DECOMP_FAMILY:
             put(("decomp", o[0]), _decomp_option_cpu, o[0])
+        put("decomp family", _decomp_family_cpu)
 
 
 def main() -> int:
@@ -4405,8 +4627,6 @@ def main() -> int:
             torch.cuda.empty_cache()
         print("  (b) tp_spe10_full with pc_dtype='bf16'", flush=True)
         apply12 = pc_dtype_apply_times(dev)
-        # phase 6's first step is the f32 one
-        first12 = first_step_modes(dev, PC_DTYPE_MODES[1:] if want(6) else PC_DTYPE_MODES)
         bvar: dict = {}
         brecs, blaunches, _, bcu_s, bpeak = flagship_run(
             dev, BF16_STEPS, pc_overrides=dict(pc_dtype="bf16"), variants=bvar,
@@ -4445,7 +4665,7 @@ def main() -> int:
                             ("batch_pt", "deep_correction batched")):
             if (opts12[label]["variants"] or {}).get(need, 0) <= 0:
                 raise SystemExit(f"option {label}: no {need} launched")
-        pc12 = {"bf16_rows": brec, "apply_ms": apply12, "first_step_modes": first12,
+        pc12 = {"bf16_rows": brec, "apply_ms": apply12,
                 "flagship_bf16_steps": [r.as_dict() for r in brecs],
                 "flagship_bf16_launches": blaunches, "flagship_bf16_variants": bvar,
                 "flagship_bf16_cell_updates_per_s": bcu_s, "flagship_bf16_peak_gib": bpeak,
@@ -4468,16 +4688,6 @@ def main() -> int:
         flag13 = preset_state("tp_spe10_full", torch.float32, dev,
                               dict(fuse_below=FLAGSHIP_FUSE_BELOW))
         tr13 = transfer_cases(dev, flag13)
-        var_recs, var_launches, _, var_cu_s, var_peak = flagship_run(
-            dev, 1, gmg_overrides=dict(transfer="variational"), dt_init=RETRY_DT,
-            kernels=tuple(k for k in FLAGSHIP_KERNELS if k != "deep_correction"))
-        if var_launches["deep_correction"] != 0:
-            raise SystemExit("flagship, transfer=variational: deep_correction launched")
-        print(f"  variational first step: (newton, fgmres) "
-              f"{[(r.newton_iters, r.ksp_iters) for r in var_recs]}, wall "
-              f"{var_recs[0].wall_s:.3f} s, peak {var_peak:.2f} GiB"
-              + (f" (constant, phase 6: ({frecs[0].newton_iters}, {frecs[0].ksp_iters}), "
-                 f"{frecs[0].wall_s:.3f} s)" if want(6) else ""), flush=True)
         print("  (b) tp_spe10_full with stage2='bgmg'", flush=True)
         bgmg13 = bgmg_apply_times(dev, flag13)
         del flag13
@@ -4492,18 +4702,6 @@ def main() -> int:
         print(f"  bgmg (newton, fgmres) {[(r.newton_iters, r.ksp_iters) for r in g_recs]}"
               + (f" (rbgs, phase 6: {[(r.newton_iters, r.ksp_iters) for r in frecs[:BGMG_STEPS]]})"
                  if want(6) else "") + f"; {g_cu_s:.1f} cell-updates/s, peak {g_peak:.2f} GiB",
-              flush=True)
-        print("  (c) tp_spe10_full with ksp_recycle=4", flush=True)
-        rec_t: dict = {}
-        c_recs, c_launches, c_attempts, c_cu_s, c_peak = flagship_run(
-            dev, RECYCLE_STEPS, newton_overrides=dict(ksp_recycle=RECYCLE_K),
-            counting=recycle_timers(rec_t))
-        print(f"  recycle (newton, fgmres) {[(r.newton_iters, r.ksp_iters) for r in c_recs]}"
-              + (f" (phase 6: {[(r.newton_iters, r.ksp_iters) for r in frecs[:RECYCLE_STEPS]]})"
-                 if want(6) else "")
-              + f"; prepare_recycle {statistics.median(rec_t['prepare_recycle_ms']):.3f} ms, "
-              f"harvest {statistics.median(rec_t['harvest_ms']):.3f} ms a solve (median of "
-              f"{len(rec_t['harvest_ms'])}); {c_cu_s:.1f} cell-updates/s, peak {c_peak:.2f} GiB",
               flush=True)
         print("  (d) the adjoint", flush=True)
         adj_small = adjoint_small(refs["adjoint small"])
@@ -4525,19 +4723,15 @@ def main() -> int:
                     raise SystemExit(f"option {label}: {key} launched {n_l} times")
         print("  (f) python -m thermalporous_torch.adjoint_study --ascent 1", flush=True)
         cli_adj = adjoint_cli_finish(cli13)
-        p13 = {"transfers": tr13, "variational_first_step": [r.as_dict() for r in var_recs],
-               "variational_launches": var_launches, "variational_peak_gib": var_peak,
+        p13 = {"transfers": tr13,
                "bgmg": bgmg13, "bgmg_steps": [r.as_dict() for r in g_recs],
                "bgmg_launches": g_launches, "bgmg_launches_by_level": by_level,
                "bgmg_newton_all_attempts": g_attempts, "bgmg_cell_updates_per_s": g_cu_s,
-               "bgmg_peak_gib": g_peak, "recycle_steps": [r.as_dict() for r in c_recs],
-               "recycle_launches": c_launches, "recycle_ms": rec_t,
-               "recycle_cell_updates_per_s": c_cu_s, "recycle_peak_gib": c_peak,
+               "bgmg_peak_gib": g_peak,
                "adjoint_small": adj_small, "adjoint_full": adj_full, "options": opts13,
                "adjoint_study": cli_adj}
         phase("13 transfers, bgmg, recycling, adjoint", t0,
-              f"bgmg {g_cu_s:.1f} cell-updates/s {over_steps(len(g_recs))}, recycle "
-              f"{c_cu_s:.1f}; adjoint "
+              f"bgmg {g_cu_s:.1f} cell-updates/s {over_steps(len(g_recs))}; adjoint "
               f"{'x'.join(map(str, FLAGSHIP_SMALL))} GPU == CPU (gaps {adj_small['grad_gap']:.1e}), "
               f"FD {adj_small['fd_rel']:.1e}; full size {adj_full['wall_per_step_s']:.2f} s a "
               f"backward step; {len(opts13)} options GPU == CPU; CLI FD {cli_adj['fd_rel']:.1e}")
@@ -4549,7 +4743,7 @@ def main() -> int:
               f"{len(ENS_BHP)} members, one {ENS_DT:.0f} s step", flush=True)
         ex14: dict = {}
         try:
-            ens14 = ensemble_full(dev, after_ensemble=lambda: ex14.update(examples_start()))
+            ens14 = ensemble_small(dev, after_ensemble=lambda: ex14.update(examples_start()))
             t_a = time.perf_counter() - t0
             print(f"  ensemble {ens14['wall_s']:.3f} s, {ens14['cell_updates_per_s']:.1f} "
                   f"cell-updates/s over the members' Newton, peak {ens14['peak_gib']:.2f} "
@@ -4563,8 +4757,8 @@ def main() -> int:
             examples_stop(ex14)
         p14 = {"ensemble": ens14, "ensemble_adjoint": adj14, "examples": cli14,
                "a_s": t_a, "b_s": t_b}
-        phase("14 ensemble and examples", t0, f"ensemble of {len(ENS_BHP)} at 60x220x85 "
-              f"f32 bitwise its solo steps, {ens14['cell_updates_per_s']:.1f} cell-updates/s; "
+        phase("14 ensemble and examples", t0, f"ensemble of {len(ENS_BHP)} at "
+              f"{'x'.join(map(str, FLAGSHIP_SMALL))} f32 bitwise its solo steps, {ens14['cell_updates_per_s']:.1f} cell-updates/s; "
               f"ensemble adjoint {'x'.join(map(str, FLAGSHIP_SMALL))} GPU == CPU (gaps "
               f"{max(adj14['gaps']):.1e}), lockstep {adj14['ksp_iters']}; iteration_study and "
               f"custom_case GPU == CPU ((a) {t_a:.1f} s, (b) {t_b:.1f} s)")
@@ -4580,10 +4774,10 @@ def main() -> int:
             one15 = decomp_one_rank(dev)
             torch.cuda.empty_cache()
             t_a = time.perf_counter() - t0
-            print(f"  (b), (d) and (e) over {DECOMP_RANKS} gloo ranks sharing cuda:0, one spawn: "
-                  f"the flagship, tp_spe10_inner, then the lifted options, split 2x2", flush=True)
-            four15, inner15, opt15 = decomp_four_ranks(dev, one15, refs,
-                                                       irecs[0] if want(10) else None)
+            print(f"  (b), (e) and (f) over {DECOMP_RANKS} gloo ranks sharing cuda:0, one spawn: "
+                  f"the flagship, then the lifted options, the adjoint and the ensemble, "
+                  f"split 2x2", flush=True)
+            four15, opt15, fam15 = decomp_four_ranks(dev, one15, refs)
             del one15["case"], one15["u0"]
             torch.cuda.empty_cache()
             t_bd = time.perf_counter() - t0 - t_a
@@ -4597,23 +4791,24 @@ def main() -> int:
         t_c = time.perf_counter() - t0 - t_a - t_bd
         p15 = {"kernel_blocks": blk15,
                "one_rank": {k: v for k, v in one15.items() if k != "u"},
-               "four_ranks": four15, "inner": inner15, "dryrun": dry15, "options": opt15,
-               "a_s": t_a, "b_d_e_s": t_bd, "c_s": t_c}
+               "four_ranks": four15, "dryrun": dry15, "options": opt15, "family": fam15,
+               "a_s": t_a, "b_e_f_s": t_bd, "c_s": t_c}
         r0 = four15["ranks"][0]
-        d0 = inner15["ranks"][0]
+        jv = blk15["fused_jvp"]
         phase("15 grid decomposition", t0,
-              f"one-rank NCCL mesh bitwise the undecomposed flagship step "
-              f"({one15['newton']}, {one15['fgmres']}); 2x2 over {DECOMP_RANKS} gloo ranks on "
+              f"fused_jvp on the odd block within tolerance (f32 {jv['f32']['ms']:.4f} ms, f64 "
+              f"{jv['f64']['ms']:.4f} ms); one-rank NCCL mesh bitwise the undecomposed flagship "
+              f"step ({one15['newton']}, {one15['fgmres']}); 2x2 over {DECOMP_RANKS} gloo ranks on "
               f"one card ({r0['newton']}, {r0['fgmres']}), its Newton test "
               f"{four15['newton_norm']:.3e} <= {four15['newton_tol']:.1e}, gaps p/T/S "
               f"{'/'.join(f'{g:.3e}' for g in four15['gaps'])}; rank 0 wall "
-              f"{r0['wall_s']:.3f} s; tp_spe10_inner 2x2 ({d0['newton']}, {d0['fgmres']}) == "
-              f"undecomposed, Newton test {inner15['newton_norm']:.3e} <= "
-              f"{inner15['newton_tol']:.1e}, rank 0 wall {d0['wall_s']:.3f} s; dry run "
+              f"{r0['wall_s']:.3f} s; dry run "
               f"{dry15['run']['steps']} steps, newton {dry15['run']['newton']}, ksp "
-              f"{dry15['run']['ksp']} == undecomposed, resume bitwise; the lifted options in "
-              f"{len(opt15['options'])} runs 2x2 f64 == CPU ((a) {t_a:.1f} s, (b), (d) and (e) {t_bd:.1f} s, "
-              f"(c) {t_c:.1f} s more)")
+              f"{dry15['run']['ksp']} == undecomposed, resume bitwise; (e) "
+              f"{len(opt15['options'])} runs and (f) {len(fam15['options'])} runs 2x2 f64 == CPU, "
+              f"(f) adjoint gaps {max(fam15['adjoint_gaps']):.1e}, ensemble adjoint gaps "
+              f"{max(fam15['ensemble_gaps']):.1e} ((a) {t_a:.1f} s, (b), (e) and (f) "
+              f"{t_bd:.1f} s, (c) {t_c:.1f} s more)")
 
     if refs is not None:
         refs["pool"].close()
@@ -4727,21 +4922,22 @@ def main() -> int:
         inner.append((f"{k} (adjoint, transposed hierarchy)", k, krec[k],
                       adj_full["launches"][k]))
     # phase 14: the flagship's kernels on the ensemble's path (phase 2's
-    # flagship records; launches in phase 14(a)'s ensemble step)
+    # flagship records; launches in phase 14(a)'s ensemble step at 12x22x9)
     for k in FLAGSHIP_KERNELS:
-        inner.append((f"{k} (ensemble of {len(ENS_BHP)})", k, krec[k], ens14["launches"][k]))
+        inner.append((f"{k} (ensemble of {len(ENS_BHP)}, 12x22x9)", k, krec[k],
+                      ens14["launches"][k]))
     # phase 15: the flagship's kernels on the 2x2 decomposed path (phase 2's
     # flagship records; launches on rank 0 in phase 15(b)'s step)
     for k in DECOMP_KERNELS:
         inner.append((f"{k} (2x2 decomposition, rank 0)", k, krec[k],
                       p15["four_ranks"]["ranks"][0]["launches"][k]))
-    # phase 15(d): tp_spe10_inner's kernels on the 2x2 path (phase 2's and
-    # phase 10(b)'s records at the flagship's shapes; launches on rank 0 in
-    # (d)'s step); (e): the red-black kernels the lifted options add there
-    # (phase 2's flagship records of the stage 2 at k = 0 and the
-    # half-sweep; launches on rank 0 of (e)'s bgmg and two-sweep runs at
-    # 12x22x9 in f64)
-    d0 = p15["inner"]["ranks"][0]
+    # phase 15(e): tp_spe10_inner's kernels on the 2x2 path (phase 2's and
+    # phase 10(b)'s records at the flagship's shapes; launches on rank 0 of
+    # (e)'s run of its configuration at 12x22x9 in f64), and the red-black
+    # kernels the lifted options add there (phase 2's flagship records of
+    # the stage 2 at k = 0 and the half-sweep; launches on rank 0 of (e)'s
+    # bgmg and two-sweep runs)
+    d0 = p15["options"]["options"]["tp_spe10_inner"]["ranks"][0]
     cols, dl = d0["by_columns"], d0["launches"]
     inner += [("block_matvec nc=3 (2x2 tp_spe10_inner, rank 0)", "block_matvec",
                krec["block_matvec"], cols.get("block_matvec nc=3 k=3", 0)),
@@ -4751,6 +4947,17 @@ def main() -> int:
                irec["fused_stage2_rbgs"], cols.get("fused_stage2_rbgs k=3", 0))]
     for k in ("matvec", "chebyshev_smooth", "fused_residual"):
         inner.append((f"{k} (2x2 tp_spe10_inner, rank 0)", k, krec[k], dl[k]))
+    # phase 15(f): B7 under krylov_op="jvp" over 2x2 (phase 15(a)'s f32 row
+    # on the odd-origin extended block; launches on rank 0 of (f)'s jvp
+    # run), and the CPTR kernels on the transposed decomposed hierarchy of
+    # (f)'s adjoint (phase 2's flagship records; launches on rank 0 in the
+    # sweep alone)
+    jv = dict(p15["kernel_blocks"]["fused_jvp"]["f32"], library_ms=None)
+    inner.append(("fused_jvp (2x2 krylov_op=jvp, rank 0)", "fused_jvp", jv,
+                  p15["family"]["options"]["krylov_op=jvp"]["ranks"][0]["launches"]["fused_jvp"]))
+    adj_l = p15["family"]["adjoint"]["launches"]
+    for k in ("matvec", "chebyshev_smooth", "fused_stage2_rbgs"):
+        inner.append((f"{k} (2x2 adjoint, transposed hierarchy, rank 0)", k, krec[k], adj_l[k]))
     e_bgmg = p15["options"]["options"]["stage2=bgmg inner richardson"]["ranks"][0]
     e_sweeps = p15["options"]["options"]["stage2=rbgs sweeps=2 s_stage=rbgs"]["ranks"][0]
     k0_row = row_of(f"fused_stage2_rbgs k=0 no x1 {gs}")

@@ -10,6 +10,7 @@ own block, or returns what the test compares across ranks.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -165,17 +166,23 @@ def steps_rank(mesh, jobs) -> list:
     return [step_rank(mesh, **job) for job in jobs]
 
 
-def apply_rank(mesh, model, data, u, dt: float, r, pc_cfg) -> np.ndarray:
+def apply_rank(mesh, model, data, u, dt: float, r, pc_cfg, levels: bool = False):
     """The decomposed CPTR apply of ``pc_cfg`` to the whole residual ``r``
     (this rank's owned block of it), set up from the Jacobian at the state
-    ``u`` (the step from ``u``), gathered whole."""
+    ``u`` (the step from ``u``), gathered whole (with ``levels``, also the
+    pressure hierarchy's decomposed level count and the classes of its
+    decomposed levels' stencils)."""
     data_s = shard_problem_data(data, mesh)
     blk = data_s.block
     u_s = shard_state(torch.as_tensor(u), mesh)
     stencil = block_model(model, blk).assemble_stencil(u_s, u_s, dt, data_s)
     state = cpr_setup(stencil, pc_cfg, block=blk)
     y = cpr_apply(state, blk.cut(torch.as_tensor(r), lead=1, ghosts=False), pc_cfg)
-    return blk.gather(y, lead=1).numpy()
+    y = blk.gather(y, lead=1).numpy()
+    if not levels:
+        return y
+    hier = state.gmg_p
+    return y, [type(s).__name__ for s in hier.stencils[:len(hier.blocks)]]
 
 
 def options_rank(mesh, jobs, applies=()) -> dict:
@@ -189,3 +196,173 @@ def options_rank(mesh, jobs, applies=()) -> dict:
         steps.append(got + ((mesh.stats["exchanges"], mesh.stats["allreduces"],
                              mesh.stats["gathers"]),))
     return {"steps": steps, "applies": [apply_rank(mesh, **a) for a in applies]}
+
+
+# ------------------------------------------------------------------------
+# the adjoint, the transfers, krylov_op="jvp" and the ensemble over ranks
+# (tests/test_torch_sharding_adjoint.py)
+
+#: the fold check's grid and its splits by label prefix: cut at odd
+#: boundaries along both axes, and a thin split whose narrowest ranges are
+#: as deep as the deepest ring
+FOLD_SHAPE = (13, 11, 3)
+FOLD_SPLITS = {"": ((0, 7, 13), (0, 5, 11)), "thin split ": ((0, 3, 13), (0, 8, 11))}
+
+
+def _sum(mesh, t: torch.Tensor) -> float:
+    """The sum of ``t`` over every rank, exact (``math.fsum`` of each
+    rank's part, and of the parts, each all-reduced in a slot of its own),
+    so that the two sides of an identity differ only by their products'
+    rounding."""
+    parts = torch.zeros(mesh.size, dtype=torch.float64)
+    parts[mesh.rank] = math.fsum(t.double().reshape(-1).tolist())
+    return math.fsum(mesh.allreduce_sum(parts).tolist())
+
+
+def fold_rank(mesh, seed: int) -> dict:
+    """The inner-product identities of the exchange and its adjoint,
+    summed over the ranks: ⟨extend(x), y⟩ = ⟨x, fold(y)⟩ for rings 1–3
+    (one ring per axis too) and with zero to two leading axes, and ``pad``
+    the adjoint of ``owned``, on each of :data:`FOLD_SPLITS`.  Returns
+    {label: (left, right)}."""
+    g = torch.Generator().manual_seed(seed + mesh.rank)
+    # normal draws on a 2⁻¹⁰ lattice: every product and sum below is exact
+    # in f64, so a misrouted slab shows and rounding does not
+    rnd = lambda shape: torch.round(
+        torch.randn(shape, generator=g, dtype=torch.float64) * 1024) / 1024
+    out = {}
+    for split, bounds in FOLD_SPLITS.items():
+        for width in (1, 2, 3, (2, 1)):
+            for lead in ((), (3,), (2, 3)):
+                blk = Block(mesh, FOLD_SHAPE, bounds, width)
+                assert blk.fits()
+                x = rnd(lead + blk.owned_shape)
+                y = rnd(lead + blk.ext_shape)
+                n = len(lead)
+                out[f"{split}extend width={width} lead={n}"] = (
+                    _sum(mesh, blk.extend(x, lead=n) * y), _sum(mesh, x * blk.fold(y, lead=n)))
+        blk = Block(mesh, FOLD_SHAPE, bounds, 2)
+        x, y = rnd((3,) + blk.owned_shape), rnd((3,) + blk.ext_shape)
+        out[f"{split}pad"] = (_sum(mesh, blk.owned(y) * x), _sum(mesh, y * blk.pad(x)))
+    return out
+
+
+def transpose_rank(mesh, model, data, u, dt: float) -> float:
+    """``HaloStencil.transpose()`` of the decomposed Jacobian at ``u``
+    against the whole Jacobian's ``BlockStencil.transpose()`` cut to the
+    extended block: the largest gap over every held row, relative to the
+    largest coefficient."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    data_s = shard_problem_data(data, mesh)
+    blk = data_s.block
+    u_s = shard_state(u, mesh)
+    st = block_model(model, blk).assemble_stencil(u_s, u_s, dt, data_s)
+    got = HaloStencil(st, blk).transpose().st.coef
+    want = blk.cut(model.assemble_stencil(u, u, dt, data).transpose().coef, lead=3)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def terminal_mean(u, d):
+    """The reference adjoint check's objective: the mean temperature of the
+    grid's 5×6 corner (whole state)."""
+    return torch.mean(u[1, :5, :6])
+
+
+def running_mean(u, dt, d):
+    """A running objective (summed over the recorded states): Δt times the
+    mean pressure of a 5×7 window across the 8×16 grid's 2×2 split, scaled
+    to order one (whole state)."""
+    return dt * torch.mean(u[0, 2:7, 5:12]) * 1e-12
+
+
+#: the adjoint checks' objectives, by name: (terminal, running)
+OBJECTIVES = {"terminal": (terminal_mean, None), "running": (None, running_mean)}
+
+
+def adjoint_rank(mesh, model, data, dts, newton_cfg, sweep: dict, pc_cfg=None) -> dict:
+    """A decomposed trajectory over ``dts`` (``Simulator.step``) and its
+    adjoint with each of :data:`OBJECTIVES`, by name: value, the gathered
+    gradients, FGMRES counts and the step counts, on this rank."""
+    from thermalporous_torch.solve.adjoint import adjoint_gradients, record_trajectory
+
+    data_s = shard_problem_data(data, mesh)
+    sim = Simulator(model, data_s, precond="cptr", pc_cfg=pc_cfg, newton_cfg=newton_cfg,
+                    device="cpu")
+    states = record_trajectory(sim, shard_state(model.initial_state(data), mesh), dts)
+    blk = data_s.block
+    out = {}
+    for name, (terminal, running) in OBJECTIVES.items():
+        mesh.reset_stats()
+        res = adjoint_gradients(model, data_s, states, dts, terminal=terminal, running=running,
+                                pc_cfg=pc_cfg, **sweep)
+        out[name] = {
+            "value": float(res.value), "converged": res.converged, "ksp": res.ksp_iters,
+            "step_iters": res.step_iters, "exchanges": mesh.stats["exchanges"],
+            "grad_fields": blk.gather(blk.owned(res.grad_data.fields, lead=1), lead=1).numpy(),
+            "grad_u0": gather_state(res.grad_u0, mesh).numpy()}
+    return out
+
+
+def ensemble_rank(mesh, model, datas, dts, newton_cfg, sweep: dict) -> dict:
+    """The ensemble over ranks, both ways: (a) ``shard_ensemble(tree,
+    mesh)`` of the four whole members, this rank's one stepped by
+    ``make_ensemble_step_fn`` with no collective, then put back together;
+    (b) two members each decomposed over the mesh, stacked, two steps of
+    the ensemble step, each member's gathered state beside its solo
+    decomposed step's, and the ensemble adjoint of :func:`terminal_mean`."""
+    from thermalporous_torch.dist.ensemble import (
+        gather_ensemble,
+        make_ensemble_step_fn,
+        shard_ensemble,
+        stack_ensemble,
+    )
+    from thermalporous_torch.solve.adjoint import (
+        ensemble_adjoint_gradients,
+        record_ensemble_trajectory,
+    )
+    from thermalporous_torch.solve.timeloop import make_step_fn
+
+    step_e = make_ensemble_step_fn(model, "cptr", newton_cfg, device="cpu")
+    whole = stack_ensemble(datas)
+    u0 = torch.stack([model.initial_state(d) for d in datas])
+    dt_e = torch.tensor(dts[:len(datas)], dtype=torch.float64)
+    local_u, local_dt, local_d = shard_ensemble([u0, dt_e, whole], mesh)
+    mesh.reset_stats()
+    u1, st = step_e(local_u, local_dt, local_d)
+    collectives = dict(mesh.stats)
+    a = {"u": gather_ensemble(u1, mesh).numpy(), "members": len(local_u),
+         "iters": gather_ensemble(st.iters, mesh).tolist(),
+         "ksp": gather_ensemble(st.ksp_iters, mesh).tolist(), "collectives": collectives}
+    pair = [shard_problem_data(d, mesh) for d in datas[:2]]
+    data_e = stack_ensemble(pair)
+    u0_e = torch.stack([shard_state(model.initial_state(d), mesh) for d in datas[:2]])
+    states = record_ensemble_trajectory(step_e, u0_e, dts[:2], data_e)
+    solo = make_step_fn(model, "cptr", newton_cfg, device="cpu")
+    bitwise = []
+    for i, d in enumerate(pair):
+        u = u0_e[i]
+        for k, dt in enumerate(dts[:2]):
+            u, _ = solo(u, dt, d)
+            bitwise.append(torch.equal(u, states[k + 1][i]))
+    res = ensemble_adjoint_gradients(model, data_e, states, dts[:2], terminal=terminal_mean,
+                                     **sweep)
+    blk = data_e.block
+    return {"a": a, "bitwise": bitwise,
+            "states": [gather_state(states[-1][i], mesh).numpy() for i in range(2)],
+            "value": res.value.numpy(), "ksp": res.ksp_iters, "converged": res.converged,
+            "grad_fields": [blk.gather(blk.owned(f, lead=1), lead=1).numpy()
+                            for f in res.grad_data.fields]}
+
+
+def family_rank(mesh, steps, applies, transposes, adjoints, ensembles, folds) -> dict:
+    """Every multi-rank job of the adjoint-and-transfers checks, in one
+    spawn: :func:`options_rank`'s steps (with their collectives) and
+    applies, then each of the other functions' jobs (their keyword
+    arguments)."""
+    out = options_rank(mesh, steps, applies)
+    out["transposes"] = [transpose_rank(mesh, **j) for j in transposes]
+    out["adjoints"] = [adjoint_rank(mesh, **j) for j in adjoints]
+    out["ensembles"] = [ensemble_rank(mesh, **j) for j in ensembles]
+    out["folds"] = [fold_rank(mesh, **j) for j in folds]
+    return out

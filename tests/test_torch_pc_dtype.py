@@ -20,6 +20,7 @@ plain version.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +64,19 @@ def system():
     js = jax.jit(c["jm"].assemble_stencil)(c["ju"], c["ju0"], c["dt"], c["jd"])
     rhs = -np.asarray(c["jm"].residual(c["ju"], c["ju0"], c["dt"], c["jd"]))
     return js, torch_block(js), rhs
+
+
+@functools.lru_cache(maxsize=None)
+def _jsetup(jcfg):
+    """The reference's jitted set-up of one configuration, compiled once for
+    the module (every test holds the same stencil)."""
+    return jax.jit(lambda s: jcpr.cpr_setup(s, jcfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _japply(jcfg):
+    """The reference's jitted apply of one configuration, compiled once."""
+    return jax.jit(lambda s, r: jcpr.cpr_apply(s, r, jcfg))
 
 
 def _configs(gmg=None, **kw):
@@ -144,7 +158,7 @@ def test_cast_leaf_dtypes(system, mode, config):
     if config.startswith("rbgs"):       # the premasked halves too
         kw.update(stage2_fused=True, stage2_axes=(2,))
     jcfg, tcfg = _configs(pc_dtype=mode, **kw)
-    jstate = jax.jit(lambda s: jcpr.cpr_setup(s, jcfg))(js)
+    jstate = _jsetup(jcfg)(js)
     tstate = tcpr.cpr_setup(ts, tcfg)
     assert _leaf_dtypes_port(tstate) == _leaf_dtypes_ref(jstate)
     # the Newton operator's stencil is never cast: the state holds a copy
@@ -161,8 +175,8 @@ def test_apply_of_the_carried_state(system, mode, config):
     group, and with everything in bf16 on the others."""
     js, _, rhs = system
     jcfg, tcfg = _configs(pc_dtype=mode, **APPLY_CONFIGS[config])
-    jstate = jax.jit(lambda s: jcpr.cpr_setup(s, jcfg))(js)
-    ref = jax.jit(lambda s, r: jcpr.cpr_apply(s, r, jcfg))(jstate, jnp.asarray(rhs))
+    jstate = _jsetup(jcfg)(js)
+    ref = _japply(jcfg)(jstate, jnp.asarray(rhs))
     got = tcpr.cpr_apply(carry_cpr_state(jstate), t(rhs), tcfg)
     assert got.dtype == torch.float64
     assert_close(got, ref, RTOL, 1e-13)
@@ -173,8 +187,7 @@ def test_setup_and_apply(system, mode):
     """Set-up and apply from the same stencil in both packages."""
     js, ts, rhs = system
     jcfg, tcfg = _configs(pc_dtype=mode, **APPLY_CONFIGS["rbgs-inner-s_stage-fused"])
-    ref = jax.jit(lambda s, r: jcpr.cpr_apply(jcpr.cpr_setup(s, jcfg), r, jcfg))(
-        js, jnp.asarray(rhs))
+    ref = _japply(jcfg)(_jsetup(jcfg)(js), jnp.asarray(rhs))
     got = tcpr.cpr_apply(tcpr.cpr_setup(ts, tcfg), t(rhs), tcfg)
     assert got.dtype == torch.float64
     assert_close(got, ref, RTOL, 1e-13)
@@ -194,9 +207,9 @@ def test_line_smoothers_refuse_bf16_in_both_packages(system, kw):
     bf16 coefficients it raises, and the port raises where it does."""
     js, ts, rhs = system
     jcfg, tcfg = _configs(**kw)
-    jstate = jax.jit(lambda s: jcpr.cpr_setup(s, jcfg))(js)
+    jstate = _jsetup(jcfg)(js)
     with pytest.raises(TypeError, match="carry"):
-        jax.jit(lambda s, r: jcpr.cpr_apply(s, r, jcfg))(jstate, jnp.asarray(rhs))
+        _japply(jcfg)(jstate, jnp.asarray(rhs))
     with pytest.raises(TypeError, match="carry"):
         tcpr.cpr_apply(tcpr.cpr_setup(ts, tcfg), t(rhs), tcfg)
 

@@ -18,8 +18,11 @@ the CPU (a 2×2 mesh).
 - Every option the decomposition does not run raises
   ``NotDecomposedError`` under a mesh (a line solve along a decomposed
   axis naming it); every option it runs since the stage-2 and Krylov
-  options were lifted is, on a one-rank mesh, the undecomposed step bit
-  for bit (their 2×2 checks are ``test_torch_sharding_options.py``).
+  options, then the adjoint, the transfers, ``krylov_op="jvp"`` and the
+  ensemble over ranks were lifted is, on a one-rank mesh, the undecomposed
+  step (or sweep) bit for bit (their 2×2 checks are
+  ``test_torch_sharding_options.py`` and
+  ``test_torch_sharding_adjoint.py``).
 """
 
 import dataclasses
@@ -172,11 +175,10 @@ def test_decomposed_steps_match_the_references():
 
 
 _REFUSED = [
-    ("newton", dict(krylov_op="jvp")),
     ("pc", dict(stage2="zebra")), ("pc", dict(s_stage="line")),
     ("pc", dict(stage2="rbgs", stage2_axes=(0,))),
+    ("pc", dict(stage2="rbgs", stage2_fused=True)),
     ("pc", dict(batch_pt=True, triangular=False)), ("pc", dict(pc_dtype="bf16")),
-    ("gmg", dict(transfer="weighted")), ("gmg", dict(transfer="variational")),
     ("gmg", dict(smoother="rbgs")), ("gmg", dict(cycles=2)),
     ("precond", "jacobi"),
 ]
@@ -220,13 +222,15 @@ def test_line_solves_along_a_decomposed_axis_are_refused_by_name(one_rank_case, 
         TSimulator(model, data_s, pc_cfg=CPRConfig(**option), device="cpu")
 
 
-#: the options the stage-2 and Krylov slice lifted (the refused list's ids
-#: before it)
+#: the options the stage-2 and Krylov slice lifted, then the adjoint and
+#: transfer slice (the refused list's ids before them)
 _LIFTED = [
     ("newton", dict(ksp_orth="cgs1")), ("newton", dict(ksp_orth="cgs2s")),
     ("newton", dict(ksp_recycle=2)), ("pc", dict(s_stage="rbgs")),
     ("pc", dict(inner_iters=2)), ("pc", dict(stage2="bgmg")),
     ("pc", dict(stage2="rbgs", stage2_sweeps=2)), ("pc", dict(stage2="jacobi2")),
+    ("newton", dict(krylov_op="jvp")),
+    ("gmg", dict(transfer="weighted")), ("gmg", dict(transfer="variational")),
 ]
 
 
@@ -239,6 +243,10 @@ def test_lifted_options_one_rank_mesh_is_undecomposed(one_rank_case, kind, optio
     kw = dict(device="cpu")
     if kind == "newton":
         kw["newton_cfg"] = TNewtonConfig(**option)
+    elif kind == "gmg":
+        # the finest level decomposed, its transfer set up on the block
+        kw["pc_cfg"] = CPRConfig(gmg=GMGConfig(**option, max_coarse_cells=16,
+                                               replicate_below=32))
     else:
         if option.get("stage2") == "bgmg":
             option = dict(option, bgmg_coarse_cells=16, gmg=GMGConfig(replicate_below=32))
@@ -251,17 +259,38 @@ def test_lifted_options_one_rank_mesh_is_undecomposed(one_rank_case, kind, optio
 
 
 def test_refused_paths_raise_under_a_mesh(one_rank_case):
-    """The adjoint, the ensemble axis over ranks and the balance audit."""
+    """The balance audit, and the adjoint with a preconditioner other than
+    CPR/CPTR."""
     model, data, mesh, data_s = one_rank_case
     u0 = shard_state(model.initial_state(data), mesh)
     with pytest.raises(NotDecomposedError):
-        adjoint_gradients(model, data_s, [u0, u0], [600.0], terminal=lambda u, d: u.sum())
-    with pytest.raises(NotDecomposedError):
-        tens.stack_ensemble([data_s])
-    with pytest.raises(NotDecomposedError):
-        tens.shard_ensemble(u0[None], mesh)
-    with pytest.raises(NotDecomposedError):
         BalanceAuditor(model, data_s, u0)
+    with pytest.raises(NotDecomposedError):
+        adjoint_gradients(model, data_s, [u0, u0], [600.0], terminal=lambda u, d: u.sum(),
+                          precond="jacobi")
+
+
+def test_lifted_paths_one_rank_mesh_is_undecomposed(one_rank_case):
+    """The adjoint, ``stack_ensemble`` of decomposed members and
+    ``shard_ensemble`` over the mesh, on the one-rank fixture's mesh: the
+    undecomposed sweep's gradients and counts bit for bit, the members'
+    fields stacked with their block, every member on the one rank."""
+    model, data, mesh, data_s = one_rank_case
+    u0 = model.initial_state(data)
+    sim = TSimulator(model, data, device="cpu")
+    u1, _ = sim.step(u0, DT)
+    obj = dict(terminal=lambda u, d: torch.mean(u[1, :3, :4]))
+    ref = adjoint_gradients(model, data, [u0, u1], [DT], **obj)
+    got = adjoint_gradients(model, data_s, [shard_state(u0, mesh), shard_state(u1, mesh)],
+                            [DT], **obj)
+    assert got.step_iters == ref.step_iters and got.converged
+    assert torch.equal(got.grad_data.fields, ref.grad_data.fields)
+    assert torch.equal(got.grad_u0, ref.grad_u0) and torch.equal(got.value, ref.value)
+    stacked = tens.stack_ensemble([data_s, data_s])
+    assert stacked.block is data_s.block and torch.equal(stacked.fields[1], data.fields)
+    assert stacked.member(1).block is data_s.block
+    placed = tens.shard_ensemble(u0[None], mesh)
+    assert torch.equal(placed, u0[None])
 
 
 def test_reference_mesh_has_eight_devices():

@@ -231,6 +231,14 @@ class ScalarStencil:
         return dense
 
 
+def map_stencil(st, fn):
+    """A stencil of any class (block, scalar, or a multigrid level's wide
+    or box stencil) rebuilt from ``fn(coef, lead)`` of its one coefficient
+    tensor, ``lead`` the number of its axes before the grid's."""
+    t = st.packed if isinstance(st, ScalarStencil) else st.coef
+    return type(st)(fn(t, t.dim() - len(st.grid_shape)))
+
+
 def invert_blocks(d: torch.Tensor) -> torch.Tensor:
     """Invert per-cell (nc, nc) blocks stored as (nc, nc, *grid): closed
     forms for nc ≤ 3 (cofactors over the determinant), batched

@@ -4,6 +4,7 @@ the grid decomposition over the ranks of a ``torch.distributed`` group
 the ensemble axis (``ensemble.py``)."""
 
 from thermalporous_torch.dist.ensemble import (
+    gather_ensemble,
     make_ensemble_step_fn,
     shard_ensemble,
     stack_ensemble,
@@ -21,4 +22,4 @@ from thermalporous_torch.dist.sharding import (
 
 __all__ = ["make_grid_mesh", "state_spec", "field_spec", "shard_state",
            "shard_problem_data", "replicated", "gather_state", "NotDecomposedError",
-           "make_ensemble_step_fn", "shard_ensemble", "stack_ensemble"]
+           "make_ensemble_step_fn", "shard_ensemble", "stack_ensemble", "gather_ensemble"]

@@ -20,7 +20,15 @@ which a leading member axis would change.
 :func:`shard_ensemble` places contiguous blocks of members on a sequence of
 devices, members whole on their device (the reference's ``PartitionSpec("e")``
 on a mesh axis); there are no collectives, and :func:`make_ensemble_step_fn`'s
-step runs each member on the device its tensors are on.
+step runs each member on the device its tensors are on.  Over the ranks of a
+:class:`~thermalporous_torch.dist.sharding.GridMesh` it gives each rank its
+E/R whole members (:func:`gather_ensemble` puts them back together).
+
+Members may instead each be decomposed over a grid mesh
+(:func:`stack_ensemble` of ``shard_problem_data``'s blocks): every rank then
+stacks its blocks of every member, and the step and the ensemble adjoint run
+member by member through the decomposed step and sweep, each member bitwise
+its solo decomposed run.
 
 The multigrid's coarsening schedule is shared by all members, so an adaptive
 schedule must be planned beforehand from a representative member
@@ -35,7 +43,7 @@ from typing import Sequence
 import torch
 
 from thermalporous_torch._device import require_cuda
-from thermalporous_torch.dist.sharding import GridMesh, NotDecomposedError, refuse_decomposed
+from thermalporous_torch.dist.sharding import GridMesh
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.precond.cpr import CPRConfig
 from thermalporous_torch.solve.ensemble_data import (
@@ -50,12 +58,16 @@ from thermalporous_torch.solve.timeloop import make_step_fn
 
 
 def stack_ensemble(datas: Sequence[ProblemData]) -> EnsembleData:
-    """Stack per-member problem data along a new leading ensemble axis
-    (whole grids: a member decomposed over ranks raises
-    ``NotDecomposedError``)."""
-    for d in datas:
-        refuse_decomposed(d, "stack_ensemble of a decomposed member")
-    return EnsembleData(torch.stack([d.fields for d in datas]))
+    """Stack per-member problem data along a new leading ensemble axis:
+    whole grids, or this rank's blocks of members decomposed the same way
+    (the result carries their ``block``)."""
+    blocks = [getattr(d, "block", None) for d in datas]
+    blk = blocks[0]
+    for b in blocks[1:]:
+        if (b is None) != (blk is None) or (blk is not None and (
+                b.mesh is not blk.mesh or b.shape != blk.shape or b.bounds != blk.bounds)):
+            raise ValueError("stack_ensemble: the members are not decomposed alike")
+    return EnsembleData(torch.stack([d.fields for d in datas]), blk)
 
 
 def make_ensemble_step_fn(
@@ -98,32 +110,53 @@ def make_ensemble_step_fn(
     return advance_e
 
 
-def shard_ensemble(tree, devices: Sequence[torch.device | str]):
+def shard_ensemble(tree, devices: Sequence[torch.device | str] | GridMesh):
     """Place the leading ensemble axis of every tensor in ``tree`` (a tensor,
     an :class:`EnsembleData`, or a list, tuple or dict of them) on
     ``devices``: E/len(devices) whole members per device, in order, as
-    :class:`Blocks`.  E must be a multiple of the number of devices."""
+    :class:`Blocks`.  E must be a multiple of the number of devices.  Over
+    the R ranks of a :class:`GridMesh`: this rank's E/R whole members, in
+    order (members ``rank·E/R`` on), on the mesh's device, as plain stacked
+    tensors; no collective, and no member's solve takes one."""
     if isinstance(devices, GridMesh):
-        raise NotDecomposedError("shard_ensemble over the ranks of a grid mesh: not "
-                                 "decomposed over ranks")
+        mesh = devices
+        return _map_tree(tree, lambda x: _split(_whole(x, mesh.device), mesh.size)[mesh.rank]
+                         .to(mesh.device).contiguous())
     devs = [require_cuda(d) for d in devices]
     if not devs:
         raise ValueError("shard_ensemble needs at least one device")
+    return _map_tree(tree, lambda x: Blocks(
+        part.to(dev) for part, dev in zip(_split(_whole(x, devs[0]), len(devs)), devs)))
 
-    def put(x):
-        if isinstance(x, EnsembleData):
-            return EnsembleData(put(x.fields))
-        if isinstance(x, (torch.Tensor, Blocks)):
-            full = torch.cat([b.to(devs[0]) for b in x]) if isinstance(x, Blocks) else x
-            e = full.shape[0]
-            if e % len(devs):
-                raise ValueError(f"{e} members do not split evenly over {len(devs)} devices")
-            size = e // len(devs)
-            return Blocks(full[d * size:(d + 1) * size].to(dev) for d, dev in enumerate(devs))
-        if isinstance(x, dict):
-            return {k: put(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return type(x)(put(v) for v in x)
-        raise TypeError(f"shard_ensemble: cannot place {type(x).__name__}")
 
-    return put(tree)
+def _whole(x, device) -> torch.Tensor:
+    """A stacked tensor, or its :class:`Blocks` put together on ``device``."""
+    return torch.cat([b.to(device) for b in x]) if isinstance(x, Blocks) else x
+
+
+def _split(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``x``'s members in ``n`` contiguous blocks of E/n."""
+    e = x.shape[0]
+    if e % n:
+        raise ValueError(f"{e} members do not split evenly over {n} devices or ranks")
+    return list(x.split(e // n))
+
+
+def _map_tree(tree, fn):
+    """``fn`` of every tensor (or :class:`Blocks`) of ``tree``: a tensor, an
+    :class:`EnsembleData`, or a list, tuple or dict of them."""
+    if isinstance(tree, EnsembleData):
+        return EnsembleData(_map_tree(tree.fields, fn))
+    if isinstance(tree, (torch.Tensor, Blocks)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    raise TypeError(f"shard_ensemble: cannot place {type(tree).__name__}")
+
+
+def gather_ensemble(tree, mesh: GridMesh):
+    """Every rank's members of :func:`shard_ensemble` over ``mesh`` put back
+    together, on every rank, in order (a collective: every rank calls)."""
+    return _map_tree(tree, lambda x: torch.cat(mesh.all_gather(x)))

@@ -14,7 +14,15 @@ of the depth it needs (:meth:`Block.extend`, x then y, so that corners come
 along): the residual and the Jacobian's products one cell, the red-black
 stage 2 two, a degree-d Chebyshev smooth with its second output d + 1.
 :class:`HaloStencil` is such a stencil, held on the extended block and
-applied to owned vectors.
+applied to owned vectors; :meth:`HaloStencil.transpose` is the adjoint's
+operator, and the multigrid levels of the weighted and variational transfers
+(``precond/transfer.py``'s wide and box stencils) are held the same way.
+
+The extended-block residual of the decomposed step and adjoint fills no
+ghost: its ring stops at the grid's boundary (:meth:`Block.ghosts`), so the
+"edge" and "zero" fills of :func:`_exchange` (the explicit halo residual's
+only) have no cotangent to route, and :meth:`Block.fold` is the whole
+adjoint of its exchange.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from thermalporous_torch.core.grid import divergence_add, neighbor_plus
+from thermalporous_torch.core.stencil import map_stencil
 from thermalporous_torch.dist.sharding import Block, GridMesh
 from thermalporous_torch.physics.wells import WELL_FIELDS, WellFields
 
@@ -140,8 +149,6 @@ class HaloStencil:
     colours."""
 
     def __init__(self, st, block: Block):
-        if block.width % 2:
-            raise ValueError(f"HaloStencil: a ring {block.width} deep is not even")
         self.st = st
         self.block = block
         self.dim = len(block.shape)
@@ -161,6 +168,8 @@ class HaloStencil:
     def parity(self) -> int:
         # the ring is even, so the owned origin's index sum has the
         # extended origin's parity
+        if any(self.block.ring(a) % 2 for a in (0, 1)):
+            raise ValueError(f"HaloStencil: a ring {self.block.width} deep is not even")
         return self.block.parity
 
     @property
@@ -180,3 +189,16 @@ class HaloStencil:
 
     def matvec_cols(self, v: torch.Tensor, k: int) -> torch.Tensor:
         return self._apply(lambda x: self.st.matvec_cols(x, k), v)
+
+    def transpose(self) -> "HaloStencil":
+        """The decomposed Aᵀ (a block stencil's): the held stencil's
+        transpose cut to the owned rows, which read the lower and upper
+        couplings one cell into the ring (exact: the ring's first rows were
+        assembled from a state ring two cells deep), then re-extended by
+        one exchange of its coefficients, so that every ring row is the
+        owning rank's transposed row, as the stage 2 on the extended block
+        reads it."""
+        blk = self.block
+        t = map_stencil(self.st.transpose(),
+                        lambda c, lead: blk.extend(blk.owned(c, lead=lead), lead=lead))
+        return HaloStencil(t, blk)

@@ -26,14 +26,17 @@ Boundaries divisible by 2^k let k coarsenings of an axis restrict block by
 block, without a coarsening pair straddling two blocks; the scalar
 multigrid (``precond/gmg.py``) and bgmg's coupled block hierarchy
 (``precond/block_gmg.py``) keep a level decomposed only while that holds
-(:meth:`Block.level_blocks`).
+(:meth:`Block.level_blocks`, walked by :meth:`Block.walk_levels`).
 
 Tensors of a decomposed run are held on the **extended block**: the owned
 cells plus a ghost ring ``width`` cells deep on each side that has a
 neighbour (none beyond the grid's boundary), at :data:`STATE_HALO` for the
 state and the problem data.  :func:`shard_state` and
 :func:`shard_problem_data` cut a whole array to it; :func:`gather_state`
-puts the owned parts of every rank back together.
+puts the owned parts of every rank back together.  :meth:`Block.fold` is
+the adjoint of the exchange (:meth:`Block.extend`): it sends a cotangent
+held on the ring back to the rank that owns those cells and adds it there,
+as the decomposed adjoint needs.
 """
 
 from __future__ import annotations
@@ -251,12 +254,12 @@ class Block:
     """This rank's block of a grid of ``shape`` on ``mesh``: the owned
     ranges between ``bounds`` (the mx + 1 and my + 1 boundaries along x and
     y), and tensors held with ``width`` ghost cells on each side that has a
-    neighbour."""
+    neighbour (an int, or one per decomposed axis: :meth:`ring`)."""
 
     mesh: GridMesh
     shape: tuple[int, ...]
     bounds: tuple[tuple[int, ...], tuple[int, ...]]
-    width: int
+    width: int | tuple[int, int]
 
     @classmethod
     def of(cls, mesh: GridMesh, shape, width: int = STATE_HALO) -> "Block":
@@ -267,8 +270,13 @@ class Block:
         return cls(mesh, shape, tuple(split_ranges(shape[a], mesh.shape[a]) for a in (0, 1)),
                    int(width))
 
-    def with_width(self, width: int) -> "Block":
-        return dataclasses.replace(self, width=int(width))
+    def with_width(self, width) -> "Block":
+        return dataclasses.replace(
+            self, width=tuple(int(w) for w in width) if isinstance(width, tuple) else int(width))
+
+    def ring(self, axis: int) -> int:
+        """The ghost width along decomposed ``axis`` (0 or 1)."""
+        return self.width[axis] if isinstance(self.width, tuple) else self.width
 
     def owned_range(self, axis: int, coord: int | None = None) -> tuple[int, int]:
         if axis >= 2:
@@ -281,7 +289,8 @@ class Block:
         if axis >= 2:
             return 0, 0
         c, m = self.mesh.coords[axis], self.mesh.shape[axis]
-        return (self.width if c > 0 else 0), (self.width if c < m - 1 else 0)
+        w = self.ring(axis)
+        return (w if c > 0 else 0), (w if c < m - 1 else 0)
 
     def ext_range(self, axis: int) -> tuple[int, int]:
         lo, hi = self.owned_range(axis)
@@ -307,11 +316,11 @@ class Block:
         return sum(self.ext_range(a)[0] for a in range(len(self.shape))) % 2
 
     def fits(self) -> bool:
-        """Whether every rank's owned range is at least ``width`` deep along
+        """Whether every rank's owned range is at least the ring deep along
         each decomposed axis (ghosts come from the next block only)."""
         for a in (0, 1):
             b = self.bounds[a]
-            if len(b) > 2 and min(hi - lo for lo, hi in zip(b, b[1:])) < self.width:
+            if len(b) > 2 and min(hi - lo for lo, hi in zip(b, b[1:])) < self.ring(a):
                 return False
         return True
 
@@ -330,31 +339,79 @@ class Block:
                        else self.bounds[a] for a in (0, 1))
         return dataclasses.replace(self, shape=shape, bounds=bounds)
 
-    def level_blocks(self, shapes, factors, replicate_below: int) -> tuple["Block", ...]:
+    def coarse_ring(self, factors) -> "Block":
+        """The next coarser level's block whose ring covers the same cells:
+        :meth:`coarsen` with the width halved along each coarsened axis (an
+        even ring on aligned boundaries)."""
+        ring = tuple(self.ring(a) // 2 if factors[a] == 2 else self.ring(a) for a in (0, 1))
+        return self.coarsen(factors).with_width(ring)
+
+    def level_blocks(self, shapes, factors, replicate_below: int,
+                     widths=None) -> tuple["Block", ...]:
         """The blocks of a hierarchy's leading levels that stay decomposed,
         from this block down (the levels' whole ``shapes``, the ``factors``
-        between them): a level stays while it has more than
-        ``replicate_below`` cells, every range holds the ring and no
-        coarsening pair straddles two blocks; the levels below are
-        replicated."""
+        between them, each level's ring ``widths[l]``, or this block's): a
+        level stays while it has more than ``replicate_below`` cells, every
+        range holds the ring and no coarsening pair straddles two blocks;
+        the levels below are replicated.  The one rule of every
+        hierarchy's decomposition."""
         blocks, b = [], self
-        for shape, f in zip(shapes, factors):
+        for level, (shape, f) in enumerate(zip(shapes, factors)):
+            if widths is not None:
+                b = b.with_width(widths[level])
             if math.prod(shape) <= replicate_below or not b.fits() or not b.aligned(f):
                 break
             blocks.append(b)
             b = b.coarsen(f)
         return tuple(blocks)
 
+    def walk_levels(self, shapes, factors, replicate_below: int, top, coarsen,
+                    widths=None) -> tuple[tuple["Block", ...], list]:
+        """A hierarchy's levels over this block: the decomposed levels'
+        blocks (:meth:`level_blocks`) and each level's stencil, owned on a
+        decomposed level and whole on a replicated one.  ``top`` is the
+        finest level's owned stencil (gathered when no level is decomposed),
+        ``coarsen(cur, level, blk)`` the next level's stencil from level
+        ``level``'s (``blk`` its block, None when replicated); the first
+        replicated level is gathered from the last decomposed level's
+        blocks."""
+        from thermalporous_torch.core.stencil import map_stencil
+
+        blocks = self.level_blocks(shapes, factors, replicate_below, widths)
+        cur = top if blocks else map_stencil(top, lambda t, lead: self.gather(t, lead=lead))
+        levels = [cur]
+        for level in range(len(shapes) - 1):
+            blk = blocks[level] if level < len(blocks) else None
+            cur = coarsen(cur, level, blk)
+            if level + 1 == len(blocks):
+                coarse = blk.coarsen(factors[level])
+                cur = map_stencil(cur, lambda t, lead: coarse.gather(t, lead=lead))
+            levels.append(cur)
+        return blocks, levels
+
     def through_coarse(self, factors, rc: torch.Tensor, solve, replicate: bool,
-                       lead: int = 1) -> torch.Tensor:
+                       lead: int = 1, out: "Block | None" = None) -> torch.Tensor:
         """The next level's correction ``solve(rc)`` of this rank's restricted
         residual ``rc``; when that level is replicated (``replicate``),
         ``rc`` all-gathered onto it first and the rank's part cut out of the
-        correction."""
-        if not replicate:
-            return solve(rc)
+        correction.  With ``out`` (a block of the next level) the
+        correction comes back on ``out``'s extended block: cut from the
+        whole correction, or extended by one exchange."""
         coarse = self.coarsen(factors)
-        return coarse.cut(solve(coarse.gather(rc, lead=lead)), lead=lead, ghosts=False)
+        if not replicate:
+            ec = solve(rc)
+            return ec if out is None else out.extend(ec, lead=lead)
+        whole = solve(coarse.gather(rc, lead=lead))
+        return (coarse.cut(whole, lead=lead, ghosts=False) if out is None
+                else out.cut(whole, lead=lead))
+
+    def reframe(self, x: torch.Tensor, other: "Block", lead: int = 1) -> torch.Tensor:
+        """``x``, held on this block's extended block, cut to the extended
+        block of ``other`` (the same owned block, a ring no deeper)."""
+        sl = tuple(slice(other.ext_range(a)[0] - self.ext_range(a)[0],
+                         other.ext_range(a)[1] - self.ext_range(a)[0])
+                   for a in range(len(self.shape)))
+        return x[(slice(None),) * lead + sl].contiguous()
 
     def on_whole(self, fn, x: torch.Tensor, lead: int = 1) -> torch.Tensor:
         """``fn`` of the whole tensor put together from every rank's owned
@@ -399,7 +456,7 @@ class Block:
             if not (gl or gr):
                 continue
             axis = lead + a
-            w = self.width
+            w = self.ring(a)
             n = x.shape[axis]
             c = list(mesh.coords)
             nbr = lambda step: mesh.rank_at(*[ci + (step if i == a else 0)
@@ -422,6 +479,66 @@ class Block:
         # the exchange's; over NCCL it is only the time to queue it
         mesh.stats["exchange_s"] += time.perf_counter() - t0
         return x
+
+    def fold(self, y: torch.Tensor, lead: int = 1) -> torch.Tensor:
+        """The adjoint of :meth:`extend`: each ghost slab of the
+        extended-block tensor ``y`` sent back to the rank that owns those
+        cells and added to them there, along y, then along x of the
+        y-folded tensor (extend's order reversed, so that a corner's share
+        reaches the diagonal neighbour through the side one); the owned
+        block.  Summed over the ranks, ⟨extend(x), y⟩ = ⟨x, fold(y)⟩.  A
+        side with no neighbour holds no ghosts (the ring stops at the
+        grid's boundary), so nothing is filled and nothing folds back
+        there."""
+        if not self.has_ghosts:
+            return y
+        mesh = self.mesh
+        t0 = time.perf_counter()
+        for a in (1, 0):
+            gl, gr = self.ghosts(a)
+            if not (gl or gr):
+                continue
+            axis = lead + a
+            n = y.shape[axis]
+            c = list(mesh.coords)
+            nbr = lambda step: mesh.rank_at(*[ci + (step if i == a else 0)
+                                              for i, ci in enumerate(c)])
+            core = y.narrow(axis, gl, n - gl - gr).clone()
+            slab = list(y.shape)
+            slab[axis] = self.ring(a)
+            sends, recvs = [], []
+            # tags as extend's: 4a towards lower coordinates, 4a + 1 higher
+            if gl:
+                sends.append((nbr(-1), 4 * a, y.narrow(axis, 0, gl)))
+                recvs.append((nbr(-1), 4 * a + 1, tuple(slab), y.dtype))
+            if gr:
+                sends.append((nbr(+1), 4 * a + 1, y.narrow(axis, n - gr, gr)))
+                recvs.append((nbr(+1), 4 * a, tuple(slab), y.dtype))
+            got = mesh.exchange(sends, recvs)
+            m = core.shape[axis]
+            if gl:
+                core.narrow(axis, 0, gl).add_(got.pop(0))
+            if gr:
+                core.narrow(axis, m - gr, gr).add_(got.pop(0))
+            y = core
+        mesh.stats["exchanges"] += 1
+        mesh.stats["exchange_s"] += time.perf_counter() - t0
+        return y
+
+    def pad(self, x: torch.Tensor, lead: int = 1) -> torch.Tensor:
+        """The adjoint of :meth:`owned`: an owned-block tensor in the
+        extended block, its ghost ring zero."""
+        if not self.has_ghosts:
+            return x
+        shape = list(x.shape)
+        for a in (0, 1):
+            shape[lead + a] = self.ext_shape[a]
+        out = x.new_zeros(shape)
+        ext = [self.ext_range(a) for a in range(len(self.shape))]
+        sl = self._slices([self.owned_range(a) for a in range(len(self.shape))], lead,
+                          origin=[lo for lo, _ in ext])
+        out[sl] = x
+        return out
 
     def gather(self, x: torch.Tensor, lead: int = 1) -> torch.Tensor:
         """The whole tensor on every rank from each rank's owned block

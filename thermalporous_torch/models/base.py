@@ -21,7 +21,7 @@ import dataclasses
 from typing import Sequence
 
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.core.grid import (
@@ -203,29 +203,28 @@ class ThermalModelBase:
 
         Cell and face terms are pointwise, so the c-th unit tangent broadcast
         over every cell gives the c-th column of every local block in one
-        full-shape JVP: nc passes per term.
+        full-shape JVP.  The nc tangents go through one batched JVP
+        (``torch.func.vmap``) per term, a face's two sides (2·nc tangents)
+        through one: the same elementwise arithmetic per tangent, and the
+        same bits, as nc separate passes, in a fraction of their operations'
+        dispatches.
         """
         nc, dim = self.nc, self.grid.dim
-
-        def col_tangent(c):
-            e = torch.zeros((nc,) + (1,) * dim, dtype=u.dtype, device=u.device)
-            e[c] = 1.0
-            return e.expand(u.shape).contiguous()
-
-        tangents = [col_tangent(c) for c in range(nc)]
-        zero = torch.zeros_like(u)
+        eye = torch.eye(nc, dtype=u.dtype, device=u.device).reshape((nc, nc) + (1,) * dim)
+        tangents = eye.expand((nc,) + tuple(u.shape)).contiguous()
+        zeros = torch.zeros_like(tangents)
+        left, right = torch.cat([tangents, zeros]), torch.cat([zeros, tangents])
         cell_fn = lambda x: self.cell_terms(x, u_old, dt, data.phi, data.wells)
         # [i, c] = ∂R_i/∂u_c of the same cell
-        diag = torch.stack([jvp(cell_fn, (u,), (t,))[1] for t in tangents], dim=1)
+        diag = vmap(lambda t: jvp(cell_fn, (u,), (t,))[1], out_dims=1)(tangents)
         uppers, lowers = [], []
         for axis in range(dim):
             ur = neighbor_plus(u, axis)
             tg, tc = data.tgeo[axis], data.tcond[axis]
             face_fn = lambda a, b: self.face_terms(axis, a, b, tg, tc)
-            dfl = torch.stack(
-                [jvp(face_fn, (u, ur), (t, zero))[1] for t in tangents], dim=1)
-            dfr = torch.stack(
-                [jvp(face_fn, (u, ur), (zero, t))[1] for t in tangents], dim=1)
+            both = vmap(lambda tl, tr: jvp(face_fn, (u, ur), (tl, tr))[1],
+                        out_dims=1)(left, right)
+            dfl, dfr = both[:, :nc], both[:, nc:]
             # face i adds +F to cell i and −F to cell i+1
             uppers.append(dfr)
             lowers.append(-shift_plus(dfl, axis, lead=2))

@@ -170,28 +170,19 @@ def _setup_blocks(st: BlockStencil, gmg_cfg: GMGConfig, max_coarse_cells: int,
            and any(n > 1 for n in shapes[-1])):
         shapes.append(tuple(-(-n // 2) if n > 1 else n for n in shapes[-1]))
     factors = [_full_factors(shape) for shape in shapes[:-1]]
-    blocks = block.level_blocks(shapes, factors, gmg_cfg.replicate_below)
-    cur = BlockStencil(block.owned(st.coef, lead=3))
-    if not blocks:
-        cur = BlockStencil(block.gather(cur.coef, lead=3))
+    top = BlockStencil(block.owned(st.coef, lead=3))
+    blocks, levels = block.walk_levels(shapes, factors, gmg_cfg.replicate_below, top,
+                                       lambda cur, level, blk: block_galerkin_coarsen(
+                                           cur, factors[level]))
     stencils, dinvs = [], []
-    for level in range(len(shapes)):
-        last = level == len(shapes) - 1
-        nxt = None
+    for level, cur in enumerate(levels):
         if level < len(blocks):
-            blk = blocks[level]
-            held = st if level == 0 else BlockStencil(blk.extend(cur.coef, lead=3))
-            stencils.append(held)
-            dinvs.append(invert_blocks(held.diag))
-            nxt = block_galerkin_coarsen(cur, factors[level])
-            if level + 1 == len(blocks):
-                nxt = BlockStencil(blk.coarsen(factors[level]).gather(nxt.coef, lead=3))
+            held = st if level == 0 else BlockStencil(blocks[level].extend(cur.coef, lead=3))
         else:
-            stencils.append(cur)
-            if not last:
-                dinvs.append(invert_blocks(cur.diag))
-                nxt = block_galerkin_coarsen(cur)
-        cur = nxt
+            held = cur
+        stencils.append(held)
+        if level < len(levels) - 1:
+            dinvs.append(invert_blocks(held.diag))
     return BlockGMGState(stencils=tuple(stencils), dinvs=tuple(dinvs),
                          coarse_inv=dense_inv(stencils[-1].to_dense()),
                          blocks=tuple(blocks), top=block.with_width(0))

@@ -40,12 +40,21 @@ rank holds the whole level, the restricted residual is all-gathered onto it
 (where the reference's ``_replicated`` constraint sits) and each rank cuts
 its own part back out of the correction.  The Gershgorin bounds and the
 K-cycle's dots of decomposed levels go through the mesh's all-reduce; those
-of replicated levels are local.  Decomposed hierarchies take the Chebyshev
-smoother, constant transfer, one cycle per apply and no batch, and never the
+of replicated levels are local.  Under the weighted and variational
+transfers a decomposed level computes its transfer weights and its owned
+coarse rows on its block with a ring ``TRANSFER_SETUP_RING`` deep (in the
+whole grid's colours and parity: the ring is even and the boundaries are),
+holds its weights at ``TRANSFER_RING``, restricts (R = Pᵀ) from a residual
+exchanged two cells deep and prolongs from a correction exchanged one
+coarse cell deep; a decomposed wide or box level is held with a ring its
+reach times ``degree + 1`` deep and its λ comes from a power iteration
+through the mesh (``utils.power_iteration``).  Decomposed hierarchies take
+the Chebyshev smoother, one cycle per apply and no batch, and never the
 fused subtree over more than one rank (the reference's refusal under a
 mesh): any other option raises ``NotDecomposedError``.  The coupled block
 hierarchy of ``stage2="bgmg"`` (``precond/block_gmg.py``) follows the same
-rule with the red-black block smoother.
+rule with the red-black block smoother: both take their levels from
+:meth:`~thermalporous_torch.dist.sharding.Block.walk_levels`.
 
 A :class:`GMGState` may hold a batch of congruent hierarchies stacked along
 a leading axis of every leaf (:func:`stack_states`; ``CPRConfig.batch_pt``'s
@@ -65,7 +74,7 @@ import math
 
 import torch
 
-from thermalporous_torch.core.stencil import ScalarStencil
+from thermalporous_torch.core.stencil import ScalarStencil, map_stencil
 from thermalporous_torch.kernels import deep_cycle as kdeep
 from thermalporous_torch.precond.chebyshev import (
     chebyshev,
@@ -348,17 +357,27 @@ def dense_inv(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(a.to(torch.float64))[0].to(a.dtype).contiguous()
 
 
-def _lam(s, cfg: GMGConfig) -> torch.Tensor:
+def _lam(s, cfg: GMGConfig, block=None) -> torch.Tensor:
     """λ estimate of D⁻¹A on a smoothed level: Gershgorin, but on a
     variational box level, where Gershgorin overestimates it many times,
-    power iteration from the reference's start with a 15% margin."""
+    power iteration from the reference's start with a 15% margin.  With
+    ``block`` (a decomposed level, ``s`` held on its extended block) every
+    rank gets the whole level's estimate: the power iteration's norms and
+    the Gershgorin bound's maximum go through the mesh."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
     if cfg.transfer == "variational" and is_wide(s):
-        dinv = 1.0 / s.diag
-        lam = power_iteration(lambda v: dinv * s.matvec(v), s.grid_shape,
-                              dtype=s.diag.dtype, iters=VARIATIONAL_POWER_ITERS,
-                              device=s.diag.device)
+        op = s if block is None else HaloStencil(s, block)
+        dinv = 1.0 / op.diag
+        lam = power_iteration(lambda v: dinv * op.matvec(v),
+                              s.grid_shape if block is None else block.shape,
+                              dtype=dinv.dtype, iters=VARIATIONAL_POWER_ITERS,
+                              device=dinv.device, block=block)
         return VARIATIONAL_LAM_MARGIN * lam
-    return gershgorin_lambda_max(s)
+    if block is None:
+        return gershgorin_lambda_max(s)
+    return block.mesh.allreduce_max(gershgorin_lambda_max(
+        map_stencil(s, lambda c, lead: block.owned(c, lead=lead))))
 
 
 def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig(),
@@ -441,16 +460,49 @@ def check_decomposable(cfg: GMGConfig) -> None:
     from thermalporous_torch.dist.sharding import NotDecomposedError
 
     for bad, what in ((cfg.smoother != "chebyshev", f"smoother={cfg.smoother!r}"),
-                      (cfg.transfer != "constant", f"transfer={cfg.transfer!r}"),
                       (cfg.cycles != 1, f"cycles={cfg.cycles}")):
         if bad:
             raise NotDecomposedError(f"GMGConfig.{what}: not decomposed over ranks")
 
 
+#: the fine ring of a decomposed level's transfer set-up: its weights and
+#: the Galerkin product's owned coarse rows are exact from a ring this deep
+#: (a weighted coarse row reads its children's neighbours; the variational
+#: conjugation reads fine cells 2j − 3 … 2j + 4 through a box level's ±2)
+TRANSFER_SETUP_RING = {"weighted": 2, "variational": 4}
+#: the fine ring of a decomposed level's weighted prolongation and R = Pᵀ:
+#: a fine cell's outer coarse neighbour, the fine cells 2j − 1 … 2j + 2
+#: of coarse cell j (even, so that the held grid's parity is the whole's)
+TRANSFER_RING = 2
+
+
+def _level_rings(cfg: GMGConfig, n: int) -> list:
+    """Each level's ghost ring in a decomposed hierarchy: the smooth's,
+    ``degree + 1`` times the level's reach along x and y (2 on a variational
+    box level, 1 elsewhere), and at least the transfer set-up's."""
+    if cfg.transfer == "constant":
+        return [cfg.degree + 1] * n
+    reach = lambda level: 2 if cfg.transfer == "variational" and level > 0 else 1
+    return [max(reach(level) * (cfg.degree + 1), TRANSFER_SETUP_RING[cfg.transfer])
+            for level in range(n)]
+
+
+def _transfer_blocks(cfg: GMGConfig, blk, factors):
+    """A decomposed level's transfer set-up, its (fine, coarse) blocks at
+    the set-up ring and at the apply's ring."""
+    setup = blk.with_width(TRANSFER_SETUP_RING[cfg.transfer])
+    apply = blk.with_width(TRANSFER_RING)
+    return (setup, setup.coarse_ring(factors)), (apply, apply.coarse_ring(factors))
+
+
 def _setup_blocks(st: ScalarStencil, cfg: GMGConfig, block) -> GMGState:
     """The hierarchy of a decomposed stencil: the levels' whole shapes and
     factors as :func:`gmg_setup` walks them, the leading levels decomposed
-    while they may be, the rest replicated."""
+    while they may be (:meth:`Block.walk_levels`), the rest replicated.  A
+    decomposed level of a weighted or variational hierarchy computes its
+    weights and its owned coarse rows on its block at the set-up ring, in
+    the whole grid's colours and parity, and keeps its weights at the
+    apply's ring."""
     check_decomposable(cfg)
     mesh = block.mesh
     if cfg.mesh is not None and cfg.mesh is not mesh:
@@ -461,29 +513,46 @@ def _setup_blocks(st: ScalarStencil, cfg: GMGConfig, block) -> GMGState:
         f = _level_factors(shapes[-1], cfg, level=len(shapes) - 1)
         factors.append(f)
         shapes.append(tuple(-(-n // 2) if k == 2 else n for n, k in zip(shapes[-1], f)))
-    blocks = block.with_width(cfg.degree + 1).level_blocks(shapes, factors,
-                                                           cfg.replicate_below)
-    cur = ScalarStencil(block.owned(st.packed, lead=1))
-    if not blocks:
-        cur = ScalarStencil(block.gather(cur.packed, lead=1))
+    galerkin = galerkin_variational if cfg.transfer == "variational" else galerkin_wide
+    transfers = []
+
+    def coarsen(cur, level, blk):
+        f = factors[level]
+        if cfg.transfer == "constant":
+            return galerkin_coarsen(cur, f)
+        if blk is None:
+            w = transfer_weights(cur, f, floor=cfg.transfer_floor)
+            transfers.append(w)
+            return galerkin(cur, w, shapes[level + 1])
+        (fine, coarse), (afine, _) = _transfer_blocks(cfg, blk, f)
+        ext = map_stencil(cur, lambda c, lead: fine.extend(c, lead=lead))
+        w = transfer_weights(ext, f, floor=cfg.transfer_floor)
+        kw = {} if cfg.transfer == "variational" else dict(
+            origin=tuple(coarse.ext_range(a)[0] for a in range(len(f))))
+        held = galerkin(ext, w, coarse.ext_shape, **kw)
+        # axis a's weights live on the grid coarsened along the axes after a
+        mixed = lambda b, a: b.coarse_ring(tuple(k if i > a else 1 for i, k in enumerate(f)))
+        transfers.append(tuple(
+            None if wa is None else AxisWeights(*(mixed(fine, a).reframe(t, mixed(afine, a), 0)
+                                                  for t in (wa.w_self, wa.w_out)))
+            for a, wa in enumerate(w)))
+        return map_stencil(held, lambda c, lead: coarse.owned(c, lead=lead))
+
+    top = ScalarStencil(block.owned(st.packed, lead=1))
+    blocks, levels = block.walk_levels(shapes, factors, cfg.replicate_below, top, coarsen,
+                                       widths=_level_rings(cfg, len(shapes)))
     stencils, lam_max = [], []
-    for level in range(len(shapes)):
-        last = level == len(shapes) - 1
-        if level < len(blocks):
-            blk = blocks[level]
-            stencils.append(ScalarStencil(blk.extend(cur.packed, lead=1)))
-            lam_max.append(mesh.allreduce_max(gershgorin_lambda_max(cur)))
-            nxt = galerkin_coarsen(cur, factors[level])
-            if level + 1 == len(blocks):
-                nxt = ScalarStencil(blk.coarsen(factors[level]).gather(nxt.packed, lead=1))
-        else:
-            stencils.append(cur)
-            if not last:
-                lam_max.append(gershgorin_lambda_max(cur))
-            nxt = None if last else galerkin_coarsen(cur, factors[level])
-        cur = nxt
+    for level, cur in enumerate(levels):
+        # a decomposed level is held on its extended block; the coarsest is
+        # always replicated
+        blk = blocks[level] if level < len(blocks) else None
+        if blk is not None:
+            cur = map_stencil(cur, lambda c, lead: blk.extend(c, lead=lead))
+        stencils.append(cur)
+        if level < len(levels) - 1:
+            lam_max.append(_lam(cur, cfg, blk))
     return GMGState(stencils=tuple(stencils), lam_max=tuple(lam_max),
-                    coarse_inv=dense_inv(stencils[-1].to_dense()),
+                    coarse_inv=dense_inv(stencils[-1].to_dense()), transfers=tuple(transfers),
                     blocks=tuple(blocks), top=block.with_width(0))
 
 
@@ -628,10 +697,22 @@ def _v_cycle_block(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
                                                       state.gshape(level + 1)))
     b_ext = blk.extend(b, lead=0)
     x, r = _smooth_block(state, level, b_ext, None, cfg, second="residual")
-    ec = blk.through_coarse(factors, _blocksum(r, fine, factors),
-                            lambda rc: _coarse_correction(state, level + 1, rc, cfg),
-                            replicate=level + 1 == len(state.blocks), lead=0)
-    x = x + _prolong(ec, fine, factors)
+    solve = lambda rc: _coarse_correction(state, level + 1, rc, cfg)
+    replicate = level + 1 == len(state.blocks)
+    if not state.transfers:
+        ec = blk.through_coarse(factors, _blocksum(r, fine, factors), solve, replicate, lead=0)
+        x = x + _prolong(ec, fine, factors)
+        return _smooth_block(state, level, b_ext, x, cfg, second=second)
+    # weighted P (and R = Pᵀ) on the apply's ring: the coarse correction
+    # comes back one coarse cell deep, the residual goes out two fine cells
+    w = state.transfers[level]
+    _, (afine, acoarse) = _transfer_blocks(cfg, blk, factors)
+    if cfg.transfer == "variational":
+        rc = acoarse.owned(restrict_weighted(afine.extend(r, lead=0), w), lead=0)
+    else:
+        rc = _blocksum(r, fine, factors)
+    ec = blk.through_coarse(factors, rc, solve, replicate, lead=0, out=acoarse)
+    x = x + afine.owned(prolong_weighted(ec, afine.ext_shape, w), lead=0)
     return _smooth_block(state, level, b_ext, x, cfg, second=second)
 
 

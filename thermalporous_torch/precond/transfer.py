@@ -230,23 +230,26 @@ def prolong_weighted(e: torch.Tensor, fine_shape: tuple[int, ...],
 
 
 def galerkin_wide(st, weights: tuple[AxisWeights | None, ...],
-                  coarse_shape: tuple[int, ...]) -> WideStencil:
+                  coarse_shape: tuple[int, ...], origin=None) -> WideStencil:
     """A_c = R·A·P (R the summation restriction) by 3^dim-colour probing:
     the composed operator applied to the coarse indicator of each colour
     k ∈ {0, 1, 2}^dim (cells ≡ k mod 3); entry (i → i + o − 1) of A_c is
     read off the probe of the colour of the target cell, with residue masks
     instead of a gather, as the reference extracts it.  Exact for coarse
-    support |i − j| ≤ 1 per axis, which this pair guarantees."""
+    support |i − j| ≤ 1 per axis, which this pair guarantees.  ``origin``
+    (a decomposed level's extended block) is the coarse grid's index of the
+    held grid's first cell per axis: the colours are the whole grid's."""
     dim = len(coarse_shape)
     fine_shape = st.grid_shape
     dtype, dev = st.diag.dtype, st.diag.device
     factors = tuple(2 if c < f else 1 for f, c in zip(fine_shape, coarse_shape))
     idx = [_axis_index(coarse_shape, a, dev) for a in range(dim)]
+    origin = origin or (0,) * dim
     masks = []
     for k in itertools.product((0, 1, 2), repeat=dim):
         mask = torch.ones(coarse_shape, dtype=dtype, device=dev)
         for a in range(dim):
-            mask = mask * (idx[a] % 3 == k[a]).to(dtype)
+            mask = mask * ((idx[a] + origin[a]) % 3 == k[a]).to(dtype)
         masks.append(mask)
     probes = [_blocksum(st.matvec(prolong_weighted(m, fine_shape, weights)),
                         fine_shape, factors) for m in masks]
@@ -257,6 +260,8 @@ def galerkin_wide(st, weights: tuple[AxisWeights | None, ...],
             j = idx[a] + (off[a] - 1)
             inside = inside & (j >= 0) & (j < coarse_shape[a])
         acc = torch.zeros(coarse_shape, dtype=dtype, device=dev)
+        # a row cell of whole-grid colour r reads its coupling to the cell
+        # at offset o − 1 off the probe of colour r + o − 1
         for ri, r in enumerate(itertools.product((0, 1, 2), repeat=dim)):
             c = 0
             for a in range(dim):

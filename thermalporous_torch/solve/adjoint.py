@@ -26,6 +26,15 @@ The ensemble forms (:func:`ensemble_adjoint_gradients`,
 the stacked members of ``solve/ensemble_data.py``, and report the reference's
 lockstep FGMRES count: in each backward step the batched solve of the
 reference iterates until its slowest member has converged.
+
+Over a grid decomposition the sweep runs on each rank's owned block: the
+transposed product is the VJP of the residual on the extended block (the
+decomposed step's), of its owned rows, folded back onto the owned cells
+(``Block.fold``: a ghost's cotangent belongs to its owner, so a face that
+two ranks both evaluate is counted once, in the row that owns it); the
+preconditioner is the decomposed CPR/CPTR on ``HaloStencil.transpose()``;
+FGMRES reduces through the mesh; the objectives see the gathered whole
+state and data.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 from torch.func import vjp
 
 from thermalporous_torch.models.base import ProblemData
-from thermalporous_torch.precond.cpr import CPRConfig, make_preconditioner
+from thermalporous_torch.precond.cpr import CPRConfig, cpr_apply, cpr_setup, make_preconditioner
 from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
 from thermalporous_torch.solve.ensemble_data import (
     EnsembleData,
@@ -65,6 +74,82 @@ def _objective_vjp(fn, u: torch.Tensor, fields: torch.Tensor):
     return val, du, dfields
 
 
+class _Whole:
+    """The undecomposed sweep's layout: every tensor whole."""
+
+    mesh = None
+
+    def __init__(self, model, data, precond, pc_cfg):
+        self.model = model
+        self.setup, self.apply = make_preconditioner(precond, pc_cfg)
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    cut = owned = pad = fold = extend = whole
+
+    def preconditioner(self, st):
+        return self.setup(st.transpose())
+
+    def grad_data(self, data, grad: torch.Tensor) -> ProblemData:
+        return ProblemData(grad)
+
+
+class _Decomposed(_Whole):
+    """The sweep over a grid decomposition: states and data are the rank's
+    extended blocks, the sweep's vectors its owned blocks.  The transposed
+    product is the VJP of the residual on the extended block, of the
+    owned rows (the cotangent padded with a zero ring), folded back onto
+    the owned cells (:meth:`Block.fold`, the adjoint of the exchange);
+    the preconditioner is the decomposed CPR/CPTR on
+    :meth:`HaloStencil.transpose`; the objectives see the gathered whole
+    state and data, and each rank keeps its owned part of their
+    cotangents."""
+
+    def __init__(self, model, data, precond, pc_cfg):
+        from thermalporous_torch.dist.sharding import NotDecomposedError, block_model
+        from thermalporous_torch.precond.cpr import check_decomposable
+
+        if precond.lower() not in ("cpr", "cptr"):
+            raise NotDecomposedError(f"adjoint, precond={precond!r}: not decomposed over ranks")
+        self.blk = data.block
+        self.mesh = self.blk.mesh
+        self.model = block_model(model, self.blk)
+        self.cfg = dataclasses.replace(pc_cfg or CPRConfig(), variant=precond.lower())
+        check_decomposable(self.cfg, len(self.blk.shape))
+        self.apply = lambda state, r: cpr_apply(state, r, self.cfg)
+
+    def owned(self, t: torch.Tensor) -> torch.Tensor:
+        """The owned block of an extended-block tensor."""
+        return self.blk.owned(t, lead=1)
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        return self.blk.gather(self.owned(t), lead=1)
+
+    def cut(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's owned block of a whole tensor."""
+        return self.blk.cut(t, lead=1, ghosts=False)
+
+    def pad(self, t: torch.Tensor) -> torch.Tensor:
+        return self.blk.pad(t, lead=1)
+
+    def fold(self, t: torch.Tensor) -> torch.Tensor:
+        return self.blk.fold(t, lead=1)
+
+    def extend(self, t: torch.Tensor) -> torch.Tensor:
+        return self.blk.extend(t, lead=1)
+
+    def preconditioner(self, st):
+        from thermalporous_torch.dist.halo import HaloStencil
+
+        return cpr_setup(HaloStencil(st, self.blk).transpose().st, self.cfg, block=self.blk)
+
+    def grad_data(self, data, grad: torch.Tensor) -> ProblemData:
+        from thermalporous_torch.dist.sharding import ShardedProblemData
+
+        return ShardedProblemData(self.blk.extend(grad, lead=1), self.blk)
+
+
 def adjoint_gradients(
     model,
     data: ProblemData,
@@ -90,55 +175,67 @@ def adjoint_gradients(
     k-column recycle space from each backward solve to the next
     (:func:`~thermalporous_torch.solve.deflate.fgmres_dr`, classic CGS2);
     ``orth`` the Gram–Schmidt form otherwise ("cgs2", "cgs1", "cgs2g",
-    "cgs2g2")."""
-    from thermalporous_torch.dist.sharding import refuse_decomposed
+    "cgs2g2").
 
-    refuse_decomposed(data, "adjoint_gradients")
+    Over a grid decomposition (``data`` and ``states`` the rank's extended
+    blocks, as the decomposed step gives them) the objectives still see
+    the whole state and ``ProblemData`` (gathered: every rank must call);
+    ``grad_data`` and ``grad_u0`` come back in the layout of ``data`` and
+    ``states[0]``, and gathered they are the undecomposed sweep's; every
+    rank holds the same value and counts (the ``_Decomposed`` layout)."""
     if terminal is None and running is None:
         raise ValueError("need at least one of terminal/running objective")
     n = len(dts)
     if len(states) != n + 1:
         raise ValueError(f"states ({len(states)}) must be dts+1 ({n + 1})")
-    setup, apply = make_preconditioner(precond, pc_cfg)
+    lay = (_Whole if getattr(data, "block", None) is None else _Decomposed)(
+        model, data, precond, pc_cfg)
     fields = data.fields
+    whole_fields = lay.whole(fields)
+
+    def objective(fn, u):
+        val, du, dfields = _objective_vjp(fn, lay.whole(u), whole_fields)
+        return val, lay.cut(du), lay.cut(dfields)
+
     u_n = states[n]
     if terminal is None:
         value = torch.zeros((), dtype=u_n.dtype, device=fields.device)
-        lam, grad = torch.zeros_like(u_n), torch.zeros_like(fields)
+        lam, grad = torch.zeros_like(lay.owned(u_n)), torch.zeros_like(lay.owned(fields))
     else:
-        value, lam, grad = _objective_vjp(lambda u, f: terminal(u, ProblemData(f)), u_n,
-                                          fields)
+        value, lam, grad = objective(lambda u, f: terminal(u, ProblemData(f)), u_n)
     if recycle > 0:
-        U, u_mask = empty_recycle(u_n.shape, recycle, u_n.dtype, fields.device)
+        U, u_mask = empty_recycle(lam.shape, recycle, u_n.dtype, fields.device)
     total, all_conv, step_iters = 0, True, []
     for k in range(n, 0, -1):
         dt_k = float(dts[k - 1])
         if running is not None:
-            rval, rlam, rgrad = _objective_vjp(
-                lambda u, f: running(u, dt_k, ProblemData(f)), states[k], fields)
+            rval, rlam, rgrad = objective(lambda u, f: running(u, dt_k, ProblemData(f)),
+                                          states[k])
             value = value + rval
             lam = lam + rlam
             grad = grad + rgrad
-        st = model.assemble_stencil(states[k], states[k - 1], dt_k, data)
-        pcs = setup(st.transpose())
-        _, pull = vjp(lambda un, uo, f: model.residual(un, uo, dt_k, ProblemData(f)),
+        pcs = lay.preconditioner(lay.model.assemble_stencil(states[k], states[k - 1], dt_k,
+                                                            data))
+        _, pull = vjp(lambda un, uo, f: lay.model.residual(un, uo, dt_k, ProblemData(f)),
                       states[k], states[k - 1], fields)
-        matvec_t = lambda v: pull(v)[0]
+        matvec_t = lambda v: lay.fold(pull(lay.pad(v))[0])
+        precond_t = lambda r: lay.apply(pcs, r)
         if recycle > 0:
-            res, U, u_mask = fgmres_dr(matvec_t, lam, precond=lambda r: apply(pcs, r), U=U,
-                                       u_mask=u_mask, rtol=rtol, maxiter=maxiter)
+            res, U, u_mask = fgmres_dr(matvec_t, lam, precond=precond_t, U=U, u_mask=u_mask,
+                                       rtol=rtol, maxiter=maxiter, mesh=lay.mesh)
         else:
-            res = fgmres(matvec_t, lam, precond=lambda r: apply(pcs, r), rtol=rtol,
-                         maxiter=maxiter, orth_passes=1 if orth == "cgs1" else 2,
-                         orth_gram={"cgs2g": 3, "cgs2g2": 2}.get(orth, 0))
-        _, w_old, w_fields = pull(res.x)
-        grad = grad + (-w_fields)
-        lam = -w_old
+            res = fgmres(matvec_t, lam, precond=precond_t, rtol=rtol, maxiter=maxiter,
+                         orth_passes=1 if orth == "cgs1" else 2,
+                         orth_gram={"cgs2g": 3, "cgs2g2": 2}.get(orth, 0), mesh=lay.mesh)
+        _, w_old, w_fields = pull(lay.pad(res.x))
+        grad = grad + (-lay.fold(w_fields))
+        lam = -lay.fold(w_old)
         total += res.iters
         all_conv = all_conv and res.converged
         step_iters.append(res.iters)
-    return AdjointResult(value=value, grad_data=ProblemData(grad), grad_u0=lam,
-                         ksp_iters=total, converged=all_conv, step_iters=step_iters)
+    return AdjointResult(value=value, grad_data=lay.grad_data(data, grad),
+                         grad_u0=lay.extend(lam), ksp_iters=total, converged=all_conv,
+                         step_iters=step_iters)
 
 
 def ensemble_adjoint_gradients(
@@ -160,16 +257,15 @@ def ensemble_adjoint_gradients(
     ``states_e`` the recorded [u_0, …, u_N], each (E, nc, *grid) (or its
     ``Blocks``; :func:`record_ensemble_trajectory`), ``dts`` the N step sizes
     shared by the members; ``terminal`` and ``running`` see one member's state
-    and ``ProblemData``.  Each member's sweep is its solo sweep.  The result
+    and ``ProblemData``.  Each member's sweep is its solo sweep (decomposed
+    members, ``data_e.block`` set: its decomposed sweep, every rank in
+    step).  The result
     carries the member axis: ``value`` (E,), ``grad_u0`` in the layout of
     ``states_e[0]``, ``grad_data`` an ``EnsembleData``; ``step_iters`` holds
     the largest member count of each backward step (newest first) and
     ``ksp_iters`` their sum, the reference's lockstep count; ``converged``
     holds when every member's every solve converged.  An adaptive coarsening
     schedule must be planned first, as for ``make_ensemble_step_fn``."""
-    from thermalporous_torch.dist.sharding import refuse_decomposed
-
-    refuse_decomposed(data_e, "ensemble_adjoint_gradients")
     if terminal is None and running is None:
         raise ValueError("need at least one of terminal/running objective")
     refuse_adaptive(pc_cfg, "adjoints")
@@ -185,7 +281,8 @@ def ensemble_adjoint_gradients(
     step_iters = [max(r.step_iters[s] for r in results) for s in range(n)]
     return AdjointResult(
         value=torch.stack([r.value.to(results[0].value.device) for r in results]),
-        grad_data=EnsembleData(restack(data_e.fields, [r.grad_data.fields for r in results])),
+        grad_data=EnsembleData(restack(data_e.fields, [r.grad_data.fields for r in results]),
+                               data_e.block),
         grad_u0=restack(states_e[0], [r.grad_u0 for r in results]),
         ksp_iters=sum(step_iters), converged=all(r.converged for r in results),
         step_iters=step_iters)

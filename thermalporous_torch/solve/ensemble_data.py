@@ -45,16 +45,25 @@ def restack(like, parts: Sequence[torch.Tensor]):
 class EnsembleData:
     """The problem data of E members: ``fields`` is the members'
     ``ProblemData.fields`` stacked, shape ``(E, 2·dim+7, *grid)`` (or its
-    :class:`Blocks`)."""
+    :class:`Blocks`).  Members decomposed over a grid mesh share ``block``
+    (``dist.sharding.Block``): ``fields`` then stacks this rank's extended
+    blocks of them."""
 
     fields: torch.Tensor | Blocks
+    block: object = None
 
     def __len__(self) -> int:
         return len(members(self.fields))
 
     def member(self, i: int) -> ProblemData:
-        """Member ``i``'s ``ProblemData``, on its device, in a tensor of its own."""
-        return ProblemData(members(self.fields)[i].clone())
+        """Member ``i``'s ``ProblemData`` (a decomposed member's
+        ``ShardedProblemData``), on its device, in a tensor of its own."""
+        fields = members(self.fields)[i].clone()
+        if self.block is None:
+            return ProblemData(fields)
+        from thermalporous_torch.dist.sharding import ShardedProblemData
+
+        return ShardedProblemData(fields, self.block)
 
 
 def refuse_adaptive(pc_cfg: CPRConfig | None, what: str) -> None:

@@ -32,7 +32,9 @@ block, keeps the owned rows, and runs Newton and FGMRES on owned blocks
 with every reduction through the mesh, so that the Δt controller, its
 retries and its failure-memory cap take the same values on every rank
 (every ``ksp_orth``, and ``ksp_recycle`` with its recycle space's dots
-through the mesh too).  Options the decomposition does not run raise
+through the mesh too).  Under ``krylov_op="jvp"`` the Krylov operator is
+``fused_jvp`` on the extended block, the direction exchanged once a
+product.  Options the decomposition does not run raise
 ``NotDecomposedError`` (:func:`check_decomposable`).
 """
 
@@ -117,8 +119,6 @@ def check_decomposable(precond: str, newton_cfg: NewtonConfig,
 
     if precond.lower() not in ("cpr", "cptr"):
         raise NotDecomposedError(f"precond={precond!r}: not decomposed over ranks")
-    if newton_cfg.krylov_op == "jvp":
-        raise NotDecomposedError('NewtonConfig.krylov_op="jvp": not decomposed over ranks')
     check_cpr(pc_cfg or CPRConfig(), dim)
 
 
@@ -143,6 +143,9 @@ def _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess):
     u_own = blk.owned(u_old, lead=1)
     u, stats = newton_solve(
         residual=lambda u: blk.owned(fused_residual(model, ext(u), u_old, dt, data), lead=1),
+        # J(u)·v on the extended block, v exchanged once a product
+        jvp_at=lambda u: (lambda v: blk.owned(
+            fused_jvp(model, ext(u), blk.extend(v, lead=1), u_old, dt, data), lead=1)),
         assemble=lambda u: HaloStencil(model.assemble_stencil(ext(u), u_old, dt, data), blk),
         pc_setup=lambda op: cpr_setup(op.st, cfg, block=blk),
         pc_apply=lambda state, r: cpr_apply(state, r, cfg),

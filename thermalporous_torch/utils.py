@@ -154,16 +154,27 @@ def normal_start(shape, dtype: torch.dtype, seed: int = 0,
 
 def power_iteration(matvec, shape, dtype: torch.dtype = torch.float64,
                     iters: int = 20, seed: int = 0,
-                    device: torch.device | str = "cuda") -> torch.Tensor:
+                    device: torch.device | str = "cuda", block=None) -> torch.Tensor:
     """Estimate the dominant eigenvalue magnitude of a linear operator (a
     0-dim tensor) from the reference's start vector (:func:`normal_start`),
-    so that a level's estimate after a few iterations is the reference's."""
+    so that a level's estimate after a few iterations is the reference's.
+
+    With ``block`` (a :class:`~thermalporous_torch.dist.sharding.Block` of
+    the grid ``shape``) ``matvec`` takes and returns owned blocks: the start
+    is the whole grid's, cut to the owned block, and each norm sums the
+    ranks' partials through the mesh, so that every rank holds the
+    undecomposed estimate to rounding."""
     v = normal_start(shape, dtype, seed, device)
-    v = v / torch.linalg.vector_norm(v)
+    if block is None or block.mesh.size == 1:
+        norm = torch.linalg.vector_norm
+    else:
+        v = block.cut(v, lead=0, ghosts=False)
+        norm = lambda t: torch.sqrt(block.mesh.allreduce_sum(torch.sum(t * t)))
+    v = v / norm(v)
     lam = torch.zeros((), dtype=dtype, device=v.device)
     for _ in range(iters):
         w = matvec(v)
-        lam = torch.linalg.vector_norm(w)
+        lam = norm(w)
         v = w / torch.where(lam > 0, lam, 1.0)
     return lam
 
