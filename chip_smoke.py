@@ -195,7 +195,11 @@ phase waits for its CPU run):
      whole grid's on the owned cells, the red-black kernels with the
      block's colour offset (and not without it), and J(u)v on the same
      block's extended block (two cells deep) in f32 and f64 against its
-     plain version, within phase 2's tolerances; then tp_spe10_full at
+     plain version, within phase 2's tolerances, timed per call and on the
+     card beside torch.sparse.mm on a CSR of the block's operator; the
+     bf16 and batched forms there (B1, B2, B3 with bf16 coefficients, B5
+     in bf16 at k = 2 with the block's odd parity, B3 batched over p and
+     T) in f32 and f64 against their plain versions; then tp_spe10_full at
      60x220x85, f32, fuse_below=150000, its first 600 s step on a one-rank
      NCCL mesh: bitwise the undecomposed step, with the same launches per
      kernel; (b) four gloo ranks sharing cuda:0 (one process each, the
@@ -208,7 +212,14 @@ phase waits for its CPU run):
      tolerance and equal to the ranks' own final norm), its largest gap
      per component to (a)'s printed; exchanges, all-reduces and
      all-gathers per Newton, the ms of a host-staged exchange and each
-     rank's wall; (c)
+     rank's wall; then, on the same ranks, two first steps from 300 s
+     (150 s when the undecomposed card step fails there) under
+     pc_dtype="bf16" with two stage-2 sweeps and under batch_pt with the
+     zebra stage 2 along y (its block line solves a pipeline through the
+     ranks), each with equal counts on every rank, printed beside the
+     undecomposed card step's, its bf16 or batched launches on every rank,
+     the gathered state under the undecomposed Newton test, the pipeline
+     carries per Newton, and the line solves' share of a zebra apply; (c)
      dryrun_multichip(4, device="cuda", backend="gloo") in f64, both
      scenarios, in a subprocess started with the phase; (d) no longer
      runs: tp_spe10_inner's configuration is one of (e)'s runs; (e) the
@@ -237,7 +248,21 @@ phase waits for its CPU run):
      an ensemble of the two members of phase 14 decomposed alike, one
      step, member 0 bitwise the adjoint trajectory's first step and member 1
      its solo decomposed step, and its ensemble adjoint with the CPU's
-     lockstep count and gradients within 1e-8.  (b), (e) and (f) are one
+     lockstep count and gradients within 1e-8; (g) after (f) on the same
+     ranks, every option the decomposition ran last, at 14x14x9 f64 (both
+     owned origins odd; both hierarchies coarsening z only for two levels,
+     so that their two finest levels stay decomposed), 13 runs: the zebra
+     stage 2, the saturation leg's zebra and line smoothers and the
+     multigrid's line and zebra smoothers along x and along y, stage2_axes,
+     stage2_fused with and without axes, the Jacobi and red-black
+     smoothers with cycles=2, batch_pt, pc_dtype "bf16", "bf16_gmg" and
+     "bf16_s2", precond "jacobi", "rbgs" and "lu", and a two-step run with
+     the balance audit, each against the CPU's undecomposed run: equal
+     (Newton, FGMRES, converged) on every rank, the gathered state within
+     the bands (bf16 storage: the undecomposed Newton test), the audit's
+     totals and rows within 1e-10 of the CPU's and the same report on
+     every rank, the launches (bf16 and batched ones, pipeline carries)
+     its configuration uses on every rank.  (b), (e), (f) and (g) are one
      spawn, so that no other ranks share the card with them.  The kernels
      are built once (phase 1) before any rank starts.
 
@@ -249,8 +274,9 @@ kernels, phase 10(b) for tp_spe10_inner's kernels, the W option's run of
 phase 10(c) for the W-cycle, phase 12's runs and options for the bf16
 and batched instantiations, phase 13's bgmg run by level and its full-size
 adjoint, phase 14(a)'s ensemble step, rank 0's step in phase 15(b),
-rank 0's tp_spe10_inner, bgmg and two-sweep runs in phase 15(e), and
-rank 0's J(u)v run and adjoint sweep in phase 15(f)), and
+rank 0's tp_spe10_inner, bgmg and two-sweep runs in phase 15(e),
+rank 0's J(u)v run and adjoint sweep in phase 15(f), and rank 0's bf16
+and batched launches in phase 15(b)'s full-width runs and in (g)), and
 as the last line
 {"ok": true, "device": {...}}.  Any failure exits nonzero without
 the ok line; without CUDA the script exits nonzero at once.  With
@@ -3591,6 +3617,87 @@ DECOMP_FAMILY_CHECKS = {
 # (ADJ_NEWTON) and sweep tolerance, against the CPU's undecomposed sweeps
 DECOMP_ADJ_DTS = (600.0, 1200.0)
 DECOMP_ENS_DTS = (600.0,)
+# (b), PR 15: the full-width 2x2 runs of the modes the decomposition ran
+# last, each one first step of the flagship from DECOMP_WIDE_DT (the Δt
+# phases 12 and 13 start these modes at; DECOMP_WIDE_DT / 2 for both runs
+# when the undecomposed card step fails there): (label, CPRConfig
+# overrides, the variant launches every rank must show).  bf16 storage
+# with two stage-2 sweeps, so that the bf16 B1 (the stage-2 residual), B5
+# (the zero-start sweep) and half-sweep launch beside B2 and B3; batch_pt
+# (the T hierarchy on the pressure configuration) with the zebra stage 2
+# along the decomposed y, its block line solves a pipeline through the
+# ranks at full length
+DECOMP_WIDE_DT = 300.0
+DECOMP_WIDE = (
+    ("pc_dtype=bf16 stage2_sweeps=2", dict(pc_dtype="bf16", stage2_sweeps=2),
+     ("block_matvec bf16", "matvec bf16", "chebyshev_smooth bf16", "fused_stage2_rbgs bf16",
+      "block_rbgs_half_sweep bf16")),
+    ("batch_pt stage2=zebra axis=1", dict(BATCH_PT, stage2="zebra", stage2_axis=1),
+     ("chebyshev_smooth batched",)),
+)
+# (g), PR 15: every option the decomposition ran last, one step each over
+# the 2x2 ranks on the card in f64 against the CPU's undecomposed step, at
+# DECOMP_REST_SHAPE (split_ranges(14, 2) = (0, 7, 14): both owned origins
+# odd along x and y), both hierarchies coarsening z only for two levels
+# (DECOMP_REST_FACTORS; their boundaries then stay aligned) and
+# decomposed above DECOMP_REST_REPLICATE cells, so that the smoothers run
+# on decomposed levels in an odd colour offset.  Options that act on
+# different parts of the apply share a run: (label, precond, CPRConfig
+# overrides, GMG overrides (both hierarchies), NewtonConfig overrides, gate,
+# launch checks).  The
+# gate "bands" holds the gathered state to DECOMP_OPTION_P_PA and
+# DECOMP_OPTION_S of the CPU's, "newton" (bf16 storage) to the
+# undecomposed Newton test; "audit" also holds a two-step run's balance
+# audit rows to DECOMP_AUDIT_RTOL of the CPU's.  A check (name, kind): kind
+# "wrapper" a launch counter > 0, "none" == 0, "variant" a bf16 or batched
+# launch count > 0, "carries" the line solves' pipeline carries > 0.
+DECOMP_REST_SHAPE = (14, 14, 9)
+DECOMP_REST_FACTORS = ((1, 1, 2), (1, 1, 2))
+DECOMP_REST_REPLICATE = 500
+DECOMP_AUDIT_RTOL = 1e-10
+DECOMP_REST_PC_NEWTON = dict(ksp_ew=False, ksp_rtol=1e-4, ksp_basis="same")
+_LINE_RUN = (("carries", "carries"), ("matvec", "wrapper"), ("chebyshev_smooth", "none"))
+DECOMP_REST = (
+    ("stage2=zebra axis=0 s_stage=zebra axis=1 smoother=line axis=0", "cptr",
+     dict(stage2="zebra", stage2_axis=0, s_stage="zebra", s_axis=1),
+     dict(smoother="line", line_axis=0), {}, "bands", _LINE_RUN),
+    ("stage2=zebra axis=1 s_stage=line axis=0 smoother=zebra axis=1", "cptr",
+     dict(stage2="zebra", stage2_axis=1, s_stage="line", s_axis=0),
+     dict(smoother="zebra", line_axis=1), {}, "bands", _LINE_RUN),
+    ("stage2_axes=(0,) s_stage=zebra axis=0 smoother=jacobi cycles=2", "cptr",
+     dict(stage2_axes=(0,), s_stage="zebra", s_axis=0), dict(smoother="jacobi", cycles=2), {},
+     "bands", _LINE_RUN + (("fused_stage2_rbgs", "none"),)),
+    ("stage2_fused axes=(1,) sweeps=2 s_stage=line axis=1 smoother=rbgs", "cptr",
+     dict(stage2_fused=True, stage2_axes=(1,), stage2_sweeps=2, s_stage="line", s_axis=1),
+     dict(smoother="rbgs"), {}, "bands",
+     _LINE_RUN + (("block_rbgs_half_sweep", "wrapper"), ("fused_stage2_rbgs", "none"))),
+    ("stage2_fused smoother=zebra axis=0", "cptr", dict(stage2_fused=True),
+     dict(smoother="zebra", line_axis=0), {}, "bands",
+     _LINE_RUN + (("fused_stage2_rbgs", "wrapper"),)),
+    ("batch_pt", "cptr", BATCH_PT, {}, {}, "bands",
+     (("chebyshev_smooth batched", "variant"), ("deep_correction", "none"))),
+    ("pc_dtype=bf16 stage2_sweeps=2", "cptr", dict(pc_dtype="bf16", stage2_sweeps=2), {}, {},
+     "newton", tuple((k, "variant") for k in DECOMP_WIDE[0][2])),
+    ("pc_dtype=bf16_gmg", "cptr", dict(pc_dtype="bf16_gmg"), {}, {}, "newton",
+     (("chebyshev_smooth bf16", "variant"), ("matvec bf16", "variant"))),
+    ("pc_dtype=bf16_s2 stage2_sweeps=2 smoother=line axis=1", "cptr",
+     dict(pc_dtype="bf16_s2", stage2_sweeps=2), dict(smoother="line", line_axis=1), {},
+     "newton",
+     _LINE_RUN + tuple((k, "variant") for k in ("block_matvec bf16", "fused_stage2_rbgs bf16",
+                                                "block_rbgs_half_sweep bf16"))),
+    # block Jacobi under the flagship's loose EW forcing stalls the line
+    # search at 12 Newton (on the CPU too): the three named preconditioners
+    # take a fixed Krylov tolerance, and their long Krylov runs a basis in
+    # the state's dtype
+    ("precond=jacobi", "jacobi", {}, {}, DECOMP_REST_PC_NEWTON, "bands",
+     (("block_matvec", "wrapper"), ("fused_stage2_rbgs", "none"))),
+    ("precond=rbgs", "rbgs", {}, {}, DECOMP_REST_PC_NEWTON, "bands",
+     (("fused_stage2_rbgs", "wrapper"), ("block_rbgs_half_sweep", "wrapper"))),
+    ("precond=lu", "lu", {}, {}, DECOMP_REST_PC_NEWTON, "bands",
+     (("block_matvec", "wrapper"), ("chebyshev_smooth", "none"))),
+    ("audit, two steps", "cptr", {}, {}, {}, "audit",
+     (("chebyshev_smooth", "wrapper"), ("fused_stage2_rbgs", "wrapper"))),
+)
 # (e): levels above this many cells stay decomposed at FLAGSHIP_SMALL
 # (2,376 cells, blocks 6x12 and 6x10): the finest level of the p and T
 # hierarchies and of bgmg's coupled one
@@ -3701,7 +3808,8 @@ def decomp_jvp_block(case, u0, u, dev) -> dict:
     """Phase 15 (a): B7 (J(u)v) on the extended block of DECOMP_BLOCK (the
     decomposed step's ring, STATE_HALO deep: origin x 29, an odd index sum),
     f32 and f64, against its plain version on the same block, within phase
-    2's tolerances for B7; its time beside phase 2's B7 row."""
+    2's tolerances for B7; its time per call and on the card beside phase
+    2's B7 row, and (f32) phase 2's library yardstick on the block."""
     from thermalporous_torch.dist.sharding import STATE_HALO
     from thermalporous_torch.kernels import residual as kres
     from thermalporous_torch.models.base import ProblemData
@@ -3730,38 +3838,161 @@ def decomp_jvp_block(case, u0, u, dev) -> dict:
         got, ref = kern(), plain()
         rel, abs_ = rel_err(got, ref, True)
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=PLAIN_REPS, warm=1)
+        device_ms = time_device_ms(kern)
         bnd, by = bound_ms(*cost_jvp(block, uu, data))
+        # the library yardstick, as phase 2's B7 row: torch.sparse.mm on a CSR
+        # of the operator assembled on the same block (f32 rows only)
+        lib_ms = None
+        if dtype == torch.float32:
+            a = block_csr(block.assemble_stencil(uu, uo, DECOMP_DT, data).coef)
+            lib_ms = time_ms(lambda: spmv(a, v))
+            del a
         ok = math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
         out[tname] = {"max_rel_err": rel, "max_abs_err": abs_, "ms": ms, "plain_ms": plain_ms,
+                      "device_ms": device_ms, "library_ms": lib_ms,
                       "bound_ms": bnd, "bound_by": by, "origin_parity": (ex0 + ey0) % 2,
                       "shape": tuple(uu.shape[1:])}
         print(f"  {tname} fused_jvp on the block x {ex0}:{ex1} y {ey0}:{ey1} (origin parity "
               f"{(ex0 + ey0) % 2}): max_rel_err {rel:.3e} (tol {tol:.0e}) max_abs_err "
-              f"{abs_:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bnd:.4f} ms "
-              f"({by})  {'ok' if ok else 'FAIL'}", flush=True)
+              f"{abs_:.3e}  kernel {ms:.4f} ms ({device_ms:.4f} on the card)  plain "
+              f"{plain_ms:.4f} ms  bound {bnd:.4f} ms ({by})"
+              + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + f"  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"phase 15(a): fused_jvp on the odd block, {tname}: {rel:.3e}")
         del got, ref
     return out
 
 
-def _flagship_step(dev, dtype):
-    """The flagship's undecomposed first step (fuse_below=150000): (case,
-    planned CPRConfig, u0, state, stats, launches, wall)."""
+def decomp_variant_blocks(dev) -> dict:
+    """Phase 15 (a), the bf16 and batched forms of the decomposed path's
+    kernels: B1 (nc = 3, k = 2, the stage-2 residual of two sweeps), B2
+    (the T<-p coupling) and B3 (the finest pressure level, degree 4 from
+    zero with b - A y, the decomposed pre-smooth) with bf16 coefficients,
+    B5 in bf16 at k = 2 with the block's odd parity offset, and B3 batched
+    (batch_pt's stacked p and T finest levels, from zero with b - A y), each
+    on the extended block of DECOMP_BLOCK at the ring its decomposed caller
+    holds (STATE_HALO, the smooth's degree + 1), f32 and f64 vectors,
+    against its plain version on the same block (phase 2's and 12's
+    tolerances), timed.  Returns {dtype: {case: row}}."""
+    from thermalporous_torch.core.stencil import BlockStencil
+    from thermalporous_torch.dist.sharding import STATE_HALO
+    from thermalporous_torch.kernels import stencil as kst
+    from thermalporous_torch.precond.cpr import cast_coefficients, cpr_setup
+
+    (ox0, ox1), (oy0, oy1) = DECOMP_BLOCK
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tname = "f32" if dtype == torch.float32 else "f64"
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32_STENCIL
+        _, _, _, pc, st, _ = preset_state("tp_spe10_full", dtype, dev,
+                                          dict(fuse_below=FLAGSHIP_FUSE_BELOW))
+        bf = cast_coefficients(cpr_setup(st, pc), "bf16")
+        bat = cpr_setup(st, dataclasses.replace(pc, **BATCH_PT))
+        deg, frac = pc.gmg.degree, pc.gmg.lam_min_frac
+
+        def cut(t, w, grid_lead):
+            ex0, ex1 = max(ox0 - w, 0), min(ox1 + w, SPE10_FULL[0])
+            ey0, ey1 = max(oy0 - w, 0), min(oy1 + w, SPE10_FULL[1])
+            return t[(slice(None),) * grid_lead + (slice(ex0, ex1), slice(ey0, ey1))
+                     ].contiguous()
+
+        w2, ws = STATE_HALO, deg + 1
+        par = (max(ox0 - w2, 0) + max(oy0 - w2, 0)) % 2
+        coef, dinv = cut(bf.stencil.coef, w2, 3), cut(bf.dinv, w2, 2)
+        grid = tuple(coef.shape[3:])
+        n, dim, item = math.prod(grid), 3, st.coef.element_size()
+        g = torch.Generator(device=dev).manual_seed(21)
+        rand = lambda shape: torch.randn(shape, generator=g, dtype=dtype, device=dev)
+        r, x1, v = rand((3,) + grid), rand((2,) + grid), rand((2,) + grid)
+        atp, b2 = cut(bf.a_tp.packed, w2, 1), rand(grid)
+        gs = "x".join(map(str, grid))
+        cases = [
+            (f"block_matvec nc=3 k=2 bf16 coefficients odd block {gs}", "block_matvec",
+             lambda: kst.block_matvec(coef, v, 2), lambda: kst.block_matvec_plain(coef, v), tol,
+             cost_block_matvec(n, dim, 3, 2, item, 2), None),
+            (f"matvec T<-p bf16 coefficients odd block {gs}", "matvec",
+             lambda: kst.matvec(atp, b2), lambda: kst.matvec_plain(atp, b2), tol,
+             cost_matvec(n, dim, item, 2), None),
+            (f"fused_stage2_rbgs k=2 bf16 coefficients odd block parity {par} {gs}",
+             "fused_stage2_rbgs",
+             lambda: kst.fused_stage2_rbgs(coef, dinv, r, x1, parity=par),
+             lambda: kst.fused_stage2_rbgs_plain(coef, dinv, r, x1, parity=par), tol,
+             cost_stage2(n, dim, 3, 2, item, 2), None)]
+        fine = cut(bf.gmg_p.stencils[0].packed, ws, 1)
+        bs = rand(tuple(fine.shape[1:]))
+        cases.append(second_case(f"fine bf16 coefficients odd block", fine,
+                                 bf.gmg_p.lam_max[0], bs, None, deg, "residual", tol, item))
+        pt = cut(bat.gmg_p.stencils[0].packed, ws, 2)
+        lam2, bb = bat.gmg_p.lam_max[0], rand((2,) + tuple(pt.shape[2:]))
+        ns = math.prod(pt.shape[2:])
+        sb, so = cost_chebyshev_second(ns, dim, deg, False, "residual", item)
+        cases.append((f"chebyshev batch_pt (p, T) fine deg={deg} zero second=residual odd "
+                      f"block {'x'.join(map(str, pt.shape[2:]))}", "chebyshev_smooth",
+                      lambda: kst.chebyshev_smooth(pt, bb, None, lam2, deg, frac,
+                                                   second="residual"),
+                      lambda: kst.chebyshev_smooth_plain(pt, bb, None, lam2, deg, frac,
+                                                         second="residual"),
+                      tol, (2 * sb, 2 * so), None))
+        start = len(ROWS)
+        run_cases(f"{tname} (15a)", cases, BlockStencil(coef), {}, dtype, record=False)
+        out[tname] = _rows_since(start)
+        del st, bf, bat, coef, dinv, fine, pt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flagship_step(dev, dtype, pc_kw: dict | None = None, dt: float = DECOMP_DT):
+    """The flagship's undecomposed first step from ``dt`` (fuse_below=150000,
+    with the CPRConfig overrides ``pc_kw``): (case, planned CPRConfig, u0,
+    state, stats, launches, wall)."""
     from thermalporous_torch.kernels import launch_counts, reset_launch_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import make_step_fn
 
     case = get_case("tp_spe10_full", device=dev, dtype=dtype)
-    pc = case.simulator(pc_cfg=with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)).pc_cfg
+    pc = dataclasses.replace(with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW), **(pc_kw or {}))
+    pc = case.simulator(pc_cfg=pc).pc_cfg
     u0 = case.model.initial_state(case.data)
     step = make_step_fn(case.model, "cptr", case.newton_cfg, pc, device=dev)
     torch.cuda.synchronize()
     reset_launch_counts()
     t = time.perf_counter()
-    u, st = step(u0, DECOMP_DT, case.data)
+    u, st = step(u0, dt, case.data)
     torch.cuda.synchronize()
     return case, pc, u0, u, st, launch_counts(), time.perf_counter() - t
+
+
+def decomp_wide_steps(dev) -> list:
+    """Phase 15 (b), PR 15: the undecomposed card step of each DECOMP_WIDE
+    configuration from DECOMP_WIDE_DT (from half of it, and then its 2x2
+    run too, when it fails there): per run {label, pc_kw, dt, counts,
+    wall, launches, level factors, case, u0}."""
+    from thermalporous_torch.kernels import variant_counts
+
+    out = []
+    for label, pc_kw, _ in DECOMP_WIDE:
+        for dt in (DECOMP_WIDE_DT, DECOMP_WIDE_DT / 2):
+            case, pc, u0, u, st, launches, wall = _flagship_step(dev, torch.float32, pc_kw, dt)
+            if not st.failed:
+                break
+            print(f"  {label}: the undecomposed card step fails at {dt:.0f} s "
+                  f"({st.iters} Newton); both runs start at {dt / 2:.0f} s", flush=True)
+        if st.failed:
+            raise SystemExit(f"phase 15(b): {label}: the undecomposed step fails at {dt} s")
+        variants = variant_counts()
+        print(f"  undecomposed {label} from {dt:.0f} s: (newton, fgmres) ({st.iters}, "
+              f"{st.ksp_iters}), wall {wall:.3f} s, launches {launches}; variants {variants}",
+              flush=True)
+        out.append({"label": label, "pc_kw": pc_kw, "dt": dt, "newton": st.iters,
+                    "fgmres": st.ksp_iters, "wall_s": wall, "launches": launches,
+                    "variants": variants,
+                    "level_factors": (pc.gmg.level_factors,
+                                      None if pc.gmg_t is None else pc.gmg_t.level_factors),
+                    "case": case, "u0": u0})
+        del u
+        torch.cuda.empty_cache()
+    return out
 
 
 def decomp_one_rank(dev, dtype=torch.float32) -> dict:
@@ -3822,18 +4053,21 @@ def _gaps(a: np.ndarray, b: np.ndarray) -> list:
             for c in range(3)]
 
 
-def _decomp_rank(mesh, level_factors, dtype_name: str) -> dict:
-    """Phase 15 (b), one rank: the flagship's first step on the 2x2 mesh,
-    with the undecomposed run's coarsening schedules ``level_factors`` (p,
-    T)."""
+def _decomp_rank(mesh, level_factors, dtype_name: str, pc_kw: dict | None = None,
+                 dt: float = DECOMP_DT) -> dict:
+    """Phase 15 (b), one rank: the flagship's first step from ``dt`` on the
+    2x2 mesh (with the CPRConfig overrides ``pc_kw``), with the
+    undecomposed run's coarsening schedules ``level_factors`` (p, T); under
+    a zebra stage 2 also the line solves' share of an apply
+    (:func:`_zebra_share`)."""
     from thermalporous_torch.dist.sharding import gather_state, shard_problem_data, shard_state
-    from thermalporous_torch.kernels import launch_counts, reset_launch_counts
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts, variant_counts
     from thermalporous_torch.presets import get_case
     from thermalporous_torch.solve import Simulator
 
     dev = mesh.device
     case = get_case("tp_spe10_full", device=dev, dtype=getattr(torch, dtype_name))
-    pc = with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW)
+    pc = dataclasses.replace(with_fuse(case.pc_cfg, FLAGSHIP_FUSE_BELOW), **(pc_kw or {}))
     gmg_t = None if pc.gmg_t is None else dataclasses.replace(
         pc.gmg_t, mesh=mesh, level_factors=level_factors[1])
     pc = dataclasses.replace(
@@ -3851,25 +4085,60 @@ def _decomp_rank(mesh, level_factors, dtype_name: str) -> dict:
     by_cols: dict = {}
     t = time.perf_counter()
     with count_by_columns(by_cols):
-        u, st = sim.step(u0, DECOMP_DT)
+        u, st = sim.step(u0, dt)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = launch_counts()
+    launches, variants = launch_counts(), variant_counts()
     stats = dict(mesh.stats)
     whole = gather_state(u, mesh)
-    return {"rank": mesh.rank, "block": data.block.owned_shape, "newton": st.iters,
-            "fgmres": st.ksp_iters, "converged": st.converged, "norm": st.norm, "wall_s": wall,
-            "launches": launches, "by_columns": by_cols, "stats": stats,
-            "u": whole.cpu().numpy() if mesh.rank == 0 else None}
+    out = {"rank": mesh.rank, "block": data.block.owned_shape, "newton": st.iters,
+           "fgmres": st.ksp_iters, "converged": st.converged, "norm": st.norm, "wall_s": wall,
+           "launches": launches, "variants": variants, "by_columns": by_cols, "stats": stats,
+           "u": whole.cpu().numpy() if mesh.rank == 0 else None}
+    if sim.pc_cfg.stage2 == "zebra":
+        out["zebra"] = _zebra_share(mesh, sim, data, u0, dt)
+    return out
 
 
-def _newton_norm(case, u: torch.Tensor, u0: torch.Tensor) -> float:
+def _zebra_share(mesh, sim, data, u0, dt: float) -> dict:
+    """Phase 15 (b), one rank: the decomposed CPTR apply of ``sim``'s
+    configuration (a zebra stage 2 along a decomposed axis) at ``u0`` and
+    its two pipelined block line solves alone (the carries' waits
+    included), each timed over the ranks started together: ms each and
+    the solves' share of the apply."""
+    from thermalporous_torch.precond.chebyshev import block_tridiag_solve_factored
+    from thermalporous_torch.precond.cpr import cpr_apply, cpr_setup
+
+    blk, pc = data.block, sim.pc_cfg
+    state = cpr_setup(sim.model.assemble_stencil(u0, u0, dt, data), pc, block=blk)
+    g = torch.Generator(device=mesh.device).manual_seed(22 + mesh.rank)
+    r = torch.randn((3,) + blk.owned_shape, generator=g, dtype=u0.dtype, device=mesh.device)
+    a = pc.stage2_axis % 3
+
+    def timed(fn, reps: int = 3) -> float:
+        fn()
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    apply_ms = timed(lambda: cpr_apply(state, r, pc))
+    solves_ms = timed(lambda: [block_tridiag_solve_factored(a, state.zebra_fac, r, block=blk)
+                               for _ in range(2)])
+    return {"apply_ms": apply_ms, "line_solves_ms": solves_ms, "share": solves_ms / apply_ms}
+
+
+def _newton_norm(case, u: torch.Tensor, u0: torch.Tensor, dt: float = DECOMP_DT) -> float:
     """The Newton test's scaled RMS norm of the undecomposed residual at
-    ``u`` (the step from ``u0``), accumulated in f64 as Newton does."""
+    ``u`` (the step of ``dt`` from ``u0``), accumulated in f64 as Newton
+    does."""
     from thermalporous_torch.kernels.residual import fused_residual
 
-    f = fused_residual(case.model, u, u0, DECOMP_DT, case.data)
-    q = (f / case.model.residual_scales(u0, DECOMP_DT, case.data)).reshape(-1).double()
+    f = fused_residual(case.model, u, u0, dt, case.data)
+    q = (f / case.model.residual_scales(u0, dt, case.data)).reshape(-1).double()
     return float(torch.sqrt(torch.dot(q, q) / q.numel()))
 
 
@@ -3899,16 +4168,18 @@ def _ranks_report(tag: str, outs: list, counts: tuple, kernels: tuple,
                              f"launched {extra}")
 
 
-def _gathered_newton_test(tag: str, case, u0: torch.Tensor, outs: list) -> dict:
+def _gathered_newton_test(tag: str, case, u0: torch.Tensor, outs: list,
+                          dt: float = DECOMP_DT) -> dict:
     """The gathered state (rank 0's) finite and physical, and under the
-    undecomposed Newton test: its scaled residual norm on the whole grid
-    under the step's tolerance and equal to the ranks' own final norm."""
+    undecomposed Newton test of the step of ``dt``: its scaled residual
+    norm on the whole grid under the step's tolerance and equal to the
+    ranks' own final norm."""
     u = torch.as_tensor(outs[0]["u"], device=u0.device)
     check_physical(u, SPE10_FULL, f"phase 15{tag}")
     newton = case.newton_cfg
-    norm0 = _newton_norm(case, u0, u0)
+    norm0 = _newton_norm(case, u0, u0, dt)
     tol = max(newton.rtol * norm0, newton.atol, 50.0 * float(torch.finfo(u0.dtype).eps))
-    norm = _newton_norm(case, u, u0)
+    norm = _newton_norm(case, u, u0, dt)
     print(f"  the undecomposed Newton test at the gathered state: {norm:.6e} (tol {tol:.3e}; "
           f"the ranks' final norm {outs[0]['norm']:.6e})", flush=True)
     if not (norm <= tol and abs(norm - outs[0]["norm"]) <= DECOMP_NORM_RTOL * norm):
@@ -3917,31 +4188,80 @@ def _gathered_newton_test(tag: str, case, u0: torch.Tensor, outs: list) -> dict:
     return {"newton_norm": norm, "newton_tol": tol}
 
 
-def _decomp_ranks(mesh, factors_b, factors_e) -> tuple:
-    """Phase 15 (b), (e) and (f), one rank, in one spawn: the flagship's
-    first step on the 2x2 mesh, every DECOMP_OPTIONS and DECOMP_FAMILY
-    entry's step, then (f)'s adjoint and ensemble."""
+def _decomp_ranks(mesh, factors_b, factors_e, wide) -> tuple:
+    """Phase 15 (b), (e), (f) and (g), one rank, in one spawn: the
+    flagship's first step on the 2x2 mesh and the full-width runs of
+    ``wide`` (per DECOMP_WIDE run: its CPRConfig overrides, Δt and
+    coarsening schedules), every DECOMP_OPTIONS and DECOMP_FAMILY entry's
+    step, (f)'s adjoint and ensemble, then every DECOMP_REST run."""
     b = _decomp_rank(mesh, factors_b, "float32")
     torch.cuda.empty_cache()
+    w = []
+    for run in wide:
+        w.append(_decomp_rank(mesh, run["level_factors"], "float32", run["pc_kw"], run["dt"]))
+        torch.cuda.empty_cache()
     e = _decomp_option_rank(mesh, [o[0] for o in DECOMP_OPTIONS + DECOMP_FAMILY], factors_e)
-    return b, e, _decomp_family_rank(mesh, factors_e)
+    f = _decomp_family_rank(mesh, factors_e)
+    return b, e, f, w, _decomp_rest_rank(mesh)
 
 
-def decomp_four_ranks(dev, one: dict, refs: dict) -> tuple:
-    """Phase 15 (b), (e) and (f) over four gloo ranks sharing cuda:0 (one
-    spawn: each rank takes (b)'s step, then (e)'s and (f)'s; no other
-    process holds the card meanwhile but (c)'s).
+def _wide_report(run: dict, outs: list) -> dict:
+    """Phase 15 (b), a full-width 2x2 run of DECOMP_WIDE (``run`` its
+    undecomposed card step, ``outs`` per rank): every rank converged with
+    the same counts and launched the run's variants (and, under the zebra
+    stage 2, handed pipeline carries on), the gathered state under the
+    undecomposed Newton test; each rank's counts, wall and collectives a
+    Newton printed beside the undecomposed step's."""
+    label = run["label"]
+    want = next(o[2] for o in DECOMP_WIDE if o[0] == label)
+    zebra = "zebra" in outs[0]
+    print(f"  (b) {label} from {run['dt']:.0f} s split 2x2; undecomposed (newton, fgmres) "
+          f"({run['newton']}, {run['fgmres']}), wall {run['wall_s']:.3f} s", flush=True)
+    for o in outs:
+        n = max(o["newton"], 1)
+        print(f"  rank {o['rank']} block {o['block']}: (newton, fgmres) ({o['newton']}, "
+              f"{o['fgmres']}), wall {o['wall_s']:.3f} s; per Newton "
+              f"{o['stats']['exchanges'] / n:.1f} exchanges, {o['stats']['carries'] / n:.1f} "
+              f"pipeline carries, {o['stats']['allreduces'] / n:.1f} all-reduces; variants "
+              f"{o['variants']}; launches {o['launches']}"
+              + (f"; zebra apply {o['zebra']['apply_ms']:.2f} ms, its two line solves "
+                 f"{o['zebra']['line_solves_ms']:.2f} ms ({100 * o['zebra']['share']:.1f}%)"
+                 if zebra else ""), flush=True)
+    r0 = outs[0]
+    fails = [f"rank {o['rank']} ({o['newton']}, {o['fgmres']}, {o['converged']})" for o in outs
+             if (o["newton"], o["fgmres"]) != (r0["newton"], r0["fgmres"]) or not o["converged"]]
+    fails += [f"rank {o['rank']} launched no {k}" for o in outs for k in want
+              if o["variants"].get(k, 0) <= 0]
+    fails += [f"rank {o['rank']} launched {k}" for o in outs for k in DECOMP_REFUSED
+              if o["launches"][k] != 0]
+    if zebra:
+        fails += [f"rank {o['rank']} handed no carry on" for o in outs
+                  if o["stats"]["carries"] <= 0]
+    if fails:
+        raise SystemExit(f"phase 15(b) {label}: {fails}")
+    gate = _gathered_newton_test(f"(b) {label}", run["case"], run["u0"], outs, run["dt"])
+    return {"label": label, "dt": run["dt"], "undecomposed": (run["newton"], run["fgmres"]),
+            "undecomposed_wall_s": run["wall_s"], "undecomposed_variants": run["variants"],
+            "ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs], **gate}
+
+
+def decomp_four_ranks(dev, one: dict, refs: dict, wide: list) -> tuple:
+    """Phase 15 (b), (e), (f) and (g) over four gloo ranks sharing cuda:0
+    (one spawn: each rank takes (b)'s steps, then (e)'s, (f)'s and (g)'s;
+    no other process holds the card meanwhile but (c)'s).
 
     (b): the 2x2 flagship's first step against the one-rank step of (a):
     its counts, kernels and the undecomposed Newton test on the gathered
-    state; the largest gap per component printed.
+    state; the largest gap per component printed; then the full-width runs
+    of ``wide`` (:func:`decomp_wide_steps`), each by :func:`_wide_report`.
 
-    (e) and (f): :func:`decomp_options_check` and :func:`decomp_family_check`
-    against the CPU's runs in ``refs``."""
+    (e), (f) and (g): :func:`decomp_options_check` and
+    :func:`decomp_family_check` against the CPU's runs in ``refs``."""
     from thermalporous_torch.dist.launch import run_ranks
 
+    light = [{k: run[k] for k in ("pc_kw", "dt", "level_factors")} for run in wide]
     outs, _ = run_ranks(_decomp_ranks, DECOMP_RANKS, one["level_factors"],
-                        decomp_option_factors(), backend="gloo", device="cuda:0")
+                        decomp_option_factors(), light, backend="gloo", device="cuda:0")
     print("  (b) the flagship split 2x2", flush=True)
     outs_b = [o[0] for o in outs]
     _ranks_report("(b)", outs_b, (one["newton"], one["fgmres"]), DECOMP_KERNELS)
@@ -3953,6 +4273,7 @@ def decomp_four_ranks(dev, one: dict, refs: dict) -> tuple:
           f"step: p {gaps[0]:.6e} Pa, T {gaps[1]:.6e} K, S {gaps[2]:.6e}", flush=True)
     four = {"ranks": [{k: v for k, v in o.items() if k != "u"} for o in outs_b], "gaps": gaps,
             "newton_norm_one_rank": norm_one, **gate}
+    four["wide"] = [_wide_report(run, [o[3][i] for o in outs]) for i, run in enumerate(wide)]
     n_e = len(DECOMP_OPTIONS)
     print(f"  (e) the options the stage-2 and Krylov slice lifted and tp_spe10_inner's "
           f"configuration over 2x2 ranks, {'x'.join(map(str, FLAGSHIP_SMALL))} f64 against "
@@ -3963,7 +4284,89 @@ def decomp_four_ranks(dev, one: dict, refs: dict) -> tuple:
           f"the CPU", flush=True)
     fam = decomp_options_check([o[1][n_e:] for o in outs], refs, DECOMP_FAMILY, "(f)")
     fam.update(decomp_family_check([o[2] for o in outs], refs["decomp family"]))
-    return four, opt, fam
+    print(f"  (g) every option the decomposition ran last over 2x2 ranks, "
+          f"{'x'.join(map(str, DECOMP_REST_SHAPE))} f64 (owned origins odd) against the CPU",
+          flush=True)
+    rest = decomp_options_check([o[4] for o in outs], refs, [(o[0], o[5]) for o in DECOMP_REST],
+                                "(g)", checks={o[0]: o[6] for o in DECOMP_REST},
+                                case_of=_decomp_rest_case, key="decomp rest")
+    return four, opt, fam, rest
+
+
+def _decomp_rest_case(label: str, device, mesh=None):
+    """The (case, CPRConfig, NewtonConfig) of DECOMP_REST entry ``label`` at
+    DECOMP_REST_SHAPE in f64 on ``device`` (the GMG configurations naming
+    ``mesh``)."""
+    from thermalporous_torch.presets import get_case
+
+    _, _, pc_kw, gmg_kw, newton_kw, _, _ = next(o for o in DECOMP_REST if o[0] == label)
+    case = get_case("tp_spe10_full", device=device, dtype=torch.float64, shape=DECOMP_REST_SHAPE)
+    pc = option_config(with_fuse(case.pc_cfg, **SMALL_GMG), pc_kw,
+                       dict(gmg_kw, mesh=mesh, replicate_below=DECOMP_REST_REPLICATE,
+                            level_factors=DECOMP_REST_FACTORS))
+    return case, pc, dataclasses.replace(case.newton_cfg, **newton_kw)
+
+
+def _decomp_rest_run(label: str, device, mesh=None) -> dict:
+    """DECOMP_REST entry ``label``'s run on ``device`` (decomposed over
+    ``mesh`` when given): one step of DECOMP_DT, or for the audit two
+    steps of it with a ``BalanceAuditor``; (Newton, FGMRES, converged,
+    final norm, the state as held, the audit's totals and report)."""
+    from thermalporous_torch.dist.sharding import shard_problem_data, shard_state
+    from thermalporous_torch.io.balance import BalanceAuditor
+    from thermalporous_torch.solve import Simulator
+
+    precond, gate = next((o[1], o[5]) for o in DECOMP_REST if o[0] == label)
+    case, pc, newton = _decomp_rest_case(label, device, mesh)
+    data, u0 = case.data, case.model.initial_state(case.data)
+    if mesh is not None:
+        data, u0 = shard_problem_data(data, mesh), shard_state(u0, mesh)
+    tc = dataclasses.replace(case.time_cfg, dt_init=DECOMP_DT, dt_max=DECOMP_DT)
+    sim = Simulator(case.model, data, precond=precond, pc_cfg=pc, newton_cfg=newton,
+                    time_cfg=tc, device=device)
+    if gate != "audit":
+        u, st = sim.step(u0, DECOMP_DT)
+        return {"newton": st.iters, "fgmres": st.ksp_iters, "converged": st.converged,
+                "norm": st.norm, "u": u}
+    aud = BalanceAuditor(sim.model, data, u0)
+    res = sim.run(2 * DECOMP_DT, u0=u0, callback=aud)
+    audit = {k: getattr(aud, k) for k in ("m0", "m_last", "cum", "cum_abs", "steps")}
+    return {"newton": res.total_newton, "fgmres": res.total_ksp,
+            "converged": res.steps == 2 and all(r.retries == 0 for r in res.records),
+            "norm": res.records[-1].residual_norm, "u": res.u,
+            "audit": dict(audit, report=aud.report())}
+
+
+def _decomp_rest_rank(mesh) -> list:
+    """Phase 15 (g), one rank: each DECOMP_REST run on the 2x2 mesh, its
+    counts, launches (their bf16 and batched variants too), collectives
+    and wall, and (rank 0) the gathered state."""
+    from thermalporous_torch.dist.sharding import gather_state
+    from thermalporous_torch.kernels import launch_counts, reset_launch_counts, variant_counts
+
+    out = []
+    for label, *_ in DECOMP_REST:
+        mesh.barrier()
+        reset_launch_counts()
+        mesh.reset_stats()
+        t = time.perf_counter()
+        run = _decomp_rest_run(label, mesh.device, mesh)
+        torch.cuda.synchronize()
+        rec = dict(run, rank=mesh.rank, wall_s=time.perf_counter() - t,
+                   launches=launch_counts(), variants=variant_counts(),
+                   by_columns={}, stats=dict(mesh.stats), bgmg_levels=None)
+        whole = gather_state(run["u"], mesh)
+        rec["u"] = whole.cpu().numpy() if mesh.rank == 0 else None
+        out.append(rec)
+    return out
+
+
+def _decomp_rest_cpu(label: str) -> dict:
+    """Phase 15 (g), a task of the references' pool: the undecomposed CPU
+    run of DECOMP_REST entry ``label``."""
+    torch.set_num_threads(2)
+    run = _decomp_rest_run(label, "cpu")
+    return dict(run, u=run["u"].numpy())
 
 
 def _decomp_option_case(label: str | None, device, mesh=None, factors=None,
@@ -4049,29 +4452,51 @@ def _decomp_option_cpu(label: str) -> dict:
             "u": u.numpy()}
 
 
-def decomp_options_check(outs: list, refs: dict, options: tuple, tag: str) -> dict:
-    """Phase 15 (e) or (f): every entry of ``options`` run on the four ranks
-    (``outs``, per rank a list in the options' order) against the CPU's
-    undecomposed step (from ``refs``): each rank's (Newton, FGMRES,
-    converged) equal to the CPU's, the gathered state within
-    DECOMP_OPTION_P_PA and DECOMP_OPTION_S of it (or, gate "newton", under
-    the undecomposed Newton test), bgmg with its finest level decomposed
-    and B5 at k = 0 and the half-sweep launched on every rank,
-    tp_spe10_inner's B1 at nc = 2 and B5 at k = 3, DECOMP_FAMILY_CHECKS'
-    launches, the fused subtree on none.  Prints a line per option; fails
-    after the last if any failed."""
+def decomp_options_check(outs: list, refs: dict, options: tuple, tag: str,
+                         checks: dict = DECOMP_FAMILY_CHECKS, case_of=None,
+                         key: str = "decomp") -> dict:
+    """Phase 15 (e), (f) or (g): every entry of ``options`` (label first,
+    gate last) run on the four ranks (``outs``, per rank a list in the
+    options' order) against the CPU's undecomposed run (``refs[(key,
+    label)]``): each rank's (Newton, FGMRES, converged) equal to the CPU's,
+    the gathered state within DECOMP_OPTION_P_PA and DECOMP_OPTION_S of it
+    (gates "bands" and "audit"; "newton": under the undecomposed Newton
+    test of ``case_of(label, "cpu")``'s case), an audit's totals and rows
+    within DECOMP_AUDIT_RTOL of the CPU's and every rank's report the
+    same, bgmg with its finest level decomposed and B5 at k = 0 and the
+    half-sweep launched on every rank, tp_spe10_inner's B1 at nc = 2 and
+    B5 at k = 3, ``checks``' launches, the fused subtree on none.  Prints
+    a line per option; fails after the last if any failed."""
+    case_of = case_of or _decomp_option_case
+    count = lambda r, name, kind: (r["variants"].get(name, 0) if kind == "variant"
+                                   else r["stats"]["carries"] if kind == "carries"
+                                   else r["launches"][name])
     summary, bad = {}, []
     for i, (label, *_, gate) in enumerate(options):
-        ranks, ref = [o[i] for o in outs], refs[("decomp", label)].get(timeout=1200)
+        ranks, ref = [o[i] for o in outs], refs[(key, label)].get(timeout=1200)
         gaps = _gaps(ranks[0]["u"], ref["u"])
         want_counts = (ref["newton"], ref["fgmres"], ref["converged"])
         fails = [f"rank {r['rank']} {(r['newton'], r['fgmres'], r['converged'])}"
                  for r in ranks if (r["newton"], r["fgmres"], r["converged"]) != want_counts]
         extra = ""
-        if gate == "bands" and not (gaps[0] <= DECOMP_OPTION_P_PA and gaps[2] <= DECOMP_OPTION_S):
+        if gate in ("bands", "audit") and not (gaps[0] <= DECOMP_OPTION_P_PA
+                                               and gaps[2] <= DECOMP_OPTION_S):
             fails.append(f"gaps {gaps}")
+        if gate == "audit":
+            a, b = ranks[0]["audit"], ref["audit"]
+            scale = np.abs(np.asarray(b["m0"]))
+            gap = max(float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k])) / scale))
+                      for k in ("m0", "m_last", "cum", "cum_abs"))
+            rows = max(abs(a["report"]["rows"][lab][k] - r[k]) / scale[j]
+                       for j, (lab, r) in enumerate(b["report"]["rows"].items())
+                       for k in ("delta_in_place", "cum_source", "abs_error"))
+            extra = f"; audit gaps: totals {gap:.2e}, rows {rows:.2e} of each in-place total"
+            if max(gap, rows) > DECOMP_AUDIT_RTOL or a["steps"] != b["steps"]:
+                fails.append(f"audit {gap:.2e} {rows:.2e}")
+            fails += [f"rank {r['rank']} audit report" for r in ranks[1:]
+                      if r["audit"]["report"] != a["report"]]
         if gate == "newton":
-            case, _, ncfg = _decomp_option_case(label, "cpu")
+            case, _, ncfg = case_of(label, "cpu")
             u0 = case.model.initial_state(case.data)
             norm0 = _newton_norm(case, u0, u0)
             tol = max(ncfg.rtol * norm0, ncfg.atol, 50.0 * float(torch.finfo(u0.dtype).eps))
@@ -4090,9 +4515,9 @@ def decomp_options_check(outs: list, refs: dict, options: tuple, tag: str) -> di
         if label == "tp_spe10_inner":
             fails += [f"rank {r['rank']} launched no {k}" for r in ranks
                       for k in DECOMP_INNER_COLUMNS if r["by_columns"].get(k, 0) <= 0]
-        for key, kind in DECOMP_FAMILY_CHECKS.get(label, ()):
-            fails += [f"rank {r['rank']} {key} {r['launches'][key]}" for r in ranks
-                      if (r["launches"][key] == 0) != (kind == "none")]
+        for name, kind in checks.get(label, ()):
+            fails += [f"rank {r['rank']} {name} {count(r, name, kind)}" for r in ranks
+                      if (count(r, name, kind) == 0) != (kind == "none")]
         fails += [f"rank {r['rank']} launched {k}" for r in ranks for k in DECOMP_REFUSED
                   if r["launches"][k] != 0]
         r0, n = ranks[0], max(ranks[0]["newton"], 1)
@@ -4100,13 +4525,16 @@ def decomp_options_check(outs: list, refs: dict, options: tuple, tag: str) -> di
               f"{'==' if not fails else '!='} on every rank; gaps p {gaps[0]:.3e} Pa, "
               f"T {gaps[1]:.3e} K, S {gaps[2]:.3e}; rank 0 per Newton "
               f"{r0['stats']['exchanges'] / n:.1f} exchanges, "
+              f"{r0['stats']['carries'] / n:.1f} pipeline carries, "
               f"{r0['stats']['allreduces'] / n:.1f} all-reduces, wall {r0['wall_s']:.2f} s; "
               f"launches {r0['launches']}; by columns {r0['by_columns']}"
+              + (f"; variants {r0['variants']}" if r0.get("variants") else "")
               + (f"; bgmg decomposed levels {r0['bgmg_levels']}" if r0["bgmg_levels"] is not None
                  else "") + extra + (f"; FAILED: {fails}" if fails else ""), flush=True)
         bad += [label] * bool(fails)
         summary[label] = {"cpu": want_counts, "gaps": gaps, "gate": gate,
-                          "ranks": [{k: v for k, v in r.items() if k != "u"} for r in ranks]}
+                          "ranks": [{k: v for k, v in r.items() if k not in ("u", "audit")}
+                                    for r in ranks]}
     if bad:
         raise SystemExit(f"phase 15{tag}: {bad} differ from the CPU")
     return {"options": summary}
@@ -4346,8 +4774,8 @@ def cpu_refs_later(refs: dict, want) -> None:
     the references' pool ``refs`` in the order the phases need them: phase
     10(c)'s options (or those phases 12 and 13 run themselves when 10 does
     not), 11(b) and (c)'s runs, 13(d)'s small adjoint, 14(b)'s ensemble
-    adjoint, (c)'s and (d)'s drivers and the custom case, 15(e)'s
-    options."""
+    adjoint, (c)'s and (d)'s drivers and the custom case, 15(e), (f) and
+    (g)'s runs."""
     def put(key, fn, *args):
         refs[key] = refs["pool"].apply_async(fn, args)
 
@@ -4370,6 +4798,8 @@ def cpu_refs_later(refs: dict, want) -> None:
         for o in DECOMP_OPTIONS + DECOMP_FAMILY:
             put(("decomp", o[0]), _decomp_option_cpu, o[0])
         put("decomp family", _decomp_family_cpu)
+        for o in DECOMP_REST:
+            put(("decomp rest", o[0]), _decomp_rest_cpu, o[0])
 
 
 def main() -> int:
@@ -4770,15 +5200,20 @@ def main() -> int:
         try:
             print("  (a) the decomposed path's kernels on an odd-origin block", flush=True)
             blk15 = decomp_kernel_blocks(dev)
+            print("  (a) their bf16 and batched forms on the odd-origin block", flush=True)
+            var15 = decomp_variant_blocks(dev)
             print("  (a) the flagship's first step on a one-rank NCCL mesh", flush=True)
             one15 = decomp_one_rank(dev)
             torch.cuda.empty_cache()
+            print("  (b) the undecomposed card steps of the full-width 2x2 runs", flush=True)
+            wide15 = decomp_wide_steps(dev)
             t_a = time.perf_counter() - t0
-            print(f"  (b), (e) and (f) over {DECOMP_RANKS} gloo ranks sharing cuda:0, one spawn: "
-                  f"the flagship, then the lifted options, the adjoint and the ensemble, "
-                  f"split 2x2", flush=True)
-            four15, opt15, fam15 = decomp_four_ranks(dev, one15, refs)
-            del one15["case"], one15["u0"]
+            print(f"  (b), (e), (f) and (g) over {DECOMP_RANKS} gloo ranks sharing cuda:0, one "
+                  f"spawn: the flagship and its bf16 and batch_pt/zebra runs, then the lifted "
+                  f"options, the adjoint, the ensemble and every option lifted last, split 2x2",
+                  flush=True)
+            four15, opt15, fam15, rest15 = decomp_four_ranks(dev, one15, refs, wide15)
+            del one15["case"], one15["u0"], wide15
             torch.cuda.empty_cache()
             t_bd = time.perf_counter() - t0 - t_a
             print(f"  (c) dryrun_multichip({DECOMP_RANKS}, device=\"cuda\", backend=\"gloo\"), "
@@ -4789,10 +5224,10 @@ def main() -> int:
                 dry_proc.kill()
                 dry_proc.wait()
         t_c = time.perf_counter() - t0 - t_a - t_bd
-        p15 = {"kernel_blocks": blk15,
+        p15 = {"kernel_blocks": blk15, "variant_blocks": var15,
                "one_rank": {k: v for k, v in one15.items() if k != "u"},
                "four_ranks": four15, "dryrun": dry15, "options": opt15, "family": fam15,
-               "a_s": t_a, "b_e_f_s": t_bd, "c_s": t_c}
+               "rest": rest15, "a_s": t_a, "b_e_f_g_s": t_bd, "c_s": t_c}
         r0 = four15["ranks"][0]
         jv = blk15["fused_jvp"]
         phase("15 grid decomposition", t0,
@@ -4805,9 +5240,13 @@ def main() -> int:
               f"{r0['wall_s']:.3f} s; dry run "
               f"{dry15['run']['steps']} steps, newton {dry15['run']['newton']}, ksp "
               f"{dry15['run']['ksp']} == undecomposed, resume bitwise; (e) "
-              f"{len(opt15['options'])} runs and (f) {len(fam15['options'])} runs 2x2 f64 == CPU, "
+              f"{len(opt15['options'])} runs, (f) {len(fam15['options'])} runs and (g) "
+              f"{len(rest15['options'])} runs 2x2 f64 == CPU, "
               f"(f) adjoint gaps {max(fam15['adjoint_gaps']):.1e}, ensemble adjoint gaps "
-              f"{max(fam15['ensemble_gaps']):.1e} ((a) {t_a:.1f} s, (b), (e) and (f) "
+              f"{max(fam15['ensemble_gaps']):.1e}; full width 2x2 "
+              + ", ".join(f"{w['label']} ({w['ranks'][0]['newton']}, {w['ranks'][0]['fgmres']})"
+                          for w in four15["wide"])
+              + f" under the Newton test ((a) {t_a:.1f} s, (b), (e), (f) and (g) "
               f"{t_bd:.1f} s, (c) {t_c:.1f} s more)")
 
     if refs is not None:
@@ -4952,9 +5391,37 @@ def main() -> int:
     # run), and the CPTR kernels on the transposed decomposed hierarchy of
     # (f)'s adjoint (phase 2's flagship records; launches on rank 0 in the
     # sweep alone)
-    jv = dict(p15["kernel_blocks"]["fused_jvp"]["f32"], library_ms=None)
+    jv = p15["kernel_blocks"]["fused_jvp"]["f32"]
     inner.append(("fused_jvp (2x2 krylov_op=jvp, rank 0)", "fused_jvp", jv,
                   p15["family"]["options"]["krylov_op=jvp"]["ranks"][0]["launches"]["fused_jvp"]))
+    # phase 15, PR 15: the bf16 and batched forms on the decomposed path
+    # (15(a)'s f32 rows on the odd-origin extended block; the bf16
+    # half-sweep phase 12's flagship row), launches on rank 0 of the
+    # full-width 2x2 runs of (b) and of (g)'s runs at 14x14x9 f64
+    vb = p15["variant_blocks"]["f32"]
+    vrow = lambda prefix: next(r for c, r in vb.items() if c.startswith(prefix))
+    wide_r0 = {w["label"]: w["ranks"][0]["variants"] for w in p15["four_ranks"]["wide"]}
+    rest_r0 = {lab: o["ranks"][0]["variants"] for lab, o in p15["rest"]["options"].items()}
+    bf_w, bat_w = wide_r0[DECOMP_WIDE[0][0]], wide_r0[DECOMP_WIDE[1][0]]
+    bf_g, bat_g = rest_r0["pc_dtype=bf16 stage2_sweeps=2"], rest_r0["batch_pt"]
+    for label, k, r, var in (
+            ("block_matvec nc=3 k=2 (bf16 coefficients", "block_matvec",
+             vrow("block_matvec nc=3 k=2 bf16"), "block_matvec bf16"),
+            ("matvec T<-p (bf16 coefficients", "matvec", vrow("matvec T<-p bf16"), "matvec bf16"),
+            ("chebyshev_smooth (bf16 coefficients", "chebyshev_smooth",
+             vrow("chebyshev+residual fine bf16"), "chebyshev_smooth bf16"),
+            ("fused_stage2_rbgs k=2 (bf16 coefficients, odd parity", "fused_stage2_rbgs",
+             vrow("fused_stage2_rbgs k=2 bf16"), "fused_stage2_rbgs bf16"),
+            ("block_rbgs_half_sweep (bf16 coefficients", "block_rbgs_half_sweep",
+             row(f"block_rbgs_half_sweep red bf16 coefficients {gs}"),
+             "block_rbgs_half_sweep bf16")):
+        inner += [(f"{label}, 2x2 full width, rank 0)", k, r, bf_w.get(var, 0)),
+                  (f"{label}, 2x2 14x14x9, rank 0)", k, r, bf_g.get(var, 0))]
+    batched = vrow("chebyshev batch_pt")
+    inner += [("chebyshev_smooth (batch_pt, 2x2 full width, rank 0)", "chebyshev_smooth", batched,
+               bat_w.get("chebyshev_smooth batched", 0)),
+              ("chebyshev_smooth (batch_pt, 2x2 14x14x9, rank 0)", "chebyshev_smooth", batched,
+               bat_g.get("chebyshev_smooth batched", 0))]
     adj_l = p15["family"]["adjoint"]["launches"]
     for k in ("matvec", "chebyshev_smooth", "fused_stage2_rbgs"):
         inner.append((f"{k} (2x2 adjoint, transposed hierarchy, rank 0)", k, krec[k], adj_l[k]))

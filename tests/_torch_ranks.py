@@ -122,7 +122,8 @@ def halo_and_kernels_rank(mesh, arrays: dict, cases) -> int:
     return parity
 
 
-def step_rank(mesh, model, data, newton_cfg, pc_cfg, dt: float, coarsest: bool = False):
+def step_rank(mesh, model, data, newton_cfg, pc_cfg, dt: float, coarsest: bool = False,
+              precond: str = "cptr"):
     """One decomposed ``Simulator.step`` from the initial state: (Newton,
     FGMRES, converged, the gathered state, the corner wells' rates[, the
     decomposed level count and the coarsest diagonal of the pressure
@@ -130,7 +131,7 @@ def step_rank(mesh, model, data, newton_cfg, pc_cfg, dt: float, coarsest: bool =
     if callable(pc_cfg):
         pc_cfg = pc_cfg(mesh)
     data_s = shard_problem_data(data, mesh)
-    sim = Simulator(model, data_s, precond="cptr", pc_cfg=pc_cfg, newton_cfg=newton_cfg,
+    sim = Simulator(model, data_s, precond=precond, pc_cfg=pc_cfg, newton_cfg=newton_cfg,
                     device="cpu")
     u0 = shard_state(model.initial_state(data), mesh)
     u, st = sim.step(u0, dt)
@@ -365,4 +366,63 @@ def family_rank(mesh, steps, applies, transposes, adjoints, ensembles, folds) ->
     out["adjoints"] = [adjoint_rank(mesh, **j) for j in adjoints]
     out["ensembles"] = [ensemble_rank(mesh, **j) for j in ensembles]
     out["folds"] = [fold_rank(mesh, **j) for j in folds]
+    return out
+
+
+# ------------------------------------------------------------------------
+# the line solves along x and y, the sparsified and bf16 stage 2, batch_pt,
+# every smoother and preconditioner and the audit over ranks
+# (tests/test_torch_sharding_rest.py)
+
+def thomas_rank(mesh, shape, axis: int, scalar, block) -> dict:
+    """The pipelined line solves along ``axis`` on this rank's block of
+    ``shape`` (``scalar``: lower, diag, upper, b of the scalar Thomas;
+    ``block``: those of the block one, (nc, nc, *grid) and (nc, *grid)),
+    gathered whole: {"scalar", "block"}."""
+    from thermalporous_torch.precond.chebyshev import (
+        block_tridiag_factor,
+        block_tridiag_solve_factored,
+        tridiag_solve_along,
+    )
+
+    blk = Block.of(mesh, shape)
+    cut = lambda t, lead: blk.cut(torch.as_tensor(t), lead=lead, ghosts=False)
+    lo, d, up, b = (cut(t, 0) for t in scalar)
+    x = tridiag_solve_along(axis, lo, d, up, b, block=blk)
+    blo, bd, bup, bb = (cut(t, lead) for t, lead in zip(block, (2, 2, 2, 1)))
+    fac = block_tridiag_factor(axis, blo, bd, bup, block=blk)
+    xb = block_tridiag_solve_factored(axis, fac, bb, block=blk)
+    return {"scalar": blk.gather(x, lead=0).numpy(), "block": blk.gather(xb, lead=1).numpy(),
+            "carries": mesh.stats["carries"]}
+
+
+def audit_rank(mesh, model, data, newton_cfg, dt: float, steps: int) -> dict:
+    """A decomposed ``Simulator.run`` of ``steps`` steps of ``dt`` with a
+    ``BalanceAuditor`` as its callback: the auditor's totals and report,
+    the steps' (Δt, Newton, FGMRES) and the gathered final state."""
+    from thermalporous_torch.io.balance import BalanceAuditor
+    from thermalporous_torch.solve.timeloop import TimeConfig
+
+    data_s = shard_problem_data(data, mesh)
+    sim = Simulator(model, data_s, newton_cfg=newton_cfg,
+                    time_cfg=TimeConfig(dt_init=dt, dt_max=dt), device="cpu")
+    u0 = shard_state(model.initial_state(data), mesh)
+    aud = BalanceAuditor(sim.model, data_s, u0)
+    res = sim.run(dt * steps, u0=u0, callback=aud)
+    out = {k: getattr(aud, k) for k in ("m0", "m_last", "cum", "cum_abs", "steps", "skipped")}
+    out.update(report=aud.report(), u=gather_state(res.u, mesh).numpy(),
+               records=[(r.dt, r.newton_iters, r.ksp_iters) for r in res.records])
+    return out
+
+
+def rest_rank(mesh, thomas, steps, applies, audit) -> dict:
+    """Every multi-rank job of the remaining options' checks, in one spawn:
+    :func:`thomas_rank`'s solves, :func:`options_rank`'s steps (with their
+    collectives) and applies, and :func:`audit_rank`'s run."""
+    out = {"thomas": []}
+    for job in thomas:
+        mesh.reset_stats()
+        out["thomas"].append(thomas_rank(mesh, **job))
+    out.update(options_rank(mesh, steps, applies))
+    out["audit"] = audit_rank(mesh, **audit)
     return out

@@ -15,14 +15,10 @@ the CPU (a 2×2 mesh).
   counts.  Every rank holds the same counts, state and well records, the
   records those of the gathered state.  One spawn runs the ranks' steps
   while this process computes the references.
-- Every option the decomposition does not run raises
-  ``NotDecomposedError`` under a mesh (a line solve along a decomposed
-  axis naming it); every option it runs since the stage-2 and Krylov
-  options, then the adjoint, the transfers, ``krylov_op="jvp"`` and the
-  ensemble over ranks were lifted is, on a one-rank mesh, the undecomposed
-  step (or sweep) bit for bit (their 2×2 checks are
-  ``test_torch_sharding_options.py`` and
-  ``test_torch_sharding_adjoint.py``).
+- Every option, preconditioner and path the decomposition runs is, on a
+  one-rank mesh, the undecomposed step (or sweep, or audit) bit for bit
+  (their 2×2 checks are ``test_torch_sharding_options.py``,
+  ``test_torch_sharding_adjoint.py`` and ``test_torch_sharding_rest.py``).
 """
 
 import dataclasses
@@ -38,7 +34,6 @@ from thermalporous_torch.dist import ensemble as tens
 from thermalporous_torch.dist.launch import run_ranks
 from thermalporous_torch.dist.sharding import (
     Block,
-    NotDecomposedError,
     gather_state,
     make_grid_mesh,
     mesh_shape,
@@ -174,16 +169,6 @@ def test_decomposed_steps_match_the_references():
     assert all(np.array_equal(o[1][6], coarse) for o in outs[1:])
 
 
-_REFUSED = [
-    ("pc", dict(stage2="zebra")), ("pc", dict(s_stage="line")),
-    ("pc", dict(stage2="rbgs", stage2_axes=(0,))),
-    ("pc", dict(stage2="rbgs", stage2_fused=True)),
-    ("pc", dict(batch_pt=True, triangular=False)), ("pc", dict(pc_dtype="bf16")),
-    ("gmg", dict(smoother="rbgs")), ("gmg", dict(cycles=2)),
-    ("precond", "jacobi"),
-]
-
-
 @pytest.fixture(scope="module")
 def one_rank_case():
     jm, jd = _case(TwoPhaseModel, n=8)
@@ -192,38 +177,11 @@ def one_rank_case():
     return model, data, mesh, shard_problem_data(data, mesh)
 
 
-@pytest.mark.parametrize("kind,option", _REFUSED,
-                         ids=[f"{k}-{o}" for k, o in _REFUSED])
-def test_refused_options_raise_under_a_mesh(one_rank_case, kind, option):
-    model, data, mesh, data_s = one_rank_case
-    kw = dict(device="cpu")
-    if kind == "newton":
-        kw["newton_cfg"] = TNewtonConfig(**option)
-    elif kind == "pc":
-        kw["pc_cfg"] = CPRConfig(**option)
-    elif kind == "gmg":
-        kw["pc_cfg"] = CPRConfig(gmg=GMGConfig(**option))
-    else:
-        kw["precond"] = option
-    with pytest.raises(NotDecomposedError):
-        TSimulator(model, data_s, **kw)
-    TSimulator(model, data, **kw)     # undecomposed, the option runs
-
-
-#: a line solve along x or y (every axis of a 2D grid) is refused by name
-_LINE_ALONG_XY = [dict(stage2="zebra"), dict(stage2="zebra", stage2_axis=0),
-                  dict(s_stage="line"), dict(s_stage="zebra", s_axis=1)]
-
-
-@pytest.mark.parametrize("option", _LINE_ALONG_XY, ids=[str(o) for o in _LINE_ALONG_XY])
-def test_line_solves_along_a_decomposed_axis_are_refused_by_name(one_rank_case, option):
-    model, data, mesh, data_s = one_rank_case
-    with pytest.raises(NotDecomposedError, match=r"along axis [01] \(x or y: decomposed"):
-        TSimulator(model, data_s, pc_cfg=CPRConfig(**option), device="cpu")
-
-
 #: the options the stage-2 and Krylov slice lifted, then the adjoint and
-#: transfer slice (the refused list's ids before them)
+#: transfer slice, then the rest: the line solves along x and y, the
+#: sparsified stage 2, batch_pt and bf16 storage ("pc+levels": with the
+#: finest level of each hierarchy decomposed), every smoother and cycle
+#: count, and every preconditioner
 _LIFTED = [
     ("newton", dict(ksp_orth="cgs1")), ("newton", dict(ksp_orth="cgs2s")),
     ("newton", dict(ksp_recycle=2)), ("pc", dict(s_stage="rbgs")),
@@ -231,6 +189,18 @@ _LIFTED = [
     ("pc", dict(stage2="rbgs", stage2_sweeps=2)), ("pc", dict(stage2="jacobi2")),
     ("newton", dict(krylov_op="jvp")),
     ("gmg", dict(transfer="weighted")), ("gmg", dict(transfer="variational")),
+    ("pc", dict(stage2="zebra")), ("pc", dict(stage2="zebra", stage2_axis=0)),
+    ("pc", dict(s_stage="line")), ("pc", dict(s_stage="zebra", s_axis=1)),
+    ("pc", dict(stage2="rbgs", stage2_axes=(0,))),
+    ("pc", dict(stage2="rbgs", stage2_fused=True)),
+    ("pc", dict(stage2="rbgs", stage2_fused=True, stage2_axes=(1,), stage2_sweeps=2)),
+    ("pc+levels", dict(batch_pt=True, triangular=False)),
+    ("pc+levels", dict(pc_dtype="bf16")), ("pc+levels", dict(pc_dtype="bf16_gmg")),
+    ("pc+levels", dict(pc_dtype="bf16_s2", stage2="rbgs", stage2_sweeps=2)),
+    ("gmg", dict(smoother="rbgs")), ("gmg", dict(smoother="jacobi")),
+    ("gmg", dict(smoother="line")), ("gmg", dict(smoother="zebra", line_axis=0)),
+    ("gmg", dict(cycles=2)),
+    ("precond", "none"), ("precond", "jacobi"), ("precond", "rbgs"), ("precond", "lu"),
 ]
 
 
@@ -247,6 +217,15 @@ def test_lifted_options_one_rank_mesh_is_undecomposed(one_rank_case, kind, optio
         # the finest level decomposed, its transfer set up on the block
         kw["pc_cfg"] = CPRConfig(gmg=GMGConfig(**option, max_coarse_cells=16,
                                                replicate_below=32))
+    elif kind == "pc+levels":
+        kw["pc_cfg"] = CPRConfig(**option, gmg=GMGConfig(max_coarse_cells=16,
+                                                         replicate_below=32))
+    elif kind == "precond":
+        kw["precond"] = option
+        if option == "none":
+            # unpreconditioned, the default Krylov tolerance leaves Newton's
+            # line search short of convergence (undecomposed too)
+            kw["newton_cfg"] = TNewtonConfig(ksp_rtol=1e-8)
     else:
         if option.get("stage2") == "bgmg":
             option = dict(option, bgmg_coarse_cells=16, gmg=GMGConfig(replicate_below=32))
@@ -256,18 +235,6 @@ def test_lifted_options_one_rank_mesh_is_undecomposed(one_rank_case, kind, optio
     got, st = TSimulator(model, data_s, **kw).step(shard_state(u0, mesh), DT)
     assert st.converged and (st.iters, st.ksp_iters) == (st_ref.iters, st_ref.ksp_iters)
     assert torch.equal(gather_state(got, mesh), ref)
-
-
-def test_refused_paths_raise_under_a_mesh(one_rank_case):
-    """The balance audit, and the adjoint with a preconditioner other than
-    CPR/CPTR."""
-    model, data, mesh, data_s = one_rank_case
-    u0 = shard_state(model.initial_state(data), mesh)
-    with pytest.raises(NotDecomposedError):
-        BalanceAuditor(model, data_s, u0)
-    with pytest.raises(NotDecomposedError):
-        adjoint_gradients(model, data_s, [u0, u0], [600.0], terminal=lambda u, d: u.sum(),
-                          precond="jacobi")
 
 
 def test_lifted_paths_one_rank_mesh_is_undecomposed(one_rank_case):
@@ -291,6 +258,30 @@ def test_lifted_paths_one_rank_mesh_is_undecomposed(one_rank_case):
     assert stacked.member(1).block is data_s.block
     placed = tens.shard_ensemble(u0[None], mesh)
     assert torch.equal(placed, u0[None])
+
+
+def test_jacobi_adjoint_and_audit_one_rank_mesh_are_undecomposed(one_rank_case):
+    """The adjoint under ``precond="jacobi"`` and the balance audit over a
+    step, on the one-rank fixture's mesh: the undecomposed sweep's
+    gradients and counts, and the undecomposed auditor's report, bit for
+    bit."""
+    model, data, mesh, data_s = one_rank_case
+    u0 = model.initial_state(data)
+    u1, _ = TSimulator(model, data, device="cpu").step(u0, DT)
+    obj = dict(terminal=lambda u, d: torch.mean(u[1, :3, :4]), precond="jacobi")
+    ref = adjoint_gradients(model, data, [u0, u1], [DT], **obj)
+    u0_s, u1_s = shard_state(u0, mesh), shard_state(u1, mesh)
+    got = adjoint_gradients(model, data_s, [u0_s, u1_s], [DT], **obj)
+    assert got.step_iters == ref.step_iters
+    assert torch.equal(got.grad_data.fields, ref.grad_data.fields)
+    assert torch.equal(got.grad_u0, ref.grad_u0)
+    rec = type("Rec", (), dict(dt=DT))()
+    reports = []
+    for d, a, b in ((data, u0, u1), (data_s, u0_s, u1_s)):
+        aud = BalanceAuditor(model, d, a)
+        aud(1, DT, b, rec)
+        reports.append(aud.report())
+    assert reports[0] == reports[1] and reports[0]["steps"] == 1
 
 
 def test_reference_mesh_has_eight_devices():

@@ -73,6 +73,11 @@ class BlockStencil:
     def lower(self) -> tuple[torch.Tensor, ...]:
         return tuple(self.coef[2 + 2 * a] for a in range(self.dim))
 
+    def line_parity(self, axis: int) -> int:
+        """The zebra colour offset of lines along ``axis``: the index sum of
+        the grid's origin over the other axes, mod 2 (a whole grid's is 0)."""
+        return 0
+
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """A·v for a state-shaped ``v`` (nc, *grid)."""
         return kst.block_matvec(self.coef, v, self.nc)
@@ -192,6 +197,8 @@ class ScalarStencil:
     @property
     def lower(self) -> tuple[torch.Tensor, ...]:
         return tuple(self.packed[2 + 2 * a] for a in range(self.dim))
+
+    line_parity = BlockStencil.line_parity
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         return kst.matvec(self.packed, v)

@@ -10,7 +10,6 @@ from thermalporous_torch.dist.ensemble import (
     stack_ensemble,
 )
 from thermalporous_torch.dist.sharding import (
-    NotDecomposedError,
     field_spec,
     gather_state,
     make_grid_mesh,
@@ -21,5 +20,5 @@ from thermalporous_torch.dist.sharding import (
 )
 
 __all__ = ["make_grid_mesh", "state_spec", "field_spec", "shard_state",
-           "shard_problem_data", "replicated", "gather_state", "NotDecomposedError",
+           "shard_problem_data", "replicated", "gather_state",
            "make_ensemble_step_fn", "shard_ensemble", "stack_ensemble", "gather_ensemble"]

@@ -17,6 +17,10 @@ stage 2 two, a degree-d Chebyshev smooth with its second output d + 1.
 applied to owned vectors; :meth:`HaloStencil.transpose` is the adjoint's
 operator, and the multigrid levels of the weighted and variational transfers
 (``precond/transfer.py``'s wide and box stencils) are held the same way.
+The smoothers that read a stencil's rows (pointwise, red-black, sparsified,
+line) run on a HaloStencil in the whole grid's colours, their line solves
+along x or y a pipeline through the ranks (:meth:`Block.pipeline`), which
+needs no ring.
 
 The extended-block residual of the decomposed step and adjoint fills no
 ghost: its ring stops at the grid's boundary (:meth:`Block.ghosts`), so the
@@ -30,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from thermalporous_torch.core.grid import divergence_add, neighbor_plus
-from thermalporous_torch.core.stencil import map_stencil
+from thermalporous_torch.core.stencil import invert_blocks, map_stencil
 from thermalporous_torch.dist.sharding import Block, GridMesh
 from thermalporous_torch.physics.wells import WELL_FIELDS, WellFields
 
@@ -140,13 +144,16 @@ class HaloStencil:
     (its rows right to the ring's first cells), applied to owned vectors:
     each product extends its vector by one exchange and keeps the owned
     rows.  The decomposed Newton operator, the T←p and S←(p, T) couplings,
-    the inner iterations' (p, T) operator and the stage 2's residuals.
+    the inner iterations' (p, T) operator, the stage 2's residuals and
+    sparsified sweeps, and the smoothers of a decomposed multigrid level
+    other than Chebyshev.
 
     It also reads as a stencil of the owned block (``grid_shape``, ``diag``,
-    ``upper``, ``lower``: the owned rows; ``parity``: the block's colour
-    offset), so that the pointwise and red-black smoothers and the
-    line solves along the local z run on it unchanged, in the whole grid's
-    colours."""
+    ``upper``, ``lower``, :meth:`diag_inverse`: the owned rows; ``parity``
+    and :meth:`line_parity`: the owned origin's colour offsets; ``block``:
+    the line solves along a decomposed axis run as a pipeline through its
+    ranks), so that the pointwise, red-black and line smoothers run on it
+    unchanged, in the whole grid's colours."""
 
     def __init__(self, st, block: Block):
         self.st = st
@@ -160,17 +167,26 @@ class HaloStencil:
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         return self.block.owned(t, lead=t.dim() - self.dim)
 
+    def map(self, fn) -> "HaloStencil":
+        """The stencil of ``fn(coef, lead)`` of the held coefficients (as
+        :func:`~thermalporous_torch.core.stencil.map_stencil`), on the same
+        block: the bf16 cast of ``CPRConfig.pc_dtype``."""
+        return HaloStencil(map_stencil(self.st, fn), self.block)
+
     @property
     def grid_shape(self) -> tuple[int, ...]:
         return self.block.owned_shape
 
+    def line_parity(self, axis: int) -> int:
+        """The owned origin's index sum over the axes other than ``axis``,
+        mod 2: the zebra colour offset of lines along ``axis``."""
+        return sum(self.block.owned_range(a)[0] for a in range(self.dim) if a != axis) % 2
+
     @property
     def parity(self) -> int:
-        # the ring is even, so the owned origin's index sum has the
-        # extended origin's parity
-        if any(self.block.ring(a) % 2 for a in (0, 1)):
-            raise ValueError(f"HaloStencil: a ring {self.block.width} deep is not even")
-        return self.block.parity
+        """The owned origin's index sum, mod 2: the red-black colour offset
+        of the owned block."""
+        return sum(self.block.owned_range(a)[0] for a in range(self.dim)) % 2
 
     @property
     def diag(self) -> torch.Tensor:
@@ -184,11 +200,20 @@ class HaloStencil:
     def lower(self) -> tuple[torch.Tensor, ...]:
         return tuple(self._own(t) for t in self.st.lower)
 
+    def diag_inverse(self) -> torch.Tensor:
+        """The owned rows' inverse diagonal blocks (a block stencil's)."""
+        return invert_blocks(self.diag)
+
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         return self._apply(self.st.matvec, v)
 
     def matvec_cols(self, v: torch.Tensor, k: int) -> torch.Tensor:
         return self._apply(lambda x: self.st.matvec_cols(x, k), v)
+
+    def matvec_offdiag(self, v: torch.Tensor, axes=None) -> torch.Tensor:
+        """The owned rows' neighbour coupling along ``axes`` (a block
+        stencil's ``matvec_offdiag``), ``v`` exchanged once."""
+        return self._apply(lambda x: self.st.matvec_offdiag(x, axes=axes), v)
 
     def transpose(self) -> "HaloStencil":
         """The decomposed Aᵀ (a block stencil's): the held stencil's

@@ -36,7 +36,9 @@ state and the problem data.  :func:`shard_state` and
 puts the owned parts of every rank back together.  :meth:`Block.fold` is
 the adjoint of the exchange (:meth:`Block.extend`): it sends a cotangent
 held on the ring back to the rank that owns those cells and adds it there,
-as the decomposed adjoint needs.
+as the decomposed adjoint needs.  :meth:`Block.pipeline` runs a recurrence
+along a decomposed axis through the ranks in turn, its carry handed from
+each to the next: the Thomas line solves, bit for bit the whole grid's.
 """
 
 from __future__ import annotations
@@ -60,17 +62,6 @@ from thermalporous_torch.physics.wells import WELL_FIELDS, WellFields
 STATE_HALO = 2
 #: largest power of two the owned-range boundaries are rounded to
 SPLIT_MAX_POW = 6
-
-
-class NotDecomposedError(NotImplementedError):
-    """An option that the grid decomposition does not run over ranks."""
-
-
-def refuse_decomposed(data, what: str) -> None:
-    """Raise :class:`NotDecomposedError` for ``what`` when ``data`` is a
-    rank's block of a decomposed grid."""
-    if getattr(data, "block", None) is not None:
-        raise NotDecomposedError(f"{what}: not decomposed over ranks")
 
 
 def mesh_shape(n: int) -> tuple[int, int]:
@@ -110,10 +101,12 @@ class GridMesh:
     rank: int
     backend: str | None
     device: torch.device
-    #: exchanges, all-reduces and all-gathers issued, and the seconds spent in
-    #: exchanges (host-synchronized), since the last :meth:`reset_stats`
+    #: exchanges, all-reduces and all-gathers issued, the line solves'
+    #: pipeline carries sent or received (:meth:`Block.pipeline`), and the
+    #: seconds spent in exchanges and carries (host-synchronized), since
+    #: the last :meth:`reset_stats`
     stats: dict = dataclasses.field(default_factory=lambda: dict(
-        exchanges=0, allreduces=0, gathers=0, exchange_s=0.0))
+        exchanges=0, allreduces=0, gathers=0, carries=0, exchange_s=0.0))
 
     @property
     def size(self) -> int:
@@ -127,7 +120,7 @@ class GridMesh:
         return ix * self.shape[1] + iy
 
     def reset_stats(self) -> None:
-        self.stats.update(exchanges=0, allreduces=0, gathers=0, exchange_s=0.0)
+        self.stats.update(exchanges=0, allreduces=0, gathers=0, carries=0, exchange_s=0.0)
 
     @property
     def _staged(self) -> bool:
@@ -479,6 +472,40 @@ class Block:
         # the exchange's; over NCCL it is only the time to queue it
         mesh.stats["exchange_s"] += time.perf_counter() - t0
         return x
+
+    def pipeline(self, axis: int, sweep, start: tuple, reverse: bool = False):
+        """This rank's stage of a sweep that runs along decomposed ``axis``
+        (0 or 1) through the ranks in turn: the carry (a tuple of planes,
+        of ``start``'s shapes and dtypes) arrives from the previous rank
+        along the axis (the next one with ``reverse``; the first rank takes
+        ``start``), ``sweep(carry) -> (out, carry)`` runs over this rank's
+        planes, and its carry goes on to the next rank.  Ranks at other
+        coordinates of the other mesh axis run independent pipelines.
+        Returns ``out``.  The line solves' Thomas recurrences across ranks
+        (``precond/chebyshev.py``); a carry that does not arrive raises
+        (the process group's timeout)."""
+        mesh = self.mesh
+        c = list(mesh.coords)
+        step = -1 if reverse else 1
+        nbr = lambda i: (mesh.rank_at(*[i if k == axis else ci for k, ci in enumerate(c)])
+                         if 0 <= i < mesh.shape[axis] else None)
+        src, dst = nbr(c[axis] - step), nbr(c[axis] + step)
+        # tag 16 + 2a: a carry travelling towards higher coordinates, + 1 lower
+        tag = 16 + 2 * axis + int(reverse)
+        carry = start
+        if src is not None:
+            t0 = time.perf_counter()
+            carry = tuple(mesh.exchange([], [(src, tag, tuple(t.shape), t.dtype)
+                                             for t in start]))
+            mesh.stats["carries"] += 1
+            mesh.stats["exchange_s"] += time.perf_counter() - t0
+        out, carry = sweep(carry)
+        if dst is not None:
+            t0 = time.perf_counter()
+            mesh.exchange([(dst, tag, t) for t in carry], [])
+            mesh.stats["carries"] += 1
+            mesh.stats["exchange_s"] += time.perf_counter() - t0
+        return out
 
     def fold(self, y: torch.Tensor, lead: int = 1) -> torch.Tensor:
         """The adjoint of :meth:`extend`: each ghost slab of the

@@ -33,6 +33,10 @@ class BalanceAuditor:
     telescoped closure needs.  A record with neither is counted and marks
     the report incomplete.  The totals and the sources come from one device
     computation and one transfer to the host per call.
+
+    Over a grid decomposition (``data`` and the states a rank's extended
+    blocks) both totals sum the owned cells and all-reduce (every rank must
+    call), so that every rank's report is the same.
     """
 
     def __init__(self, model, data, u0):
@@ -52,9 +56,6 @@ class BalanceAuditor:
         """Rebind the problem data (``Simulator.run_schedule`` calls this at
         every control-segment boundary, so that the sources are the active
         segment's)."""
-        from thermalporous_torch.dist.sharding import refuse_decomposed
-
-        refuse_decomposed(data, "BalanceAuditor")
         self._data = data
 
     def _totals(self, u) -> tuple[np.ndarray, np.ndarray]:

@@ -160,8 +160,22 @@ class ThermalModelBase:
 
     def in_place_totals(self, u, data: ProblemData) -> torch.Tensor:
         """Total conserved content per equation row, (nc,): the integrals of
-        the accumulation densities of :meth:`cell_terms`."""
+        the accumulation densities of :meth:`cell_terms` (over a grid
+        decomposition the owned cells', summed over the ranks:
+        :meth:`cell_sums`)."""
         raise NotImplementedError
+
+    @staticmethod
+    def cell_sums(parts, data: ProblemData, acc: torch.dtype) -> torch.Tensor:
+        """(len(parts),) sums over the cells of the per-cell tensors
+        ``parts`` in ``acc``; over a grid decomposition (``data.block``, the
+        tensors held on its extended block) the owned cells' partials summed
+        over the ranks."""
+        block = getattr(data, "block", None)
+        if block is None:
+            return torch.stack([t.sum(dtype=acc) for t in parts])
+        return block.mesh.allreduce_sum(
+            torch.stack([block.owned(t, lead=0).sum(dtype=acc) for t in parts]))
 
     def source_totals(self, u, data: ProblemData) -> torch.Tensor:
         """Net well/heater source per equation row at state ``u``, (nc,),

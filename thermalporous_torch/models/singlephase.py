@@ -70,7 +70,7 @@ class SinglePhaseModel(ThermalModelBase):
         m = vol * data.phi * pp.rho_w(p, T)
         e = vol * pp.energy_density_sp(p, T, data.phi)
         acc = reduce_dtype(u.dtype)
-        return torch.stack([m.sum(dtype=acc), e.sum(dtype=acc)])
+        return self.cell_sums([m, e], data, acc)
 
     def face_terms(self, axis, u_l, u_r, tgeo, tcond):
         pp = self.pp

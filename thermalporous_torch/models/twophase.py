@@ -97,7 +97,7 @@ class TwoPhaseModel(ThermalModelBase):
         o = vol * data.phi * pp.rho_o(p, T) * (1.0 - s)
         e = vol * pp.energy_density_tp(p, T, s, data.phi)
         acc = reduce_dtype(u.dtype)
-        return torch.stack([w.sum(dtype=acc), e.sum(dtype=acc), o.sum(dtype=acc)])
+        return self.cell_sums([w, e, o], data, acc)
 
     def face_terms(self, axis, u_l, u_r, tgeo, tcond):
         pp = self.pp

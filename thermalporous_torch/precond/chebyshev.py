@@ -14,7 +14,11 @@ jnp outside any Pallas kernel; its matvecs are the stencils' own (the
 scalar and block matvec kernels on the card).  The line solves are
 sequential recurrences along the line axis (``lax.scan`` in the
 reference): here a host loop over that axis of batched small-block
-operations, one step per plane.
+operations, one step per plane; along an axis a grid decomposition splits,
+a pipeline through the ranks (:meth:`Block.pipeline
+<thermalporous_torch.dist.sharding.Block.pipeline>`), each rank's planes in
+turn with the recurrence's carry handed on, bit for bit the whole grid's
+solve.
 """
 
 from __future__ import annotations
@@ -131,12 +135,36 @@ def red_black_gauss_seidel(st: ScalarStencil, b: torch.Tensor,
     return x
 
 
+def _along(block, axis: int, sweep, start: tuple, reverse: bool = False):
+    """``sweep(carry) -> (out, carry)`` of a recurrence along ``axis`` from
+    the carry ``start``: through the ranks in turn
+    (:meth:`~thermalporous_torch.dist.sharding.Block.pipeline`) when
+    ``block`` decomposes the axis, at once otherwise.  Returns ``out``."""
+    if block is not None and axis < 2:
+        return block.pipeline(axis, sweep, start, reverse)
+    return sweep(start)[0]
+
+
+def _block_of(st):
+    """The :class:`~thermalporous_torch.dist.sharding.Block` a decomposed
+    stencil (a ``HaloStencil``) is held on, or None."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    return st.block if isinstance(st, HaloStencil) else None
+
+
 def tridiag_solve_along(axis: int, lower: torch.Tensor, diag: torch.Tensor,
-                        upper: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+                        upper: torch.Tensor, b: torch.Tensor, block=None) -> torch.Tensor:
     """Independent tridiagonal systems along ``axis``, batched over the
     other axes: the Thomas algorithm, a host loop over the line axis each
     way.  ``upper[i]`` couples i to i+1 (zero on the last slice),
     ``lower[i]`` couples i to i−1 (zero on the first).
+
+    With ``block`` (a :class:`~thermalporous_torch.dist.sharding.Block`;
+    the coefficients and ``b`` its owned rows) a decomposed line axis is
+    solved as a pipeline: the elimination's carry (c, y) and the back
+    substitution's x cross each rank boundary once, so that every rank
+    does the whole-grid solve's operations in its order, bit for bit.
 
     Coefficients of another dtype than ``b`` (bf16 storage under
     ``CPRConfig.pc_dtype``) raise ``TypeError``, as the reference's
@@ -148,19 +176,29 @@ def tridiag_solve_along(axis: int, lower: torch.Tensor, diag: torch.Tensor,
                         "refuses them too)")
     mv = lambda a: torch.movedim(a, axis, 0)
     lo, d, up, rhs = mv(lower), mv(diag), mv(upper), mv(b)
-    c_prev = y_prev = torch.zeros_like(d[0])
-    cs, ys = [], []
-    for i in range(d.shape[0]):
-        denom = d[i] - lo[i] * c_prev
-        c_prev = up[i] / denom
-        y_prev = (rhs[i] - lo[i] * y_prev) / denom
-        cs.append(c_prev)
-        ys.append(y_prev)
-    x_next = torch.zeros_like(d[0])
-    xs = [None] * len(ys)
-    for i in range(len(ys) - 1, -1, -1):
-        x_next = ys[i] - cs[i] * x_next
-        xs[i] = x_next
+
+    def forward(carry):
+        c_prev, y_prev = carry
+        cs, ys = [], []
+        for i in range(d.shape[0]):
+            denom = d[i] - lo[i] * c_prev
+            c_prev = up[i] / denom
+            y_prev = (rhs[i] - lo[i] * y_prev) / denom
+            cs.append(c_prev)
+            ys.append(y_prev)
+        return (cs, ys), (c_prev, y_prev)
+
+    def backward(carry):
+        (x_next,) = carry
+        xs = [None] * len(ys)
+        for i in range(len(ys) - 1, -1, -1):
+            x_next = ys[i] - cs[i] * x_next
+            xs[i] = x_next
+        return xs, (x_next,)
+
+    zero = torch.zeros_like(d[0])
+    cs, ys = _along(block, axis, forward, (zero, zero))
+    xs = _along(block, axis, backward, (zero,), reverse=True)
     return torch.movedim(torch.stack(xs), 0, axis).contiguous()
 
 
@@ -183,18 +221,20 @@ def line_jacobi(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = Non
                 axis: int = -1, sweeps: int = 1, omega: float = 1.0) -> torch.Tensor:
     """Simultaneous line-Jacobi relaxation x ← x + ω·T⁻¹(b − A·x), T the
     tridiagonal part of A along ``axis``; from zero the first residual is b
-    (no matvec)."""
+    (no matvec).  On a decomposed stencil (a ``HaloStencil``) the line
+    solves run through its block's ranks."""
     a = axis % st.dim
     lo, up = st.lower[a], st.upper[a]
+    solve = lambda r: tridiag_solve_along(a, lo, st.diag, up, r,
+                                          block=_block_of(st))
     start = 0
     if x is None:
         x = torch.zeros_like(b)
         if sweeps >= 1:
-            x = omega * tridiag_solve_along(a, lo, st.diag, up, b)
+            x = omega * solve(b)
             start = 1
     for _ in range(start, sweeps):
-        r = b - st.matvec(x)
-        x = x + omega * tridiag_solve_along(a, lo, st.diag, up, r)
+        x = x + omega * solve(b - st.matvec(x))
     return x
 
 
@@ -202,16 +242,19 @@ def zebra_line_gs(st: ScalarStencil, b: torch.Tensor, x: torch.Tensor | None = N
                   axis: int = -1, sweeps: int = 1) -> torch.Tensor:
     """Zebra (red-black line) Gauss–Seidel along ``axis``: exact line
     solves of the two line colours in turn, each against the other's fresh
-    values."""
+    values, in the whole grid's line colours (``st.line_parity``); on a
+    decomposed stencil the line solves run through its block's ranks."""
     a = axis % st.dim
     lo, up = st.lower[a], st.upper[a]
-    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device, st.parity)
+    solve = lambda r: tridiag_solve_along(a, lo, st.diag, up, r,
+                                          block=_block_of(st))
+    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device, st.line_parity(a))
     black = 1.0 - red
     if x is None:
         x = torch.zeros_like(b)
     for _ in range(sweeps):
-        x = x + red * tridiag_solve_along(a, lo, st.diag, up, b - st.matvec(x))
-        x = x + black * tridiag_solve_along(a, lo, st.diag, up, b - st.matvec(x))
+        x = x + red * solve(b - st.matvec(x))
+        x = x + black * solve(b - st.matvec(x))
     return x
 
 
@@ -239,7 +282,8 @@ def block_red_black_gauss_seidel(
     sparsified operator, not exact.  That route is chosen by configuration
     and is plain PyTorch on either device — the reference's own Pallas
     sweep takes no axes either — in the reference's looped form, from zero
-    included.
+    included, in the whole grid's colours (``st.parity``): on a decomposed
+    ``HaloStencil`` with owned ``dinv``, ``b`` and ``x``.
 
     With ``block`` (a :class:`~thermalporous_torch.dist.sharding.Block` at
     least two cells deep, the full coupling) ``st``, ``dinv`` and ``b`` are
@@ -261,7 +305,7 @@ def block_red_black_gauss_seidel(
             xe = kst.block_rbgs_half_sweep(st.coef, dinv, b, ext(x), 0, parity=p)
             x = own(kst.block_rbgs_half_sweep(st.coef, dinv, b, xe, 1, parity=p))
         return x
-    red = kst.checkerboard(st.grid_shape, b.dtype, b.device)
+    red = kst.checkerboard(st.grid_shape, b.dtype, b.device, st.parity)
     black = 1.0 - red
     mv = lambda v: apply_blocks(st.diag, v) + st.matvec_offdiag(v, axes=axes)
     if x is None:
@@ -287,39 +331,58 @@ def block_rbgs_fused_zero(st: BlockStencil, dinv_red: torch.Tensor,
 
 
 def block_tridiag_factor(axis: int, lower: torch.Tensor, diag: torch.Tensor,
-                         upper: torch.Tensor) -> tuple[torch.Tensor, ...]:
+                         upper: torch.Tensor, block=None) -> tuple[torch.Tensor, ...]:
     """Forward elimination of the block-tridiagonal part along ``axis``,
     once per set-up: ``(lo, c, dinv)`` in line-axis-major layout
     (n, nc, nc, *other), the Thomas multipliers c_i = (d_i − l_i c_{i−1})⁻¹
-    u_i and the modified diagonal inverses."""
+    u_i and the modified diagonal inverses.  With ``block`` (the blocks its
+    owned rows) a decomposed axis is eliminated as a pipeline, c crossing
+    each rank boundary once (:func:`tridiag_solve_along`)."""
     mvb = lambda a: torch.movedim(a, 2 + axis, 0)
     lo, d, up = mvb(lower), mvb(diag), mvb(upper)
-    c_prev = torch.zeros_like(d[0])
-    cs, dinvs = [], []
-    for i in range(d.shape[0]):
-        dinv = invert_blocks(d[i] - multiply_blocks(lo[i], c_prev))
-        c_prev = multiply_blocks(dinv, up[i])
-        cs.append(c_prev)
-        dinvs.append(dinv)
+
+    def forward(carry):
+        (c_prev,) = carry
+        cs, dinvs = [], []
+        for i in range(d.shape[0]):
+            dinv = invert_blocks(d[i] - multiply_blocks(lo[i], c_prev))
+            c_prev = multiply_blocks(dinv, up[i])
+            cs.append(c_prev)
+            dinvs.append(dinv)
+        return (cs, dinvs), (c_prev,)
+
+    cs, dinvs = _along(block, axis, forward, (torch.zeros_like(d[0]),))
     return lo, torch.stack(cs), torch.stack(dinvs)
 
 
 def block_tridiag_solve_factored(axis: int, factor: tuple[torch.Tensor, ...],
-                                 b: torch.Tensor) -> torch.Tensor:
+                                 b: torch.Tensor, block=None) -> torch.Tensor:
     """Solve with a :func:`block_tridiag_factor` (no block inversions): a
-    host loop over the line axis each way."""
+    host loop over the line axis each way; with ``block`` a pipeline
+    through the ranks along a decomposed axis, y and x crossing each rank
+    boundary once."""
     lo, c, dinv = factor
     rhs = torch.movedim(b, 1 + axis, 0)               # (n, nc, *other)
-    y_prev = torch.zeros_like(rhs[0])
-    ys = []
-    for i in range(rhs.shape[0]):
-        y_prev = apply_blocks(dinv[i], rhs[i] - apply_blocks(lo[i], y_prev))
-        ys.append(y_prev)
-    x_next = torch.zeros_like(rhs[0])
-    xs = [None] * len(ys)
-    for i in range(len(ys) - 1, -1, -1):
-        x_next = ys[i] - apply_blocks(c[i], x_next)
-        xs[i] = x_next
+
+    def forward(carry):
+        (y_prev,) = carry
+        ys = []
+        for i in range(rhs.shape[0]):
+            y_prev = apply_blocks(dinv[i], rhs[i] - apply_blocks(lo[i], y_prev))
+            ys.append(y_prev)
+        return ys, (y_prev,)
+
+    def backward(carry):
+        (x_next,) = carry
+        xs = [None] * len(ys)
+        for i in range(len(ys) - 1, -1, -1):
+            x_next = ys[i] - apply_blocks(c[i], x_next)
+            xs[i] = x_next
+        return xs, (x_next,)
+
+    zero = torch.zeros_like(rhs[0])
+    ys = _along(block, axis, forward, (zero,))
+    xs = _along(block, axis, backward, (zero,), reverse=True)
     return torch.movedim(torch.stack(xs), 0, 1 + axis).contiguous()
 
 
@@ -344,15 +407,19 @@ def block_zebra_line_gs(
     """Zebra (red-black line) block Gauss–Seidel along ``axis``: exact block
     line solves of the two line colours in turn against the other's fresh
     values, under-relaxed by ``omega``; ``factor`` is the set-up's
-    :func:`block_tridiag_factor` (computed here when None)."""
+    :func:`block_tridiag_factor` (computed here when None).  On a
+    decomposed stencil (a ``HaloStencil``) the line colours are the whole
+    grid's and the solves run through its block's ranks."""
     if x is None:
         x = torch.zeros_like(b)
     a = axis % st.dim
+    block = _block_of(st)
     if factor is None:
-        factor = block_tridiag_factor(a, st.lower[a], st.diag, st.upper[a])
-    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device, st.parity)
+        factor = block_tridiag_factor(a, st.lower[a], st.diag, st.upper[a], block=block)
+    solve = lambda r: block_tridiag_solve_factored(a, factor, r, block=block)
+    red = _line_mask(st.grid_shape, a, 0, b.dtype, b.device, st.line_parity(a))
     black = 1.0 - red
     for _ in range(sweeps):
-        x = x + omega * red * block_tridiag_solve_factored(a, factor, b - st.matvec(x))
-        x = x + omega * black * block_tridiag_solve_factored(a, factor, b - st.matvec(x))
+        x = x + omega * red * solve(b - st.matvec(x))
+        x = x + omega * black * solve(b - st.matvec(x))
     return x

@@ -48,13 +48,16 @@ HaloStencil in the whole grid's colours.  The rbgs stage 2 is one launch
 on the extended block with r and x₁ exchanged together and the colours of
 the whole grid (the block's parity); each further sweep two half-sweep
 launches there after one exchange of x.  Block Jacobi and "none" are
-pointwise, jacobi2 takes a halo matvec, zebra along the local z its line
-solves on the owned block (the factor formed there) with an exchange
-before each line colour, and bgmg the decomposed coupled hierarchy of
-``precond/block_gmg.py``.  Line solves along a decomposed axis (zebra or
-the saturation leg's zebra/line along x or y), ``stage2_axes``/
-``stage2_fused``, ``batch_pt`` and bf16 storage raise
-``NotDecomposedError`` (:func:`check_decomposable`).
+pointwise, jacobi2 takes a halo matvec, zebra its line solves on the owned
+block (the factor formed there, along x or y as a pipeline through the
+ranks: ``precond/chebyshev.py``) with an exchange before each line colour,
+and bgmg the decomposed coupled hierarchy of ``precond/block_gmg.py``.
+``stage2_axes`` sweeps owned vectors through the HaloStencil's sparsified
+coupling in the block's colours (with ``stage2_fused`` from premasked
+halves in those colours; further sweeps on the kernels, as above), the
+saturation leg's line smoothers run along any axis, ``batch_pt`` stacks
+the two decomposed hierarchies, and bf16 storage casts the groups as they
+are held (:func:`cast_coefficients`).
 """
 
 from __future__ import annotations
@@ -64,7 +67,12 @@ import math
 
 import torch
 
-from thermalporous_torch.core.stencil import BlockStencil, ScalarStencil, apply_blocks
+from thermalporous_torch.core.stencil import (
+    BlockStencil,
+    ScalarStencil,
+    apply_blocks,
+    map_stencil,
+)
 from thermalporous_torch.kernels import stencil as kst
 from thermalporous_torch.precond.block_gmg import (
     BlockGMGState,
@@ -81,7 +89,6 @@ from thermalporous_torch.precond.chebyshev import (
     weighted_jacobi,
     zebra_line_gs,
 )
-from thermalporous_torch.precond.gmg import check_decomposable as check_gmg
 from thermalporous_torch.precond.gmg import (
     GMGConfig,
     GMGState,
@@ -240,47 +247,31 @@ def resolve_adaptive_coarsening(stencil: BlockStencil, cfg: CPRConfig,
     return cfg
 
 
-def check_decomposable(cfg: CPRConfig, dim: int) -> None:
-    """Raise ``NotDecomposedError`` for a preconditioner option the grid
-    decomposition of a ``dim``-D grid does not run over ranks (ROADMAP):
-    a line solve along x or y, the decomposed axes, needs a distributed
-    tridiagonal solve."""
-    from thermalporous_torch.dist.sharding import NotDecomposedError
-
-    line = lambda axis: (f"along axis {axis % dim} (x or y: decomposed; the distributed "
-                         f"line solve is not ported)")
-    refused = (
-        (cfg.stage2 == "zebra" and cfg.stage2_axis % dim < 2,
-         f"stage2='zebra' {line(cfg.stage2_axis)}"),
-        (cfg.s_stage in ("zebra", "line") and cfg.s_axis % dim < 2,
-         f"s_stage={cfg.s_stage!r} {line(cfg.s_axis)}"),
-        (cfg.stage2_axes is not None or cfg.stage2_fused, "stage2_axes / stage2_fused"),
-        (cfg.batch_pt, "batch_pt"),
-        (cfg.pc_dtype != "f32", f"pc_dtype={cfg.pc_dtype!r}"),
-    )
-    for bad, what in refused:
-        if bad:
-            raise NotDecomposedError(f"CPRConfig.{what}: not decomposed over ranks")
-    check_gmg(cfg.gmg)
-    if cfg.variant == "cptr" and cfg.gmg_t is not None:
-        check_gmg(cfg.gmg_t)
-
-
 def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig(),
               block=None) -> CPRState:
     """Build the preconditioner from the Jacobian stencil (per Newton
-    iteration); with ``block`` the decomposed form (see the module's
-    docstring)."""
-    if block is not None:
-        return _cpr_setup_blocks(stencil, cfg, block)
+    iteration).  With ``block`` the decomposed form (see the module's
+    docstring): ``stencil`` held on the block's extended block, D⁻¹, W and
+    W·A pointwise there (right one cell into the ring, as far as the rbgs
+    stage 2 reads them), the hierarchies, the zebra factor and the
+    premasked halves from the owned rows, the couplings HaloStencils."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    if block is None:
+        wrap, own, make = (lambda s: s), (lambda t: t), CPRState
+    else:
+        wrap = lambda s: HaloStencil(s, block)
+        own = lambda t: block.owned(t, lead=2)
+        make = lambda **kw: BlockCPRState(block=block, **kw)
     dinv = stencil.diag_inverse()
     w = _decoupling_weights(stencil, cfg, dinv=dinv)
     dec = stencil.scale_rows(w)                     # W·A
-    state = CPRState(stencil=stencil, dinv=dinv, w=w,
-                     gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg), gmg_t=None, a_tp=None)
+    state = make(stencil=stencil, dinv=dinv if cfg.stage2 == "rbgs" else own(dinv), w=own(w),
+                 gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg, block=block), gmg_t=None,
+                 a_tp=None)
     if cfg.variant == "cptr":
-        state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg)
-        state.a_tp = dec.scalar(1, 0)
+        state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg, block=block)
+        state.a_tp = wrap(dec.scalar(1, 0))
         if cfg.batch_pt:
             if cfg.triangular:
                 raise ValueError(
@@ -293,53 +284,22 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig(),
                     "congruent p/T hierarchies")
             state.gmg_p, state.gmg_t = stack_states([state.gmg_p, state.gmg_t]), None
         if cfg.inner_iters > 0:
-            state.pt = dec.block(slice(0, 2), slice(0, 2))
+            state.pt = wrap(dec.block(slice(0, 2), slice(0, 2)))
         if cfg.s_stage != "none" and stencil.nc >= 3:
-            state.a_sp, state.a_st, state.a_ss = (dec.scalar(2, c) for c in range(3))
+            state.a_sp, state.a_st, state.a_ss = (wrap(dec.scalar(2, c)) for c in range(3))
+    op = wrap(stencil)
     if cfg.stage2 == "zebra":
         a = cfg.stage2_axis % stencil.dim
-        state.zebra_fac = block_tridiag_factor(a, stencil.lower[a], stencil.diag,
-                                               stencil.upper[a])
-    if cfg.stage2 == "bgmg":
-        state.bgmg = block_gmg_setup(stencil, cfg.gmg, max_coarse_cells=cfg.bgmg_coarse_cells)
-    if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
-        red = kst.checkerboard(stencil.grid_shape, dinv.dtype, dinv.device)
-        state.dinv_red, state.dinv_black = red * dinv, (1.0 - red) * dinv
-    return cast_coefficients(state, cfg.pc_dtype)
-
-
-def _cpr_setup_blocks(stencil: BlockStencil, cfg: CPRConfig, block) -> BlockCPRState:
-    """:func:`cpr_setup` of a Jacobian held on ``block``'s extended block:
-    D⁻¹, W and W·A pointwise there (right one cell into the ring, as far as
-    the stage 2 reads them), the hierarchies and the zebra factor from the
-    owned rows, the couplings HaloStencils."""
-    from thermalporous_torch.dist.halo import HaloStencil
-
-    check_decomposable(cfg, stencil.dim)
-    dinv = stencil.diag_inverse()
-    w = _decoupling_weights(stencil, cfg, dinv=dinv)
-    dec = stencil.scale_rows(w)
-    if cfg.stage2 != "rbgs":
-        dinv = block.owned(dinv, lead=2)
-    state = BlockCPRState(stencil=stencil, dinv=dinv, w=block.owned(w, lead=2),
-                          gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg, block=block),
-                          gmg_t=None, a_tp=None, block=block)
-    if cfg.variant == "cptr":
-        state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg, block=block)
-        state.a_tp = HaloStencil(dec.scalar(1, 0), block)
-        if cfg.inner_iters > 0:
-            state.pt = HaloStencil(dec.block(slice(0, 2), slice(0, 2)), block)
-        if cfg.s_stage != "none" and stencil.nc >= 3:
-            state.a_sp, state.a_st, state.a_ss = (HaloStencil(dec.scalar(2, c), block)
-                                                  for c in range(3))
-    if cfg.stage2 == "zebra":
-        a = cfg.stage2_axis % stencil.dim
-        own = HaloStencil(stencil, block)
-        state.zebra_fac = block_tridiag_factor(a, own.lower[a], own.diag, own.upper[a])
+        state.zebra_fac = block_tridiag_factor(a, op.lower[a], op.diag, op.upper[a],
+                                               block=block)
     if cfg.stage2 == "bgmg":
         state.bgmg = block_gmg_setup(stencil, cfg.gmg, max_coarse_cells=cfg.bgmg_coarse_cells,
                                      block=block)
-    return state
+    if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
+        d = own(dinv)
+        red = kst.checkerboard(op.grid_shape, d.dtype, d.device, op.parity)
+        state.dinv_red, state.dinv_black = red * d, (1.0 - red) * d
+    return cast_coefficients(state, cfg.pc_dtype)
 
 
 def _stage2_blocks(state: BlockCPRState, r: torch.Tensor, x1: torch.Tensor, k: int,
@@ -348,9 +308,10 @@ def _stage2_blocks(state: BlockCPRState, r: torch.Tensor, x1: torch.Tensor, k: i
     from thermalporous_torch.dist.halo import HaloStencil
 
     blk, st = state.block, state.stencil
-    if cfg.stage2 == "rbgs":
+    if cfg.stage2 == "rbgs" and cfg.stage2_axes is None:
         # r and x₁ through one exchange, the sweeps on the extended block in
-        # the whole grid's colours
+        # the whole grid's colours (stage2_fused with the full coupling is
+        # the same function as the kernels' zero-start sweep)
         ext = blk.extend(torch.cat([r, x1]), lead=1)
         r_ext, x1_ext = ext[:st.nc].contiguous(), ext[st.nc:].contiguous()
         if cfg.stage2_sweeps == 1:
@@ -363,7 +324,19 @@ def _stage2_blocks(state: BlockCPRState, r: torch.Tensor, x1: torch.Tensor, k: i
     else:
         op = HaloStencil(st, blk)
         r2 = r - (op.matvec_cols(x1, k) if k < st.nc else op.matvec(x1))
-        x2 = _stage2_on(op, state, r2, cfg)
+        if cfg.stage2 != "rbgs":
+            x2 = _stage2_on(op, state, r2, cfg)
+        elif cfg.stage2_fused:
+            # the sparsified sweep on owned vectors in the block's colours;
+            # the continuation sweeps take the full coupling on the kernels
+            x2 = block_rbgs_fused_zero(op, state.dinv_red, state.dinv_black, r2,
+                                       axes=cfg.stage2_axes)
+            if cfg.stage2_sweeps > 1:
+                x2 = block_red_black_gauss_seidel(st, state.dinv, blk.extend(r2, lead=1), x=x2,
+                                                  sweeps=cfg.stage2_sweeps - 1, block=blk)
+        else:
+            x2 = block_red_black_gauss_seidel(op, blk.owned(state.dinv, lead=2), r2,
+                                              sweeps=cfg.stage2_sweeps, axes=cfg.stage2_axes)
     x2[0:k] += x1
     return x2
 
@@ -393,31 +366,36 @@ def cast_coefficients(state: CPRState, pc_dtype: str) -> CPRState:
     variational transfers too — not their λ estimates, transfer weights or
     dense coarsest inverses (neither ``bgmg``'s); "bf16" also W, the (p, T)
     stencil and the saturation couplings.  The zebra factor, formed before,
-    stays in full precision.  "f32" returns ``state`` unchanged."""
+    stays in full precision.  "f32" returns ``state`` unchanged.
+
+    A decomposed state casts the same groups as they are held (the
+    extended stage-2 stencil and D⁻¹, the couplings' HaloStencils through
+    their ``map``, the decomposed and replicated levels): one rank's cast
+    is the whole grid's cast, cut."""
     if pc_dtype == "f32":
         return state
     bf = lambda t: None if t is None else t.to(torch.bfloat16)
-    scalar = lambda s: None if s is None else ScalarStencil(bf(s.packed))
-    level = lambda s: scalar(s) if isinstance(s, ScalarStencil) else type(s)(bf(s.coef))
+    to_bf = lambda c, lead: bf(c)
+    cast = lambda s: (None if s is None else s.map(to_bf) if hasattr(s, "map")
+                      else map_stencil(s, to_bf))
     levels = lambda g: None if g is None else dataclasses.replace(
-        g, stencils=tuple(level(s) for s in g.stencils))
+        g, stencils=tuple(cast(s) for s in g.stencils))
     out = dataclasses.replace(state)
     if pc_dtype in ("bf16", "bf16_s2"):
-        out.stencil = BlockStencil(bf(state.stencil.coef))
+        out.stencil = cast(state.stencil)
         out.dinv, out.dinv_red, out.dinv_black = (bf(state.dinv), bf(state.dinv_red),
                                                   bf(state.dinv_black))
         if state.bgmg is not None:
             out.bgmg = dataclasses.replace(
-                state.bgmg, stencils=tuple(BlockStencil(bf(s.coef)) for s in state.bgmg.stencils),
+                state.bgmg, stencils=tuple(cast(s) for s in state.bgmg.stencils),
                 dinvs=tuple(bf(d) for d in state.bgmg.dinvs))
     if pc_dtype in ("bf16", "bf16_gmg"):
-        out.a_tp = scalar(state.a_tp)
+        out.a_tp = cast(state.a_tp)
         out.gmg_p, out.gmg_t = levels(state.gmg_p), levels(state.gmg_t)
     if pc_dtype == "bf16":
         out.w = bf(state.w)
-        out.pt = None if state.pt is None else BlockStencil(bf(state.pt.coef))
-        out.a_sp, out.a_st, out.a_ss = (scalar(state.a_sp), scalar(state.a_st),
-                                        scalar(state.a_ss))
+        out.pt = cast(state.pt)
+        out.a_sp, out.a_st, out.a_ss = (cast(state.a_sp), cast(state.a_st), cast(state.a_ss))
     return out
 
 
@@ -523,32 +501,47 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
     return x2
 
 
-def make_preconditioner(name: str, cfg: CPRConfig | None = None):
+def make_preconditioner(name: str, cfg: CPRConfig | None = None, block=None):
     """(setup, apply) closures of a named preconditioner: "none", "jacobi"
     (per-cell block Jacobi), "rbgs" (two red-black block Gauss–Seidel
     sweeps from zero), "lu" (the exact dense inverse; at most 20,000
-    unknowns), "cpr" or "cptr"."""
+    unknowns), "cpr" or "cptr".
+
+    With ``block`` (a grid decomposition) setup takes the Jacobian held on
+    the block's extended block and apply takes and returns owned blocks:
+    "jacobi" the owned rows' inverse diagonal blocks, "rbgs" the kernels'
+    sweeps on the extended block (the residual exchanged once, the whole
+    grid's colours), "lu" the whole stencil gathered on every rank and
+    inverted there, the whole residual gathered and the rank's part cut out
+    of the product, "cpr"/"cptr" the decomposed :func:`cpr_setup`."""
     name = name.lower()
     if name == "none":
         return (lambda st: None, lambda state, r: r)
     if name == "lu":
         def lu_setup(st: BlockStencil) -> torch.Tensor:
+            if block is not None:
+                st = BlockStencil(block.gather(block.owned(st.coef, lead=3), lead=3))
             n = st.nc * math.prod(st.grid_shape)
             if n > 20000:
                 raise ValueError(f"'lu' preconditioner is dense ({n}² entries); "
                                  "use it only on tiny grids")
             return dense_inv(st.to_dense())
 
-        return (lu_setup, lambda inv, r: (inv @ r.reshape(-1)).reshape(r.shape))
+        solve = lambda inv, r: (inv @ r.reshape(-1)).reshape(r.shape)
+        if block is None:
+            return lu_setup, solve
+        return lu_setup, lambda inv, r: block.on_whole(lambda rr: solve(inv, rr), r, lead=1)
     if name == "jacobi":
-        return (lambda st: st.diag_inverse(),
+        own = (lambda t: t) if block is None else (lambda t: block.owned(t, lead=2))
+        return (lambda st: own(st.diag_inverse()),
                 lambda dinv, r: apply_blocks(dinv, r))
     if name == "rbgs":
+        ext = (lambda r: r) if block is None else (lambda r: block.extend(r, lead=1))
         return (lambda st: (st, st.diag_inverse()),
-                lambda state, r: block_red_black_gauss_seidel(state[0], state[1], r,
-                                                              sweeps=2))
+                lambda state, r: block_red_black_gauss_seidel(state[0], state[1], ext(r),
+                                                              sweeps=2, block=block))
     if name in ("cpr", "cptr"):
         cfg = dataclasses.replace(cfg or CPRConfig(), variant=name)
-        return (lambda st: cpr_setup(st, cfg),
+        return (lambda st: cpr_setup(st, cfg, block=block),
                 lambda state, r: cpr_apply(state, r, cfg))
     raise ValueError(f"unknown preconditioner {name!r}")

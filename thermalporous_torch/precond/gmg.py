@@ -48,10 +48,14 @@ holds its weights at ``TRANSFER_RING``, restricts (R = Pᵀ) from a residual
 exchanged two cells deep and prolongs from a correction exchanged one
 coarse cell deep; a decomposed wide or box level is held with a ring its
 reach times ``degree + 1`` deep and its λ comes from a power iteration
-through the mesh (``utils.power_iteration``).  Decomposed hierarchies take
-the Chebyshev smoother, one cycle per apply and no batch, and never the
-fused subtree over more than one rank (the reference's refusal under a
-mesh): any other option raises ``NotDecomposedError``.  The coupled block
+through the mesh (``utils.power_iteration``).  The other smoothers of a
+decomposed level smooth owned vectors through the level's
+:class:`~thermalporous_torch.dist.halo.HaloStencil`, one exchange a product
+(the line solves along x or y a pipeline through the ranks), and the
+cycles after the first take their residual through the finest level's.  A
+batch runs decomposed as it runs whole, its exchanges and its dots carrying
+both members.  Decomposed hierarchies never take the fused subtree over more
+than one rank (the reference's refusal under a mesh).  The coupled block
 hierarchy of ``stage2="bgmg"`` (``precond/block_gmg.py``) follows the same
 rule with the red-black block smoother: both take their levels from
 :meth:`~thermalporous_torch.dist.sharding.Block.walk_levels`.
@@ -211,15 +215,17 @@ class GMGState:
         pick = lambda w: None if w is None else AxisWeights(w.w_self[m], w.w_out[m])
         return GMGState(tuple(type(s)(_coef(s)[m]) for s in self.stencils),
                         tuple(lam[m] for lam in self.lam_max), self.coarse_inv[m],
-                        transfers=tuple(tuple(pick(w) for w in ws) for ws in self.transfers))
+                        transfers=tuple(tuple(pick(w) for w in ws) for ws in self.transfers),
+                        blocks=self.blocks, top=self.top)
 
 
 def stack_states(states) -> GMGState:
     """Congruent hierarchies stacked member by member into one batched
     state (the reference's ``jax.tree.map(jnp.stack, ...)``), their
-    transfer weights too."""
+    transfer weights too; decomposed ones keep their blocks."""
     first = states[0]
-    if any(len(s.stencils) != len(first.stencils)
+    if any(len(s.stencils) != len(first.stencils) or len(s.blocks) != len(first.blocks)
+           or (s.top is None) != (first.top is None)
            or any(type(a) is not type(b) or _coef(a).shape != _coef(b).shape
                   for a, b in zip(s.stencils, first.stencils))
            or [[w is None for w in ws] for ws in s.transfers]
@@ -239,7 +245,8 @@ def stack_states(states) -> GMGState:
               for l in range(len(first.lam_max))),
         torch.stack([s.coarse_inv for s in states]), batch=len(states),
         transfers=tuple(tuple(weights(l, a) for a in range(len(ws)))
-                        for l, ws in enumerate(first.transfers)))
+                        for l, ws in enumerate(first.transfers)),
+        blocks=first.blocks, top=first.top)
 
 
 def _blocksum(x: torch.Tensor, fine_shape: tuple[int, ...],
@@ -410,13 +417,20 @@ def gmg_setup(st: ScalarStencil, cfg: GMGConfig = GMGConfig(),
                     transfers=tuple(transfers))
 
 
+def _takes_chebyshev(st, cfg: GMGConfig) -> bool:
+    """Whether level stencil ``st`` smooths with Chebyshev: the configured
+    smoother, or any but Jacobi on a wide level (the colourings and line
+    solves assume axis-aligned couplings)."""
+    return cfg.smoother == "chebyshev" or (is_wide(st) and cfg.smoother != "jacobi")
+
+
 def _smooth(st, lam, b, x, cfg: GMGConfig, second: str | None = None):
     """One smooth; with ``second`` also b − A·y ("residual") or A·y
     ("product") of its result y: for Chebyshev on a scalar level from the
     smooth's own launch, otherwise a matvec after it.  A wide level takes
-    Chebyshev unless the smoother is Jacobi (the colourings and line solves
-    assume axis-aligned couplings), both plain."""
-    if cfg.smoother == "chebyshev" or (is_wide(st) and cfg.smoother != "jacobi"):
+    Chebyshev unless the smoother is Jacobi, both plain
+    (:func:`_takes_chebyshev`)."""
+    if _takes_chebyshev(st, cfg):
         return chebyshev(st, b, x, degree=cfg.degree, lam_max=lam,
                          lam_min_frac=cfg.lam_min_frac, second=second)
     if cfg.smoother == "rbgs":
@@ -452,17 +466,6 @@ def _smooth_level(state: GMGState, level: int, b, x, cfg: GMGConfig,
         return _each(state, lambda s, bb, xx: _smooth_level(s, level, bb, xx, cfg, second),
                      b, x)
     return _smooth(state.stencils[level], state.lam_max[level], b, x, cfg, second=second)
-
-
-def check_decomposable(cfg: GMGConfig) -> None:
-    """Raise ``NotDecomposedError`` for an option a decomposed hierarchy
-    does not run (ROADMAP A5b)."""
-    from thermalporous_torch.dist.sharding import NotDecomposedError
-
-    for bad, what in ((cfg.smoother != "chebyshev", f"smoother={cfg.smoother!r}"),
-                      (cfg.cycles != 1, f"cycles={cfg.cycles}")):
-        if bad:
-            raise NotDecomposedError(f"GMGConfig.{what}: not decomposed over ranks")
 
 
 #: the fine ring of a decomposed level's transfer set-up: its weights and
@@ -503,7 +506,6 @@ def _setup_blocks(st: ScalarStencil, cfg: GMGConfig, block) -> GMGState:
     weights and its owned coarse rows on its block at the set-up ring, in
     the whole grid's colours and parity, and keeps its weights at the
     apply's ring."""
-    check_decomposable(cfg)
     mesh = block.mesh
     if cfg.mesh is not None and cfg.mesh is not mesh:
         raise ValueError("GMGConfig.mesh is not the mesh the data is decomposed over")
@@ -617,12 +619,12 @@ def _coarse_correction(state: GMGState, level: int, rc: torch.Tensor,
     # K-cycle: flexible CG(2) on A_level preconditioned by one cycle; each
     # product A·e comes out of the cycle's post-smooth.  A batch's scalars
     # are per member (the guards selects per member, as the reference's
-    # vmapped jnp.where); a decomposed level's dots go through the mesh
+    # vmapped jnp.where); a decomposed level's dots go through the mesh,
+    # every member's in one all-reduce
+    dot = lambda a, b: _vdot(a, b, state.batch)
     if level < len(state.blocks):
-        mesh = state.blocks[level].mesh
-        dot = lambda a, b: mesh.allreduce_sum(_vdot(a, b))
-    else:
-        dot = lambda a, b: _vdot(a, b, state.batch)
+        mesh, local = state.blocks[level].mesh, dot
+        dot = lambda a, b: mesh.allreduce_sum(local(a, b))
     e1, v1 = _v_cycle(state, level, rc, cfg, second="product")
     rho1 = dot(v1, e1)
     alpha1 = dot(rc, e1)
@@ -671,18 +673,27 @@ def _v_cycle(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     return _smooth_level(state, level, b, x, cfg, second=second)
 
 
-def _smooth_block(state: GMGState, level: int, b_ext, x, cfg: GMGConfig,
+def _smooth_block(state: GMGState, level: int, b, b_ext, x, cfg: GMGConfig,
                   second: str | None = None):
-    """:func:`_smooth` of decomposed ``level`` on the extended block: ``b``
-    already extended, ``x`` (owned or None) extended here; the owned rows
-    of its output(s)."""
+    """:func:`_smooth` of decomposed ``level``: Chebyshev on the extended
+    block (``b_ext``, ``b`` extended; ``x``, owned or None, extended here),
+    the owned rows of its output(s); any other smoother on the owned
+    vectors ``b`` and ``x`` through the level's HaloStencil (member by
+    member in a batch)."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
     blk = state.blocks[level]
-    x_ext = None if x is None else blk.extend(x, lead=0)
+    if not _takes_chebyshev(state.stencils[level], cfg):
+        smooth = lambda s, bb, xx: _smooth(HaloStencil(s.stencils[level], blk),
+                                           s.lam_max[level], bb, xx, cfg, second=second)
+        return _each(state, smooth, b, x) if state.batch else smooth(state, b, x)
+    lead = 1 if state.batch else 0
+    x_ext = None if x is None else blk.extend(x, lead=lead)
     out = _smooth(state.stencils[level], state.lam_max[level], b_ext, x_ext, cfg,
                   second=second)
     if second is None:
-        return blk.owned(out, lead=0)
-    return blk.owned(out[0], lead=0), blk.owned(out[1], lead=0)
+        return blk.owned(out, lead=lead)
+    return blk.owned(out[0], lead=lead), blk.owned(out[1], lead=lead)
 
 
 def _v_cycle_block(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
@@ -690,21 +701,26 @@ def _v_cycle_block(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
     """:func:`_v_cycle` from decomposed ``level``, on owned vectors: the
     restriction and prolongation block by block, the restricted residual
     all-gathered onto a replicated next level and the rank's part cut back
-    out of its correction."""
+    out of its correction (every member of a batch in the same
+    collectives)."""
     blk = state.blocks[level]
+    lead = 1 if state.batch else 0
     fine = blk.owned_shape
     factors = tuple(2 if c < f else 1 for f, c in zip(state.gshape(level),
                                                       state.gshape(level + 1)))
-    b_ext = blk.extend(b, lead=0)
-    x, r = _smooth_block(state, level, b_ext, None, cfg, second="residual")
+    b_ext = (blk.extend(b, lead=lead) if _takes_chebyshev(state.stencils[level], cfg)
+             else None)
+    x, r = _smooth_block(state, level, b, b_ext, None, cfg, second="residual")
     solve = lambda rc: _coarse_correction(state, level + 1, rc, cfg)
     replicate = level + 1 == len(state.blocks)
     if not state.transfers:
-        ec = blk.through_coarse(factors, _blocksum(r, fine, factors), solve, replicate, lead=0)
-        x = x + _prolong(ec, fine, factors)
-        return _smooth_block(state, level, b_ext, x, cfg, second=second)
+        ec = blk.through_coarse(factors, _blocksum(r, fine, factors, lead), solve, replicate,
+                                lead=lead)
+        x = x + _prolong(ec, fine, factors, lead)
+        return _smooth_block(state, level, b, b_ext, x, cfg, second=second)
     # weighted P (and R = Pᵀ) on the apply's ring: the coarse correction
     # comes back one coarse cell deep, the residual goes out two fine cells
+    # (a batch with transfers runs member by member: gmg_apply)
     w = state.transfers[level]
     _, (afine, acoarse) = _transfer_blocks(cfg, blk, factors)
     if cfg.transfer == "variational":
@@ -713,7 +729,20 @@ def _v_cycle_block(state: GMGState, level: int, b: torch.Tensor, cfg: GMGConfig,
         rc = _blocksum(r, fine, factors)
     ec = blk.through_coarse(factors, rc, solve, replicate, lead=0, out=acoarse)
     x = x + afine.owned(prolong_weighted(ec, afine.ext_shape, w), lead=0)
-    return _smooth_block(state, level, b_ext, x, cfg, second=second)
+    return _smooth_block(state, level, b, b_ext, x, cfg, second=second)
+
+
+def _matvec(state: GMGState, level: int, v: torch.Tensor) -> torch.Tensor:
+    """A_level·v (member by member in a batch; on a decomposed level of
+    owned vectors, through its HaloStencil)."""
+    from thermalporous_torch.dist.halo import HaloStencil
+
+    if state.batch:
+        return _each(state, lambda s, vv: _matvec(s, level, vv), v)
+    st = state.stencils[level]
+    if level < len(state.blocks):
+        st = HaloStencil(st, state.blocks[level])
+    return st.matvec(v)
 
 
 def gmg_apply(state: GMGState, b: torch.Tensor,
@@ -725,14 +754,11 @@ def gmg_apply(state: GMGState, b: torch.Tensor,
     replicated from level 0 gathers ``b`` and cuts the rank's part out."""
     if state.top is not None and not state.blocks:
         whole = dataclasses.replace(state, top=None)
-        return state.top.on_whole(lambda bb: gmg_apply(whole, bb, cfg), b, lead=0)
+        return state.top.on_whole(lambda bb: gmg_apply(whole, bb, cfg), b,
+                                  lead=1 if state.batch else 0)
     if state.batch and state.transfers:
         return _each(state, lambda s, bb: gmg_apply(s, bb, cfg), b)
     x = _v_cycle(state, 0, b, cfg)
     for _ in range(cfg.cycles - 1):
-        if state.batch:
-            ax = _each(state, lambda s, xx: s.stencils[0].matvec(xx), x)
-        else:
-            ax = state.stencils[0].matvec(x)
-        x = x + _v_cycle(state, 0, b - ax, cfg)
+        x = x + _v_cycle(state, 0, b - _matvec(state, 0, x), cfg)
     return x

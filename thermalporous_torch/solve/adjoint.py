@@ -32,7 +32,8 @@ transposed product is the VJP of the residual on the extended block (the
 decomposed step's), of its owned rows, folded back onto the owned cells
 (``Block.fold``: a ghost's cotangent belongs to its owner, so a face that
 two ranks both evaluate is counted once, in the row that owns it); the
-preconditioner is the decomposed CPR/CPTR on ``HaloStencil.transpose()``;
+preconditioner is the decomposed one of its name (``make_preconditioner``'s
+decomposed closures) on ``HaloStencil.transpose()``;
 FGMRES reduces through the mesh; the objectives see the gathered whole
 state and data.
 """
@@ -46,7 +47,7 @@ import torch
 from torch.func import vjp
 
 from thermalporous_torch.models.base import ProblemData
-from thermalporous_torch.precond.cpr import CPRConfig, cpr_apply, cpr_setup, make_preconditioner
+from thermalporous_torch.precond.cpr import CPRConfig, make_preconditioner
 from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
 from thermalporous_torch.solve.ensemble_data import (
     EnsembleData,
@@ -101,23 +102,18 @@ class _Decomposed(_Whole):
     product is the VJP of the residual on the extended block, of the
     owned rows (the cotangent padded with a zero ring), folded back onto
     the owned cells (:meth:`Block.fold`, the adjoint of the exchange);
-    the preconditioner is the decomposed CPR/CPTR on
+    the named preconditioner is the decomposed one on
     :meth:`HaloStencil.transpose`; the objectives see the gathered whole
     state and data, and each rank keeps its owned part of their
     cotangents."""
 
     def __init__(self, model, data, precond, pc_cfg):
-        from thermalporous_torch.dist.sharding import NotDecomposedError, block_model
-        from thermalporous_torch.precond.cpr import check_decomposable
+        from thermalporous_torch.dist.sharding import block_model
 
-        if precond.lower() not in ("cpr", "cptr"):
-            raise NotDecomposedError(f"adjoint, precond={precond!r}: not decomposed over ranks")
         self.blk = data.block
         self.mesh = self.blk.mesh
         self.model = block_model(model, self.blk)
-        self.cfg = dataclasses.replace(pc_cfg or CPRConfig(), variant=precond.lower())
-        check_decomposable(self.cfg, len(self.blk.shape))
-        self.apply = lambda state, r: cpr_apply(state, r, self.cfg)
+        self.setup, self.apply = make_preconditioner(precond, pc_cfg, block=self.blk)
 
     def owned(self, t: torch.Tensor) -> torch.Tensor:
         """The owned block of an extended-block tensor."""
@@ -142,7 +138,7 @@ class _Decomposed(_Whole):
     def preconditioner(self, st):
         from thermalporous_torch.dist.halo import HaloStencil
 
-        return cpr_setup(HaloStencil(st, self.blk).transpose().st, self.cfg, block=self.blk)
+        return self.setup(HaloStencil(st, self.blk).transpose().st)
 
     def grad_data(self, data, grad: torch.Tensor) -> ProblemData:
         from thermalporous_torch.dist.sharding import ShardedProblemData

@@ -34,8 +34,8 @@ retries and its failure-memory cap take the same values on every rank
 (every ``ksp_orth``, and ``ksp_recycle`` with its recycle space's dots
 through the mesh too).  Under ``krylov_op="jvp"`` the Krylov operator is
 ``fused_jvp`` on the extended block, the direction exchanged once a
-product.  Options the decomposition does not run raise
-``NotDecomposedError`` (:func:`check_decomposable`).
+product.  Every preconditioner and every option runs decomposed
+(``precond/cpr.py:make_preconditioner``'s decomposed closures).
 """
 
 from __future__ import annotations
@@ -52,12 +52,9 @@ from thermalporous_torch.kernels.residual import fused_jvp, fused_residual
 from thermalporous_torch.models.base import ProblemData, ThermalModelBase
 from thermalporous_torch.precond.cpr import (
     CPRConfig,
-    cpr_apply,
-    cpr_setup,
     make_preconditioner,
     resolve_adaptive_coarsening,
 )
-from thermalporous_torch.precond.cpr import check_decomposable as check_cpr
 from thermalporous_torch.solve.newton import NewtonConfig, NewtonStats, newton_solve
 
 
@@ -72,8 +69,6 @@ def make_step_fn(
     for tensors on ``device`` (``dt`` a Python float in seconds)."""
     device = require_cuda(device)
     pc_setup, pc_apply = make_preconditioner(precond, pc_cfg)
-    cfg = dataclasses.replace(pc_cfg or CPRConfig(), variant=precond.lower()) \
-        if precond.lower() in ("cpr", "cptr") else None
 
     chop = None
     if newton_cfg.ds_max is not None and model.nc >= 3:
@@ -93,8 +88,8 @@ def make_step_fn(
                 raise ValueError(f"make_step_fn({device}): tensor on {t.device}")
         dt = float(dt)
         if getattr(data, "block", None) is not None:
-            check_decomposable(precond, newton_cfg, pc_cfg, len(data.block.shape))
-            return _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess)
+            return _advance_blocks(model, precond, pc_cfg, newton_cfg, chop, u_old, dt, data,
+                                   u_guess)
         return newton_solve(
             residual=lambda u: fused_residual(model, u, u_old, dt, data),
             jvp_at=lambda u: (lambda v: fused_jvp(model, u, v, u_old, dt, data)),
@@ -111,18 +106,7 @@ def make_step_fn(
     return advance
 
 
-def check_decomposable(precond: str, newton_cfg: NewtonConfig,
-                       pc_cfg: CPRConfig | None, dim: int) -> None:
-    """Raise ``NotDecomposedError`` for a step option the grid
-    decomposition of a ``dim``-D grid does not run over ranks (ROADMAP)."""
-    from thermalporous_torch.dist.sharding import NotDecomposedError
-
-    if precond.lower() not in ("cpr", "cptr"):
-        raise NotDecomposedError(f"precond={precond!r}: not decomposed over ranks")
-    check_cpr(pc_cfg or CPRConfig(), dim)
-
-
-def _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess):
+def _advance_blocks(model, precond, pc_cfg, newton_cfg, chop, u_old, dt, data, u_guess):
     """One step over a grid decomposition (see the module's docstring):
     ``u_old``, ``u_guess`` and the result are extended blocks, Newton's
     iterates owned blocks."""
@@ -131,6 +115,7 @@ def _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess):
 
     blk = data.block
     model = block_model(model, blk)
+    pc_setup, pc_apply = make_preconditioner(precond, pc_cfg, block=blk)
     last = {}
 
     def ext(u):
@@ -147,8 +132,8 @@ def _advance_blocks(model, cfg, newton_cfg, chop, u_old, dt, data, u_guess):
         jvp_at=lambda u: (lambda v: blk.owned(
             fused_jvp(model, ext(u), blk.extend(v, lead=1), u_old, dt, data), lead=1)),
         assemble=lambda u: HaloStencil(model.assemble_stencil(ext(u), u_old, dt, data), blk),
-        pc_setup=lambda op: cpr_setup(op.st, cfg, block=blk),
-        pc_apply=lambda state, r: cpr_apply(state, r, cfg),
+        pc_setup=lambda op: pc_setup(op.st),
+        pc_apply=pc_apply,
         u0=u_own if u_guess is None else blk.owned(u_guess, lead=1),
         cfg=newton_cfg,
         scale=blk.owned(model.residual_scales(u_old, dt, data), lead=1),
@@ -340,7 +325,6 @@ class Simulator:
         if blk is not None:
             from thermalporous_torch.dist.sharding import block_model
 
-            check_decomposable(precond, newton_cfg, pc_cfg, len(blk.shape))
             self.model = model = block_model(model, blk)
         if pc_cfg is not None and (
             pc_cfg.gmg.coarsen == "adaptive"
