@@ -19,6 +19,7 @@ import torch
 
 from tests._torch_parity import F64, assert_states_close, carry_model_data, t
 from tests.test_newton_cptr import _sp_case, _tp_case
+from thermalporous_torch import presets
 from thermalporous_torch import utils as tutils
 from thermalporous_torch.solve import oracle as toracle
 from thermalporous_torch.solve.timeloop import StepRecord
@@ -104,10 +105,19 @@ def test_timer_and_trace(tmp_path):
     with tutils.Timer("synced", sync=[t(np.ones(3))]) as tm2:
         pass
     assert tm2.seconds >= 0.0
+    case = presets.sp_hot_injection_2d(6, device="cpu", dtype=F64)
+    sim = case.simulator()
     with tutils.trace(str(tmp_path / "prof")):
         torch.ones(10) @ torch.ones(10)
+        sim.run(case.t_end, max_steps=1)
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans beside it, on the profile's time base
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert spans["baseTimeNanoseconds"] == trace["baseTimeNanoseconds"]
+    (episode,) = [e for e in spans["traceEvents"] if e["name"] == "episode"]
+    ops = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"]
+    assert any(episode["ts"] <= e["ts"] <= episode["ts"] + episode["dur"] for e in ops)
 
 
 @pytest.mark.parametrize("shape", [(12,), (3, 4)])

@@ -34,6 +34,8 @@ import time
 
 import torch
 
+from thermalporous_torch.tracing import span
+
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
@@ -125,51 +127,53 @@ def build() -> tuple[pathlib.Path, float, str]:
 
     Returns (library path, build seconds — 0.0 when already built, the
     compiler's output)."""
-    out_dir = BUILD_ROOT / _source_hash()
-    lib_path = out_dir / LIB_NAME
-    log_path = out_dir / "nvcc.log"
-    if lib_path.exists():
-        return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    nvcc = _nvcc()
-    units = [n for n in SOURCES if n.endswith(".cu")]
-    objs = [out_dir / (n[:-3] + ".o") for n in units]
-    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / n)],
-                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                               text=True), n)
-             for n, o in zip(units, objs)]
-    log, failed = "", []
-    for proc, name in procs:
-        out = proc.communicate()[0]
-        log += f"== {name}\n{out}"
+    with span("setup.kernel_library"):
+        out_dir = BUILD_ROOT / _source_hash()
+        lib_path = out_dir / LIB_NAME
+        log_path = out_dir / "nvcc.log"
+        if lib_path.exists():
+            return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
+        out_dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        nvcc = _nvcc()
+        units = [n for n in SOURCES if n.endswith(".cu")]
+        objs = [out_dir / (n[:-3] + ".o") for n in units]
+        procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / n)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True), n)
+                 for n, o in zip(units, objs)]
+        log, failed = "", []
+        for proc, name in procs:
+            out = proc.communicate()[0]
+            log += f"== {name}\n{out}"
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            failed.append(name)
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
-           *map(str, objs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    log_path.write_text(log)
-    os.replace(tmp, lib_path)
-    return lib_path, time.perf_counter() - t0, log
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        log_path.write_text(log)
+        os.replace(tmp, lib_path)
+        return lib_path, time.perf_counter() - t0, log
 
 
 @functools.cache
 def load() -> ctypes.CDLL:
     """The loaded library with argtypes/restype set for every entry."""
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
-    return lib
+    with span("setup.kernel_library"):
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        return lib
 
 
 def dtype_code(t: torch.Tensor, coef: torch.Tensor | None = None) -> int:

@@ -40,6 +40,7 @@ from thermalporous_torch.physics.wells import (
     WellFields,
     well_fields_numpy,
 )
+from thermalporous_torch.tracing import span
 
 
 def n_fields(dim: int) -> int:
@@ -223,24 +224,25 @@ class ThermalModelBase:
         same bits, as nc separate passes, in a fraction of their operations'
         dispatches.
         """
-        nc, dim = self.nc, self.grid.dim
-        eye = torch.eye(nc, dtype=u.dtype, device=u.device).reshape((nc, nc) + (1,) * dim)
-        tangents = eye.expand((nc,) + tuple(u.shape)).contiguous()
-        zeros = torch.zeros_like(tangents)
-        left, right = torch.cat([tangents, zeros]), torch.cat([zeros, tangents])
-        cell_fn = lambda x: self.cell_terms(x, u_old, dt, data.phi, data.wells)
-        # [i, c] = ∂R_i/∂u_c of the same cell
-        diag = vmap(lambda t: jvp(cell_fn, (u,), (t,))[1], out_dims=1)(tangents)
-        uppers, lowers = [], []
-        for axis in range(dim):
-            ur = neighbor_plus(u, axis)
-            tg, tc = data.tgeo[axis], data.tcond[axis]
-            face_fn = lambda a, b: self.face_terms(axis, a, b, tg, tc)
-            both = vmap(lambda tl, tr: jvp(face_fn, (u, ur), (tl, tr))[1],
-                        out_dims=1)(left, right)
-            dfl, dfr = both[:, :nc], both[:, nc:]
-            # face i adds +F to cell i and −F to cell i+1
-            uppers.append(dfr)
-            lowers.append(-shift_plus(dfl, axis, lead=2))
-            diag = diag + dfl - shift_plus(dfr, axis, lead=2)
-        return BlockStencil.from_parts(diag, uppers, lowers)
+        with span("assembly"):
+            nc, dim = self.nc, self.grid.dim
+            eye = torch.eye(nc, dtype=u.dtype, device=u.device).reshape((nc, nc) + (1,) * dim)
+            tangents = eye.expand((nc,) + tuple(u.shape)).contiguous()
+            zeros = torch.zeros_like(tangents)
+            left, right = torch.cat([tangents, zeros]), torch.cat([zeros, tangents])
+            cell_fn = lambda x: self.cell_terms(x, u_old, dt, data.phi, data.wells)
+            # [i, c] = ∂R_i/∂u_c of the same cell
+            diag = vmap(lambda t: jvp(cell_fn, (u,), (t,))[1], out_dims=1)(tangents)
+            uppers, lowers = [], []
+            for axis in range(dim):
+                ur = neighbor_plus(u, axis)
+                tg, tc = data.tgeo[axis], data.tcond[axis]
+                face_fn = lambda a, b: self.face_terms(axis, a, b, tg, tc)
+                both = vmap(lambda tl, tr: jvp(face_fn, (u, ur), (tl, tr))[1],
+                            out_dims=1)(left, right)
+                dfl, dfr = both[:, :nc], both[:, nc:]
+                # face i adds +F to cell i and −F to cell i+1
+                uppers.append(dfr)
+                lowers.append(-shift_plus(dfl, axis, lead=2))
+                diag = diag + dfl - shift_plus(dfr, axis, lead=2)
+            return BlockStencil.from_parts(diag, uppers, lowers)

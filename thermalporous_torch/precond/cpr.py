@@ -98,6 +98,7 @@ from thermalporous_torch.precond.gmg import (
     plan_coarsening,
     stack_states,
 )
+from thermalporous_torch.tracing import span
 
 STAGE2 = ("none", "block_jacobi", "jacobi2", "rbgs", "zebra", "bgmg")
 PC_DTYPES = ("f32", "bf16", "bf16_gmg", "bf16_s2")
@@ -255,51 +256,54 @@ def cpr_setup(stencil: BlockStencil, cfg: CPRConfig = CPRConfig(),
     W·A pointwise there (right one cell into the ring, as far as the rbgs
     stage 2 reads them), the hierarchies, the zebra factor and the
     premasked halves from the owned rows, the couplings HaloStencils."""
-    from thermalporous_torch.dist.halo import HaloStencil
+    with span("pc_setup"):
+        from thermalporous_torch.dist.halo import HaloStencil
 
-    if block is None:
-        wrap, own, make = (lambda s: s), (lambda t: t), CPRState
-    else:
-        wrap = lambda s: HaloStencil(s, block)
-        own = lambda t: block.owned(t, lead=2)
-        make = lambda **kw: BlockCPRState(block=block, **kw)
-    dinv = stencil.diag_inverse()
-    w = _decoupling_weights(stencil, cfg, dinv=dinv)
-    dec = stencil.scale_rows(w)                     # W·A
-    state = make(stencil=stencil, dinv=dinv if cfg.stage2 == "rbgs" else own(dinv), w=own(w),
-                 gmg_p=gmg_setup(dec.scalar(0, 0), cfg.gmg, block=block), gmg_t=None,
-                 a_tp=None)
-    if cfg.variant == "cptr":
-        state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg, block=block)
-        state.a_tp = wrap(dec.scalar(1, 0))
-        if cfg.batch_pt:
-            if cfg.triangular:
-                raise ValueError(
-                    "batch_pt requires triangular=False: the triangular T-residual "
-                    "correction depends on e_p, so the two hierarchies cannot be "
-                    "traversed together")
-            if cfg.gmg_t is not None:
-                raise ValueError(
-                    "batch_pt requires gmg_t=None: the stacked traversal needs "
-                    "congruent p/T hierarchies")
-            state.gmg_p, state.gmg_t = stack_states([state.gmg_p, state.gmg_t]), None
-        if cfg.inner_iters > 0:
-            state.pt = wrap(dec.block(slice(0, 2), slice(0, 2)))
-        if cfg.s_stage != "none" and stencil.nc >= 3:
-            state.a_sp, state.a_st, state.a_ss = (wrap(dec.scalar(2, c)) for c in range(3))
-    op = wrap(stencil)
-    if cfg.stage2 == "zebra":
-        a = cfg.stage2_axis % stencil.dim
-        state.zebra_fac = block_tridiag_factor(a, op.lower[a], op.diag, op.upper[a],
-                                               block=block)
-    if cfg.stage2 == "bgmg":
-        state.bgmg = block_gmg_setup(stencil, cfg.gmg, max_coarse_cells=cfg.bgmg_coarse_cells,
-                                     block=block)
-    if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
-        d = own(dinv)
-        red = kst.checkerboard(op.grid_shape, d.dtype, d.device, op.parity)
-        state.dinv_red, state.dinv_black = red * d, (1.0 - red) * d
-    return cast_coefficients(state, cfg.pc_dtype)
+        if block is None:
+            wrap, own, make = (lambda s: s), (lambda t: t), CPRState
+        else:
+            wrap = lambda s: HaloStencil(s, block)
+            own = lambda t: block.owned(t, lead=2)
+            make = lambda **kw: BlockCPRState(block=block, **kw)
+        dinv = stencil.diag_inverse()
+        w = _decoupling_weights(stencil, cfg, dinv=dinv)
+        dec = stencil.scale_rows(w)                     # W·A
+        with span("gmg_setup").set("field", "p"):
+            gmg_p = gmg_setup(dec.scalar(0, 0), cfg.gmg, block=block)
+        state = make(stencil=stencil, dinv=dinv if cfg.stage2 == "rbgs" else own(dinv), w=own(w),
+                     gmg_p=gmg_p, gmg_t=None, a_tp=None)
+        if cfg.variant == "cptr":
+            with span("gmg_setup").set("field", "T"):
+                state.gmg_t = gmg_setup(dec.scalar(1, 1), cfg.gmg_t or cfg.gmg, block=block)
+            state.a_tp = wrap(dec.scalar(1, 0))
+            if cfg.batch_pt:
+                if cfg.triangular:
+                    raise ValueError(
+                        "batch_pt requires triangular=False: the triangular T-residual "
+                        "correction depends on e_p, so the two hierarchies cannot be "
+                        "traversed together")
+                if cfg.gmg_t is not None:
+                    raise ValueError(
+                        "batch_pt requires gmg_t=None: the stacked traversal needs "
+                        "congruent p/T hierarchies")
+                state.gmg_p, state.gmg_t = stack_states([state.gmg_p, state.gmg_t]), None
+            if cfg.inner_iters > 0:
+                state.pt = wrap(dec.block(slice(0, 2), slice(0, 2)))
+            if cfg.s_stage != "none" and stencil.nc >= 3:
+                state.a_sp, state.a_st, state.a_ss = (wrap(dec.scalar(2, c)) for c in range(3))
+        op = wrap(stencil)
+        if cfg.stage2 == "zebra":
+            a = cfg.stage2_axis % stencil.dim
+            state.zebra_fac = block_tridiag_factor(a, op.lower[a], op.diag, op.upper[a],
+                                                   block=block)
+        if cfg.stage2 == "bgmg":
+            state.bgmg = block_gmg_setup(stencil, cfg.gmg, max_coarse_cells=cfg.bgmg_coarse_cells,
+                                         block=block)
+        if cfg.stage2 == "rbgs" and cfg.stage2_fused and cfg.stage2_axes is not None:
+            d = own(dinv)
+            red = kst.checkerboard(op.grid_shape, d.dtype, d.device, op.parity)
+            state.dinv_red, state.dinv_black = red * d, (1.0 - red) * d
+        return cast_coefficients(state, cfg.pc_dtype)
 
 
 def _stage2_blocks(state: BlockCPRState, r: torch.Tensor, x1: torch.Tensor, k: int,
@@ -463,42 +467,43 @@ def cpr_apply(state: CPRState, r: torch.Tensor,
               cfg: CPRConfig = CPRConfig()) -> torch.Tensor:
     """Apply M⁻¹ to a state-shaped residual r (nc, *grid), or to this
     rank's owned block of it with a decomposed state."""
-    w = apply_blocks(state.w, r)                    # decoupled residual W·r
-    x1 = _stage1(state, w, cfg)                     # x₁ = [x1; 0]
-    st = state.stencil
-    k = x1.shape[0]
-    if cfg.stage2 == "none" or not (cfg.stage2_cols and k < st.nc):
-        # x₁ over all nc columns (zero-padded); with two unknowns or the
-        # saturation leg it has full support, as in the reference
-        x1 = torch.cat([x1, torch.zeros_like(r[k:])])
-        k = st.nc
-    if cfg.stage2 == "none":
-        return x1
-    if isinstance(state, BlockCPRState):
-        return _stage2_blocks(state, r, x1, k, cfg)
-    rbgs_kernel = cfg.stage2 == "rbgs" and cfg.stage2_axes is None
-    if rbgs_kernel and cfg.stage2_sweeps == 1:
-        return kst.fused_stage2_rbgs(st.coef, state.dinv, r, x1)
-    r2 = r - (st.matvec_cols(x1, k) if k < st.nc else st.matvec(x1))
-    if cfg.stage2 != "rbgs":
-        x2 = _stage2_on(st, state, r2, cfg)
-    elif rbgs_kernel:
-        # with the full coupling stage2_fused is the same function as the
-        # kernels' zero-start sweep
-        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps)
-    elif cfg.stage2_fused:
-        x2 = block_rbgs_fused_zero(st, state.dinv_red, state.dinv_black, r2,
-                                   axes=cfg.stage2_axes)
-        if cfg.stage2_sweeps > 1:
-            # the reference's continuation sweeps take the full coupling
-            # (cpr.py:686-689); copied, pinned by the parity tests
-            x2 = block_red_black_gauss_seidel(st, state.dinv, r2, x=x2,
-                                              sweeps=cfg.stage2_sweeps - 1)
-    else:
-        x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps,
-                                          axes=cfg.stage2_axes)
-    x2[0:k] += x1
-    return x2
+    with span("pc_apply"):
+        w = apply_blocks(state.w, r)                    # decoupled residual W·r
+        x1 = _stage1(state, w, cfg)                     # x₁ = [x1; 0]
+        st = state.stencil
+        k = x1.shape[0]
+        if cfg.stage2 == "none" or not (cfg.stage2_cols and k < st.nc):
+            # x₁ over all nc columns (zero-padded); with two unknowns or the
+            # saturation leg it has full support, as in the reference
+            x1 = torch.cat([x1, torch.zeros_like(r[k:])])
+            k = st.nc
+        if cfg.stage2 == "none":
+            return x1
+        if isinstance(state, BlockCPRState):
+            return _stage2_blocks(state, r, x1, k, cfg)
+        rbgs_kernel = cfg.stage2 == "rbgs" and cfg.stage2_axes is None
+        if rbgs_kernel and cfg.stage2_sweeps == 1:
+            return kst.fused_stage2_rbgs(st.coef, state.dinv, r, x1)
+        r2 = r - (st.matvec_cols(x1, k) if k < st.nc else st.matvec(x1))
+        if cfg.stage2 != "rbgs":
+            x2 = _stage2_on(st, state, r2, cfg)
+        elif rbgs_kernel:
+            # with the full coupling stage2_fused is the same function as the
+            # kernels' zero-start sweep
+            x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps)
+        elif cfg.stage2_fused:
+            x2 = block_rbgs_fused_zero(st, state.dinv_red, state.dinv_black, r2,
+                                       axes=cfg.stage2_axes)
+            if cfg.stage2_sweeps > 1:
+                # the reference's continuation sweeps take the full coupling
+                # (cpr.py:686-689); copied, pinned by the parity tests
+                x2 = block_red_black_gauss_seidel(st, state.dinv, r2, x=x2,
+                                                  sweeps=cfg.stage2_sweeps - 1)
+        else:
+            x2 = block_red_black_gauss_seidel(st, state.dinv, r2, sweeps=cfg.stage2_sweeps,
+                                              axes=cfg.stage2_axes)
+        x2[0:k] += x1
+        return x2
 
 
 def make_preconditioner(name: str, cfg: CPRConfig | None = None, block=None):

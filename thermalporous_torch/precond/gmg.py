@@ -97,6 +97,7 @@ from thermalporous_torch.precond.transfer import (
     restrict_weighted,
     transfer_weights,
 )
+from thermalporous_torch.tracing import host_read
 from thermalporous_torch.utils import power_iteration
 
 #: Hopper eligibility of the fused coarse subtree: the bytes it touches
@@ -332,7 +333,7 @@ def axis_strengths(st: ScalarStencil) -> tuple[float, ...]:
     """Mean |coupling| per axis (host floats, one device-to-host copy)."""
     vals = torch.stack([torch.mean(torch.abs(up)) + torch.mean(torch.abs(lo))
                         for up, lo in zip(st.upper, st.lower)])
-    return tuple(float(v) for v in vals.cpu())
+    return tuple(float(v) for v in host_read(vals).numpy())
 
 
 def plan_coarsening(st: ScalarStencil, cfg: GMGConfig = GMGConfig(),

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from thermalporous_torch.solve.fgmres import _NP, FGMRESResult, _allsum, _norm
+from thermalporous_torch.tracing import host_read
 
 
 def empty_recycle(shape, k: int, dtype: torch.dtype,
@@ -95,7 +96,7 @@ def prepare_recycle(matvec, U: torch.Tensor, mask: torch.Tensor, mesh=None):
         w = w - _combine(h2, C)
         h = h + h2
         nrm = _norm(w, mesh)
-        vals = torch.cat([h, nrm.reshape(1), w_in.reshape(1)]).cpu().numpy()
+        vals = host_read(torch.cat([h, nrm.reshape(1), w_in.reshape(1)])).numpy()
         h_host, nrm_h, w_in_h = vals[:k], vals[k], vals[k + 1]
         ok = bool(mask[i]) and bool(nrm_h > npt(100.0 * eps) * w_in_h)
         if ok:
@@ -148,7 +149,7 @@ def fgmres_dr(
     x0 = _combine(cu, U)
     r0 = b - _combine(cu, C)
     b_norm, beta = (npt(v) for v in
-                    torch.stack([_norm(b, mesh), _norm(r0, mesh)]).cpu().numpy())
+                    host_read(torch.stack([_norm(b, mesh), _norm(r0, mesh)])).numpy())
     tol = np.maximum(npt(rtol) * b_norm, npt(atol))
 
     V = torch.zeros((m + 1, n), dtype=bd, device=dev)
@@ -180,7 +181,7 @@ def fgmres_dr(
         h_next = _norm(w, mesh)
         brk = h_next <= tiny
         V[j + 1] = torch.where(brk, 0.0, w / torch.where(brk, 1.0, h_next)).to(bd)
-        col = torch.cat([bcol, h, h_next.reshape(1)]).cpu().numpy()
+        col = host_read(torch.cat([bcol, h, h_next.reshape(1)])).numpy()
         B[:, j] = col[:k]
         H[: j + 2, j] = col[k:]
         breakdown = bool(col[-1] <= npt(1e-300))

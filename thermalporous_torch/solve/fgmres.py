@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from thermalporous_torch._device import reduce_dtype
+from thermalporous_torch.tracing import host_read
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -111,11 +112,11 @@ def fgmres(
     if x0 is None:
         # cold start: r0 = b, no matvec
         r0 = b
-        beta = b_norm = npt(_norm(b, mesh).item())
+        beta = b_norm = npt(host_read(_norm(b, mesh)))
     else:
         r0 = b - matvec(x0)
         beta, b_norm = (npt(v) for v in
-                        torch.stack([_norm(r0, mesh), _norm(b, mesh)]).cpu().numpy())
+                        host_read(torch.stack([_norm(r0, mesh), _norm(b, mesh)])).numpy())
     tol = np.maximum(npt(rtol) * b_norm, npt(atol))
     jmax = m if iter_cap is None else min(m, int(iter_cap))
 
@@ -163,7 +164,7 @@ def fgmres(
                 # than 1 − 1/√2 of w: ‖w_pre‖² = ‖h‖² + ‖w₁‖²
                 h1n = _norm(w, mesh)
                 hh = torch.sum((h * h).to(rd)).to(dtype)
-                if bool(h1n * h1n < 0.5 * (hh + h1n * h1n)):
+                if host_read(h1n * h1n < 0.5 * (hh + h1n * h1n)):
                     h2 = proj(Vs, w)
                     w = recon(Vs, h2, w)
                     h = h + h2
@@ -189,7 +190,7 @@ def fgmres(
         if orth_gram:
             G[j + 1, : j + 2] = gcol
             G[: j + 2, j + 1] = gcol
-        col = torch.cat([h, h_next.reshape(1)]).cpu().numpy()
+        col = host_read(torch.cat([h, h_next.reshape(1)])).numpy()
         H[: j + 2, j] = col
         breakdown = bool(col[-1] <= npt(1e-300))
 

@@ -42,6 +42,7 @@ import torch
 from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
 from thermalporous_torch.solve.fgmres import _NP, _allsum, fgmres
+from thermalporous_torch.tracing import host_read, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,23 +133,25 @@ def newton_solve(
     if scale is None:
         def norm(f):
             q = f.reshape(-1).to(rd)
-            return npt(torch.sqrt(allsum(torch.dot(q, q))).to(dtype).item())
+            return npt(host_read(torch.sqrt(allsum(torch.dot(q, q))).to(dtype)))
         atol = cfg.atol
     else:
-        count = u0.numel() if mesh is None else int(
+        count = u0.numel() if mesh is None else host_read(
             mesh.allreduce_sum(torch.tensor(u0.numel(), dtype=torch.int64)))
 
         def norm(f):
             q = (f / scale).reshape(-1).to(rd)
-            return npt(torch.sqrt(allsum(torch.dot(q, q)) / count).to(dtype).item())
+            return npt(host_read(torch.sqrt(allsum(torch.dot(q, q)) / count).to(dtype)))
         atol = max(cfg.atol, 50.0 * float(torch.finfo(dtype).eps))
 
-    f0 = residual(u0)
+    with span("residual").set("why", "start"):
+        f0 = residual(u0)
     nrm_start = norm(f0)
     if norm_from is not None:
         # rtol anchors on the physical step start; a guess whose residual is
         # worse than the step start's is discarded
-        f_ref = residual(norm_from)
+        with span("residual").set("why", "anchor"):
+            f_ref = residual(norm_from)
         nrm0 = norm(f_ref)
         if not nrm_start <= nrm0:
             u0, f0, nrm_start = norm_from, f_ref, nrm0
@@ -169,65 +172,70 @@ def newton_solve(
     if recycle > 0:
         U, umask = empty_recycle(u0.shape, recycle, dtype, u0.device)
     while nrm > tol and k < cfg.max_iters and not failed:
-        if cfg.krylov_op == "jvp":
-            op = jvp_at(u)
-            if k == 0 or cfg.pc_lag == "every":
-                pcs = pc_setup(assemble(u))
-        else:
-            st = assemble(u)             # exact J: the operator
-            op = st.matvec
-            if k == 0 or cfg.pc_lag == "every":
-                pcs = pc_setup(st)       # and the preconditioner's input
-        if cfg.ksp_ew and scale is not None:
-            # left-scale the system by the material-balance scales, so that
-            # FGMRES enforces η in the norm Newton gates on
-            matvec = lambda v: op(v) / scale
-            rhs = -(f / scale)
-            krylov_pc = lambda r: pc_apply(pcs, r * scale)
-        else:
-            matvec, rhs = op, -f
-            krylov_pc = lambda r: pc_apply(pcs, r)
-        rtol_k = eta if cfg.ksp_ew else cfg.ksp_rtol
-        if recycle > 0:
-            # the deflated solver runs classic CGS2 (or one pass): the
-            # selective and Gram-matrix variants take CGS2, as in the reference
-            result, U, umask = fgmres_dr(
-                matvec, rhs, precond=krylov_pc, U=U, u_mask=umask, rtol=rtol_k,
-                atol=cfg.ksp_atol, maxiter=cfg.ksp_maxiter, basis_dtype=basis,
-                orth_passes=orth["orth_passes"], mesh=mesh)
-        else:
-            result = fgmres(
-                matvec, rhs, precond=krylov_pc, rtol=rtol_k, atol=cfg.ksp_atol,
-                maxiter=cfg.ksp_maxiter, restart=cfg.ksp_restart, basis_dtype=basis,
-                mesh=mesh, **orth,
-            )
-        dx = result.x
-        if chop is not None:
-            dx = chop(u, dx)
+        with span("newton.iter").set("k", k):
+            if cfg.krylov_op == "jvp":
+                op = jvp_at(u)
+                if k == 0 or cfg.pc_lag == "every":
+                    pcs = pc_setup(assemble(u))
+            else:
+                st = assemble(u)             # exact J: the operator
+                op = st.matvec
+                if k == 0 or cfg.pc_lag == "every":
+                    pcs = pc_setup(st)       # and the preconditioner's input
+            if cfg.ksp_ew and scale is not None:
+                # left-scale the system by the material-balance scales, so
+                # that FGMRES enforces η in the norm Newton gates on
+                matvec = lambda v: op(v) / scale
+                rhs = -(f / scale)
+                krylov_pc = lambda r: pc_apply(pcs, r * scale)
+            else:
+                matvec, rhs = op, -f
+                krylov_pc = lambda r: pc_apply(pcs, r)
+            rtol_k = eta if cfg.ksp_ew else cfg.ksp_rtol
+            with span("fgmres") as sp:
+                if recycle > 0:
+                    # the deflated solver runs classic CGS2 (or one pass): the
+                    # selective and Gram-matrix variants take CGS2, as in the
+                    # reference
+                    result, U, umask = fgmres_dr(
+                        matvec, rhs, precond=krylov_pc, U=U, u_mask=umask, rtol=rtol_k,
+                        atol=cfg.ksp_atol, maxiter=cfg.ksp_maxiter, basis_dtype=basis,
+                        orth_passes=orth["orth_passes"], mesh=mesh)
+                else:
+                    result = fgmres(
+                        matvec, rhs, precond=krylov_pc, rtol=rtol_k, atol=cfg.ksp_atol,
+                        maxiter=cfg.ksp_maxiter, restart=cfg.ksp_restart, basis_dtype=basis,
+                        mesh=mesh, **orth,
+                    )
+                sp.set("iters", result.iters)
+            dx = result.x
+            if chop is not None:
+                dx = chop(u, dx)
 
-        cap = npt(1.0 + cfg.ls_growth) * nrm if nonmonotone else None
-        alpha, tries, accepted = npt(1.0), 0, False
-        while not accepted and tries < cfg.max_backtracks:
-            u_t = u + float(alpha) * dx
-            f_t = residual(u_t)
-            n_t = norm(f_t)
-            bound = cap if nonmonotone else (npt(1.0) - npt(cfg.ls_decrease) * alpha) * nrm
-            accepted = bool(np.isfinite(n_t) and n_t <= bound)
-            alpha, tries = alpha * npt(0.5), tries + 1
-        failed_now = not accepted
-        if nonmonotone and not failed_now:
-            # the divergence guard: blow-up past the step start's residual
-            failed_now = bool(n_t > npt(cfg.ls_div_ratio) * nrm0)
-        if cfg.ksp_ew and not failed_now:
-            # version-2 update from the contraction of the scaled norm
-            ratio = n_t / max(nrm, tiny)
-            eta_a = npt(cfg.ew_gamma) * ratio ** npt(cfg.ew_alpha)
-            eta_safe = npt(cfg.ew_gamma) * eta ** npt(cfg.ew_alpha)
-            eta_next = max(eta_a, eta_safe) if eta_safe > npt(cfg.ew_threshold) else eta_a
-            eta = npt(min(max(eta_next, npt(cfg.ksp_rtol)), npt(cfg.ew_rtolmax)))
-        if not failed_now:     # on failure keep the old iterate; the caller cuts Δt
-            u, f, nrm = u_t, f_t, n_t
-        k, ksp, failed = k + 1, ksp + result.iters, failed_now
+            cap = npt(1.0 + cfg.ls_growth) * nrm if nonmonotone else None
+            alpha, tries, accepted = npt(1.0), 0, False
+            while not accepted and tries < cfg.max_backtracks:
+                u_t = u + float(alpha) * dx
+                with span("residual").set("why", "line_search"):
+                    f_t = residual(u_t)
+                n_t = norm(f_t)
+                bound = cap if nonmonotone else (npt(1.0) - npt(cfg.ls_decrease) * alpha) * nrm
+                accepted = bool(np.isfinite(n_t) and n_t <= bound)
+                alpha, tries = alpha * npt(0.5), tries + 1
+            failed_now = not accepted
+            if nonmonotone and not failed_now:
+                # the divergence guard: blow-up past the step start's residual
+                failed_now = bool(n_t > npt(cfg.ls_div_ratio) * nrm0)
+            if cfg.ksp_ew and not failed_now:
+                # version-2 update from the contraction of the scaled norm
+                ratio = n_t / max(nrm, tiny)
+                eta_a = npt(cfg.ew_gamma) * ratio ** npt(cfg.ew_alpha)
+                eta_safe = npt(cfg.ew_gamma) * eta ** npt(cfg.ew_alpha)
+                eta_next = max(eta_a, eta_safe) if eta_safe > npt(cfg.ew_threshold) else eta_a
+                eta = npt(min(max(eta_next, npt(cfg.ksp_rtol)), npt(cfg.ew_rtolmax)))
+            if not failed_now:   # on failure keep the old iterate; the caller cuts Δt
+                u, f, nrm = u_t, f_t, n_t
+            k, ksp, failed = k + 1, ksp + result.iters, failed_now
 
     converged = bool(nrm <= tol)
     return u, NewtonStats(iters=k, ksp_iters=ksp, norm0=float(nrm0),

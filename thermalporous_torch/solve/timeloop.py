@@ -56,6 +56,7 @@ from thermalporous_torch.precond.cpr import (
     resolve_adaptive_coarsening,
 )
 from thermalporous_torch.solve.newton import NewtonConfig, NewtonStats, newton_solve
+from thermalporous_torch.tracing import OFF, host_read, span
 
 
 def make_step_fn(
@@ -201,14 +202,18 @@ def make_block_step_fn(
             inactive = dead or t >= t_end - 1e-12 * max(t_end, 1.0)
             dt_eff0 = min(min(dt, tc.dt_max), max(t_end - t, 1e-30))
             a, dt_try, ok, st, u_new = 0, dt_eff0, False, None, u
-            while (not (ok or inactive) and a <= tc.max_retries
-                   and not (a > 0 and dt_try <= tc.dt_min)):
-                dt_try = dt_eff0 if a == 0 else max(dt_try * tc.cutback, tc.dt_min)
-                u_new, st = advance(u, dt_try, data)
-                if tc.fail_frac is not None and st.failed:
-                    cap = min(cap, dt_try * tc.fail_frac)
-                a += 1
-                ok = not st.failed
+            with (OFF if inactive else span("step")) as sp:
+                while (not (ok or inactive) and a <= tc.max_retries
+                       and not (a > 0 and dt_try <= tc.dt_min)):
+                    dt_try = dt_eff0 if a == 0 else max(dt_try * tc.cutback, tc.dt_min)
+                    with span("attempt").set("dt", dt_try) as at:
+                        u_new, st = advance(u, dt_try, data)
+                        at.set("failed", st.failed)
+                    if tc.fail_frac is not None and st.failed:
+                        cap = min(cap, dt_try * tc.fail_frac)
+                    a += 1
+                    ok = not st.failed
+                sp.set("retries", max(a - 1, 0))
             if ok:
                 q = model.source_totals(u_new, data).to(torch.float64)
                 src.append(torch.where(torch.isfinite(q), q, 0.0) * dt_try)
@@ -236,7 +241,7 @@ def make_block_step_fn(
         stats = BlockStats(newton=i32(newton), ksp=i32(ksp), retries=i32(retries),
                            dt_used=f64(dt_used), ok=torch.tensor(ok_s, dtype=torch.bool),
                            norm0=f64(norm0), norm=f64(norm),
-                           src_dt=torch.stack(src).cpu())
+                           src_dt=host_read(torch.stack(src)))
         return u, dt, t, dead, cap, stats
 
     return block
@@ -316,41 +321,46 @@ class Simulator:
         time_cfg: TimeConfig = TimeConfig(),
         device: torch.device | str = "cuda",
     ):
-        self.device = require_cuda(device)
-        self.model = model
-        self.data = data
-        self.newton_cfg = newton_cfg
-        self.time_cfg = time_cfg
-        blk = getattr(data, "block", None)
-        if blk is not None:
-            from thermalporous_torch.dist.sharding import block_model
-
-            self.model = model = block_model(model, blk)
-        if pc_cfg is not None and (
-            pc_cfg.gmg.coarsen == "adaptive"
-            or (pc_cfg.gmg_t is not None and pc_cfg.gmg_t.coarsen == "adaptive")
-        ):
-            # bake the matrix-dependent coarsening schedule once, from the
-            # initial state's Jacobian at dt_init (decomposed: the owned
-            # rows, each decoupled block gathered whole on every rank)
-            u0 = model.initial_state(data)
-            st = model.assemble_stencil(u0, u0, float(time_cfg.dt_init), data)
-            gather = None
+        with span("setup.simulator"):
+            self.device = require_cuda(device)
+            self.model = model
+            self.data = data
+            self.newton_cfg = newton_cfg
+            self.time_cfg = time_cfg
+            blk = getattr(data, "block", None)
             if blk is not None:
-                st = BlockStencil(blk.owned(st.coef, lead=3))
-                gather = lambda s: ScalarStencil(blk.gather(s.packed, lead=1))
-            pc_cfg = resolve_adaptive_coarsening(st, pc_cfg, gather=gather)
-        self.pc_cfg = pc_cfg
-        self._precond_name = precond
-        self._advance = make_step_fn(model, precond, newton_cfg, pc_cfg,
-                                     device=self.device)
-        self._block = None
+                from thermalporous_torch.dist.sharding import block_model
+
+                self.model = model = block_model(model, blk)
+            if pc_cfg is not None and (
+                pc_cfg.gmg.coarsen == "adaptive"
+                or (pc_cfg.gmg_t is not None and pc_cfg.gmg_t.coarsen == "adaptive")
+            ):
+                # bake the matrix-dependent coarsening schedule once, from the
+                # initial state's Jacobian at dt_init (decomposed: the owned
+                # rows, each decoupled block gathered whole on every rank)
+                with span("setup.coarsening_bake"):
+                    u0 = model.initial_state(data)
+                    st = model.assemble_stencil(u0, u0, float(time_cfg.dt_init), data)
+                    gather = None
+                    if blk is not None:
+                        st = BlockStencil(blk.owned(st.coef, lead=3))
+                        gather = lambda s: ScalarStencil(blk.gather(s.packed, lead=1))
+                    pc_cfg = resolve_adaptive_coarsening(st, pc_cfg, gather=gather)
+            self.pc_cfg = pc_cfg
+            self._precond_name = precond
+            self._advance = make_step_fn(model, precond, newton_cfg, pc_cfg,
+                                         device=self.device)
+            self._block = None
 
     def step(self, u_old: torch.Tensor, dt: float,
              u_guess: torch.Tensor | None = None) -> tuple[torch.Tensor, NewtonStats]:
         """One Newton solve (no Δt adaptivity); ``u_guess`` moves only the
         start point."""
-        return self._advance(u_old, dt, self.data, u_guess)
+        with span("attempt").set("dt", dt) as sp:
+            u, stats = self._advance(u_old, dt, self.data, u_guess)
+            sp.set("failed", stats.failed)
+        return u, stats
 
     def _run_blocked(self, t_end, u, dt, t, step0, max_steps, callback, verbose,
                      dt_cap0=None) -> SimResult:
@@ -447,75 +457,78 @@ class Simulator:
         """Advance from (t0, u0) to t_end (or to step index ``max_steps``);
         ``t0``, ``step0``, ``dt0`` and ``dt_cap0`` resume a checkpoint
         exactly."""
-        tc = self.time_cfg
-        u = self.model.initial_state(self.data) if u0 is None else u0
-        t = t0
-        dt = tc.dt_init if dt0 is None else dt0
-        if tc.block_steps > 1:
-            return self._run_blocked(t_end, u, dt, t, step0, max_steps, callback,
-                                     verbose, dt_cap0=dt_cap0)
-        records: list[StepRecord] = []
-        run_start = time.perf_counter()
-        step_idx = step0
-        u_prev = None
-        dt_prev = 0.0
-        dt_cap = float("inf") if dt_cap0 is None else float(dt_cap0)
+        with span("episode"):
+            tc = self.time_cfg
+            u = self.model.initial_state(self.data) if u0 is None else u0
+            t = t0
+            dt = tc.dt_init if dt0 is None else dt0
+            if tc.block_steps > 1:
+                return self._run_blocked(t_end, u, dt, t, step0, max_steps, callback,
+                                         verbose, dt_cap0=dt_cap0)
+            records: list[StepRecord] = []
+            run_start = time.perf_counter()
+            step_idx = step0
+            u_prev = None
+            dt_prev = 0.0
+            dt_cap = float("inf") if dt_cap0 is None else float(dt_cap0)
 
-        while t < t_end - 1e-12 * max(t_end, 1.0) and step_idx < max_steps:
-            dt = min(dt, tc.dt_max, t_end - t)
-            retries = 0
-            step_start = time.perf_counter()
-            while True:
-                guess = None
-                if tc.predictor == "linear" and u_prev is not None:
-                    guess = self._predict(u, u_prev, dt, dt_prev)
-                u_new, stats = self.step(u, dt, guess)
-                if not stats.failed:
-                    break
-                if tc.fail_frac is not None:
-                    dt_cap = min(dt_cap, dt * tc.fail_frac)
-                retries += 1
-                if retries > tc.max_retries or dt <= tc.dt_min:
-                    raise RuntimeError(
-                        f"step {step_idx}: Newton failed at dt={dt:.3e} after "
-                        f"{retries - 1} retries (|F| {stats.norm:.3e} of "
-                        f"{stats.norm0:.3e})")
-                dt = max(dt * tc.cutback, tc.dt_min)
+            while t < t_end - 1e-12 * max(t_end, 1.0) and step_idx < max_steps:
+                dt = min(dt, tc.dt_max, t_end - t)
+                retries = 0
+                step_start = time.perf_counter()
+                with span("step") as sp:
+                    while True:
+                        guess = None
+                        if tc.predictor == "linear" and u_prev is not None:
+                            guess = self._predict(u, u_prev, dt, dt_prev)
+                        u_new, stats = self.step(u, dt, guess)
+                        if not stats.failed:
+                            break
+                        if tc.fail_frac is not None:
+                            dt_cap = min(dt_cap, dt * tc.fail_frac)
+                        retries += 1
+                        if retries > tc.max_retries or dt <= tc.dt_min:
+                            raise RuntimeError(
+                                f"step {step_idx}: Newton failed at dt={dt:.3e} after "
+                                f"{retries - 1} retries (|F| {stats.norm:.3e} of "
+                                f"{stats.norm0:.3e})")
+                        dt = max(dt * tc.cutback, tc.dt_min)
+                    sp.set("retries", retries)
 
-            t += dt
-            step_idx += 1
-            rec = StepRecord(
-                step=step_idx, t=t, dt=dt, newton_iters=stats.iters,
-                ksp_iters=stats.ksp_iters, retries=retries,
-                residual_norm0=stats.norm0, residual_norm=stats.norm,
-                wall_s=time.perf_counter() - step_start,
+                t += dt
+                step_idx += 1
+                rec = StepRecord(
+                    step=step_idx, t=t, dt=dt, newton_iters=stats.iters,
+                    ksp_iters=stats.ksp_iters, retries=retries,
+                    residual_norm0=stats.norm0, residual_norm=stats.norm,
+                    wall_s=time.perf_counter() - step_start,
+                )
+                # Δt policy for the next step
+                if tc.fail_frac is not None and dt_cap != float("inf"):
+                    dt_cap *= tc.fail_relax
+                rec.dt_cap = dt_cap if dt_cap != float("inf") else None
+                if rec.newton_iters < tc.grow_below:
+                    dt = max(min(dt * tc.growth, tc.dt_max, dt_cap), tc.dt_min)
+                elif rec.newton_iters > tc.shrink_above:
+                    dt = max(dt * tc.cutback, tc.dt_min)
+                rec.next_dt = dt
+
+                records.append(rec)
+                u_prev, dt_prev = u, rec.dt
+                u = u_new
+                if verbose:
+                    print(f"step {step_idx:4d}  t={t:.4e}  dt={rec.dt:.3e}  "
+                          f"newton={rec.newton_iters}  ksp={rec.ksp_iters}  "
+                          f"retries={retries}")
+                if callback is not None:
+                    callback(step_idx, t, u, rec)
+
+            return SimResult(
+                u=u, t=t, steps=len(records), records=records,
+                total_newton=sum(r.newton_iters for r in records),
+                total_ksp=sum(r.ksp_iters for r in records),
+                wall_s=time.perf_counter() - run_start,
             )
-            # Δt policy for the next step
-            if tc.fail_frac is not None and dt_cap != float("inf"):
-                dt_cap *= tc.fail_relax
-            rec.dt_cap = dt_cap if dt_cap != float("inf") else None
-            if rec.newton_iters < tc.grow_below:
-                dt = max(min(dt * tc.growth, tc.dt_max, dt_cap), tc.dt_min)
-            elif rec.newton_iters > tc.shrink_above:
-                dt = max(dt * tc.cutback, tc.dt_min)
-            rec.next_dt = dt
-
-            records.append(rec)
-            u_prev, dt_prev = u, rec.dt
-            u = u_new
-            if verbose:
-                print(f"step {step_idx:4d}  t={t:.4e}  dt={rec.dt:.3e}  "
-                      f"newton={rec.newton_iters}  ksp={rec.ksp_iters}  "
-                      f"retries={retries}")
-            if callback is not None:
-                callback(step_idx, t, u, rec)
-
-        return SimResult(
-            u=u, t=t, steps=len(records), records=records,
-            total_newton=sum(r.newton_iters for r in records),
-            total_ksp=sum(r.ksp_iters for r in records),
-            wall_s=time.perf_counter() - run_start,
-        )
 
     def run_schedule(
         self,

@@ -10,13 +10,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
 import os
+import re
 import time
 
 import numpy as np
 import torch
 
+from thermalporous_torch import tracing
 from thermalporous_torch._device import require_cuda
 
 
@@ -70,14 +73,29 @@ def finite_guard(fn):
 def trace(log_dir: str):
     """``torch.profiler`` over the block (the card's kernels too when CUDA
     is available), written to ``log_dir/trace.json`` as a Chrome trace
-    (chrome://tracing, Perfetto)."""
+    (chrome://tracing, Perfetto), with the program's spans
+    (:mod:`thermalporous_torch.tracing`, recording for the block) beside
+    it in ``log_dir/spans.json``, on the same clock and time base."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with tracing.recording() as rec, torch.profiler.profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:      # the time base is in the trace's header
+        found = re.search(r'"baseTimeNanoseconds":\s*(\d+)', fh.read(1 << 16))
+    base = int(found.group(1)) if found else 0
+    # each closed span a complete event, in µs after the trace's time base
+    events = [{"ph": "X", "cat": "span", "name": s.name, "pid": "thermalporous_torch spans",
+               "tid": 0, "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+               "args": {"id": s.id, "parent": s.parent, "episode": s.episode,
+                        **s.attrs, **s.counts}}
+              for s in rec.spans if s.end_ns]
+    with open(os.path.join(log_dir, "spans.json"), "w") as fh:
+        json.dump({"traceEvents": events, "baseTimeNanoseconds": base,
+                   "displayTimeUnit": "ms"}, fh)
 
 
 def _synchronize(sync) -> None:
