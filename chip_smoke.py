@@ -44,6 +44,10 @@ phase waits for its CPU run):
      matvec on the awkward shapes; the residual and J(u)v of both models on
      grids that are no multiple of their kernel's tile (61x219x83,
      1023x1021, 37x5x19, 9x21), two-phase also at saturations 0 and 1;
+     the assembly on the card (coloured probing: q*nc J(u)v launches and a
+     gather) against the torch.func assembly, both timed, the error relative
+     to each block entry, the bound the Jacobian's least work, on
+     1024x1024, the flagship and sp_geothermal_3d (64x64x32);
      the stage 2 at every k and the half-sweeps on 61x219x83 and 9x21
      (three unknowns) and 61x219x83 (two), and on 1024x1024 beside the
      parent's route; the stage 2 and the half-sweep bitwise equal to their
@@ -616,6 +620,19 @@ def cost_jvp(model, u, data):
     return model_bytes(model, u.element_size()), 3 * arith + 18 * trans
 
 
+def cost_assembly(model, u, data):
+    # the Jacobian's least work, whatever computes it: u and the fields in
+    # (no u_old: the old accumulation's derivative is zero), the
+    # coefficients out, and one dual pass that carries nc tangents (an
+    # operation about 1 + 2·nc of its primal's, a transcendental one
+    # evaluation and 2·nc products)
+    dim, n, nc = len(model.grid.shape), math.prod(model.grid.shape), model.nc
+    arith, _, trans = model_ops(model, u, data)
+    item = u.element_size()
+    return (model_bytes(model, item) - 2 * nc * n * item + (2 * dim + 1) * nc * nc * n * item,
+            (1 + 2 * nc) * arith + (16 + 2 * nc) * trans)
+
+
 def cost_stage2(n, dim, nc, k, item, citem=None):
     """The stage 2 after x1 = [x1_cols; 0] over k columns: every cell's
     column-0:k coefficients (r2 = r - A x1), the black cells' other
@@ -831,6 +848,27 @@ def jvp_case(model, data, st, u0, u, tol, g, tie: bool = False):
             lambda: kres.fused_jvp(model, u, vj, u0, 600.0, data),
             lambda: model.jvp(u, u0, 600.0, data)(vj), tol,
             cost_jvp(model, u, data), None if tie else ("block", vj))
+
+
+def probe_case(model, data, st, u0, u, tol):
+    """The assembly on the card — coloured probing, q·nc J(u)v launches and
+    one gather (``models/base.py:probe_stencil``) — against the
+    broadcast-tangent assembly ``torch.func`` gives, both timed, at the
+    state of the Jacobian ``st``; the error relative to each block entry
+    (r, c) over slots and cells, whose units it shares; its bound the
+    Jacobian's least work (``cost_assembly``), not the probes'."""
+    from thermalporous_torch.kernels import residual as kres
+    from thermalporous_torch.models.base import PROBE_COLOURING
+
+    probes = PROBE_COLOURING[st.dim][1] * model.nc
+    jvp = lambda v: kres.fused_jvp(model, u, v, u0, 600.0, data)
+    # (nc·nc, slots, *grid): rel_err's leading axis the block entry
+    by_entry = lambda coef: coef.movedim(0, 2).reshape((-1,) + coef.shape[:1] + coef.shape[3:])
+    return (f"assembly probed {'x'.join(map(str, st.grid_shape))} ({probes} J(u)v)",
+            "assembly_probe",
+            lambda: by_entry(model.assemble_stencil(u, u0, 600.0, data, jvp=jvp).coef),
+            lambda: by_entry(model.assemble_stencil(u, u0, 600.0, data).coef), tol,
+            cost_assembly(model, u, data), None)
 
 
 def kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev):
@@ -1484,7 +1522,8 @@ def kernel_parity(dev) -> tuple:
         st = model.assemble_stencil(u, u0, 600.0, data)
         state = cpr_setup(st, bench_pc)
         run_cases(tname, kernel_cases(model, data, st, state, u0, u, tol_st, tol_res,
-                                      tol_jvp, dev),
+                                      tol_jvp, dev)
+                  + [probe_case(model, data, st, u0, u, tol_jvp)],
                   st, rec, dtype, record=False)
         del model, data, st, state, u0, u
         torch.cuda.empty_cache()
@@ -1498,6 +1537,7 @@ def kernel_parity(dev) -> tuple:
                   + " -> ".join(str(math.prod(s.grid_shape)) for s in hier.stencils)
                   + " cells", flush=True)
         cases = (kernel_cases(model, data, st, state, u0, u, tol_st, tol_res, tol_jvp, dev)
+                 + [probe_case(model, data, st, u0, u, tol_jvp)]
                  + flagship_cases(st, state, pc, dtype, dev)
                  + level_cases(state, pc, tol_st, dev) + awkward_cases(dtype, tol_st, dev)
                  + rbgs_shape_cases(dtype, tol_st, dev))
@@ -1520,7 +1560,8 @@ def kernel_parity(dev) -> tuple:
             u0, u = perturbed_state(model, data)
             st = model.assemble_stencil(u, u0, 600.0, data)
             run_cases(tname, sp_cases(model, data, st, u0, u, tol_st, tol_res, tol_jvp, dev,
-                                      with_b1=not geo),
+                                      with_b1=not geo)
+                      + ([probe_case(model, data, st, u0, u, tol_jvp)] if geo else []),
                       st, rec, dtype, record=geo and dtype == torch.float32)
             del model, data, st, u0, u
             torch.cuda.empty_cache()

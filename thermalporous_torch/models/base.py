@@ -12,16 +12,20 @@ Broadcast over full tensors they give the residual; under ``torch.func.jvp``
 the residual gives the exact matrix-free product J·v
 (:meth:`ThermalModelBase.jvp`), and with broadcast unit tangents the local
 functions give the exact per-cell blocks of the Jacobian
-(:meth:`ThermalModelBase.assemble_stencil`).
+(:meth:`ThermalModelBase.assemble_stencil`).  On the card the same blocks
+come from J·v products on coloured unit tangents (:func:`probe_stencil`),
+through the caller's ``fused_jvp``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import functools
+import math
+from typing import Callable, Sequence
 
 import torch
-from torch.func import jvp, vmap
+from torch.func import vmap
 
 from thermalporous_torch._device import reduce_dtype
 from thermalporous_torch.core.grid import (
@@ -40,7 +44,7 @@ from thermalporous_torch.physics.wells import (
     WellFields,
     well_fields_numpy,
 )
-from thermalporous_torch.tracing import span
+from thermalporous_torch.tracing import count, span
 
 
 def n_fields(dim: int) -> int:
@@ -128,6 +132,80 @@ def make_problem_data(
     return ProblemData(torch.stack([*tgeo, *tcond, phi_t, *well_t]))
 
 
+#: colourings of the probed assembly, by dimension: (the weight of each
+#: axis, the number of colours).  A cell's colour is Σ_a w_a·i_a mod q; the
+#: offsets 0 and ±w_a are distinct mod q, so a cell and its 2·dim
+#: neighbours all differ in colour.
+PROBE_COLOURING = {2: ((1, 2), 5), 3: ((1, 2, 3), 7)}
+
+
+def probe_colours(grid_shape: tuple[int, ...], device) -> torch.Tensor:
+    """The colour of every cell of a grid of ``grid_shape`` (int64, *grid)."""
+    weights, q = PROBE_COLOURING[len(grid_shape)]
+    colour = torch.zeros(grid_shape, dtype=torch.int64, device=device)
+    for axis, (w, m) in enumerate(zip(weights, grid_shape)):
+        shape = [1] * len(grid_shape)
+        shape[axis] = m
+        colour = colour + w * torch.arange(m, device=device).reshape(shape)
+    return colour % q
+
+
+@functools.lru_cache(maxsize=4)
+def _probe_masks(grid_shape: tuple[int, ...], dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """(q, *grid): [k] is 1 on the cells of colour k, else 0."""
+    _, q = PROBE_COLOURING[len(grid_shape)]
+    on = probe_colours(grid_shape, device) == torch.arange(q, device=device).reshape(
+        (q,) + (1,) * len(grid_shape))
+    return on.to(dtype)
+
+
+@functools.lru_cache(maxsize=4)
+def _probe_index(grid_shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(2·dim+1, 1, 1, cells): the probe that holds each stencil slot of
+    each cell — the colour of the slot's neighbour (slot 0 the cell itself,
+    1 + 2a the next cell along axis a, 2 + 2a the previous one)."""
+    weights, q = PROBE_COLOURING[len(grid_shape)]
+    offsets = [0] + [o for w in weights for o in (w, -w)]
+    colour = probe_colours(grid_shape, device).reshape(1, -1)
+    off = torch.tensor(offsets, dtype=torch.int64, device=device).reshape(-1, 1)
+    return ((colour + off) % q).reshape(len(offsets), 1, 1, -1)
+
+
+def probe_stencil(nc: int, grid_shape: tuple[int, ...], jvp: Callable,
+                  dtype: torch.dtype, device) -> BlockStencil:
+    """The block stencil of the Jacobian whose product is ``jvp`` (v ↦ J·v
+    on states (nc, *grid)), by coloured probing.
+
+    J is a block 7-point (2D: 5-point) stencil, and a cell and its
+    neighbours all differ in colour (:data:`PROBE_COLOURING`), so
+    J·(e_c ⊙ [colour = k]) holds at each cell i, in row r, ∂R_r(i)/∂u_c(j)
+    for the one cell j of i's stencil of colour k: q·nc products give every
+    coefficient, and one gather sorts them into the slots.  A slot whose
+    neighbour lies outside the grid has no cell of its colour in the
+    stencil, and reads an exact zero.  The colour masks and the gather's
+    index depend on the grid alone and are built once; each unit tangent is
+    a window of one buffer, whose middle row the colour's mask fills."""
+    device = torch.device(device)
+    dim, cells = len(grid_shape), math.prod(grid_shape)
+    masks = _probe_masks(grid_shape, dtype, device)
+    q = masks.shape[0]
+    count("assembly.probed")
+    count("assembly.probes", q * nc)
+    # one buffer of 2·nc − 1 rows, zero but for its middle row, which holds
+    # colour k's mask: its nc rows from row nc − 1 − c are e_c ⊙ [colour = k]
+    window = torch.zeros((2 * nc - 1,) + grid_shape, dtype=dtype, device=device)
+    ys = []
+    for k in range(q):
+        window[nc - 1].copy_(masks[k])
+        ys += [jvp(window[nc - 1 - c:2 * nc - 1 - c]) for c in range(nc)]
+    # [k, c, r, i] = (J·(e_c ⊙ [colour = k]))[r, i]
+    ys = torch.stack(ys).reshape(q, nc, nc, cells).transpose(1, 2)
+    index = _probe_index(grid_shape, device).expand(2 * dim + 1, nc, nc, cells)
+    coef = torch.gather(ys, 0, index)
+    return BlockStencil(coef.reshape((2 * dim + 1, nc, nc) + grid_shape))
+
+
 class ThermalModelBase:
     """Shared residual/stencil machinery; subclasses define the local physics."""
 
@@ -208,15 +286,19 @@ class ThermalModelBase:
         version of the ``fused_jvp`` kernel)."""
 
         def op(v):
-            return jvp(lambda x: self.residual(x, u_old, dt, data), (u,), (v,))[1]
+            return torch.func.jvp(lambda x: self.residual(x, u_old, dt, data), (u,), (v,))[1]
 
         return op
 
     # -- stencil assembly ---------------------------------------------------
-    def assemble_stencil(self, u, u_old, dt, data: ProblemData) -> BlockStencil:
-        """Exact block stencil of ∂R/∂u by broadcast-tangent JVPs.
+    def assemble_stencil(self, u, u_old, dt, data: ProblemData,
+                         jvp: Callable | None = None) -> BlockStencil:
+        """Exact block stencil of ∂R/∂u.
 
-        Cell and face terms are pointwise, so the c-th unit tangent broadcast
+        On the card, where the caller gives ``jvp`` (v ↦ J(u)·v, the
+        ``fused_jvp`` kernel at this state), by coloured probing through it
+        (:func:`probe_stencil`).  Otherwise by broadcast-tangent JVPs: cell
+        and face terms are pointwise, so the c-th unit tangent broadcast
         over every cell gives the c-th column of every local block in one
         full-shape JVP.  The nc tangents go through one batched JVP
         (``torch.func.vmap``) per term, a face's two sides (2·nc tangents)
@@ -226,19 +308,21 @@ class ThermalModelBase:
         """
         with span("assembly"):
             nc, dim = self.nc, self.grid.dim
+            if jvp is not None and u.device.type == "cuda":
+                return probe_stencil(nc, tuple(u.shape[1:]), jvp, u.dtype, u.device)
             eye = torch.eye(nc, dtype=u.dtype, device=u.device).reshape((nc, nc) + (1,) * dim)
             tangents = eye.expand((nc,) + tuple(u.shape)).contiguous()
             zeros = torch.zeros_like(tangents)
             left, right = torch.cat([tangents, zeros]), torch.cat([zeros, tangents])
             cell_fn = lambda x: self.cell_terms(x, u_old, dt, data.phi, data.wells)
             # [i, c] = ∂R_i/∂u_c of the same cell
-            diag = vmap(lambda t: jvp(cell_fn, (u,), (t,))[1], out_dims=1)(tangents)
+            diag = vmap(lambda t: torch.func.jvp(cell_fn, (u,), (t,))[1], out_dims=1)(tangents)
             uppers, lowers = [], []
             for axis in range(dim):
                 ur = neighbor_plus(u, axis)
                 tg, tc = data.tgeo[axis], data.tcond[axis]
                 face_fn = lambda a, b: self.face_terms(axis, a, b, tg, tc)
-                both = vmap(lambda tl, tr: jvp(face_fn, (u, ur), (tl, tr))[1],
+                both = vmap(lambda tl, tr: torch.func.jvp(face_fn, (u, ur), (tl, tr))[1],
                             out_dims=1)(left, right)
                 dfl, dfr = both[:, :nc], both[:, nc:]
                 # face i adds +F to cell i and −F to cell i+1

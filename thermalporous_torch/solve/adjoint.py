@@ -46,6 +46,7 @@ from typing import Callable, Sequence
 import torch
 from torch.func import vjp
 
+from thermalporous_torch.kernels.residual import fused_jvp
 from thermalporous_torch.models.base import ProblemData
 from thermalporous_torch.precond.cpr import CPRConfig, make_preconditioner
 from thermalporous_torch.solve.deflate import empty_recycle, fgmres_dr
@@ -210,8 +211,10 @@ def adjoint_gradients(
             value = value + rval
             lam = lam + rlam
             grad = grad + rgrad
-        pcs = lay.preconditioner(lay.model.assemble_stencil(states[k], states[k - 1], dt_k,
-                                                            data))
+        u_k, u_km1 = states[k], states[k - 1]
+        pcs = lay.preconditioner(lay.model.assemble_stencil(
+            u_k, u_km1, dt_k, data,
+            jvp=lambda v: fused_jvp(lay.model, u_k, v, u_km1, dt_k, data)))
         _, pull = vjp(lambda un, uo, f: lay.model.residual(un, uo, dt_k, ProblemData(f)),
                       states[k], states[k - 1], fields)
         matvec_t = lambda v: lay.fold(pull(lay.pad(v))[0])

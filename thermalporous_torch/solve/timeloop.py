@@ -12,8 +12,9 @@ hard one, cut back and retry on failure, and (``TimeConfig.fail_frac``)
 remember failed Δt as a regrowth cap.
 
 The residual goes through the ``fused_residual`` kernel wrapper, the Krylov
-operator through ``block_matvec`` or ``fused_jvp``, the preconditioner
-through the scalar matvec, Chebyshev, red-black Gauss–Seidel and
+operator through ``block_matvec`` or ``fused_jvp``, the assembly on the card
+through ``fused_jvp`` too (coloured probing, ``models/base.py:probe_stencil``),
+the preconditioner through the scalar matvec, Chebyshev, red-black Gauss–Seidel and
 coarse-subtree wrappers: on a CUDA device they launch the hand-written
 kernels, on the CPU they run their plain PyTorch versions.  Every entry point runs on the card unless the
 caller passes ``device="cpu"``.
@@ -91,10 +92,12 @@ def make_step_fn(
         if getattr(data, "block", None) is not None:
             return _advance_blocks(model, precond, pc_cfg, newton_cfg, chop, u_old, dt, data,
                                    u_guess)
+        jvp_at = lambda u: (lambda v: fused_jvp(model, u, v, u_old, dt, data))
         return newton_solve(
             residual=lambda u: fused_residual(model, u, u_old, dt, data),
-            jvp_at=lambda u: (lambda v: fused_jvp(model, u, v, u_old, dt, data)),
-            assemble=lambda u: model.assemble_stencil(u, u_old, dt, data),
+            jvp_at=jvp_at,
+            # on the card by coloured probing through J(u)·v
+            assemble=lambda u: model.assemble_stencil(u, u_old, dt, data, jvp=jvp_at(u)),
             pc_setup=pc_setup,
             pc_apply=pc_apply,
             u0=u_old if u_guess is None else u_guess,
@@ -132,7 +135,9 @@ def _advance_blocks(model, precond, pc_cfg, newton_cfg, chop, u_old, dt, data, u
         # J(u)·v on the extended block, v exchanged once a product
         jvp_at=lambda u: (lambda v: blk.owned(
             fused_jvp(model, ext(u), blk.extend(v, lead=1), u_old, dt, data), lead=1)),
-        assemble=lambda u: HaloStencil(model.assemble_stencil(ext(u), u_old, dt, data), blk),
+        assemble=lambda u: HaloStencil(model.assemble_stencil(
+            ext(u), u_old, dt, data,
+            jvp=lambda v: fused_jvp(model, ext(u), v, u_old, dt, data)), blk),
         pc_setup=lambda op: pc_setup(op.st),
         pc_apply=pc_apply,
         u0=u_own if u_guess is None else blk.owned(u_guess, lead=1),
@@ -341,7 +346,10 @@ class Simulator:
                 # rows, each decoupled block gathered whole on every rank)
                 with span("setup.coarsening_bake"):
                     u0 = model.initial_state(data)
-                    st = model.assemble_stencil(u0, u0, float(time_cfg.dt_init), data)
+                    dt0 = float(time_cfg.dt_init)
+                    st = model.assemble_stencil(
+                        u0, u0, dt0, data,
+                        jvp=lambda v: fused_jvp(model, u0, v, u0, dt0, data))
                     gather = None
                     if blk is not None:
                         st = BlockStencil(blk.owned(st.coef, lead=3))

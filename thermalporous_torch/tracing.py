@@ -32,7 +32,9 @@ Spans of the port (the layer each belongs to, its parent in brackets):
 ``fgmres`` [newton.iter, ``iters``] (``solve/newton.py``); ``assembly``
 [newton.iter or setup.coarsening_bake] (``models/base.py``); ``pc_setup``
 [newton.iter], ``gmg_setup`` [pc_setup, ``field``], ``pc_apply`` [fgmres]
-(``precond/cpr.py``); ``wait`` [the innermost].
+(``precond/cpr.py``); ``wait`` [the innermost].  Counters: ``host.reads``
+(``host_read``); ``assembly.probed``, one a probed assembly, and
+``assembly.probes``, its J·v products (``models/base.py:probe_stencil``).
 """
 
 from __future__ import annotations
